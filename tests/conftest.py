@@ -29,6 +29,11 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: deselected by the tier-1 `-m 'not slow'` run"
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card; skips without one (on the card: "
+        "python -m pytest -m cuda tests/test_torch_*.py)",
+    )
 
 
 # ---------------------------------------------------------------------------
