@@ -7,12 +7,19 @@
 Phases, each printed as it runs; any failure exits non-zero with no result:
 
 1. card: ``nvidia-smi`` name and power limit, torch's device name and count;
-2. build: ``nvcc`` of ``roaringbitmap_tpu_torch/csrc/*.cu`` with
-   ``-Xptxas -v`` (registers, shared memory, spills);
-3. kernels against their plain PyTorch versions at the main path's shapes —
+2. build: ``nvcc`` of ``roaringbitmap_tpu_torch/csrc/*.cu`` (one compiler
+   per source, started together) with ``-Xptxas -v`` (registers, shared
+   memory, spills);
+3. kernels against their plain PyTorch versions at the main paths' shapes —
    ``rb_group_reduce`` dense ``[31, 10000, 2048]``, CSR over skewed
    offsets and through a row map, for or, and and xor; ``rb_popcount_rows``
-   at ``[31, 2048]`` and ``[308100, 2048]`` — bitwise equality required,
+   at ``[31, 2048]`` and ``[308100, 2048]``; ``rb_oneil_compare`` for all
+   seven ops at ``[32, 1526, 2048]`` over values near the predicate (so
+   EQ and NEQ answers are far from empty or full; EQ, NEQ and GE also with
+   a found set that differs from the ebm), count-only over 64 queries, and
+   EQ and RANGE with 70 slices; the
+   masked popcount at ``[32, 1526, 2048]``; the one-segment wide reduce at
+   ``[131072, 2048]`` for or, and and xor — bitwise equality required,
    with kernel time (CUDA events), bound and the plain version's time;
 4. the main path through the port's entry points: 10,000 census-shaped
    bitmaps (built as ``bench.py`` builds them) through
@@ -24,7 +31,18 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    before and read after;
 5. timing of the main path: pack, expansion, the cold reduce on the real
    rows against the plain fold, steady-state reduce, aggregations per
-   second, peak device memory.
+   second, peak device memory;
+6. the BSI north star through the port's entry points: 100,000,000 rows,
+   32 slices, built through ``set_values`` as ``benchmarks/bsi.py`` builds
+   it; ``compare`` and ``compare_cardinality`` for every op (with a 5%
+   found set, and NEQ with a found set reaching chunks outside the ebm),
+   ``compare_cardinality_many`` over 64 quantile thresholds and ``sum``,
+   each against a numpy oracle computed from the values; launch counts
+   zeroed before and read after; first-query, steady-kernel, end-to-end
+   and batched timings; peak device memory;
+7. ``RangeBitmap`` at 10,000,000 rows, for correctness only: appender,
+   queries, batched counts, the reference-format bytes and ``map`` of
+   them, against numpy.
 
 The last two lines are a JSON object describing every kernel and the JSON
 result ``{"ok": true, "device": {...}}``. The port needs no JAX and nothing
@@ -45,8 +63,20 @@ import torch
 SEED = 0xFEEF1F0
 N_BITMAPS = 10_000  # bench.py's working set
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate (NVIDIA data sheet)
+# host link, one direction: PCIe Gen5 x16, 128 GB/s both ways together
+# (NVIDIA H100 data sheet)
+PCIE_BYTES_PER_S = 64e9
 ROW_BYTES = 2048 * 4
 G_MAIN, M_MAIN, ROWS_MAIN = 31, 10_000, 308_100  # the main path's shapes
+BSI_ROWS = 100_000_000  # BASELINE.md config 4, benchmarks/bsi.py:100-197
+S_BSI, K_BSI = 32, (BSI_ROWS + 65535) // 65536  # [32, 1526, 2048] slices
+RANGE_ROWS = 10_000_000
+WIDE_ROWS = 131_072  # 1 GiB: the size the TPU sweep judged the wide kernel at
+BATCH_Q = 64
+AGGREGATION_KERNELS = (
+    "rb_group_reduce[dense]", "rb_group_reduce[csr]", "rb_group_reduce[rowmap]",
+    "rb_popcount_rows",
+)
 REPS = 20
 E2E_RUNS = 10  # end-to-end runs per median: the pass is host-bound and noisy
 
@@ -105,6 +135,13 @@ def phase_build():
     t0 = time.perf_counter()
     path, log = _build.build(verbose=True)
     say(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
+    sec = _build.BUILD_SECONDS
+    compiles = {k: v for k, v in sec.items() if k.endswith(".cu")}
+    say(
+        "[build] nvcc " + ", ".join(f"{k} {v:.2f} s" for k, v in compiles.items())
+        + f" (started together), link {sec['link']:.2f} s: build {sec['wall']:.2f} s, "
+        f"against {sum(compiles.values()) + sec['link']:.2f} s for the same compiles one after the other"
+    )
     for line in log.splitlines():
         if any(k in line for k in ("registers", "spill", "Compiling entry", "error", "warning")):
             say(f"[build] {line.strip()}")
@@ -116,16 +153,22 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 
-def _rand_words(gen, n_words: int, op: str) -> torch.Tensor:
-    """Words whose or/and/xor over ~10,000 rows keeps about half the bits
-    set: sparse single bits for or, their complement for and, dense random
-    words for xor."""
+def _rand_dense(gen, shape) -> torch.Tensor:
+    """Random int32 words on the card with all 32 bits in play (``random_``
+    alone never sets the sign bit)."""
+    a = torch.empty(shape, dtype=torch.int32, device="cuda").random_(generator=gen)
+    b = torch.empty(shape, dtype=torch.int32, device="cuda").random_(generator=gen)
+    return a ^ (b << 1)
+
+
+def _rand_words(gen, n_words: int, op: str, density: float = 0.0022) -> torch.Tensor:
+    """Words whose or/and/xor over ~10,000 rows (at the default density)
+    keeps about half the bits set: sparse single bits for or, their
+    complement for and, dense random words for xor."""
     if op == "xor":
-        a = torch.empty(n_words, dtype=torch.int32, device="cuda").random_(generator=gen)
-        b = torch.empty(n_words, dtype=torch.int32, device="cuda").random_(generator=gen)
-        return a ^ (b << 1)
+        return _rand_dense(gen, n_words)
     w = torch.zeros(n_words, dtype=torch.int32, device="cuda")
-    nnz = int(n_words * 0.0022)
+    nnz = int(n_words * density)
     idx = torch.randint(0, n_words, (nnz,), device="cuda", generator=gen)
     pos = torch.randint(0, 32, (nnz,), device="cuda", generator=gen, dtype=torch.int64)
     w[idx] = (torch.ones_like(pos) << pos).to(torch.int32)
@@ -216,6 +259,187 @@ def phase_kernels(card: str):
             )
     del dense
     torch.cuda.empty_cache()
+    return results
+
+
+def _bits_tensor(walks) -> torch.Tensor:
+    """int32 [Q, W, S] predicate bits (highest slice first) on the card from
+    Q lists of W predicate values; S is S_BSI unless the lists say more."""
+    return torch.tensor(walks, dtype=torch.int32, device="cuda")
+
+
+def _pred_bits(value: int, s_count: int):
+    return [(value >> i) & 1 for i in range(s_count - 1, -1, -1)]
+
+
+def _oneil_bytes(s_count, k, q_n, fixed_is_ebm, count_only):
+    """Bytes ``rb_oneil_compare`` must move: the slices, the ebm and (when
+    it is another tensor) fixed read once, the result words (unless
+    count-only) and the [Q, K] cards written once."""
+    kw = k * ROW_BYTES
+    return s_count * kw + (1 if fixed_is_ebm else 2) * kw + (0 if count_only else kw) + q_n * k * 4
+
+
+def _near_slices(gen, value: int, s_count: int, ebm: torch.Tensor, sparsity: int) -> torch.Tensor:
+    """[S, K, 2048] slices (within the ebm) whose columns hold ``value``
+    with each bit flipped with probability 2**-sparsity: about
+    (1 - 2**-sparsity)**S of the columns equal ``value`` and the rest lie on
+    both sides of it, so every op's answer has many set bits and many clear
+    ones. The walk is branch-free: its time does not depend on the data."""
+    out = torch.empty((s_count, *ebm.shape), dtype=torch.int32, device="cuda")
+    for i in range(s_count):
+        flip = _rand_dense(gen, ebm.shape)
+        for _ in range(sparsity - 1):
+            flip &= _rand_dense(gen, ebm.shape)
+        out[i] = (flip ^ -((value >> i) & 1)) & ebm
+    return out
+
+
+def _oneil_case(K, card, name, slices, bits, ebm, fixed, op, count_only):
+    got = K.oneil_compare(slices, bits, ebm, fixed, op, count_only)
+    want = K.oneil_compare_plain(slices, bits, ebm, fixed, op, count_only)
+    err = _compare(f"{name} cards", got[1], want[1])
+    if not count_only:
+        err = max(err, _compare(f"{name} words", got[0], want[0]))
+    # the check is only as strong as the answer: one that is empty or all
+    # of ``fixed`` would also pass for a kernel with a wrong epilogue
+    hits, q_n = int(want[1].long().sum()), bits.shape[0]
+    if not 0 < hits < q_n * int(K.popcount_rows(fixed).long().sum()):
+        fail(f"{name}: the plain answer has {hits} bits; the inputs do not test the op")
+    ms = cuda_ms(lambda: K.oneil_compare(slices, bits, ebm, fixed, op, count_only))
+    plain = cuda_ms(
+        lambda: K.oneil_compare_plain(slices, bits, ebm, fixed, op, count_only), reps=3, warmup=1
+    )
+    nbytes = _oneil_bytes(
+        slices.shape[0], slices.shape[1], q_n, fixed.data_ptr() == ebm.data_ptr(), count_only
+    )
+    b = bound_ms(nbytes)
+    say(
+        f"[kernel] {name}: equal ({hits} result bits); {ms:.4f} ms, bound {b:.4f} ms "
+        f"({nbytes} bytes; {b / ms:.1%} of bound), plain {plain:.3f} ms; library call: none  [{card}]"
+    )
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b)
+
+
+def phase_bsi_kernels(card: str):
+    """``rb_oneil_compare``, the masked popcount and the wide reduce against
+    their plain versions at the BSI north star's shapes."""
+    from roaringbitmap_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    results = {}
+    W = 2048
+    s_count, k = S_BSI, K_BSI
+    # the north star's ebm: every column of 1526 chunks, the last one holding
+    # 100,000,000 - 1525 * 65536 = 57,600 columns (words 0..1799)
+    ebm = torch.full((k, W), -1, dtype=torch.int32, device="cuda")
+    tail = BSI_ROWS - (k - 1) * 65536
+    ebm[k - 1, tail // 32:] = 0
+    # values near pred (each bit flipped with probability 1/32): ~36% of the
+    # columns equal it, so EQ and NEQ are tested as hard as the others
+    pred = 0x9E3779B9
+    lo, hi = pred - (1 << 16), pred + (1 << 16)
+    slices = _near_slices(gen, pred, s_count, ebm, 5)
+    found = _rand_dense(gen, (k, W)) & _rand_dense(gen, (k, W)) & ebm  # ~25% of the ebm
+    for op in ("EQ", "NEQ", "GT", "LT", "LE", "GE", "RANGE"):
+        walks = [[_pred_bits(lo, s_count), _pred_bits(hi, s_count)]] if op == "RANGE" else [
+            [_pred_bits(pred, s_count)]]
+        _oneil_case(
+            K, card, f"rb_oneil_compare {op} [{s_count}, {k}, 2048]", slices,
+            _bits_tensor(walks), ebm, ebm, op, False,
+        )
+    _oneil_case(
+        K, card, f"rb_oneil_compare EQ (again, after the other ops) [{s_count}, {k}, 2048]",
+        slices, _bits_tensor([[_pred_bits(pred, s_count)]]), ebm, ebm, "EQ", False,
+    )
+    for op in ("EQ", "NEQ"):
+        _oneil_case(
+            K, card, f"rb_oneil_compare {op} with a found set [{s_count}, {k}, 2048]", slices,
+            _bits_tensor([[_pred_bits(pred, s_count)]]), ebm, found, op, False,
+        )
+    # the kernel's entry: the general case, a found set other than the ebm
+    r = _oneil_case(
+        K, card, f"rb_oneil_compare GE with a found set [{s_count}, {k}, 2048]", slices,
+        _bits_tensor([[_pred_bits(pred, s_count)]]), ebm, found, "GE", False,
+    )
+    results["rb_oneil_compare"] = dict(r, replaces="roaringbitmap_tpu/ops/pallas_kernels.py:699")
+    # 64 thresholds drawn like the values (pred with bits flipped), so each
+    # count splits the columns
+    rng = np.random.default_rng(SEED + 2)
+    flips = np.bitwise_and.reduce(rng.integers(0, 1 << 32, size=(5, BATCH_Q), dtype=np.uint64), axis=0)
+    qs = np.sort(np.uint64(pred) ^ flips).tolist()
+    r = _oneil_case(
+        K, card, f"rb_oneil_compare[batched] GE count-only Q={BATCH_Q} [{s_count}, {k}, 2048]",
+        slices, _bits_tensor([[_pred_bits(int(q), s_count)] for q in qs]), ebm, ebm, "GE", True,
+    )
+    results["rb_oneil_compare[batched]"] = dict(r, replaces="roaringbitmap_tpu/models/bsi.py:974")
+    say(
+        f"[kernel] rb_oneil_compare[batched]: {r['ms'] / BATCH_Q:.4f} ms per query over "
+        f"{BATCH_Q} queries; re-reading the slices once per query from device memory "
+        f"would bound it at {bound_ms(BATCH_Q * s_count * k * ROW_BYTES):.4f} ms  [{card}]"
+    )
+    deep = 70
+    big = (1 << 69) | 0x123456789ABCDEF
+    slices70 = _near_slices(gen, big, deep, ebm, 6)  # ~33% of the columns equal big
+    for op, walk in (("EQ", [_pred_bits(big, deep)]),
+                     ("RANGE", [_pred_bits(big - (1 << 35), deep), _pred_bits(big + (1 << 35), deep)])):
+        _oneil_case(
+            K, card, f"rb_oneil_compare {op} [{deep}, {k}, 2048]", slices70,
+            _bits_tensor([walk]), ebm, found, op, False,
+        )
+    del slices70
+    torch.cuda.empty_cache()
+
+    got = K.popcount_rows(slices, mask=found)
+    want = K.popcount_rows_plain(slices, mask=found)
+    err = _compare("rb_popcount_rows[masked]", got, want)
+    ms = cuda_ms(lambda: K.popcount_rows(slices, mask=found))
+    plain = cuda_ms(lambda: K.popcount_rows_plain(slices, mask=found), reps=3, warmup=1)
+    kw = k * ROW_BYTES
+    b = bound_ms(s_count * kw + kw + s_count * k * 4)
+    say(
+        f"[kernel] rb_popcount_rows[masked] [{s_count}, {k}, 2048] & [{k}, 2048]: equal; "
+        f"{ms:.4f} ms, bound {b:.4f} ms ({b / ms:.1%} of bound), plain {plain:.3f} ms; "
+        f"library call: none  [{card}]"
+    )
+    results["rb_popcount_rows[masked]"] = dict(
+        replaces="roaringbitmap_tpu/models/bsi.py:1111", max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=b,
+    )
+    del slices, found, ebm
+    torch.cuda.empty_cache()
+
+    n_words = WIDE_ROWS * W
+    for op in ("or", "and", "xor"):
+        # ~0.7 set bits per bit position over the 131,072 rows: about half
+        # the result bits stay clear for or (set for and)
+        words = _rand_words(gen, n_words, op, density=46_000 / n_words).view(WIDE_ROWS, W)
+        red, crd = K.wide_reduce_cardinality(words, op)
+        want_red, want_crd = K.wide_reduce_cardinality_plain(words, op)
+        err = _compare(f"wide_reduce_cardinality {op}", red, want_red)
+        err = max(err, _compare(f"wide_reduce_cardinality {op} card", crd.view(1), want_crd.view(1)))
+        ms = cuda_ms(lambda: K.wide_reduce_cardinality(words, op))
+        plain = cuda_ms(lambda: K.wide_reduce_cardinality_plain(words, op), reps=3, warmup=1)
+        # the same rows as 1024 segments of 128: every chunk has its own
+        # output row, so the difference is what the atomic combine into one
+        # row costs
+        split = K.SegmentPlan.dense(WIDE_ROWS // K.CHUNK_ROWS, K.CHUNK_ROWS)
+        ms_split = cuda_ms(lambda: K.group_reduce(words, split, op))
+        b = bound_ms(WIDE_ROWS * ROW_BYTES + ROW_BYTES + 4)
+        say(
+            f"[kernel] wide_reduce_cardinality {op} [{WIDE_ROWS}, 2048] "
+            f"({WIDE_ROWS // K.CHUNK_ROWS} chunks into one row): equal (card {int(crd)}); "
+            f"{ms:.4f} ms, bound {b:.4f} ms ({b / ms:.1%} of bound), plain {plain:.3f} ms; "
+            f"the same rows reduced into {split.n_groups} rows without contention "
+            f"{ms_split:.4f} ms (reduce only); library call: none  [{card}]"
+        )
+        if op == "or":
+            results["wide_reduce_cardinality"] = dict(
+                replaces="roaringbitmap_tpu/ops/pallas_kernels.py:314", max_abs_err=err,
+                ms=ms, plain_ms=plain, bound_ms=b,
+            )
+        del words
+        torch.cuda.empty_cache()
     return results
 
 
@@ -341,8 +565,8 @@ def phase_main(rng):
             fail(f"{name}: layout {_layout_delta(store, before)}, expected {layout}")
     launches = dict(K.LAUNCHES)
     say(f"[main] launches over the main path: {launches}; layouts {store.LAYOUT_COUNTS}")
-    for k, v in launches.items():
-        if v == 0:
+    for k in AGGREGATION_KERNELS:
+        if launches[k] == 0:
             fail(f"kernel {k} was not launched on the main path")
     return bitmaps, launches
 
@@ -350,6 +574,47 @@ def phase_main(rng):
 # ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
+
+
+def _profiled(tag: str, label: str, fn, card: str, calls: int = 1) -> None:
+    """``calls`` back-to-back calls of ``fn`` under torch.profiler: wall
+    time, device busy and idle share, and the largest device-side entries
+    (all per call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # a short profiling session sometimes returns no device events at all;
+    # the calls are then profiled once more and the line says so
+    for session in (1, 2):
+        with profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True
+        ) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / calls
+        # device-side events only (kernels, copies): a CPU op's own entry
+        # repeats the device time of the kernels it launched
+        by_name = sorted(
+            ((e.self_device_time_total, e.key) for e in prof.key_averages()
+             if e.device_type != DeviceType.CPU and e.self_device_time_total > 0),
+            reverse=True,
+        )
+        by_name = [(t / calls, k) for t, k in by_name]
+        dev_us = sum(t for t, _ in by_name)
+        if dev_us:
+            break
+        say(f"{tag} profiled {label}: session {session} showed no device events")
+    if dev_us:
+        top = "; ".join(f"{k[:60]} {t / 1e3:.3f} ms" for t, k in by_name[:6])
+        say(
+            f"{tag} profiled {label} ({calls} call(s), per call): wall {wall * 1e3:.1f} ms, device busy "
+            f"{dev_us / 1e3:.3f} ms ({dev_us / 1e6 / wall:.2%}), idle share "
+            f"{1 - dev_us / 1e6 / wall:.2%}; top: {top}  [{card}]"
+        )
+    else:
+        say(f"{tag} profiled {label}: device time not measured (the profiler showed none)")
 
 
 def phase_timing(bitmaps, card: str):
@@ -374,7 +639,10 @@ def phase_timing(bitmaps, card: str):
         f"[time] pack {t_pack * 1e3:.1f} ms (group_by_key {(t_groups - t_start) * 1e3:.1f}, "
         f"payload {(t_payload - t_groups) * 1e3:.1f}, concatenate {(t_concat - t_payload) * 1e3:.1f}); "
         f"expansion (ship payload + expand on device) {t_expand * 1e3:.1f} ms "
-        f"for {packed.n_rows} rows, {packed._payload.nbytes} payload bytes  [{card}]"
+        f"for {packed.n_rows} rows, {packed._payload.nbytes} payload bytes; bound "
+        f"{max(bound_ms(packed.n_rows * ROW_BYTES), packed._payload.nbytes / PCIE_BYTES_PER_S * 1e3):.4f} ms "
+        f"(rows written on the card {bound_ms(packed.n_rows * ROW_BYTES):.4f} ms, payload over "
+        f"the host link {packed._payload.nbytes / PCIE_BYTES_PER_S * 1e3:.4f} ms)  [{card}]"
     )
     run, layout = store.prepare_reduce(packed, "or")
     t0 = time.perf_counter()
@@ -410,31 +678,7 @@ def phase_timing(bitmaps, card: str):
     del flat, red, packed
     torch.cuda.empty_cache()
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        FastAggregation.or_(*bitmaps)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side events only (kernels, copies): a CPU op's own entry
-    # repeats the device time of the kernels it launched
-    by_name = sorted(
-        ((e.self_device_time_total, e.key) for e in prof.key_averages()
-         if e.device_type != DeviceType.CPU and e.self_device_time_total > 0),
-        reverse=True,
-    )
-    dev_us = sum(t for t, _ in by_name)
-    if dev_us:
-        top = "; ".join(f"{k[:60]} {t / 1e3:.3f} ms" for t, k in by_name[:6])
-        say(
-            f"[time] profiled FastAggregation.or_: wall {wall * 1e3:.1f} ms, device busy "
-            f"{dev_us / 1e3:.3f} ms ({dev_us / 1e6 / wall:.2%}), idle share "
-            f"{1 - dev_us / 1e6 / wall:.2%}; top: {top}  [{card}]"
-        )
-    else:
-        say("[time] profiled FastAggregation.or_: device time not measured (the profiler showed none)")
+    _profiled("[time]", "FastAggregation.or_", lambda: FastAggregation.or_(*bitmaps), card)
 
     torch.cuda.reset_peak_memory_stats()
     walls = []
@@ -452,6 +696,210 @@ def phase_timing(bitmaps, card: str):
     )
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the BSI north star
+# ---------------------------------------------------------------------------
+
+
+def _check_values(name, bm, oracle, tag="[bsi]"):
+    got = bm.to_array()
+    if got.shape != oracle.shape or not np.array_equal(got, oracle.astype(np.uint32)):
+        fail(f"{name}: result ({got.size} values) differs from the numpy oracle ({oracle.size})")
+    say(f"{tag} {name}: {got.size} values, equal to the numpy oracle")
+
+
+def phase_bsi(card: str):
+    """The 100M-row, 32-slice BSI through the port's entry points."""
+    from roaringbitmap_tpu_torch import Operation, RoaringBitmap, RoaringBitmapSliceIndex
+    from roaringbitmap_tpu_torch.ops import device as dev
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import store
+
+    rng = np.random.default_rng(SEED)  # benchmarks/bsi.py:110-121
+    t0 = time.perf_counter()
+    cols = np.arange(BSI_ROWS, dtype=np.uint32)
+    vals = rng.integers(0, 1 << 32, size=BSI_ROWS, dtype=np.uint64).astype(np.int64)
+    index = RoaringBitmapSliceIndex()
+    index.set_values((cols, vals))
+    build_s = time.perf_counter() - t0
+    found_cols = np.sort(rng.choice(BSI_ROWS, size=BSI_ROWS // 20, replace=False)).astype(np.int64)
+    found = RoaringBitmap(found_cols.astype(np.uint32))
+    # a found set that also reaches the ebm's last chunk past the last
+    # column and four chunks outside the ebm
+    outside = np.arange(BSI_ROWS, BSI_ROWS + 300_000, 7, dtype=np.int64)
+    found2_cols = np.concatenate([found_cols, outside])
+    found2 = RoaringBitmap(found2_cols.astype(np.uint32))
+    del cols
+    say(
+        f"[bsi] built {BSI_ROWS} rows, {index.bit_count()} slices, "
+        f"{index.ebm.get_container_count()} chunks through set_values in {build_s:.1f} s "
+        f"(values uniform in [0, 2^32), seed {SEED:#x}); found set {found_cols.size} columns  [{card}]"
+    )
+    if index.bit_count() != S_BSI or index.ebm.get_container_count() != K_BSI:
+        fail("the index does not have the north star's shape")
+    med = int(np.median(vals))
+    present = int(vals[12_345])
+    lo, hi = med // 2, med + med // 2
+    fv = vals[found_cols]
+    q_vals = np.quantile(vals, np.linspace(0.05, 0.95, BATCH_Q)).astype(np.int64)  # :163
+    neq2 = np.concatenate([found_cols[fv != present], outside])
+    queries = [
+        ("GE median", Operation.GE, med, 0, None, np.flatnonzero(vals >= med)),
+        ("RANGE middle half", Operation.RANGE, lo, hi, None,
+         np.flatnonzero((vals >= lo) & (vals <= hi))),
+        ("GE median, 5% found set", Operation.GE, med, 0, found, found_cols[fv >= med]),
+        ("EQ a present value", Operation.EQ, present, 0, None, np.flatnonzero(vals == present)),
+        ("NEQ a present value", Operation.NEQ, present, 0, None, np.flatnonzero(vals != present)),
+        ("GT median", Operation.GT, med, 0, None, np.flatnonzero(vals > med)),
+        ("LT median", Operation.LT, med, 0, None, np.flatnonzero(vals < med)),
+        ("LE median", Operation.LE, med, 0, None, np.flatnonzero(vals <= med)),
+        ("NEQ with a found set outside the ebm", Operation.NEQ, present, 0, found2, neq2),
+    ]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    # --- the BSI path: every query below runs with the counts live ---
+    t0 = time.perf_counter()
+    first = index.compare(Operation.GE, med)
+    t_first = time.perf_counter() - t0
+    _check_values("compare GE median (first query, pack + copy)", first, queries[0][5])
+    del first
+    for name, op, a, b, fs, oracle in queries:
+        _check_values(f"compare {name}", index.compare(op, a, b, fs), oracle)
+        cnt = index.compare_cardinality(op, a, b, fs)
+        if cnt != oracle.size:
+            fail(f"compare_cardinality {name} = {cnt}, oracle {oracle.size}")
+    say(f"[bsi] compare_cardinality of all {len(queries)} queries equal to the oracle")
+    many = index.compare_cardinality_many(Operation.GE, q_vals)
+    srt = np.sort(vals)
+    want_many = BSI_ROWS - np.searchsorted(srt, q_vals, side="left")
+    if not np.array_equal(many, want_many):
+        fail(f"compare_cardinality_many GE over {BATCH_Q} quantiles differs from the oracle")
+    say(f"[bsi] compare_cardinality_many GE over {BATCH_Q} quantile thresholds: equal to the oracle")
+    total, count = index.sum(found)
+    if (total, count) != (int(fv.sum()), found_cols.size):
+        fail(f"sum(found) = {(total, count)}, oracle {(int(fv.sum()), found_cols.size)}")
+    say(f"[bsi] sum(found) = {total} over {count} columns, equal to the oracle")
+    launches = dict(K.LAUNCHES)
+    say(f"[bsi] launches over the BSI path: {launches}")
+    for name in ("rb_oneil_compare", "rb_oneil_compare[batched]", "rb_popcount_rows[masked]"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the BSI path")
+    peak_queries = torch.cuda.max_memory_allocated()
+    del srt
+
+    # --- timing on the resident pack ---
+    keys, ebm_w, slices_w = index._pack_dense()
+    bits = _bits_tensor([[_pred_bits(med, S_BSI)]])
+    steady = cuda_ms(lambda: K.oneil_compare(slices_w, bits, ebm_w, ebm_w, "GE"))
+    # one instrumented pass of compare GE: each stage timed on its own
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _keys, out, cards, _ = index._o_neil_device_walk(Operation.GE, med, None)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    words_host, cards_host = dev.to_host_u32(out), cards.cpu().numpy().astype(np.int64)
+    t2 = time.perf_counter()
+    store.unpack_to_bitmap(np.asarray(_keys, dtype=np.int64), words_host, cards_host)
+    t3 = time.perf_counter()
+    say(
+        f"[bsi] compare GE stages: bits + launch + kernel {(t1 - t0) * 1e3:.3f} ms, "
+        f"result words and cards to the host ({words_host.nbytes} bytes, pageable) "
+        f"{(t2 - t1) * 1e3:.3f} ms, unpack_to_bitmap ({len(_keys)} containers) "
+        f"{(t3 - t2) * 1e3:.3f} ms  [{card}]"
+    )
+    del out, cards, words_host, cards_host
+    walls = []
+    for _ in range(E2E_RUNS):
+        t0 = time.perf_counter()
+        index.compare(Operation.GE, med)  # returns a host bitmap: the work is done
+        walls.append(time.perf_counter() - t0)
+    e2e = float(np.median(walls))
+    t0 = time.perf_counter()
+    index.compare_cardinality_many(Operation.GE, q_vals)
+    t_many = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loop = [index.compare_cardinality(Operation.GE, int(v)) for v in q_vals]
+    t_loop = time.perf_counter() - t0
+    if not np.array_equal(np.asarray(loop), want_many):
+        fail("the looped compare_cardinality differs from the oracle")
+    peak = torch.cuda.max_memory_allocated()
+    _profiled("[bsi]", "compare GE median", lambda: index.compare(Operation.GE, med), card, 5)
+    _profiled(
+        "[bsi]", f"compare_cardinality_many GE x{BATCH_Q}",
+        lambda: index.compare_cardinality_many(Operation.GE, q_vals), card, 5,
+    )
+    b = bound_ms(_oneil_bytes(S_BSI, K_BSI, 1, True, False))  # fixed is the ebm
+    say(
+        f"[bsi] first query (pack build + copy + kernel + unpack) {t_first * 1e3:.1f} ms; "
+        f"steady rb_oneil_compare GE on the resident pack {steady:.4f} ms ({REPS} reps, bound "
+        f"{b:.4f} ms); compare GE end to end (resident pack to host RoaringBitmap), "
+        f"{E2E_RUNS} runs: median {e2e * 1e3:.2f} ms (min {min(walls) * 1e3:.2f}, max "
+        f"{max(walls) * 1e3:.2f}), {1 / e2e:.2f} queries/s  [{card}]"
+    )
+    say(
+        f"[bsi] compare_cardinality_many GE, {BATCH_Q} thresholds in one launch: "
+        f"{t_many * 1e3:.2f} ms, {t_many / BATCH_Q * 1e9:.0f} ns/query; a loop of "
+        f"{BATCH_Q} compare_cardinality: {t_loop * 1e3:.2f} ms, {t_loop / BATCH_Q * 1e9:.0f} "
+        f"ns/query; peak device memory {peak / 2**30:.3f} GiB ({peak} bytes; "
+        f"{peak_queries} bytes over the checked queries)  [{card}]"
+    )
+    del keys, ebm_w, slices_w, index
+    torch.cuda.empty_cache()
+    return vals, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: RangeBitmap at an earlier depth, correctness only
+# ---------------------------------------------------------------------------
+
+
+def phase_range_bitmap(vals):
+    from roaringbitmap_tpu_torch import RangeBitmap
+    from roaringbitmap_tpu_torch.ops import kernels as K
+
+    rows = vals[:RANGE_ROWS].astype(np.uint64)
+    t0 = time.perf_counter()
+    app = RangeBitmap.appender((1 << 32) - 1)
+    app.add_many(rows)
+    rb = app.build()
+    blob = rb.serialize()
+    mapped = RangeBitmap.map(blob)
+    say(
+        f"[range] {RANGE_ROWS} rows appended, sealed and serialized ({len(blob)} bytes, "
+        f"reference format) in {time.perf_counter() - t0:.1f} s"
+    )
+    med = int(np.median(rows))
+    lo, hi = med // 3, med + med // 3
+    qs = np.quantile(rows, np.linspace(0.1, 0.9, 16)).astype(np.int64)
+    srt = np.sort(rows)
+    K.reset_launches()
+    for label, r in (("built", rb), ("mapped from the reference bytes", mapped)):
+        _check_values(
+            f"RangeBitmap {label} gte(median)", r.gte(med), np.flatnonzero(rows >= med), "[range]"
+        )
+        _check_values(
+            f"RangeBitmap {label} between", r.between(lo, hi),
+            np.flatnonzero((rows >= lo) & (rows <= hi)), "[range]",
+        )
+        got = r.gte_cardinality_many(qs)
+        want = RANGE_ROWS - np.searchsorted(srt, qs.astype(np.uint64), side="left")
+        if not np.array_equal(got, want):
+            fail(f"RangeBitmap {label} gte_cardinality_many differs from the oracle")
+        got = r.between_cardinality_many(qs, qs + 10_000_000)
+        want = np.searchsorted(srt, (qs + 10_000_000).astype(np.uint64), side="right") - np.searchsorted(
+            srt, qs.astype(np.uint64), side="left")
+        if not np.array_equal(got, want):
+            fail(f"RangeBitmap {label} between_cardinality_many differs from the oracle")
+        say(f"[range] RangeBitmap {label}: gte/between_cardinality_many equal to the oracle")
+    if RangeBitmap.map(mapped.serialize()).serialize() != blob:
+        fail("RangeBitmap bytes do not round-trip through map")
+    if K.LAUNCHES["rb_oneil_compare"] == 0 or K.LAUNCHES["rb_oneil_compare[batched]"] == 0:
+        fail(f"RangeBitmap queries did not run through rb_oneil_compare: {K.LAUNCHES}")
+    say(f"[range] launches: {dict(K.LAUNCHES)}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels"], help="run phases 1-3 only")
@@ -462,16 +910,32 @@ def main():
     card, kind, count = phase_card()
     phase_build()
     timings = phase_kernels(card)
-    launches = None  # not counted unless phase 4 runs
+    timings.update(phase_bsi_kernels(card))
+    launches = None  # not counted unless phases 4 and 6 run
     if args.only is None:
-        bitmaps, launches = phase_main(np.random.default_rng(SEED))
+        bitmaps, agg_launches = phase_main(np.random.default_rng(SEED))
         phase_timing(bitmaps, card)
+        del bitmaps
+        from roaringbitmap_tpu_torch.models import bsi as tbsi
+
+        if (tbsi.config.device, tbsi.config.mode) != ("cuda", "auto"):
+            fail(f"BSI config is {tbsi.config.device}/{tbsi.config.mode}, expected cuda/auto")
+        vals, bsi_launches = phase_bsi(card)
+        phase_range_bitmap(vals)
+        # each kernel's count from the path that runs it: the aggregation
+        # path for the reduce kernels, the BSI path for the O'Neil walk and
+        # the masked popcount; the wide reduce is on neither
+        launches = dict(agg_launches)
+        for name in ("rb_oneil_compare", "rb_oneil_compare[batched]",
+                     "rb_popcount_rows[masked]", "wide_reduce_cardinality"):
+            launches[name] = bsi_launches[name]
     kernels = []
     for name, t in timings.items():
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "roaringbitmap_tpu_torch/csrc/reduce.cu",
+            "source": "roaringbitmap_tpu_torch/csrc/"
+            + ("oneil.cu" if name.startswith("rb_oneil") else "reduce.cu"),
             "replaces": t["replaces"],
             "launches": None if launches is None else launches[name],
             "max_abs_err": t["max_abs_err"],

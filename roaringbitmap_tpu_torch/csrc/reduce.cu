@@ -11,6 +11,12 @@
 //     is a segmented reduce over group offsets that writes [G, 2048])
 // rb_popcount_rows replaces the XLA popcount epilogue
 //   roaringbitmap_tpu/ops/device.py:popcount_rows
+// and, with a mask (row r counted as words[r] & mask[r % mask_rows]), the
+// BSI sum's masked popcount
+//   roaringbitmap_tpu/models/bsi.py:_slice_masked_popcounts
+//     ([S, K, 2048] & [K, 2048] -> [S, K], without the [S, K, 2048]
+//     temporary the XLA version builds; the mask rows are re-read S times
+//     but stay in L2)
 //
 // What bounds them: both stream every input row from device memory once and
 // do one bitwise op (or one popcount) per 4-byte word, far below the card's
@@ -37,8 +43,9 @@
 // row_map[r]; a value >= n_rows is an identity pad and is skipped, so the
 // padded [G, M, 2048] block is never built.
 //
-// The popcount runs one 256-thread block per row: __popc per word, a warp
-// shuffle reduction, then a reduction over the 8 warps in shared memory.
+// The popcount runs one 256-thread block per row: __popc per word (of the
+// word and its mask word when masked), a warp shuffle reduction, then a
+// reduction over the 8 warps in shared memory.
 //
 // The interface is plain C for ctypes: pointers and the stream arrive as
 // void*, every entry point sets the device, launches on the caller's stream
@@ -136,13 +143,20 @@ group_reduce_kernel(const uint4* __restrict__ words, long long n_rows,
   combine<OP>(o + 3, acc.w);
 }
 
+template <bool MASKED>
 __global__ void __launch_bounds__(kPopThreads)
-popcount_rows_kernel(const uint4* __restrict__ words, int* __restrict__ out) {
+popcount_rows_kernel(const uint4* __restrict__ words, const uint4* __restrict__ mask,
+                     long long mask_rows, int* __restrict__ out) {
   const long long row = blockIdx.x;
   const uint4* p = words + row * kVecs;
+  const uint4* m = MASKED ? mask + (row % mask_rows) * kVecs : nullptr;
   int c = 0;
   for (int i = threadIdx.x; i < kVecs; i += kPopThreads) {
-    const uint4 v = p[i];
+    uint4 v = p[i];
+    if (MASKED) {
+      const uint4 mv = m[i];
+      v = make_uint4(v.x & mv.x, v.y & mv.y, v.z & mv.z, v.w & mv.w);
+    }
     c += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
   }
 #pragma unroll
@@ -205,16 +219,25 @@ int rb_group_reduce(int device, int op, const void* words, long long n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// words: n_rows x 2048 words; out: n_rows int32 popcounts.
-int rb_popcount_rows(int device, const void* words, long long n_rows, void* out,
-                     void* stream) {
+// words: n_rows x 2048 words; mask: mask_rows x 2048 words or null (row r
+// is counted as words[r] & mask[r % mask_rows]); out: n_rows int32 popcounts.
+int rb_popcount_rows(int device, const void* words, long long n_rows, const void* mask,
+                     long long mask_rows, void* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_rows <= 0) return 0;
   if (n_rows > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  popcount_rows_kernel<<<static_cast<unsigned>(n_rows), kPopThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(words), static_cast<int*>(out));
+  if (mask != nullptr && mask_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>(n_rows);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mask != nullptr) {
+    popcount_rows_kernel<true><<<grid, kPopThreads, 0, s>>>(
+        static_cast<const uint4*>(words), static_cast<const uint4*>(mask), mask_rows,
+        static_cast<int*>(out));
+  } else {
+    popcount_rows_kernel<false><<<grid, kPopThreads, 0, s>>>(
+        static_cast<const uint4*>(words), nullptr, 1, static_cast<int*>(out));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,14 +15,20 @@ importing the other:
 
 Serialized bytes (``RoaringBitmap.serialize``) are the second, independent
 bridge.
+
+A bit-sliced index travels the same way (:func:`bsi_to_state` /
+:func:`bsi_from_state`): ``min_value``, ``max_value`` and ``run_optimized``
+as Python values, the existence bitmap's state dict under ``ebm`` and one
+state dict per slice under ``slices``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 
+from .models.bsi import RoaringBitmapSliceIndex
 from .models.container import ArrayContainer, BitmapContainer, RunContainer
 from .models.roaring import RoaringBitmap
 from .utils import bits
@@ -94,3 +100,27 @@ def from_state(d: Dict[str, np.ndarray]) -> RoaringBitmap:
     if wi != len(words):
         raise ValueError("words holds more rows than there are bitmap containers")
     return out
+
+
+def bsi_to_state(index: RoaringBitmapSliceIndex) -> Dict[str, Any]:
+    """A bit-sliced index as plain values and bitmap state dicts."""
+    return {
+        "min_value": int(index.min_value),
+        "max_value": int(index.max_value),
+        "run_optimized": bool(index.run_optimized),
+        "ebm": to_state(index.ebm),
+        "slices": [to_state(s) for s in index.slices],
+    }
+
+
+def bsi_from_state(d: Dict[str, Any], cls=RoaringBitmapSliceIndex) -> RoaringBitmapSliceIndex:
+    """Rebuild a bit-sliced index (of ``cls``, e.g. ``MutableBitSliceIndex``)
+    from :func:`bsi_to_state`'s dict."""
+    out = cls()
+    out.min_value = int(d["min_value"])
+    out.max_value = int(d["max_value"])
+    out.run_optimized = bool(d["run_optimized"])
+    out.ebm = from_state(d["ebm"])
+    out.slices = [from_state(s) for s in d["slices"]]
+    return out
+

@@ -1,10 +1,11 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources have a plain C interface. At first use they are compiled by
-``nvcc`` for ``sm_90a`` into a shared library under the package's
-``_build/`` directory (git-ignored), named by a hash of the sources and the
-flags so an edited source rebuilds, and loaded with ``ctypes``. Nothing is
-fetched and nothing is built when the module is imported.
+The sources have a plain C interface. At first use each is compiled by its
+own ``nvcc`` for ``sm_90a``, all of them started together, and the objects
+are linked into one shared library under the package's ``_build/``
+directory (git-ignored), named by a hash of the sources and the flags so an
+edited source rebuilds, and loaded with ``ctypes``. Nothing is fetched and
+nothing is built when the module is imported.
 
 A missing ``nvcc`` or a failed compile raises
 :class:`~..robust.errors.TierUnavailable` with the compiler's output: the
@@ -19,21 +20,24 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from ..robust.errors import TierUnavailable
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCES = [PACKAGE_DIR / "csrc" / "reduce.cu"]
+SOURCES = [PACKAGE_DIR / "csrc" / "reduce.cu", PACKAGE_DIR / "csrc" / "oneil.cu"]
 BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None  # guarded-by: _LOCK
+# seconds of the last compile in this process: each source's own nvcc (they
+# run together), the link, and the whole build's wall time
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -61,6 +65,18 @@ def library_path() -> Path:
     return BUILD_DIR / f"librb_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: List[List[str]]) -> List[Tuple[int, str, float]]:
+    """Run every command at once: ``(rc, output, seconds)`` for each."""
+
+    def run(cmd):
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return p.returncode, p.stdout, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+        return list(pool.map(run, cmds))
+
+
 def build(verbose: bool = False) -> Tuple[Path, str]:
     """Compile the sources unless the library for them exists already;
     ``verbose`` always compiles and adds ``-Xptxas -v`` (registers, shared
@@ -70,18 +86,38 @@ def build(verbose: bool = False) -> Tuple[Path, str]:
     if out.is_file() and not verbose:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd: List[str] = [nvcc_path(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
+    extra = ["-Xptxas", "-v"] if verbose else []
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    t0 = time.perf_counter()
+    times = {}
+    try:
+        cmds = [
+            [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(SOURCES, objs)
+        ]
+        logs = []
+        for src, cmd, (rc, log, sec) in zip(SOURCES, cmds, _run_all(cmds)):
+            logs.append(log)
+            times[src.name] = sec
+            if rc != 0:
+                raise TierUnavailable(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        ((rc, log, times["link"]),) = _run_all([cmd])
+        logs.append(log)
+        if rc != 0:
+            raise TierUnavailable(f"nvcc link failed ({rc}): {' '.join(cmd)}\n{log}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise TierUnavailable(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return out, log
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    times["wall"] = time.perf_counter() - t0
+    BUILD_SECONDS.clear()
+    BUILD_SECONDS.update(times)
+    return out, "".join(logs)
 
 
 def load() -> ctypes.CDLL:
@@ -94,8 +130,10 @@ def load() -> ctypes.CDLL:
             vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.rb_group_reduce.argtypes = [i, i, vp, ll, vp, ll, vp, vp, vp]
             lib.rb_group_reduce.restype = i
-            lib.rb_popcount_rows.argtypes = [i, vp, ll, vp, vp]
+            lib.rb_popcount_rows.argtypes = [i, vp, ll, vp, ll, vp, vp]
             lib.rb_popcount_rows.restype = i
+            lib.rb_oneil_compare.argtypes = [i, i, vp, i, ll, vp, i, vp, vp, vp, vp, vp]
+            lib.rb_oneil_compare.restype = i
             lib.rb_error_string.argtypes = [i]
             lib.rb_error_string.restype = ctypes.c_char_p
             _LIB = lib

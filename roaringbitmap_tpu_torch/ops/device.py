@@ -111,3 +111,62 @@ def popcount_rows(words: torch.Tensor) -> torch.Tensor:
             dim=-1, dtype=torch.int32
         )
     return out
+
+
+# O'Neil compare ops (models/bsi.Operation values)
+ONEIL_OPS = ("EQ", "NEQ", "GT", "LT", "LE", "GE", "RANGE")
+
+
+def _walk(slices: torch.Tensor, bits, ebm: torch.Tensor):
+    """One O'Neil walk from the highest slice down; ``bits[j]`` is the
+    predicate bit of slice ``S - 1 - j``. Returns ``(gt, lt, eq)``."""
+    zeros = torch.zeros_like(ebm)
+    gt, lt, eq = zeros, zeros, ebm
+    s_count = slices.shape[0]
+    for j in range(s_count):
+        sl = slices[s_count - 1 - j]
+        if bool(bits[j]):
+            lt = lt | (eq & ~sl)
+            eq = eq & sl
+        else:
+            gt = gt | (eq & sl)
+            eq = eq & ~sl
+    return gt, lt, eq
+
+
+def o_neil_walk(slices: torch.Tensor, bits, ebm: torch.Tensor, fixed: torch.Tensor, op: str):
+    """The O'Neil slice walk and its per-op epilogue (the counterpart of the
+    JAX package's ``models/bsi.py:o_neil_math``): int32 ``[S, K, W]``
+    slices, predicate bits ``[S]`` high slice first (``[2, S]`` for RANGE:
+    the GE walk of the low bound, then the LE walk of the high one), int32
+    ``[K, W]`` ebm and fixed words -> (int32 ``[K, W]`` result words, int32
+    ``[K]`` popcounts)."""
+    if op not in ONEIL_OPS:
+        raise ValueError(f"op must be one of {ONEIL_OPS}, got {op!r}")
+    if op == "RANGE":
+        gt_lo, _, eq_lo = _walk(slices, bits[0], ebm)
+        _, lt_hi, eq_hi = _walk(slices, bits[1], ebm)
+        out = (gt_lo | eq_lo) & (lt_hi | eq_hi) & fixed
+    else:
+        gt, lt, eq = _walk(slices, bits, ebm)
+        eq = eq & fixed
+        out = {
+            "EQ": lambda: eq,
+            "NEQ": lambda: fixed & ~eq,
+            "GT": lambda: gt & fixed,
+            "LT": lambda: lt & fixed,
+            "LE": lambda: (lt | eq) & fixed,
+            "GE": lambda: (gt | eq) & fixed,
+        }[op]()
+    return out, popcount_rows(out)
+
+
+def slice_masked_popcounts(slices: torch.Tensor, found: torch.Tensor) -> torch.Tensor:
+    """``[S, K, W] & [K, W]`` -> int32 ``[S, K]`` popcounts (the counterpart
+    of ``models/bsi.py:_slice_masked_popcounts``)."""
+    s_count, k = slices.shape[0], slices.shape[1]
+    out = torch.empty((s_count, k), dtype=torch.int32, device=slices.device)
+    for i in range(s_count):
+        out[i] = popcount_rows(slices[i] & found)
+    return out
+

@@ -1,8 +1,9 @@
-"""Kernel wrappers of the aggregation path, their plain versions, and the
-device-side row expansion.
+"""Kernel wrappers of the aggregation and BSI paths, their plain versions,
+and the device-side row expansion.
 
-Counterpart of ``roaringbitmap_tpu/ops/pallas_kernels.py`` for this slice.
-Two hand-written CUDA kernels (``csrc/reduce.cu``, built by ``_build``):
+Counterpart of ``roaringbitmap_tpu/ops/pallas_kernels.py``. Three
+hand-written CUDA kernels (``csrc/reduce.cu`` and ``csrc/oneil.cu``, built
+by ``_build``):
 
 * ``rb_group_reduce`` — :func:`group_reduce`. Replaces
   ``pallas_kernels.py:grouped_reduce_pallas`` (padded layout, bucketed
@@ -13,7 +14,19 @@ Two hand-written CUDA kernels (``csrc/reduce.cu``, built by ``_build``):
   how the chunked, atomically combined design meets it.
 * ``rb_popcount_rows`` — :func:`popcount_rows`. Replaces the XLA popcount
   epilogue ``roaringbitmap_tpu/ops/device.py:popcount_rows`` (torch has no
-  popcount). Bound: the same bandwidth, rows * 8192 B.
+  popcount) and, with ``mask=``, the BSI sum's
+  ``models/bsi.py:_slice_masked_popcounts``. Bound: the same bandwidth,
+  rows * 8192 B (plus the mask rows once).
+* ``rb_oneil_compare`` — :func:`oneil_compare`. Replaces
+  ``pallas_kernels.py:oneil_compare_pallas`` (one query) and the XLA
+  ``models/bsi.py:_o_neil_counts_batched`` (many queries, count-only).
+  Bound: device-memory bandwidth, one pass over the ``[S, K, 2048]``
+  slices plus the ebm and fixed words; ``oneil.cu`` says how.
+
+:func:`wide_reduce_cardinality` — the flat ``[N, 2048] -> [2048]`` reduce
+of ``pallas_kernels.py:wide_reduce_pallas`` /
+``wide_reduce_cardinality_pallas`` — is ``rb_group_reduce`` over one
+segment plus ``rb_popcount_rows``.
 
 Each wrapper takes its kernel's plain PyTorch version (``ops/device.py``)
 only because the tensor it was given lies on the CPU; for a CUDA tensor it
@@ -33,12 +46,19 @@ import torch
 
 from . import device as dev
 
-# launch counts by kernel (and the reduce's three modes)
+# launch counts by kernel (and the reduce's three modes, the masked
+# popcount and the batched O'Neil walk); "wide_reduce_cardinality" counts
+# calls of that composite on the card, whose reduce and popcount launches
+# also count under their own keys
 LAUNCHES = {
     "rb_group_reduce[dense]": 0,
     "rb_group_reduce[csr]": 0,
     "rb_group_reduce[rowmap]": 0,
     "rb_popcount_rows": 0,
+    "rb_popcount_rows[masked]": 0,
+    "rb_oneil_compare": 0,
+    "rb_oneil_compare[batched]": 0,
+    "wide_reduce_cardinality": 0,
 }
 
 # rows per chunk (one CTA each): small enough that a 10,000-row group
@@ -196,16 +216,38 @@ def group_reduce(
     return out
 
 
-def popcount_rows_plain(words: torch.Tensor) -> torch.Tensor:
+def _check_mask(flat: torch.Tensor, mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    if mask is None:
+        return None
+    m = _check_words(mask)
+    if m.device != flat.device:
+        raise ValueError("mask must lie on the words' device")
+    if m.shape[0] == 0 or flat.shape[0] % m.shape[0]:
+        raise ValueError(
+            f"mask rows ({m.shape[0]}) must divide the word rows ({flat.shape[0]})"
+        )
+    return m
+
+
+def popcount_rows_plain(words: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`popcount_rows`."""
-    return dev.popcount_rows(_check_words(words))
-
-
-def popcount_rows(words: torch.Tensor) -> torch.Tensor:
-    """Per-row cardinality ``[R, 2048] -> int32 [R]``."""
     flat = _check_words(words)
-    if flat.device.type == "cpu":
+    m = _check_mask(flat, mask)
+    if m is None:
         return dev.popcount_rows(flat)
+    k = m.shape[0]
+    return dev.slice_masked_popcounts(flat.view(-1, k, dev.DEVICE_WORDS), m).view(-1)
+
+
+def popcount_rows(words: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row cardinality ``[R, 2048] -> int32 [R]``. With ``mask``
+    (int32 ``[K, 2048]``, K dividing R) row r is counted as
+    ``words[r] & mask[r % K]``: an ``[S, K, 2048]`` block against one
+    ``[K, 2048]`` mask gives the ``[S, K]`` masked popcounts flat."""
+    flat = _check_words(words)
+    m = _check_mask(flat, mask)
+    if flat.device.type == "cpu":
+        return popcount_rows_plain(flat, m)
     if flat.device.type != "cuda":
         raise ValueError(f"unsupported device {flat.device}")
     r = flat.shape[0]
@@ -216,12 +258,113 @@ def popcount_rows(words: torch.Tensor) -> torch.Tensor:
 
     lib = _build.load()
     rc = lib.rb_popcount_rows(
-        flat.device.index or 0, flat.data_ptr(), r, out.data_ptr(),
-        torch.cuda.current_stream(flat.device).cuda_stream,
+        flat.device.index or 0, flat.data_ptr(), r,
+        None if m is None else m.data_ptr(), 0 if m is None else m.shape[0],
+        out.data_ptr(), torch.cuda.current_stream(flat.device).cuda_stream,
     )
     _build.check(lib, rc, "rb_popcount_rows")
-    LAUNCHES["rb_popcount_rows"] += 1
+    LAUNCHES["rb_popcount_rows" if m is None else "rb_popcount_rows[masked]"] += 1
     return out
+
+
+def wide_reduce_cardinality_plain(words: torch.Tensor, op: str = "or"):
+    """Plain PyTorch version of :func:`wide_reduce_cardinality`."""
+    flat = _check_words(words)
+    red = dev.fold_rows(flat, op)
+    return red, dev.popcount_rows(red.view(1, -1))[0]
+
+
+def wide_reduce_cardinality(words: torch.Tensor, op: str = "or"):
+    """Flat reduce ``[N, 2048] -> ([2048] words, int32 card)`` by or, and or
+    xor: ``rb_group_reduce`` over one segment (its chunks combine into the
+    one output row with bitwise atomics), then ``rb_popcount_rows``. The
+    counterpart of ``pallas_kernels.py:wide_reduce_cardinality_pallas``;
+    N = 0 gives the op identity."""
+    if op not in _OP_CODE:
+        raise ValueError(f"op must be one of {sorted(_OP_CODE)}, got {op!r}")
+    flat = _check_words(words)
+    if flat.device.type == "cpu":
+        return wide_reduce_cardinality_plain(flat, op)
+    red = group_reduce(flat, SegmentPlan.dense(1, flat.shape[0]), op)
+    card = popcount_rows(red)
+    LAUNCHES["wide_reduce_cardinality"] += 1
+    return red[0], card[0]
+
+
+_ONEIL_CODE = {op: i for i, op in enumerate(dev.ONEIL_OPS)}
+# predicate masks live in the kernel's default 48 KiB of shared memory
+MAX_ONEIL_SLICES = 48 * 1024 // (2 * 4)
+
+
+def _check_oneil(slices, bits, ebm, fixed, op):
+    if op not in _ONEIL_CODE:
+        raise ValueError(f"op must be one of {dev.ONEIL_OPS}, got {op!r}")
+    if slices.dim() != 3:
+        raise ValueError(f"slices must be [S, K, 2048], got {tuple(slices.shape)}")
+    for t in (slices, ebm, fixed):
+        _check_words(t)
+    s_count, k = slices.shape[0], slices.shape[1]
+    if tuple(ebm.shape) != (k, dev.DEVICE_WORDS) or tuple(fixed.shape) != (k, dev.DEVICE_WORDS):
+        raise ValueError(f"ebm and fixed must be [{k}, 2048]")
+    w = 2 if op == "RANGE" else 1
+    if bits.dtype != torch.int32 or bits.dim() != 3 or tuple(bits.shape[1:]) != (w, s_count):
+        raise ValueError(f"bits must be int32 [Q, {w}, {s_count}], got {bits.dtype} {tuple(bits.shape)}")
+    if not bits.is_contiguous():
+        raise ValueError("bits must be contiguous")
+    if s_count > MAX_ONEIL_SLICES:
+        raise ValueError(f"at most {MAX_ONEIL_SLICES} slices, got {s_count}")
+    if len({t.device for t in (slices, bits, ebm, fixed)}) != 1:
+        raise ValueError("slices, bits, ebm and fixed must lie on one device")
+
+
+def oneil_compare_plain(slices, bits, ebm, fixed, op: str, count_only: bool = False):
+    """Plain PyTorch version of :func:`oneil_compare`: the O'Neil walk of
+    ``ops/device.o_neil_walk`` once per query."""
+    _check_oneil(slices, bits, ebm, fixed, op)
+    q_n = bits.shape[0]
+    cards = torch.empty((q_n, slices.shape[1]), dtype=torch.int32, device=slices.device)
+    out = None
+    for q in range(q_n):
+        qbits = bits[q] if op == "RANGE" else bits[q, 0]
+        out, cards[q] = dev.o_neil_walk(slices, qbits.tolist(), ebm, fixed, op)
+    return (None if count_only else out), cards
+
+
+def oneil_compare(slices, bits, ebm, fixed, op: str, count_only: bool = False):
+    """Fused O'Neil compare of Q predicates over a bit-sliced index.
+
+    ``slices``: int32 ``[S, K, 2048]``; ``bits``: int32 ``[Q, W, S]`` on
+    the same device, W = 2 for RANGE (the low bound's GE walk first, then
+    the high bound's LE walk) else 1, position j holding the predicate bit
+    of slice ``S - 1 - j``; ``ebm`` and ``fixed``: int32 ``[K, 2048]``
+    existence and found-set words; ``op``: one of ``ops/device.ONEIL_OPS``.
+    Returns ``(out, cards)``: int32 ``[K, 2048]`` result words (None when
+    ``count_only``; otherwise Q must be 1) and int32 ``[Q, K]`` per-chunk
+    popcounts."""
+    _check_oneil(slices, bits, ebm, fixed, op)
+    q_n, k = bits.shape[0], slices.shape[1]
+    if not count_only and q_n != 1:
+        raise ValueError("result words are returned for one query only; pass count_only=True")
+    if slices.device.type == "cpu":
+        return oneil_compare_plain(slices, bits, ebm, fixed, op, count_only)
+    if slices.device.type != "cuda":
+        raise ValueError(f"unsupported device {slices.device}")
+    cards = torch.empty((q_n, k), dtype=torch.int32, device=slices.device)
+    out = None if count_only else torch.empty_like(ebm)
+    if q_n == 0 or k == 0:
+        return out, cards
+    from . import _build
+
+    lib = _build.load()
+    rc = lib.rb_oneil_compare(
+        slices.device.index or 0, _ONEIL_CODE[op], slices.data_ptr(), slices.shape[0], k,
+        bits.data_ptr(), q_n, ebm.data_ptr(), fixed.data_ptr(),
+        None if out is None else out.data_ptr(), cards.data_ptr(),
+        torch.cuda.current_stream(slices.device).cuda_stream,
+    )
+    _build.check(lib, rc, "rb_oneil_compare")
+    LAUNCHES["rb_oneil_compare[batched]" if q_n > 1 else "rb_oneil_compare"] += 1
+    return out, cards
 
 
 # ---------------------------------------------------------------------------

@@ -292,6 +292,13 @@ class PackedGroups:
         return self._bucket_cache[key]
 
 
+def container_words(c: Container) -> np.ndarray:
+    """A container as its int32 ``[2048]`` device row (the uint32 bits of
+    the JAX package's ``store.container_words_u32``)."""
+    w = c.words if isinstance(c, BitmapContainer) else c.to_words()
+    return np.ascontiguousarray(w, dtype=np.uint64).view(np.int32)
+
+
 def group_by_key(
     bitmaps: Sequence[RoaringBitmap], keys_filter: Optional[set] = None
 ) -> Dict[int, List[Container]]:

@@ -255,3 +255,78 @@ def test_cuda_expansion_matches_host_expansion():
     payload = tstore.RowPayload.from_containers(cs)
     got = payload.expand_device("cuda").cpu().numpy().view(np.uint32)
     assert np.array_equal(got, payload.expand_host())
+
+
+ONEIL_OPS = ("EQ", "NEQ", "GT", "LT", "LE", "GE", "RANGE")
+
+
+def _oneil_inputs(rng, s, k, q, op, device):
+    """Slices whose columns hold a random ``value`` with each bit flipped
+    with probability 1/32, so a good share of them equal it and EQ/NEQ
+    answers are far from empty or full; the ebm is ~3/4 of the columns and
+    fixed a subset of it. Query 0 is ``value`` (RANGE: value +- 2**(s//2)),
+    the others are drawn like the columns."""
+
+    def rand():
+        return rng.integers(0, 1 << 32, size=(k, W), dtype=np.uint64).astype(np.uint32)
+
+    def near(v):
+        return v ^ sum(1 << i for i in np.flatnonzero(rng.random(s) < 1 / 32).tolist())
+
+    value = (1 << (s - 1)) | sum(int(b) << i for i, b in enumerate(rng.integers(0, 2, size=s - 2)))
+    ebm = rand() | rand()
+    slices = np.stack([
+        (rand() & rand() & rand() & rand() & rand()) ^ np.uint32(0xFFFFFFFF if value >> i & 1 else 0)
+        for i in range(s)
+    ]) & ebm
+    fixed = ebm & rand()
+
+    def pred(v):
+        return [v >> i & 1 for i in range(s - 1, -1, -1)]
+
+    walks = []
+    for j in range(q):
+        v = value if j == 0 else near(value)
+        d = 1 << (s // 2)
+        walks.append([pred(max(v - d, 0)), pred(min(v + d, (1 << s) - 1))] if op == "RANGE" else [pred(v)])
+    bits = np.asarray(walks, dtype=np.int32)
+    return [_t(a).to(device) for a in (slices, ebm, fixed)] + [torch.from_numpy(bits).to(device)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ONEIL_OPS)
+def test_cuda_oneil_compare_matches_plain_version(op):
+    _need_card()
+    rng = np.random.default_rng(SEED)
+    for s, k, q in ((32, 37, 1), (70, 5, 1), (13, 9, 17)):
+        slices, ebm, fixed, bits = _oneil_inputs(rng, s, k, q, op, "cuda")
+        count_only = q > 1
+        key = "rb_oneil_compare[batched]" if q > 1 else "rb_oneil_compare"
+        before = K.LAUNCHES[key]
+        got_out, got_cards = K.oneil_compare(slices, bits, ebm, fixed, op, count_only)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[key] == before + 1
+        want_out, want_cards = K.oneil_compare_plain(slices, bits, ebm, fixed, op, count_only)
+        # neither empty nor all of fixed: a wrong epilogue cannot pass
+        assert 0 < int(want_cards.sum()) < q * int(K.popcount_rows_plain(fixed).sum()), (s, k, q)
+        assert torch.equal(got_cards, want_cards), (s, k, q)
+        if not count_only:
+            assert torch.equal(got_out, want_out), (s, k, q)
+
+
+@pytest.mark.cuda
+def test_cuda_masked_popcount_and_wide_reduce_match_plain_versions():
+    _need_card()
+    rng = np.random.default_rng(SEED)
+    slices, ebm, fixed, _ = _oneil_inputs(rng, 6, 11, 1, "GE", "cuda")
+    before = K.LAUNCHES["rb_popcount_rows[masked]"]
+    assert torch.equal(K.popcount_rows(slices, mask=fixed), K.popcount_rows_plain(slices, mask=fixed))
+    assert K.LAUNCHES["rb_popcount_rows[masked]"] == before + 1
+    for op in OPS:
+        words = _t(_words(rng, (1000, W), op)).cuda()
+        before = K.LAUNCHES["wide_reduce_cardinality"]
+        red, card = K.wide_reduce_cardinality(words, op)
+        want_red, want_card = K.wide_reduce_cardinality_plain(words, op)
+        assert torch.equal(red, want_red) and int(card) == int(want_card), op
+        assert K.LAUNCHES["wide_reduce_cardinality"] == before + 1
+

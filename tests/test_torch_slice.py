@@ -225,6 +225,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import roaringbitmap_tpu_torch\n"
         "from roaringbitmap_tpu_torch.parallel import store, aggregation\n"
         "from roaringbitmap_tpu_torch.ops import kernels, _build\n"
+        "from roaringbitmap_tpu_torch.models import bsi, bsi_buffer, range_bitmap\n"
         "from roaringbitmap_tpu_torch import interop, serialization\n"
         "bad = [m for m in set(sys.modules) - before\n"
         "       if m in ('jax', 'jaxlib', 'roaringbitmap_tpu')\n"
