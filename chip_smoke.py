@@ -9,7 +9,8 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
 1. card: ``nvidia-smi`` name and power limit, torch's device name and count;
 2. build: ``nvcc`` of ``roaringbitmap_tpu_torch/csrc/*.cu`` (one compiler
    per source, started together) with ``-Xptxas -v`` (registers, shared
-   memory, spills);
+   memory, spills), and the instruction count of the tiled O'Neil walk's
+   slice loop from ``cuobjdump -sass``;
 3. kernels against their plain PyTorch versions at the main paths' shapes —
    ``rb_group_reduce`` dense ``[31, 10000, 2048]``, CSR over skewed
    offsets and through a row map, for or, and and xor; ``rb_popcount_rows``
@@ -17,7 +18,12 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    seven ops at ``[32, 1526, 2048]`` over values near the predicate (so
    EQ and NEQ answers are far from empty or full; EQ, NEQ and GE also with
    a found set that differs from the ebm), count-only over 64 queries, and
-   EQ and RANGE with 70 slices; the
+   EQ and RANGE with 70 slices; the tiled count-only walk
+   (``rb_oneil_counts``) for every op at Q = 8, 13, 64, 100 and 256, with
+   and without a found set, timed against the per-query design at Q = 8,
+   64 and 256 beside its byte and operation bounds, the walk's own
+   instruction floor and the SM clock; 405-slice batches, which must run
+   on the per-query kernel, checked and timed at Q = 64; the
    masked popcount at ``[32, 1526, 2048]``; the one-segment wide reduce at
    ``[131072, 2048]`` for or, and and xor — bitwise equality required,
    with kernel time (CUDA events), bound and the plain version's time;
@@ -36,9 +42,10 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    32 slices, built through ``set_values`` as ``benchmarks/bsi.py`` builds
    it; ``compare`` and ``compare_cardinality`` for every op (with a 5%
    found set, and NEQ with a found set reaching chunks outside the ebm),
-   ``compare_cardinality_many`` over 64 quantile thresholds and ``sum``,
-   each against a numpy oracle computed from the values; launch counts
-   zeroed before and read after; first-query, steady-kernel, end-to-end
+   ``compare_cardinality_many`` over 64 quantile thresholds (one launch of
+   the tiled walk) and ``sum``, each against a numpy oracle computed from
+   the values; launch counts zeroed before and read after; first-query,
+   steady-kernel (the batched walk beside its bounds), end-to-end
    and batched timings; peak device memory;
 7. ``RangeBitmap`` at 10,000,000 rows, for correctness only: appender,
    queries, batched counts, the reference-format bytes and ``map`` of
@@ -79,6 +86,18 @@ AGGREGATION_KERNELS = (
 )
 REPS = 20
 E2E_RUNS = 10  # end-to-end runs per median: the pass is host-bound and noisy
+# logic instructions (LOP3) an SM issues per clock on the H100: 64 INT32
+# lanes (NVIDIA Hopper architecture white paper)
+LOGIC_LANES_PER_SM = 64
+# logic instructions a column needs, for each 32 slices, in a formulation
+# of the batched count that rebuilds each column's value (a 32 x 32 bit
+# transpose) and ranks it among the sorted thresholds into a per-tile
+# histogram of 2Q + 1 bins: about 20 whatever Q is (worked out from the
+# instruction counts, not timed)
+RANK_OPS_PER_COLUMN = 20
+SWEEP_Q = (8, 64, 256)  # the tiled walk against the per-query design
+CHECK_Q = (8, 13, 64, 100, 256)  # bitwise checks of the tiled walk, every op
+ONEIL_OPS = ("EQ", "NEQ", "GT", "LT", "LE", "GE", "RANGE")
 
 
 def fail(msg: str) -> None:
@@ -107,6 +126,53 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
 
 def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def smi_clocks() -> str:
+    """The SM clock, its maximum, the power draw and the power limit, as
+    ``nvidia-smi`` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+    )
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "not measured"
+
+
+def _mhz(field: str) -> float:
+    return float(field.strip().split()[0])
+
+
+def oneil_word_ops(bits: np.ndarray) -> int:
+    """Logic instructions the tiled walk spends per column word for
+    predicate bits int [Q, W, S], summed over the queries: one per walk and
+    slice (a carry step, or an EQ step), whatever the bits are. This is the
+    design's own floor, not what the function needs."""
+    return int(np.prod(bits.shape))
+
+
+def ops_bound_ms(word_ops: int, n_keys: int, mhz: float) -> float:
+    """Least time for ``word_ops`` logic instructions on each of the K * 2048
+    column words at the card's logic rate (SMs x 64 lanes x SM clock)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return word_ops * n_keys * 2048 / (sms * LOGIC_LANES_PER_SM * mhz * 1e6) * 1e3
+
+
+def batched_bound(s_count: int, k: int, q_n: int, fixed_is_ebm: bool, mhz: float):
+    """The batched count's bound, from what the function needs rather than
+    what the walk does: (ms, "bytes" or "operations", byte bound, operation
+    bound). Bytes: the slices, ebm and fixed read once and the [Q, K] cards
+    written once. Operations: RANK_OPS_PER_COLUMN logic instructions a
+    column for each 32 slices, whatever Q is."""
+    b_bytes = bound_ms(_oneil_bytes(s_count, k, q_n, fixed_is_ebm, True))
+    b_ops = ops_bound_ms(RANK_OPS_PER_COLUMN * 32 * -(-s_count // 32), k, mhz)
+    return max(b_bytes, b_ops), "operations" if b_ops > b_bytes else "bytes", b_bytes, b_ops
+
+
+def max_sm_mhz() -> float:
+    """The SM clock's maximum as ``nvidia-smi`` gives it (1980 MHz on the
+    H100 SXM where it cannot be read)."""
+    fields = smi_clocks().split(",")
+    return _mhz(fields[1]) if len(fields) == 4 else 1980.0
 
 
 # ---------------------------------------------------------------------------
@@ -146,6 +212,61 @@ def phase_build():
         if any(k in line for k in ("registers", "spill", "Compiling entry", "error", "warning")):
             say(f"[build] {line.strip()}")
     _build.load()
+    say(f"[build] {sass_slice_loop(path)}")
+
+
+# the tiled walk's GE instance and the shape of its slice loop (oneil.cu:
+# kUnroll slices x kGroupWalks walks x kVec words per pass)
+_TILED_GE = "oneil_tiled_kernelILi5E"
+_LOOP_WORD_STEPS = 4 * 16 * 4
+
+
+def sass_slice_loop(lib_path) -> str:
+    """Instruction counts of the tiled GE walk's innermost loop that loads
+    slices (the smallest backward branch whose range holds an LDS.128), from
+    ``cuobjdump -sass`` of the built library, and the issue slots and logic
+    instructions per word-step they imply (the loop has no branch inside:
+    every instruction in it issues once a pass)."""
+    import re
+    from pathlib import Path
+
+    from roaringbitmap_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    if not tool.is_file():
+        return "SASS count of the slice loop: not measured (no cuobjdump)"
+    dump = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True)
+    text = dump.stdout
+    start = text.find(_TILED_GE)
+    if dump.returncode != 0 or start < 0:
+        return "SASS count of the slice loop: not measured (cuobjdump found no tiled kernel)"
+    end = text.find("Function :", start)
+    inst = []  # (address, opcode, text)
+    for line in text[start:end if end > 0 else len(text)].splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*);", line)
+        if m:
+            inst.append((int(m.group(1), 16), m.group(3), m.group(3) + m.group(4)))
+    loops = []
+    for addr, opc, txt in inst:
+        t = re.search(r"BRA(?:\.[A-Z.]+)?\s+(0x[0-9a-f]+)", txt)
+        if opc.startswith("BRA") and t and int(t.group(1), 16) < addr:
+            body = [x for x in inst if int(t.group(1), 16) <= x[0] <= addr]
+            if any(x[1].startswith("LDS.128") for x in body):
+                loops.append(body)
+    if not loops:
+        return "SASS count of the slice loop: not measured (no loop loads the tile)"
+    body = min(loops, key=len)
+    counts = {}
+    for _, opc, _ in body:
+        key = opc.split(".")[0]
+        counts[key] = counts.get(key, 0) + 1
+    lop3 = counts.get("LOP3", 0)
+    top = ", ".join(f"{k} {v}" for k, v in sorted(counts.items(), key=lambda kv: -kv[1]))
+    return (
+        f"SASS of the tiled GE walk's slice loop ({_LOOP_WORD_STEPS} word-steps a pass: 4 slices x "
+        f"16 walks x 4 words): {len(body)} instructions ({top}); {len(body) / _LOOP_WORD_STEPS:.2f} "
+        f"issue slots and {lop3 / _LOOP_WORD_STEPS:.2f} logic instructions per word-step"
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -321,6 +442,137 @@ def _oneil_case(K, card, name, slices, bits, ebm, fixed, op, count_only):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b)
 
 
+def _thresholds(rng, pred: int, q_n: int):
+    """q_n thresholds drawn like the phase-3 values (pred with each bit
+    flipped with probability 1/32), sorted."""
+    flips = np.bitwise_and.reduce(rng.integers(0, 1 << 32, size=(5, q_n), dtype=np.uint64), axis=0)
+    return [int(v) for v in np.sort(np.uint64(pred) ^ flips)]
+
+
+def _walks(op: str, qs, s_count: int, span: int = 1 << 20):
+    """int32 [Q, W, S] predicate bits for thresholds ``qs`` (RANGE: each
+    threshold to threshold + span, capped at the largest value)."""
+    cap = (1 << s_count) - 1
+    if op == "RANGE":
+        return [[_pred_bits(q, s_count), _pred_bits(min(q + span, cap), s_count)] for q in qs]
+    return [[_pred_bits(q, s_count)] for q in qs]
+
+
+def phase_tiled_walk(K, card: str, slices, ebm, found, pred: int):
+    """The tiled count-only walk (``rb_oneil_counts``): bitwise against the
+    plain version for every op at Q in CHECK_Q, with and without a found
+    set; timed against the per-query design (``oneil_counts_per_query``)
+    in the same call at Q in SWEEP_Q, each beside its byte bound and its
+    operation bound; and a batch past the tile's depth limit, which must
+    run on the per-query kernel."""
+    rng = np.random.default_rng(SEED + 3)
+    s_count, k = slices.shape[0], slices.shape[1]
+    fixed_bits = int(K.popcount_rows(found).long().sum())
+    ebm_bits = int(K.popcount_rows(ebm).long().sum())
+    for q_n in CHECK_Q:
+        qs = _thresholds(rng, pred, q_n)
+        for op in ONEIL_OPS:
+            bits = _bits_tensor(_walks(op, qs, s_count))
+            for fixed, label, full in ((ebm, "no found set", ebm_bits), (found, "a found set", fixed_bits)):
+                before = K.LAUNCHES["rb_oneil_compare[batched]"]
+                got = K.oneil_compare(slices, bits, ebm, fixed, op, True)[1]
+                torch.cuda.synchronize()
+                if K.LAUNCHES["rb_oneil_compare[batched]"] != before + 1:
+                    fail(f"tiled walk {op} Q={q_n}: launches {K.LAUNCHES}")
+                want = K.oneil_compare_plain(slices, bits, ebm, fixed, op, True)[1]
+                _compare(f"rb_oneil_compare[batched] {op} Q={q_n} with {label}", got, want)
+                hits = int(want.long().sum())
+                if not 0 < hits < q_n * full:
+                    fail(f"tiled walk {op} Q={q_n} with {label}: the plain answer has {hits} bits")
+        say(f"[kernel] rb_oneil_compare[batched] Q={q_n}: all 7 ops equal to the plain version, "
+            f"with and without a found set  [{card}]")
+
+    out = {}
+    mhz_max = max_sm_mhz()
+    for q_n in SWEEP_Q:
+        qs = _thresholds(rng, pred, q_n)
+        bits = _bits_tensor(_walks("GE", qs, s_count))
+        tiled = K.oneil_compare(slices, bits, ebm, ebm, "GE", True)[1]
+        per_query = K.oneil_counts_per_query(slices, bits, ebm, ebm, "GE")
+        want = K.oneil_compare_plain(slices, bits, ebm, ebm, "GE", True)[1]
+        err = max(_compare(f"tiled walk GE Q={q_n}", tiled, want),
+                  _compare(f"per-query walk GE Q={q_n}", per_query, want))
+        # in turns: per-query, tiled, tiled, per-query
+        pq1 = cuda_ms(lambda: K.oneil_counts_per_query(slices, bits, ebm, ebm, "GE"))
+        t1 = cuda_ms(lambda: K.oneil_compare(slices, bits, ebm, ebm, "GE", True))
+        t2 = cuda_ms(lambda: K.oneil_compare(slices, bits, ebm, ebm, "GE", True))
+        pq2 = cuda_ms(lambda: K.oneil_counts_per_query(slices, bits, ebm, ebm, "GE"))
+        # the SM clock beside a window of tiled launches
+        torch.cuda.synchronize()
+        for _ in range(max(20, int(300 / max(t1, 0.05)))):
+            K.oneil_compare(slices, bits, ebm, ebm, "GE", True)
+        clocks = smi_clocks()
+        torch.cuda.synchronize()
+        ms, pq = min(t1, t2), min(pq1, pq2)
+        b, by, b_bytes, b_ops = batched_bound(s_count, k, q_n, True, mhz_max)
+        word_ops = oneil_word_ops(bits.cpu().numpy())
+        walk = ops_bound_ms(word_ops, k, mhz_max)
+        say(
+            f"[kernel] tiled vs per-query GE count-only Q={q_n} [{s_count}, {k}, 2048]: equal; tiled "
+            f"{t1:.4f} / {t2:.4f} ms ({ms / q_n:.5f} ms per query), per-query {pq1:.4f} / {pq2:.4f} ms "
+            f"({pq / q_n:.5f} per query), {pq / ms:.2f}x; byte bound {b_bytes:.4f} ms, operation bound "
+            f"{b_ops:.4f} ms ({RANK_OPS_PER_COLUMN} logic instructions a column, whatever Q is, at the "
+            f"{mhz_max:.0f} MHz maximum SM clock): {by} bind, {b / ms:.1%} of the bound; the walk's own "
+            f"floor {walk:.4f} ms ({word_ops / (q_n * s_count):.4f} logic instructions per word-step): "
+            f"{walk / ms:.1%} of it; clocks.sm, clocks.max.sm, power.draw, power.limit beside the "
+            f"window: {clocks}  [{card}]"
+        )
+        if q_n == BATCH_Q:
+            plain = cuda_ms(
+                lambda: K.oneil_compare_plain(slices, bits, ebm, ebm, "GE", True), reps=3, warmup=1)
+            out["rb_oneil_compare[batched]"] = dict(
+                replaces="roaringbitmap_tpu/models/bsi.py:974", max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=b, bound_by=by)
+            if not ms < pq:
+                fail(f"the tiled walk ({ms:.4f} ms) is not faster than the per-query design ({pq:.4f} ms)")
+
+    # past the tile's depth limit the batch runs on the per-query kernel
+    deep, kd = K.MAX_TILED_SLICES + 9, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    big = (1 << (deep - 1)) | 0x9E3779B97F4A7C15
+    ebm_d = ebm[:kd].contiguous()
+    slices_d = _near_slices(gen, big, deep, ebm_d, 6)
+    found_d = found[:kd].contiguous()
+    found_bits = int(K.popcount_rows(found_d).long().sum())
+    for op, qs in (("GE", [big ^ (1 << i) for i in range(0, 8 * 50, 50)]),
+                   ("RANGE", [big ^ (1 << i) for i in range(0, 8 * 50, 50)]),
+                   ("GE", [big ^ (1 << i) for i in range(0, 6 * BATCH_Q, 6)])):
+        bits = _bits_tensor(_walks(op, qs, deep, span=1 << 200))
+        before = dict(K.LAUNCHES)
+        got = K.oneil_compare(slices_d, bits, ebm_d, found_d, op, True)[1]
+        torch.cuda.synchronize()
+        if K.LAUNCHES != {**before, "rb_oneil_compare[batched-deep]": before["rb_oneil_compare[batched-deep]"] + 1}:
+            fail(f"{deep} slices did not run on the per-query kernel: {K.LAUNCHES}")
+        want = K.oneil_compare_plain(slices_d, bits, ebm_d, found_d, op, True)[1]
+        err = _compare(f"rb_oneil_compare[batched-deep] {op} Q={len(qs)} [{deep}, {kd}, 2048]", got, want)
+        hits = int(want.long().sum())
+        if not 0 < hits < len(qs) * found_bits:
+            fail(f"deep {op}: the plain answer has {hits} bits; the inputs do not test the op")
+        say(f"[kernel] rb_oneil_compare[batched-deep] {op} Q={len(qs)} [{deep}, {kd}, 2048] "
+            f"(past the tiled walk's {K.MAX_TILED_SLICES} slices): equal ({hits} result bits)  [{card}]")
+    # the deep path's row: the last batch, GE over BATCH_Q thresholds
+    ms = cuda_ms(lambda: K.oneil_compare(slices_d, bits, ebm_d, found_d, "GE", True))
+    plain = cuda_ms(lambda: K.oneil_compare_plain(slices_d, bits, ebm_d, found_d, "GE", True), reps=3, warmup=1)
+    b, by, b_bytes, b_ops = batched_bound(deep, kd, BATCH_Q, False, mhz_max)
+    say(
+        f"[kernel] rb_oneil_compare[batched-deep] GE count-only Q={BATCH_Q} [{deep}, {kd}, 2048] with a "
+        f"found set: {ms:.4f} ms ({ms / BATCH_Q:.5f} ms per query); byte bound {b_bytes:.4f} ms, "
+        f"operation bound {b_ops:.4f} ms: {by} bind, {b / ms:.1%} of the bound; plain {plain:.3f} ms; "
+        f"library call: none  [{card}]"
+    )
+    out["rb_oneil_compare[batched-deep]"] = dict(
+        replaces="roaringbitmap_tpu/models/bsi.py:974", max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=b, bound_by=by)
+    del slices_d
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_bsi_kernels(card: str):
     """``rb_oneil_compare``, the masked popcount and the wide reduce against
     their plain versions at the BSI north star's shapes."""
@@ -372,12 +624,12 @@ def phase_bsi_kernels(card: str):
         K, card, f"rb_oneil_compare[batched] GE count-only Q={BATCH_Q} [{s_count}, {k}, 2048]",
         slices, _bits_tensor([[_pred_bits(int(q), s_count)] for q in qs]), ebm, ebm, "GE", True,
     )
-    results["rb_oneil_compare[batched]"] = dict(r, replaces="roaringbitmap_tpu/models/bsi.py:974")
     say(
         f"[kernel] rb_oneil_compare[batched]: {r['ms'] / BATCH_Q:.4f} ms per query over "
         f"{BATCH_Q} queries; re-reading the slices once per query from device memory "
         f"would bound it at {bound_ms(BATCH_Q * s_count * k * ROW_BYTES):.4f} ms  [{card}]"
     )
+    results.update(phase_tiled_walk(K, card, slices, ebm, found, pred))
     deep = 70
     big = (1 << 69) | 0x123456789ABCDEF
     slices70 = _near_slices(gen, big, deep, ebm, 6)  # ~33% of the columns equal big
@@ -786,6 +1038,10 @@ def phase_bsi(card: str):
     for name in ("rb_oneil_compare", "rb_oneil_compare[batched]", "rb_popcount_rows[masked]"):
         if launches[name] == 0:
             fail(f"kernel {name} was not launched on the BSI path")
+    # one compare_cardinality_many, one launch of the tiled walk; the index
+    # is far shallower than the tile's limit
+    if launches["rb_oneil_compare[batched]"] != 1 or launches["rb_oneil_compare[batched-deep]"]:
+        fail(f"compare_cardinality_many did not take one tiled launch: {launches}")
     peak_queries = torch.cuda.max_memory_allocated()
     del srt
 
@@ -793,6 +1049,23 @@ def phase_bsi(card: str):
     keys, ebm_w, slices_w = index._pack_dense()
     bits = _bits_tensor([[_pred_bits(med, S_BSI)]])
     steady = cuda_ms(lambda: K.oneil_compare(slices_w, bits, ebm_w, ebm_w, "GE"))
+    # the batched count's kernel on the resident pack, at the 64 quantiles
+    bits_q = _bits_tensor(_walks("GE", [int(v) for v in q_vals], S_BSI))
+    steady_many = cuda_ms(lambda: K.oneil_compare(slices_w, bits_q, ebm_w, ebm_w, "GE", True))
+    clocks = smi_clocks()
+    fields = clocks.split(",")
+    mhz = _mhz(fields[1]) if len(fields) == 4 else 1980.0
+    b_many, by, b_bytes, b_ops = batched_bound(S_BSI, K_BSI, BATCH_Q, True, mhz)
+    word_ops = oneil_word_ops(bits_q.cpu().numpy())
+    walk = ops_bound_ms(word_ops, K_BSI, mhz)
+    say(
+        f"[bsi] steady rb_oneil_compare[batched] GE over the {BATCH_Q} quantile thresholds on the "
+        f"resident pack: {steady_many:.4f} ms ({REPS} reps); byte bound {b_bytes:.4f} ms, operation "
+        f"bound {b_ops:.4f} ms: {by} bind, {b_many / steady_many:.1%} of the bound; the walk's own "
+        f"floor {walk:.4f} ms ({word_ops / (BATCH_Q * S_BSI):.4f} logic instructions per word-step): "
+        f"{walk / steady_many:.1%} of it; clocks.sm, clocks.max.sm, power.draw, power.limit after: "
+        f"{clocks}  [{card}]"
+    )
     # one instrumented pass of compare GE: each stage timed on its own
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -927,7 +1200,8 @@ def main():
         # the masked popcount; the wide reduce is on neither
         launches = dict(agg_launches)
         for name in ("rb_oneil_compare", "rb_oneil_compare[batched]",
-                     "rb_popcount_rows[masked]", "wide_reduce_cardinality"):
+                     "rb_oneil_compare[batched-deep]", "rb_popcount_rows[masked]",
+                     "wide_reduce_cardinality"):
             launches[name] = bsi_launches[name]
     kernels = []
     for name, t in timings.items():
@@ -942,7 +1216,7 @@ def main():
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
-            "bound_by": "bytes",
+            "bound_by": t.get("bound_by", "bytes"),
             "library_ms": None,
         })
     say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")

@@ -1,6 +1,6 @@
-// Hand-written Hopper (sm_90a) kernel of the BSI range-query path.
+// Hand-written Hopper (sm_90a) kernels of the BSI range-query path.
 //
-// rb_oneil_compare<op> replaces, on this path:
+// They replace, on this path:
 //   roaringbitmap_tpu/ops/pallas_kernels.py:oneil_compare_pallas
 //     (the fused O'Neil compare, one query: [S, K, 2048] slices, the
 //     predicate bits, [K, 2048] ebm and fixed words -> [K, 2048] result
@@ -9,42 +9,79 @@
 //     (the XLA vmap of o_neil_math over a [Q, S] or [Q, 2, S] predicate
 //     axis, count-only -> [Q, K] popcounts)
 //
-// What bounds it: each slice word is read once per query and takes three to
-// five bitwise ops, far below the card's integer rate, so device-memory
-// bandwidth is the bound. One compare reads S*K*8 KiB of slices plus the ebm
-// and fixed words and writes the result words and K cards: 437.5 MB, 0.1306
-// ms at 3.35 TB/s for the 100M-row, 32-slice index (K = 1526); count-only,
-// or with no found set (fixed is the ebm, read once), 425.0 MB, 0.1269 ms.
-// A batch of Q count-only queries needs the same single pass over the slices
-// (412.9 MB, 0.1233 ms, with no found set).
+// Two kernels, picked by shape in ops/kernels.py:
 //
-// What the design does about it. One CTA per (query, key chunk), 512
-// threads; thread t owns the 16-byte column t of the chunk's 8 KiB row and
-// carries GT, LT and EQ (plus LT2 and EQ2 of the second walk for RANGE) in
-// registers over the S slices, from the highest slice down. The slice loads
-// do not depend on the walk's state, so kInFlight of them are issued before
-// the first is used; a warp's loads are 512 contiguous bytes. The predicate
-// bits arrive as a small int32 device array [Q, W, S] (W = 2 for RANGE), not
-// as a kernel argument, because an index can hold more than 64 slices; each
-// CTA turns its query's bits into all-ones / all-zero masks in shared memory,
-// so the walk is branch-free:
-//   lt |= m & eq & ~s;   gt |= ~m & eq & s;   eq &= ~(s ^ m).
-// Each CTA reduces its own row's popcount (warp shuffles, then the 16 warp
-// sums in shared memory) and writes cards[q, k] without atomics.
+// oneil_kernel (rb_oneil_compare): one query, or a count-only batch whose
+// slice tile does not fit in shared memory (S > 396). One CTA per (query,
+// key chunk), 512 threads; thread t owns the 16-byte column t of the chunk's
+// 8 KiB row and carries GT, LT and EQ (plus LT2 and EQ2 of the second walk
+// for RANGE) in registers over the S slices, from the highest slice down,
+// with kInFlight slice loads issued before the first is used. The predicate
+// bits arrive as an int32 device array [Q, W, S] (W = 2 for RANGE), because
+// an index can hold more than 64 slices; each CTA turns its query's bits
+// into all-ones / all-zero masks in shared memory, so the walk is
+// branch-free: lt |= m & eq & ~s; gt |= ~m & eq & s; eq &= ~(s ^ m). Each
+// CTA reduces its row's popcount and writes cards[q, k] without atomics.
+// What bounds it: one query reads each slice word once and spends three to
+// five bitwise ops on it, so device-memory bandwidth binds: 437.5 MB, 0.1306
+// ms at 3.35 TB/s for the 100M-row, 32-slice index with a found set (K =
+// 1526); 425.0 MB, 0.1269 ms when fixed is the ebm.
 //
-// Batched queries: the block index runs over queries fastest, so the Q CTAs
-// of one key chunk are resident together and read the same S * 8 KiB of
-// slices; L2 (50 MB) serves all but the first of those reads, which holds the
-// device-memory traffic near one pass over the slices. Staging a slice tile
-// in shared memory and running all Q walks on it is the later redesign.
+// oneil_tiled_kernel (rb_oneil_counts): the count-only walk of Q >= 2
+// predicates. What bounds it: the function needs the slices once (412.9
+// MB, 0.1233 ms for the index above), and a formulation that rebuilds each
+// column's value and ranks it among the thresholds would spend about 20
+// logic instructions a column whatever Q is (0.12 ms), so bytes bound the
+// function. This design instead walks every query over every word: Q * S *
+// K * 2048 word-steps, 6.40 G at Q = 64. The O'Neil step costs one or two
+// logic instructions a word-step (1.375-1.5 on average for the thresholds
+// it meets), plus a test and a branch on the predicate bit. This kernel
+// takes one: v >= t is the carry out of v + ~t + 1, and walking the slices
+// from the lowest up, the carry of one slice is maj(s, ~m, c) -- one LOP3
+// over the slice word s, the threshold bit m as an all-ones / all-zero mask
+// and the carry c, whatever m is, with no branch:
+//   GE: carry in 1, answer c      GT: carry in 0, answer c
+//   LT: carry in 1, answer ~c     LE: carry in 0, answer ~c
+//   RANGE: a GE chain on lo and a GT chain on hi, answer c_lo & ~c_hi
+//   EQ / NEQ: eq &= ~(s ^ m) from the ebm, answer eq / ~eq
+// each answer masked with the ebm and the found set. The card issues logic
+// instructions at 64 lanes per SM per clock, so this design's own floor is
+// W * S * Q * K * 2048 / (132 * 64 * 1.98 GHz): 0.383 ms at Q = 64, three
+// times the function's byte bound. From Q ~ 21 up the walk's instruction
+// count, not the bytes, sets its time; below that the single pass does.
+// What the design does about it:
+//   1. One pass over the slices. A CTA owns a tile of T words of one key
+//      chunk and stages the tile's [S, T] slice words, its ebm and its fixed
+//      words in dynamic shared memory with cp.async.bulk (one thread issues
+//      the copies) completing on one mbarrier. T (1024 down to 128) and the
+//      shared-memory size are the wrapper's (ops/kernels.py:
+//      oneil_tile_plan), which keeps the most warps resident; at S = 32
+//      three 512-word CTAs share an SM, one staging while the others walk.
+//      Device memory and L2 carry the slices once, not Q times.
+//   2. Every query on the tile. Thread t owns kVec = 4 words (one LDS.128 a
+//      slice). The queries are walked kGroupWalks = 16 walks at a time (16
+//      queries, or 8 RANGE queries), whose chains live in registers; slices
+//      are the outer loop and the group's walks the inner one, so each
+//      shared-memory load of a slice serves 16 walks.
+//   3. The masks. The predicate bits are packed into 32-bit words in shared
+//      memory (one __ballot_sync per word), and each group's bits expanded
+//      into a [16][S] table of masks, read with one broadcast LDS.128 per
+//      walk and four slices: the inner loop is one LOP3 per word-step and
+//      nothing else (the SASS count is printed by chip_smoke.py).
+//   4. Cards. Each query's popcount is summed in the warp with
+//      __reduce_add_sync, then across the CTA's warps in shared memory, and
+//      added into cards[q, k] with an integer atomicAdd (a chunk spans 2048 /
+//      T tiles). Integer addition is exact and order-free, so the result is
+//      the same on every run; the wrapper zero-fills cards.
 //
 // The interface is plain C for ctypes: pointers and the stream arrive as
-// void*, the entry point sets the device, launches on the caller's stream
-// without synchronising, allocates nothing, and returns cudaGetLastError().
+// void*, the entry points set the device, launch on the caller's stream
+// without synchronising, allocate nothing, and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <initializer_list>
 
 namespace {
 
@@ -173,6 +210,221 @@ void launch(const void* slices, int n_slices, long long n_keys, const void* bits
       static_cast<uint4*>(out), static_cast<int*>(cards));
 }
 
+// ---------------------------------------------------------------------------
+// the tiled count-only walk of Q >= 2 predicates
+// ---------------------------------------------------------------------------
+
+constexpr int kVec = 4;                          // words a thread owns
+constexpr int kMaxTileWords = 1024;
+constexpr int kMaxTileThreads = kMaxTileWords / kVec;
+constexpr int kMaxTileWarps = kMaxTileThreads / 32;
+constexpr int kGroupWalks = 16;                  // walks a group keeps in registers
+constexpr int kUnroll = 4;                       // slices a mask load covers
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// carry step of v + ~t (+ 1), one slice: c' = maj(s, ~m, c), s the slice
+// word, m the threshold bit as an all-ones / all-zero mask
+constexpr int kCarry = 0xB2;  // lop3 LUT over a = s, b = m, c = c
+// EQ step: eq' = eq & ~(s ^ m)
+constexpr int kEqual = 0x90;  // lop3 LUT over a = eq, b = s, c = m
+
+template <int LUT>  // LUT over a = 0xF0, b = 0xCC, c = 0xAA
+__device__ __forceinline__ uint32_t lop3(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, %4;" : "=r"(d) : "r"(a), "r"(b), "r"(c), "n"(LUT));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// thread t's kVec = 4 words of a shared-memory row: one LDS.128, a warp's
+// loads contiguous
+__device__ __forceinline__ void load_words(uint32_t (&w)[kVec], const uint32_t* row, int t) {
+  const uint4 x = reinterpret_cast<const uint4*>(row)[t];
+  w[0] = x.x;
+  w[1] = x.y;
+  w[2] = x.z;
+  w[3] = x.w;
+}
+
+// Dynamic shared memory: [S][T] slice words (row i is slice i), [T] ebm,
+// [T] fixed, the packed predicate bits [Q][W][NW] (NW = ceil(S / 32); bit
+// p % 32 of word p / 32 is walk position p, i.e. slice S-1-p), then the
+// current group's masks [kGroupWalks][S4] (S4 = S rounded up to 4; entry i
+// of row g * W + w is all ones where bit w of query g at slice i is set).
+// blockIdx.x = k * (2048 / T) + tile. bits, cards: this launch's queries.
+template <int OP>
+__global__ void __launch_bounds__(kMaxTileThreads, 2)
+oneil_tiled_kernel(const uint32_t* __restrict__ slices, int n_slices, long long n_keys,
+                   const int* __restrict__ bits, int n_queries,
+                   const uint32_t* __restrict__ ebm, const uint32_t* __restrict__ fixed,
+                   int* __restrict__ cards, int tile_words) {
+  constexpr int W = OP == kRange ? 2 : 1;
+  constexpr int QG = kGroupWalks / W;
+  // the chains each walk starts from: all ones for v >= t (the + 1 of
+  // v + ~t + 1), zero for v > t; EQ starts from the ebm
+  constexpr bool kCarryIn = OP == kGe || OP == kLt || OP == kRange;
+  extern __shared__ __align__(128) uint32_t smem[];
+  __shared__ uint64_t bar_word;
+  __shared__ int red[kGroupWalks][kMaxTileWarps];
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int tiles = kWords / tile_words;
+  const long long k = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x % tiles) * tile_words;
+  const int nw = (n_slices + 31) >> 5;
+  const int s4 = (n_slices + 3) & ~3;
+  uint32_t* s_ebm = smem + static_cast<size_t>(n_slices) * tile_words;
+  uint32_t* s_fixed = s_ebm + tile_words;
+  uint32_t* s_bits = s_fixed + tile_words;
+  uint32_t* s_mask = s_bits + ((n_queries * W * nw + 3) & ~3);  // 16-byte aligned
+
+  // 1. stage the tile: S + 2 rows of T words, one bulk copy each
+  const uint32_t bar = smem_addr(&bar_word);
+  if (t == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (t == 0) {
+    const uint32_t row = static_cast<uint32_t>(tile_words) * 4u;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(row * static_cast<uint32_t>(n_slices + 2)) : "memory");
+    const long long col = k * kWords + t0;
+    const long long stride = n_keys * kWords;
+    for (int i = 0; i < n_slices; ++i) {
+      bulk_load(smem + static_cast<size_t>(i) * tile_words, slices + i * stride + col, row, bar);
+    }
+    bulk_load(s_ebm, ebm + col, row, bar);
+    bulk_load(s_fixed, fixed + col, row, bar);
+  }
+  // meanwhile pack the predicate bits: one ballot per 32 walk positions
+  for (int i = warp; i < n_queries * W * nw; i += n_warps) {
+    const int r = i / nw;  // query * W + walk
+    const int pos = (i - r * nw) * 32 + lane;
+    const int v = pos < n_slices ? bits[static_cast<long long>(r) * n_slices + pos] : 0;
+    const uint32_t word = __ballot_sync(kFull, v != 0);
+    if (lane == 0) s_bits[i] = word;
+  }
+  wait_phase(bar, 0);
+
+  uint32_t ew[kVec], fw[kVec], fe[kVec];
+  load_words(ew, s_ebm, t);
+  load_words(fw, s_fixed, t);
+#pragma unroll
+  for (int c = 0; c < kVec; ++c) fe[c] = fw[c] & ew[c];  // every walk's answer lies in the ebm
+
+  // 2. every query on the tile, QG at a time
+  for (int g = 0; g < n_queries; g += QG) {
+    __syncthreads();  // the bits are packed; the last group's masks are read
+    // this group's masks; a query past the end repeats query g and is
+    // never counted
+    for (int i = t; i < kGroupWalks * s4; i += blockDim.x) {
+      const int r = i / s4;  // qi * W + walk
+      const int slice = i - r * s4;
+      const int q = g + r / W < n_queries ? g + r / W : g;
+      const int pos = n_slices - 1 - slice;
+      const uint32_t word = slice < n_slices ? s_bits[(q * W + r % W) * nw + (pos >> 5)] : 0u;
+      s_mask[i] = ((word >> (pos & 31)) & 1u) ? kFull : 0u;
+    }
+    __syncthreads();
+
+    uint32_t ch[kGroupWalks][kVec];  // walk r = qi * W + w
+#pragma unroll
+    for (int r = 0; r < kGroupWalks; ++r) {
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) {
+        ch[r][c] = (OP == kEq || OP == kNeq) ? ew[c]
+                   : ((OP == kRange ? r % 2 == 0 : kCarryIn) ? kFull : 0u);
+      }
+    }
+    for (int i0 = 0; i0 < n_slices; i0 += kUnroll) {
+      uint32_t sv[kUnroll][kVec];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (i0 + u < n_slices) load_words(sv[u], smem + static_cast<size_t>(i0 + u) * tile_words, t);
+      }
+#pragma unroll
+      for (int r = 0; r < kGroupWalks; ++r) {
+        // the walk's masks of these kUnroll slices: one broadcast LDS.128
+        const uint4 m4 = *reinterpret_cast<const uint4*>(s_mask + r * s4 + i0);
+        const uint32_t m[kUnroll] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (i0 + u < n_slices) {
+#pragma unroll
+            for (int c = 0; c < kVec; ++c) {
+              ch[r][c] = (OP == kEq || OP == kNeq) ? lop3<kEqual>(ch[r][c], sv[u][c], m[u])
+                                                   : lop3<kCarry>(sv[u][c], m[u], ch[r][c]);
+            }
+          }
+        }
+      }
+    }
+
+    // 3. per-query popcount: warp, then CTA, then one atomic per (q, tile)
+#pragma unroll
+    for (int qi = 0; qi < QG; ++qi) {
+      unsigned cnt = 0;
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) {
+        const uint32_t a = ch[qi * W][c];
+        uint32_t o;
+        if (OP == kEq) o = a & fw[c];                    // a lies in the ebm
+        else if (OP == kNeq) o = ~a & fw[c];             // fixed outside the ebm counts too
+        else if (OP == kGt || OP == kGe) o = a & fe[c];  // v > t, v >= t
+        else if (OP == kLt || OP == kLe) o = ~a & fe[c];  // not v >= t, not v > t
+        else o = a & ~ch[qi * W + W - 1][c] & fe[c];     // v >= lo and not v > hi
+        cnt += __popc(o);
+      }
+      cnt = __reduce_add_sync(kFull, cnt);
+      if (lane == 0) red[qi][warp] = static_cast<int>(cnt);
+    }
+    __syncthreads();
+    if (t < QG && g + t < n_queries) {
+      int sum = 0;
+      for (int w = 0; w < n_warps; ++w) sum += red[t][w];
+      atomicAdd(cards + static_cast<long long>(g + t) * n_keys + k, sum);
+    }
+  }
+}
+
+template <int OP>
+cudaError_t launch_tiled(const void* slices, int n_slices, long long n_keys, const void* bits,
+                         int n_queries, const void* ebm, const void* fixed, void* cards,
+                         int tile_words, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      oneil_tiled_kernel<OP>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const long long n_blocks = n_keys * (kWords / tile_words);
+  oneil_tiled_kernel<OP><<<static_cast<unsigned>(n_blocks), tile_words / kVec, smem, stream>>>(
+      static_cast<const uint32_t*>(slices), n_slices, n_keys, static_cast<const int*>(bits),
+      n_queries, static_cast<const uint32_t*>(ebm), static_cast<const uint32_t*>(fixed),
+      static_cast<int*>(cards), tile_words);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -209,6 +461,45 @@ int rb_oneil_compare(int device, int op, const void* slices, int n_slices, long 
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tiled count-only walk: slices, bits, ebm and fixed as for
+// rb_oneil_compare (bits and cards holding this launch's n_queries);
+// cards: int32 n_queries x n_keys, zero-filled by the caller, to which the
+// per-tile counts are added. tile_words: 128, 256, 512 or 1024; smem: the
+// dynamic shared memory of a CTA, at least 4 * ((S + 2) * T + the packed
+// bits [n_queries][W][ceil(S / 32)] rounded up to 4 words + kGroupWalks *
+// S rounded up to 4). Both come from the wrapper's plan
+// (ops/kernels.py:oneil_tile_plan), the one place the tile is sized; the
+// launch fails when smem exceeds what a block may use.
+int rb_oneil_counts(int device, int op, const void* slices, int n_slices, long long n_keys,
+                    const void* bits, int n_queries, const void* ebm, const void* fixed,
+                    void* cards, int tile_words, long long smem, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_keys <= 0 || n_queries <= 0) return 0;
+  if (n_slices < 1 || smem <= 0 || smem > 0x7FFFFFFFLL ||
+      (tile_words != 128 && tile_words != 256 && tile_words != 512 && tile_words != kMaxTileWords)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_keys * (kWords / tile_words) > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  // the bulk copies need 16-byte aligned rows
+  for (const void* p : {slices, ebm, fixed}) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t sm = static_cast<size_t>(smem);
+  switch (op) {
+    case kEq: err = launch_tiled<kEq>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
+    case kNeq: err = launch_tiled<kNeq>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
+    case kGt: err = launch_tiled<kGt>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
+    case kLt: err = launch_tiled<kLt>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
+    case kLe: err = launch_tiled<kLe>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
+    case kGe: err = launch_tiled<kGe>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
+    case kRange: err = launch_tiled<kRange>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -134,6 +134,8 @@ def load() -> ctypes.CDLL:
             lib.rb_popcount_rows.restype = i
             lib.rb_oneil_compare.argtypes = [i, i, vp, i, ll, vp, i, vp, vp, vp, vp, vp]
             lib.rb_oneil_compare.restype = i
+            lib.rb_oneil_counts.argtypes = [i, i, vp, i, ll, vp, i, vp, vp, vp, i, ll, vp]
+            lib.rb_oneil_counts.restype = i
             lib.rb_error_string.argtypes = [i]
             lib.rb_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 DEVICE_WORDS = 2048  # 32-bit words per container row
 HOST_WORDS = 1024  # uint64 words per container
 
@@ -40,8 +42,11 @@ _OPS = {
 _POPCOUNT_BLOCK_ROWS = 4096
 
 
-def to_device_words(host_words: np.ndarray, device="cpu") -> torch.Tensor:
-    """uint64 [..., 1024] host words -> int32 [..., 2048] tensor."""
+def to_device_words(host_words: np.ndarray, device=None) -> torch.Tensor:
+    """uint64 [..., 1024] host words -> int32 [..., 2048] tensor on
+    ``device`` (default ``"cuda"``; raises without a card unless
+    ``device="cpu"``)."""
+    device = resolve_device(device)
     w = np.ascontiguousarray(host_words, dtype=np.uint64)
     rows = w.view(np.int32).reshape(*w.shape[:-1], DEVICE_WORDS)
     return torch.from_numpy(rows).to(device)

@@ -1,8 +1,8 @@
 """Kernel wrappers of the aggregation and BSI paths, their plain versions,
 and the device-side row expansion.
 
-Counterpart of ``roaringbitmap_tpu/ops/pallas_kernels.py``. Three
-hand-written CUDA kernels (``csrc/reduce.cu`` and ``csrc/oneil.cu``, built
+Counterpart of ``roaringbitmap_tpu/ops/pallas_kernels.py``. Hand-written
+CUDA kernels (``csrc/reduce.cu`` and ``csrc/oneil.cu``, built
 by ``_build``):
 
 * ``rb_group_reduce`` — :func:`group_reduce`. Replaces
@@ -17,11 +17,14 @@ by ``_build``):
   popcount) and, with ``mask=``, the BSI sum's
   ``models/bsi.py:_slice_masked_popcounts``. Bound: the same bandwidth,
   rows * 8192 B (plus the mask rows once).
-* ``rb_oneil_compare`` — :func:`oneil_compare`. Replaces
-  ``pallas_kernels.py:oneil_compare_pallas`` (one query) and the XLA
-  ``models/bsi.py:_o_neil_counts_batched`` (many queries, count-only).
-  Bound: device-memory bandwidth, one pass over the ``[S, K, 2048]``
-  slices plus the ebm and fixed words; ``oneil.cu`` says how.
+* ``rb_oneil_compare`` and ``rb_oneil_counts`` — :func:`oneil_compare`.
+  Replace ``pallas_kernels.py:oneil_compare_pallas`` (one query, on
+  ``rb_oneil_compare``; bound: device-memory bandwidth, one pass over the
+  ``[S, K, 2048]`` slices plus the ebm and fixed words) and the XLA
+  ``models/bsi.py:_o_neil_counts_batched`` (Q >= 2 predicates,
+  count-only, on the tiled walk ``rb_oneil_counts``; bound: logic
+  instructions, one per walk and slice word, above Q ~ 21);
+  ``oneil.cu`` says how.
 
 :func:`wide_reduce_cardinality` — the flat ``[N, 2048] -> [2048]`` reduce
 of ``pallas_kernels.py:wide_reduce_pallas`` /
@@ -39,7 +42,7 @@ JAX package's ``expand_rows_device`` is XLA and not Pallas.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,7 +50,8 @@ import torch
 from . import device as dev
 
 # launch counts by kernel (and the reduce's three modes, the masked
-# popcount and the batched O'Neil walk); "wide_reduce_cardinality" counts
+# popcount, the tiled batched O'Neil walk and the per-query kernel running a
+# batch too deep for it); "wide_reduce_cardinality" counts
 # calls of that composite on the card, whose reduce and popcount launches
 # also count under their own keys
 LAUNCHES = {
@@ -58,6 +62,7 @@ LAUNCHES = {
     "rb_popcount_rows[masked]": 0,
     "rb_oneil_compare": 0,
     "rb_oneil_compare[batched]": 0,
+    "rb_oneil_compare[batched-deep]": 0,
     "wide_reduce_cardinality": 0,
 }
 
@@ -330,6 +335,123 @@ def oneil_compare_plain(slices, bits, ebm, fixed, op: str, count_only: bool = Fa
     return (None if count_only else out), cards
 
 
+# The tiled count-only walk (``rb_oneil_counts``) stages a ``[S, T]`` slice
+# tile in shared memory, and this plan is the one place its size is
+# worked out: the launch takes ``TilePlan.smem_bytes``. The H100's limits:
+# 227 KB a block may use after opting in, 228 KB an SM, 1 KB of it reserved
+# for each resident block; 2048 threads and 65,536 registers an SM. The
+# kernel's static shared memory (its mbarrier and the [16, 8] int32 warp
+# sums, as ptxas counts them) comes on top of the dynamic part, and its
+# launch bounds hold it to 128 registers a thread.
+SMEM_PER_BLOCK = 232_448
+SMEM_PER_SM = 233_472
+SMEM_RESERVED_PER_BLOCK = 1024
+THREADS_PER_SM = 2048
+REGS_PER_SM = 65_536
+TILE_STATIC_SMEM = 640
+TILE_REGS = 128
+TILE_WORDS = (1024, 512, 256, 128)
+TILE_VEC = 4  # words a thread owns (oneil.cu kVec)
+TILE_GROUP_WALKS = 16  # walks a query group keeps in registers (oneil.cu kGroupWalks)
+# packed predicate bits staged by one launch: a longer batch is split into
+# launches of at most ``query_chunk`` queries
+TILE_BITS_BYTES = 2048
+
+
+class TilePlan(NamedTuple):
+    """How ``rb_oneil_counts`` runs a batch: tiles of ``tile_words`` words
+    (``tile_words / TILE_VEC`` threads a CTA, ``2048 / tile_words`` CTAs a
+    key chunk), launches of at most ``query_chunk`` queries, each with
+    ``smem_bytes`` of dynamic shared memory (slice, ebm and fixed rows, a
+    full launch's packed bits, and a query group's masks)."""
+
+    tile_words: int
+    query_chunk: int
+    smem_bytes: int
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _tile_worst_smem(n_slices: int, tile_words: int) -> int:
+    """Shared memory of a CTA at the most packed bits a launch stages,
+    static part included."""
+    masks = 4 * TILE_GROUP_WALKS * _round4(n_slices)
+    return 4 * (n_slices + 2) * tile_words + TILE_BITS_BYTES + masks + TILE_STATIC_SMEM
+
+
+def tile_ctas_per_sm(n_slices: int, tile_words: int) -> int:
+    """CTAs of ``tile_words`` words resident on an SM, by shared memory,
+    threads and registers; 0 where one does not fit in a block."""
+    worst = _tile_worst_smem(n_slices, tile_words)
+    if worst > SMEM_PER_BLOCK:
+        return 0
+    threads = tile_words // TILE_VEC
+    return min(
+        SMEM_PER_SM // (worst + SMEM_RESERVED_PER_BLOCK),
+        THREADS_PER_SM // threads,
+        REGS_PER_SM // (threads * TILE_REGS),
+    )
+
+
+def oneil_tile_plan(n_slices: int, n_queries: int, op: str) -> Optional[TilePlan]:
+    """The tiled walk's plan for ``n_queries`` count-only predicates over
+    ``n_slices`` slices, or None where even a 128-word tile does not fit in
+    a block's shared memory (S > ``MAX_TILED_SLICES``): such a batch runs
+    on the per-query kernel. The tile is the one that keeps the most warps
+    resident on an SM, the larger on a tie; at S = 32 three CTAs of 512
+    words share an SM, one staging while the others walk. The fit counts
+    the most packed bits a launch stages, so it depends on S alone."""
+    if op not in _ONEIL_CODE:
+        raise ValueError(f"op must be one of {dev.ONEIL_OPS}, got {op!r}")
+    words = (2 if op == "RANGE" else 1) * ((n_slices + 31) // 32)
+    chunk = max(1, min(n_queries, TILE_BITS_BYTES // (4 * words)))
+    warps = {t: tile_ctas_per_sm(n_slices, t) * t // TILE_VEC // 32 for t in TILE_WORDS}
+    best = max(TILE_WORDS, key=lambda t: (warps[t], t))
+    if not warps[best]:
+        return None
+    smem = 4 * ((n_slices + 2) * best + _round4(chunk * words) + TILE_GROUP_WALKS * _round4(n_slices))
+    return TilePlan(tile_words=best, query_chunk=chunk, smem_bytes=smem)
+
+
+# the deepest index the tiled walk takes (396 slices)
+MAX_TILED_SLICES = max(s for s in range(1, 1024) if oneil_tile_plan(s, 1, "GE") is not None)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_per_query(slices, bits, ebm, fixed, op, out, cards) -> None:
+    from . import _build
+
+    lib = _build.load()
+    rc = lib.rb_oneil_compare(
+        slices.device.index or 0, _ONEIL_CODE[op], slices.data_ptr(), slices.shape[0],
+        slices.shape[1], bits.data_ptr(), bits.shape[0], ebm.data_ptr(), fixed.data_ptr(),
+        None if out is None else out.data_ptr(), cards.data_ptr(), _stream(slices),
+    )
+    _build.check(lib, rc, "rb_oneil_compare")
+
+
+def _launch_tiled(slices, bits, ebm, fixed, op, cards, plan: TilePlan) -> None:
+    from . import _build
+
+    lib = _build.load()
+    q_n, k = bits.shape[0], slices.shape[1]
+    row = bits.shape[1] * bits.shape[2] * 4  # bytes of one query's bits
+    for q0 in range(0, q_n, plan.query_chunk):
+        rc = lib.rb_oneil_counts(
+            slices.device.index or 0, _ONEIL_CODE[op], slices.data_ptr(), slices.shape[0], k,
+            bits.data_ptr() + q0 * row, min(plan.query_chunk, q_n - q0), ebm.data_ptr(),
+            fixed.data_ptr(), cards.data_ptr() + q0 * k * 4, plan.tile_words, plan.smem_bytes,
+            _stream(slices),
+        )
+        _build.check(lib, rc, "rb_oneil_counts")
+        LAUNCHES["rb_oneil_compare[batched]"] += 1
+
+
 def oneil_compare(slices, bits, ebm, fixed, op: str, count_only: bool = False):
     """Fused O'Neil compare of Q predicates over a bit-sliced index.
 
@@ -340,7 +462,14 @@ def oneil_compare(slices, bits, ebm, fixed, op: str, count_only: bool = False):
     existence and found-set words; ``op``: one of ``ops/device.ONEIL_OPS``.
     Returns ``(out, cards)``: int32 ``[K, 2048]`` result words (None when
     ``count_only``; otherwise Q must be 1) and int32 ``[Q, K]`` per-chunk
-    popcounts."""
+    popcounts.
+
+    On the card, one query runs on the per-query kernel
+    (``rb_oneil_compare``); Q >= 2 count-only predicates on the tiled walk
+    (``rb_oneil_counts``, launch key ``rb_oneil_compare[batched]``, one
+    launch per ``oneil_tile_plan(...).query_chunk`` queries), or on the
+    per-query kernel (``rb_oneil_compare[batched-deep]``) past
+    ``MAX_TILED_SLICES``."""
     _check_oneil(slices, bits, ebm, fixed, op)
     q_n, k = bits.shape[0], slices.shape[1]
     if not count_only and q_n != 1:
@@ -349,22 +478,37 @@ def oneil_compare(slices, bits, ebm, fixed, op: str, count_only: bool = False):
         return oneil_compare_plain(slices, bits, ebm, fixed, op, count_only)
     if slices.device.type != "cuda":
         raise ValueError(f"unsupported device {slices.device}")
-    cards = torch.empty((q_n, k), dtype=torch.int32, device=slices.device)
     out = None if count_only else torch.empty_like(ebm)
+    plan = oneil_tile_plan(slices.shape[0], q_n, op) if q_n > 1 else None
+    if plan is not None:
+        cards = torch.zeros((q_n, k), dtype=torch.int32, device=slices.device)
+        if k:
+            _launch_tiled(slices, bits, ebm, fixed, op, cards, plan)
+        return out, cards
+    cards = torch.empty((q_n, k), dtype=torch.int32, device=slices.device)
     if q_n == 0 or k == 0:
         return out, cards
-    from . import _build
-
-    lib = _build.load()
-    rc = lib.rb_oneil_compare(
-        slices.device.index or 0, _ONEIL_CODE[op], slices.data_ptr(), slices.shape[0], k,
-        bits.data_ptr(), q_n, ebm.data_ptr(), fixed.data_ptr(),
-        None if out is None else out.data_ptr(), cards.data_ptr(),
-        torch.cuda.current_stream(slices.device).cuda_stream,
-    )
-    _build.check(lib, rc, "rb_oneil_compare")
-    LAUNCHES["rb_oneil_compare[batched]" if q_n > 1 else "rb_oneil_compare"] += 1
+    _launch_per_query(slices, bits, ebm, fixed, op, out, cards)
+    LAUNCHES["rb_oneil_compare[batched-deep]" if q_n > 1 else "rb_oneil_compare"] += 1
     return out, cards
+
+
+def oneil_counts_per_query(slices, bits, ebm, fixed, op: str) -> torch.Tensor:
+    """The count-only ``[Q, K]`` popcounts of :func:`oneil_compare` on the
+    per-query kernel whatever the depth: the design the tiled walk
+    replaced, kept for the deep batches (launch key
+    ``rb_oneil_compare[batched-deep]``) and for comparing the two on the
+    card."""
+    _check_oneil(slices, bits, ebm, fixed, op)
+    if slices.device.type == "cpu":
+        return oneil_compare_plain(slices, bits, ebm, fixed, op, True)[1]
+    if slices.device.type != "cuda":
+        raise ValueError(f"unsupported device {slices.device}")
+    cards = torch.empty((bits.shape[0], slices.shape[1]), dtype=torch.int32, device=slices.device)
+    if cards.numel():
+        _launch_per_query(slices, bits, ebm, fixed, op, None, cards)
+        LAUNCHES["rb_oneil_compare[batched-deep]"] += 1
+    return cards
 
 
 # ---------------------------------------------------------------------------

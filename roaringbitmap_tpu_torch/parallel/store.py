@@ -193,15 +193,16 @@ class PackedGroups:
 
     ``group_keys``: int64 [G] high-16-bit chunk keys, ascending.
     ``group_offsets``: int64 [G+1] row ranges per group.
-    ``device``: where the row block lives (a ``torch.device``).
+    ``device``: where the row block lives (default ``"cuda"``; raises
+    without a card unless ``device="cpu"``).
 
     Row data lives in a compact :class:`RowPayload`; ``device_words`` (the
     int32 device block) expands from it on first touch."""
 
-    def __init__(self, group_keys, group_offsets, payload: RowPayload, device="cpu"):
+    def __init__(self, group_keys, group_offsets, payload: RowPayload, device=None):
         self.group_keys = group_keys
         self.group_offsets = group_offsets
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._payload = payload
         self._device_words: Optional[torch.Tensor] = None
         self._padded_cache: Dict[int, Optional[torch.Tensor]] = {}

@@ -153,6 +153,43 @@ def test_batched_counts_match_o_neil_counts_batched(op):
     assert np.array_equal(cards.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize(
+    "op,q,with_found",
+    [("GE", 2, False), ("LT", 13, False), ("EQ", 17, False), ("NEQ", 100, True),
+     ("RANGE", 13, True), ("RANGE", 100, True), ("LE", 33, True)],
+)
+def test_batched_counts_ragged_q_match_o_neil_counts_batched(op, q, with_found):
+    """Q not a multiple of the tiled walk's query groups (16, 8 or 4), and
+    found sets that clear whole chunks and part of one."""
+    rng = np.random.default_rng(SEED + 50 + q)
+    s, k = 11, 5
+    slices, ebm, fixed = _walk_inputs(rng, s, k)
+    if with_found:
+        fixed &= ebm
+        fixed[1] = 0
+        fixed[3, 700:] = 0
+    else:
+        fixed = ebm.copy()
+    los = rng.integers(0, 1 << s, size=q)
+    los[0], los[-1] = 0, (1 << s) - 1  # the two extremes of the branch on the bit
+    his = np.minimum(los + rng.integers(0, 600, size=q), (1 << s) - 1)
+    if op == "RANGE":
+        jbits = np.stack([np.stack([_bits(a, s), _bits(b, s)]) for a, b in zip(los, his)])
+    else:
+        jbits = np.stack([_bits(a, s) for a in los])
+    want = jbsi._o_neil_counts_batched(
+        jnp.asarray(slices), jnp.asarray(jbits), jnp.asarray(ebm), jnp.asarray(fixed), op
+    )
+    tbits = torch.from_numpy(jbits.reshape(q, -1, s).astype(np.int32))
+    out, cards = K.oneil_compare(_t(slices), tbits, _t(ebm), _t(fixed), op, count_only=True)
+    assert out is None
+    assert 0 < int(np.asarray(want).sum())
+    assert np.array_equal(cards.numpy(), np.asarray(want))
+    assert np.array_equal(
+        K.oneil_counts_per_query(_t(slices), tbits, _t(ebm), _t(fixed), op).numpy(), np.asarray(want)
+    )
+
+
 def test_masked_popcounts_match_slice_masked_popcounts():
     rng = np.random.default_rng(SEED + 6)
     s, k = 7, 5

@@ -114,7 +114,7 @@ def test_word_layout_matches_jax_package():
     rng = np.random.default_rng(SEED + 5)
     host = rng.integers(0, 1 << 63, size=(3, 1024), dtype=np.uint64)
     host[0, 0] = np.uint64(0xFFFFFFFFFFFFFFFF)
-    rows = tdev.to_device_words(host)
+    rows = tdev.to_device_words(host, device="cpu")
     assert rows.dtype == torch.int32 and tuple(rows.shape) == (3, W)
     assert np.array_equal(_u32(rows), jdev.to_device_words(host))
     assert np.array_equal(tdev.from_device_words(rows), host)
@@ -197,6 +197,63 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         )
 
 
+# (S, Q, op) -> the tiled walk's plan: (tile words, CTAs an SM, queries a
+# launch, launches)
+TILE_PLANS = [
+    ((32, 64, "GE"), (512, 3, 64, 1)),  # the 100M-row index's batch
+    ((32, 2000, "GE"), (512, 3, 512, 4)),  # 2 KiB of packed bits a launch
+    ((32, 600, "RANGE"), (512, 3, 256, 3)),  # two walks: half the queries
+    ((1, 2, "EQ"), (1024, 2, 2, 1)),  # registers cap the CTAs
+    ((70, 100, "EQ"), (128, 5, 100, 1)),  # shared memory caps the warps
+    ((200, 10, "RANGE"), (256, 1, 10, 1)),  # a tie in warps: the larger tile
+    ((396, 2, "GE"), (128, 1, 2, 1)),  # the deepest tile
+]
+
+
+@pytest.mark.parametrize("shape,want", TILE_PLANS, ids=lambda v: "-".join(map(str, v)))
+def test_oneil_tile_plan_arithmetic(shape, want):
+    s, q, op = shape
+    plan = K.oneil_tile_plan(s, q, op)
+    ctas = K.tile_ctas_per_sm(s, plan.tile_words)
+    launches = -(-q // plan.query_chunk)
+    assert (plan.tile_words, ctas, plan.query_chunk, launches) == want
+    # no other tile keeps more warps resident
+    warps = ctas * plan.tile_words // K.TILE_VEC
+    assert all(K.tile_ctas_per_sm(s, t) * t // K.TILE_VEC <= warps for t in K.TILE_WORDS)
+    w = 2 if op == "RANGE" else 1
+    words = w * ((s + 31) // 32)
+    # the launch's shared memory: slice rows, ebm, fixed, the packed bits
+    # (padded to 16 bytes) and a group's masks, 16 walks x S (padded to 4)
+    masks = 4 * K.TILE_GROUP_WALKS * (-(-s // 4) * 4)
+    assert plan.smem_bytes == 4 * (
+        (s + 2) * plan.tile_words + -(-plan.query_chunk * words // 4) * 4) + masks
+    assert plan.smem_bytes + K.TILE_STATIC_SMEM <= K.SMEM_PER_BLOCK
+    worst = 4 * (s + 2) * plan.tile_words + K.TILE_BITS_BYTES + masks + K.TILE_STATIC_SMEM
+    assert ctas * (worst + K.SMEM_RESERVED_PER_BLOCK) <= K.SMEM_PER_SM
+    assert ctas * plan.tile_words // K.TILE_VEC * K.TILE_REGS <= K.REGS_PER_SM
+    assert plan.query_chunk * words * 4 <= K.TILE_BITS_BYTES
+    assert (launches - 1) * plan.query_chunk < q <= launches * plan.query_chunk
+    assert W % plan.tile_words == 0
+
+
+def test_oneil_tile_plan_depth_limit():
+    assert K.MAX_TILED_SLICES == 396
+    for op in ("GE", "RANGE", "EQ"):
+        assert K.oneil_tile_plan(K.MAX_TILED_SLICES, 1000, op) is not None
+        assert K.oneil_tile_plan(K.MAX_TILED_SLICES + 1, 2, op) is None
+    with pytest.raises(ValueError):
+        K.oneil_tile_plan(32, 2, "BETWEEN")
+
+
+def test_oneil_per_query_launcher_on_cpu_is_the_plain_version():
+    rng = np.random.default_rng(SEED + 9)
+    slices, ebm, fixed, bits = _oneil_inputs(rng, 13, 3, 5, "LE", "cpu")
+    before = dict(K.LAUNCHES)
+    got = K.oneil_counts_per_query(slices, bits, ebm, fixed, "LE")
+    assert torch.equal(got, K.oneil_compare_plain(slices, bits, ebm, fixed, "LE", True)[1])
+    assert K.LAUNCHES == before
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels on the card, against their plain versions
 # ---------------------------------------------------------------------------
@@ -260,12 +317,14 @@ def test_cuda_expansion_matches_host_expansion():
 ONEIL_OPS = ("EQ", "NEQ", "GT", "LT", "LE", "GE", "RANGE")
 
 
-def _oneil_inputs(rng, s, k, q, op, device):
+def _oneil_inputs(rng, s, k, q, op, device, tail_words=None):
     """Slices whose columns hold a random ``value`` with each bit flipped
     with probability 1/32, so a good share of them equal it and EQ/NEQ
-    answers are far from empty or full; the ebm is ~3/4 of the columns and
-    fixed a subset of it. Query 0 is ``value`` (RANGE: value +- 2**(s//2)),
-    the others are drawn like the columns."""
+    answers are far from empty or full; the ebm is ~3/4 of the columns
+    (the last chunk cleared from word ``tail_words`` on, when given, as the
+    last chunk of a real index is) and fixed a subset of it. Query 0 is
+    ``value`` (RANGE: value +- 2**(s//2)), the others are drawn like the
+    columns."""
 
     def rand():
         return rng.integers(0, 1 << 32, size=(k, W), dtype=np.uint64).astype(np.uint32)
@@ -273,8 +332,12 @@ def _oneil_inputs(rng, s, k, q, op, device):
     def near(v):
         return v ^ sum(1 << i for i in np.flatnonzero(rng.random(s) < 1 / 32).tolist())
 
-    value = (1 << (s - 1)) | sum(int(b) << i for i, b in enumerate(rng.integers(0, 2, size=s - 2)))
+    value = (1 << (s - 1)) | sum(
+        int(b) << i for i, b in enumerate(rng.integers(0, 2, size=max(s - 2, 0)))
+    )
     ebm = rand() | rand()
+    if tail_words is not None:
+        ebm[-1, tail_words:] = 0
     slices = np.stack([
         (rand() & rand() & rand() & rand() & rand()) ^ np.uint32(0xFFFFFFFF if value >> i & 1 else 0)
         for i in range(s)
@@ -293,25 +356,79 @@ def _oneil_inputs(rng, s, k, q, op, device):
     return [_t(a).to(device) for a in (slices, ebm, fixed)] + [torch.from_numpy(bits).to(device)]
 
 
+def _oneil_key(s, q, op):
+    """The launch key ``oneil_compare`` counts for Q predicates over S
+    slices, and how many launches it adds."""
+    if q == 1:
+        return "rb_oneil_compare", 1
+    plan = K.oneil_tile_plan(s, q, op)
+    return ("rb_oneil_compare[batched-deep]", 1) if plan is None else (
+        "rb_oneil_compare[batched]", -(-q // plan.query_chunk))
+
+
+def _cuda_oneil_case(slices, bits, ebm, fixed, op, nontrivial=True):
+    s, q = slices.shape[0], bits.shape[0]
+    count_only = q > 1
+    key, n = _oneil_key(s, q, op)
+    before = dict(K.LAUNCHES)
+    got_out, got_cards = K.oneil_compare(slices, bits, ebm, fixed, op, count_only)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {**before, key: before[key] + n}
+    want_out, want_cards = K.oneil_compare_plain(slices, bits, ebm, fixed, op, count_only)
+    if nontrivial:  # neither empty nor all of fixed: a wrong epilogue cannot pass
+        assert 0 < int(want_cards.sum()) < q * int(K.popcount_rows_plain(fixed).sum())
+    assert torch.equal(got_cards, want_cards)
+    if not count_only:
+        assert torch.equal(got_out, want_out)
+
+
+# (S, K, Q): one query; Q >= 2 on the tiled walk at every tile size it
+# picks (S = 1 and 13: 1024 words, 32: 512, 70: 128), with Q ragged against
+# the query groups; and a depth past the tiled walk's limit
+ONEIL_CASES = [
+    (32, 37, 1), (70, 5, 1), (13, 9, 17),
+    (1, 3, 2), (13, 5, 13), (32, 7, 64), (70, 3, 100), (32, 4, 2),
+    (K.MAX_TILED_SLICES + 9, 2, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ONEIL_CASES, ids=lambda c: "S{}-K{}-Q{}".format(*c))
+@pytest.mark.parametrize("op", ONEIL_OPS)
+def test_cuda_oneil_compare_matches_plain_version(op, case):
+    _need_card()
+    s, k, q = case
+    rng = np.random.default_rng(SEED + s * 1000 + q)
+    # the last chunk of the ebm ends part way, as the 100M-row index's does
+    slices, ebm, fixed, bits = _oneil_inputs(rng, s, k, q, op, "cuda", tail_words=1800)
+    _cuda_oneil_case(slices, bits, ebm, fixed, op, nontrivial=8 <= s <= 70)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ONEIL_OPS)
-def test_cuda_oneil_compare_matches_plain_version(op):
+def test_cuda_oneil_batched_extreme_thresholds(op):
+    """Thresholds of all zeros and all ones: every step of a walk takes the
+    same side of the branch on the predicate bit."""
     _need_card()
-    rng = np.random.default_rng(SEED)
-    for s, k, q in ((32, 37, 1), (70, 5, 1), (13, 9, 17)):
-        slices, ebm, fixed, bits = _oneil_inputs(rng, s, k, q, op, "cuda")
-        count_only = q > 1
-        key = "rb_oneil_compare[batched]" if q > 1 else "rb_oneil_compare"
-        before = K.LAUNCHES[key]
-        got_out, got_cards = K.oneil_compare(slices, bits, ebm, fixed, op, count_only)
-        torch.cuda.synchronize()
-        assert K.LAUNCHES[key] == before + 1
-        want_out, want_cards = K.oneil_compare_plain(slices, bits, ebm, fixed, op, count_only)
-        # neither empty nor all of fixed: a wrong epilogue cannot pass
-        assert 0 < int(want_cards.sum()) < q * int(K.popcount_rows_plain(fixed).sum()), (s, k, q)
-        assert torch.equal(got_cards, want_cards), (s, k, q)
-        if not count_only:
-            assert torch.equal(got_out, want_out), (s, k, q)
+    rng = np.random.default_rng(SEED + 7)
+    s, k = 32, 6
+    slices, ebm, fixed, _ = _oneil_inputs(rng, s, k, 1, op, "cuda")
+    zero, ones = [0] * s, [1] * s
+    walks = [[zero, ones], [ones, ones], [zero, zero]] if op == "RANGE" else [[zero], [ones], [zero]]
+    bits = torch.tensor(walks, dtype=torch.int32, device="cuda")
+    for f in (fixed, ebm):
+        _cuda_oneil_case(slices, bits, ebm, f, op, nontrivial=False)
+
+
+@pytest.mark.cuda
+def test_cuda_oneil_per_query_launcher_matches_tiled_walk():
+    _need_card()
+    rng = np.random.default_rng(SEED + 8)
+    slices, ebm, fixed, bits = _oneil_inputs(rng, 32, 9, 40, "GE", "cuda")
+    before = K.LAUNCHES["rb_oneil_compare[batched-deep]"]
+    per_query = K.oneil_counts_per_query(slices, bits, ebm, fixed, "GE")
+    assert K.LAUNCHES["rb_oneil_compare[batched-deep]"] == before + 1
+    assert torch.equal(per_query, K.oneil_compare(slices, bits, ebm, fixed, "GE", True)[1])
 
 
 @pytest.mark.cuda
