@@ -25,8 +25,11 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    instruction floor and the SM clock; 405-slice batches, which must run
    on the per-query kernel, checked and timed at Q = 64; the
    masked popcount at ``[32, 1526, 2048]``; the one-segment wide reduce at
-   ``[131072, 2048]`` for or, and and xor — bitwise equality required,
-   with kernel time (CUDA events), bound and the plain version's time;
+   ``[131072, 2048]`` for or, and and xor; ``rb_threshold`` on the
+   zero-padded ``[31, 10000, 2048]`` block of the census working set's
+   real rows at k = 64 and 200, and at an odd shape (G = 1, M = 997, k past
+   the counter's width) — bitwise equality required, with kernel time
+   (CUDA events), bound and the plain version's time;
 4. the main path through the port's entry points: 10,000 census-shaped
    bitmaps (built as ``bench.py`` builds them) through
    ``FastAggregation.or_``, ``ParallelAggregation.or_`` and
@@ -34,10 +37,23 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    but one of them (copies cancel in pairs, so every row changes the
    answer), then AND/XOR on a smaller set, a bucketed set and a segmented
    set, each against a numpy oracle; the kernel launch counts are zeroed
-   before and read after;
+   before and read after, and the pack cache must serve the repeats of
+   the wide set;
 5. timing of the main path: pack, expansion, the cold reduce on the real
-   rows against the plain fold, steady-state reduce, aggregations per
-   second, peak device memory;
+   rows against the plain fold, steady-state reduce, the wide OR end to
+   end cold (pack cache closed before each run) and warm (resident pack),
+   peak device memory;
+8. (run after phase 5) the query path through ``query.execute`` on the
+   same 10,000 bitmaps: Q1 ``(or(A) & or(B)) - or(C) | threshold_2(head)``
+   (A, B, C the bitmaps whose base index lies in [0, 67), [67, 134) and
+   [134, 200); head the first 8) cold, warm with the result cache off and
+   warm with one, then after a one-value mutation of a bitmap of A, which
+   must take the delta repack; Q2 ``threshold(k, all 10,000)`` for k = 64
+   and 200; Q3 ``andnot_nway_cardinality(or(A) & or(B), *C)`` — every
+   answer against a numpy oracle over the 200 base bitmaps, the launch
+   counts zeroed before each query and read after (one ``rb_threshold``
+   per device threshold step), the pack cache's hits, misses and delta
+   rows read around each run;
 6. the BSI north star through the port's entry points: 100,000,000 rows,
    32 slices, built through ``set_values`` as ``benchmarks/bsi.py`` builds
    it; ``compare`` and ``compare_cardinality`` for every op (with a 5%
@@ -60,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -80,6 +97,10 @@ S_BSI, K_BSI = 32, (BSI_ROWS + 65535) // 65536  # [32, 1526, 2048] slices
 RANGE_ROWS = 10_000_000
 WIDE_ROWS = 131_072  # 1 GiB: the size the TPU sweep judged the wide kernel at
 BATCH_Q = 64
+# logic instructions per row word a carry-save adder needs for the
+# bit-sliced counter (worked out from the adder's gates, not timed)
+THRESHOLD_OPS_PER_WORD = 5
+THRESHOLD_KS = (64, 200)
 AGGREGATION_KERNELS = (
     "rb_group_reduce[dense]", "rb_group_reduce[csr]", "rb_group_reduce[rowmap]",
     "rb_popcount_rows",
@@ -695,6 +716,82 @@ def phase_bsi_kernels(card: str):
     return results
 
 
+def _threshold_case(K, name, words3, k, n_slices):
+    """``rb_threshold`` against ``threshold_rows_plain`` on the same block:
+    exactly one launch, bitwise equal words and cards. Returns (max abs
+    error, the plain answer's set bits)."""
+    before = K.LAUNCHES["rb_threshold"]
+    got = K.threshold_rows(words3, k, n_slices)
+    torch.cuda.synchronize()
+    if K.LAUNCHES["rb_threshold"] != before + 1:
+        fail(f"{name}: rb_threshold launches went {before} -> {K.LAUNCHES['rb_threshold']}")
+    want = K.threshold_rows_plain(words3, k, n_slices)
+    err = max(_compare(f"{name} words", got[0], want[0]),
+              _compare(f"{name} cards", got[1], want[1]))
+    return err, int(want[1].long().sum())
+
+
+def phase_threshold_kernel(card: str, bitmaps):
+    """``rb_threshold`` on the zero-padded ``[31, 10000, 2048]`` block of
+    the census working set's real rows (the block ``threshold(k, all
+    10,000)`` runs on) at k = 64 and 200, and at an odd shape: G = 1, M =
+    997 (not a power of two), k = 1500 past the 10-slice counter's width."""
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import store
+
+    packed = store.pack_groups(store.group_by_key(bitmaps), "cuda")
+    words3 = packed.padded_device(0)
+    g, m = words3.shape[0], words3.shape[1]
+    if (g, m) != (G_MAIN, M_MAIN):
+        fail(f"the census threshold block is [{g}, {m}, 2048], expected [{G_MAIN}, {M_MAIN}, 2048]")
+    n_slices = max(1, m.bit_length())
+    mhz = max_sm_mhz()
+    out = {}
+    b_bytes = bound_ms(g * m * ROW_BYTES + g * ROW_BYTES + g * 4)
+    b_ops = ops_bound_ms(THRESHOLD_OPS_PER_WORD * m, g, mhz)
+    ripple = ops_bound_ms(2 * n_slices * m, g, mhz)
+    b, by = max(b_bytes, b_ops), "operations" if b_ops > b_bytes else "bytes"
+    for k in THRESHOLD_KS:
+        name = f"rb_threshold k={k} [{g}, {m}, 2048] (census rows, L={n_slices})"
+        err, hits = _threshold_case(K, name, words3, k, n_slices)
+        if not 0 < hits < g * 65536:
+            fail(f"{name}: the plain answer has {hits} bits; the inputs do not test the compare")
+        ms = cuda_ms(lambda: K.threshold_rows(words3, k, n_slices))
+        plain = cuda_ms(lambda: K.threshold_rows_plain(words3, k, n_slices), reps=3, warmup=1)
+        say(
+            f"[kernel] {name}: equal ({hits} result bits); {ms:.4f} ms; byte bound {b_bytes:.4f} ms "
+            f"(the block read once), operation bound {b_ops:.4f} ms ({THRESHOLD_OPS_PER_WORD} logic "
+            f"instructions a row word, carry-save, at {mhz:.0f} MHz): {by} bind, {b / ms:.1%} of the "
+            f"bound; a full ripple's {2 * n_slices} a row word would take {ripple:.4f} ms; plain "
+            f"{plain:.3f} ms; library call: none  [{card}]"
+        )
+        if k == THRESHOLD_KS[0]:
+            out["rb_threshold"] = dict(
+                replaces="roaringbitmap_tpu/query/kernels.py:375", max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=b, bound_by=by,
+            )
+    del packed, words3
+    torch.cuda.empty_cache()
+    # the odd shape: random words, each bit set with probability 1/2, so
+    # counts near 498 (sd 16) straddle the compare on the low 10 bits of
+    # 1500 (476)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    odd = _rand_dense(gen, (1, 997, 2048))
+    k, n_slices = 1500, max(1, 997 .bit_length())
+    if not k >> n_slices:
+        fail("the odd shape's k is inside the counter's width")
+    err, hits = _threshold_case(K, "rb_threshold odd shape", odd, k, n_slices)
+    if not 0 < hits < 65536:
+        fail(f"rb_threshold odd shape: the plain answer has {hits} bits")
+    out["rb_threshold"]["max_abs_err"] = max(out["rb_threshold"]["max_abs_err"], err)
+    say(f"[kernel] rb_threshold [1, 997, 2048] k={k} (k >> {n_slices} = {k >> n_slices}: the "
+        f"kernel compares the low {n_slices} bits, as the JAX function does): equal ({hits} result "
+        f"bits)  [{card}]")
+    del odd
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -731,17 +828,15 @@ def _layout_delta(store, before):
     return {k: v - before[k] for k, v in store.LAYOUT_COUNTS.items() if v != before[k]}
 
 
-def phase_main(rng):
+def phase_main(rng, base, bitmaps, real, build_s):
     from roaringbitmap_tpu_torch import FastAggregation, ParallelAggregation, RoaringBitmap
     from roaringbitmap_tpu_torch.ops import kernels as K
     from roaringbitmap_tpu_torch.parallel import store
 
-    t0 = time.perf_counter()
-    base, bitmaps, real = build_working_set()
     n_cont = sum(b.get_container_count() for b in bitmaps)
     say(
         f"[main] {len(bitmaps)} bitmaps ({'census1881' if real else 'synthetic census1881-like'}), "
-        f"{n_cont} containers, built in {time.perf_counter() - t0:.1f} s"
+        f"{n_cont} containers, built in {build_s:.1f} s"
     )
     oracle_or = np.unique(np.concatenate(base[: min(len(base), N_BITMAPS)]))
 
@@ -771,6 +866,7 @@ def phase_main(rng):
     bucket_bms = [RoaringBitmap(v) for v in bucket_vals]
     seg_bms = [RoaringBitmap(v) for v in seg_vals]
 
+    store.PACK_CACHE.close()
     K.reset_launches()
     for k in store.LAYOUT_COUNTS:
         store.LAYOUT_COUNTS[k] = 0
@@ -798,9 +894,15 @@ def phase_main(rng):
     if store.LAYOUT_COUNTS != {"padded": 4, "bucketed": 0, "segmented-scan": 0}:
         fail(f"wide-set layouts were {store.LAYOUT_COUNTS}, expected padded x4")
     wide = dict(K.LAUNCHES)
-    say(f"[main] launches over the wide-set OR and XOR runs: {wide}")
-    if wide["rb_group_reduce[rowmap]"] < 4 or wide["rb_popcount_rows"] < 4:
-        fail("the wide-set runs did not go through rb_group_reduce and rb_popcount_rows")
+    agg = store.PACK_CACHE.stats()["kinds"]["agg"]
+    say(f"[main] launches over the wide-set OR and XOR runs: {wide}; pack cache {agg}")
+    # the OR packs its set (a miss: the cold row-map run), ParallelAggregation
+    # and the cardinality hit the resident pack (the padded block, built on
+    # the second touch), and the XOR's 9,999 bitmaps are a new working set
+    if agg != {"hits": 2, "misses": 2}:
+        fail(f"the pack cache served the wide set {agg}, expected 2 hits and 2 misses")
+    if (wide["rb_group_reduce[rowmap]"], wide["rb_group_reduce[dense]"]) != (2, 2) or wide["rb_popcount_rows"] < 4:
+        fail("the wide-set runs did not go through rb_group_reduce and rb_popcount_rows as expected")
 
     _check("FastAggregation.and_ (64 bitmaps, half run-optimized)",
            FastAggregation.and_(*and_bms, mode="device"), oracle_and)
@@ -820,7 +922,7 @@ def phase_main(rng):
     for k in AGGREGATION_KERNELS:
         if launches[k] == 0:
             fail(f"kernel {k} was not launched on the main path")
-    return bitmaps, launches
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -874,6 +976,7 @@ def phase_timing(bitmaps, card: str):
     from roaringbitmap_tpu_torch.ops import kernels as K
     from roaringbitmap_tpu_torch.parallel import store
 
+    store.PACK_CACHE.close()
     torch.cuda.synchronize()
     t_start = time.perf_counter()
     groups = store.group_by_key(bitmaps)
@@ -930,22 +1033,286 @@ def phase_timing(bitmaps, card: str):
     del flat, red, packed
     torch.cuda.empty_cache()
 
-    _profiled("[time]", "FastAggregation.or_", lambda: FastAggregation.or_(*bitmaps), card)
+    def cold_or():
+        store.PACK_CACHE.close()
+        return FastAggregation.or_(*bitmaps)
+
+    _profiled("[time]", "FastAggregation.or_ cold", cold_or, card)
+    FastAggregation.or_(*bitmaps)  # resident, padded block built
+    _profiled("[time]", "FastAggregation.or_ warm", lambda: FastAggregation.or_(*bitmaps), card)
 
     torch.cuda.reset_peak_memory_stats()
-    walls = []
-    for _ in range(E2E_RUNS):
-        t0 = time.perf_counter()
-        FastAggregation.or_(*bitmaps)  # returns a host bitmap: the work is done
-        walls.append(time.perf_counter() - t0)
+    for label, prep in (("cold (pack cache closed before each run)", store.PACK_CACHE.close),
+                        ("warm (resident pack)", None)):
+        if prep is None:
+            FastAggregation.or_(*bitmaps)
+        walls = []
+        for _ in range(E2E_RUNS):
+            if prep is not None:
+                prep()
+            t0 = time.perf_counter()
+            FastAggregation.or_(*bitmaps)  # returns a host bitmap: the work is done
+            walls.append(time.perf_counter() - t0)
+        med = float(np.median(walls))
+        say(
+            f"[time] FastAggregation.or_ end to end {label} ({len(bitmaps)} bitmaps, to the "
+            f"result bitmap), {len(walls)} runs: median {med * 1e3:.2f} ms (min "
+            f"{min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}), {1 / med:.3f} aggregations/s  [{card}]"
+        )
     peak = torch.cuda.max_memory_allocated()
-    med = float(np.median(walls))
+    st = store.PACK_CACHE.stats()
     say(
-        f"[time] FastAggregation.or_ end to end ({len(bitmaps)} bitmaps, pack to bitmap), "
-        f"{len(walls)} runs: median {med * 1e3:.1f} ms (min {min(walls) * 1e3:.1f}, "
-        f"max {max(walls) * 1e3:.1f}), {1 / med:.3f} aggregations/s; peak device memory "
-        f"{peak / 2**30:.2f} GiB ({peak} bytes)  [{card}]"
+        f"[time] peak device memory {peak / 2**30:.2f} GiB ({peak} bytes); pack cache resident "
+        f"{st['bytes']} bytes in {st['entries']} entries, budget {st['max_bytes']} bytes  [{card}]"
     )
+    store.PACK_CACHE.close()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the query path
+# ---------------------------------------------------------------------------
+
+# base-index ranges of Q1's three sets (the stand-in has 200 base bitmaps,
+# each cycled 50 times; thirds by position would all hold every base)
+Q1_THIRDS = ((0, 67), (67, 134), (134, 200))
+Q1_HEAD = 8
+Q1_SIZES = (201_098, 3_929, 203_830)  # (A&B)\C, threshold_2(head), Q1 on the stand-in
+Q2_SIZES = {64: 1_004_893, 200: 174_452}
+OR_SIZE = 1_635_067
+
+
+def _step_pack_counts(plan, touched=None):
+    """(steps over leaves, steps over other steps' results) among the
+    plan's device steps, counting only steps whose subtree holds a leaf of
+    ``touched`` (a set of leaf uids) when given."""
+    over_leaves = over_results = 0
+    for st in plan.steps:
+        if "device" not in st.engine:
+            continue
+        if touched is not None and not touched & {l.uid for l in st.node.leaves}:
+            continue
+        if all(o.op == "leaf" for o in st.operands):
+            over_leaves += 1
+        else:
+            over_results += 1
+    return over_leaves, over_results
+
+
+def _cache_delta(store, before):
+    after = store.PACK_CACHE.stats()
+    return {k: after[k] - before[k] for k in ("hits", "misses", "delta_rows")}
+
+
+def phase_query(base, bitmaps, real, card: str):
+    """Q1-Q3 through ``query.execute`` and the n-way andnot on the card
+    (``aggregation.config.device`` as shipped), every answer against a
+    numpy oracle over the base bitmaps and their copy counts."""
+    from roaringbitmap_tpu_torch import query as tq
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import aggregation, store
+
+    if (aggregation.config.device, aggregation.config.mode) != ("cuda", "auto"):
+        fail(f"aggregation config is {aggregation.config.device}/{aggregation.config.mode}, expected cuda/auto")
+    t_phase = time.perf_counter()
+    nb = len(base)
+    sets = [[b for i, b in enumerate(bitmaps) if lo <= i % nb < hi] for lo, hi in Q1_THIRDS]
+    A, B, C = sets
+    head = bitmaps[:Q1_HEAD]
+    uA, uB, uC = (np.unique(np.concatenate(base[lo:hi])) for lo, hi in Q1_THIRDS)
+    abc = np.setdiff1d(np.intersect1d(uA, uB), uC)
+    v, c = np.unique(np.concatenate([base[i % nb] for i in range(Q1_HEAD)]), return_counts=True)
+    t2 = v[c >= 2]
+    want_q1 = np.union1d(abc, t2)
+    sizes = (abc.size, t2.size, want_q1.size)
+    say(f"[query] A, B, C: {len(A)}, {len(B)}, {len(C)} bitmaps; oracle (A&B)\\C {sizes[0]}, "
+        f"threshold_2(head) {sizes[1]}, Q1 {sizes[2]} values")
+    if not real and sizes != Q1_SIZES:
+        fail(f"the stand-in's Q1 oracle sizes are {sizes}, expected {Q1_SIZES}")
+
+    Q = tq.Q
+    q1 = ((Q.or_(*A) & Q.or_(*B)) - Q.or_(*C)) | Q.threshold(2, *head)
+    plan = tq.plan(q1)
+    lines = plan.explain().splitlines()
+    # the step lines without the leaf lines, each operand list cut to its
+    # first 6 labels (or(A) alone names 3,350 leaves)
+    steps = []
+    for ln in lines:
+        if " leaf card=" in ln:
+            continue
+        m = re.match(r"(\s*\S+ \S+?\()(.*?)(\) engine=.*)", ln)
+        if m and m.group(2).count(",") > 6:
+            ops = m.group(2).split(", ")
+            ln = f"{m.group(1)}{', '.join(ops[:6])}, ... {len(ops)} operands{m.group(3)}"
+        steps.append(ln)
+    say(f"[query] plan(Q1).explain(), {len(lines) - len(steps)} leaf lines left out:\n"
+        + "\n".join(f"[query]   {ln}" for ln in steps))
+    engines = {st.engine for st in plan.steps}
+    need = {"device-or", "andnot-batch[device]", "threshold-bitsliced[device]"}
+    if not need <= engines:
+        fail(f"Q1's plan has engines {sorted(engines)}, missing {sorted(need - engines)}")
+    n_thr = sum(st.engine == "threshold-bitsliced[device]" for st in plan.steps)
+    over_leaves, over_results = _step_pack_counts(plan)
+
+    # launches of the query path's runs, summed over the queries (each one
+    # zeroes the counts just before it and reads them just after)
+    path_launches = dict.fromkeys(K.LAUNCHES, 0)
+
+    def run(q, cache=None):
+        K.reset_launches()
+        r = tq.execute(q, cache=cache)
+        for name, n in K.LAUNCHES.items():
+            path_launches[name] += n
+        return r
+
+    def run_q1(label, cache, want, expect_thr, expect=None):
+        before = store.PACK_CACHE.stats()
+        t0 = time.perf_counter()
+        r = run(q1, cache)
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        delta = _cache_delta(store, before)
+        _check_values(f"Q1 {label}", r, want, "[query]")
+        say(f"[query] Q1 {label}: {wall * 1e3:.1f} ms; launches {launches}; pack cache {delta}  [{card}]")
+        if K.LAUNCHES["rb_threshold"] != expect_thr:
+            fail(f"Q1 {label}: {K.LAUNCHES['rb_threshold']} rb_threshold launches, expected {expect_thr}")
+        if expect is not None and delta != expect:
+            fail(f"Q1 {label}: pack cache {delta}, expected {expect}")
+        return wall
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    store.PACK_CACHE.close()
+    cold = run_q1("cold (pack cache closed)", None, want_q1, n_thr,
+                  {"hits": 0, "misses": over_leaves + over_results, "delta_rows": 0})
+    # warm, result cache off: every step over leaves hits its resident pack
+    # (zero host packs); a step over other steps' results packs its new
+    # operands afresh
+    warm = run_q1("warm, result cache off", None, want_q1, n_thr,
+                  {"hits": over_leaves, "misses": over_results, "delta_rows": 0})
+    say(f"[query] Q1 warm with the result cache off: {over_leaves} steps over leaves served "
+        f"resident (zero host packs), {over_results} steps over intermediate results packed anew")
+    # one instrumented pass, cold then warm: each step run alone, synchronised
+    from roaringbitmap_tpu_torch.query import exec as qexec
+
+    for label in ("cold", "warm"):
+        if label == "cold":
+            store.PACK_CACHE.close()
+        results = {lf.uid: lf.bitmap for lf in plan.root.leaves}
+        walls = []
+        for st in plan.steps:
+            t0 = time.perf_counter()
+            results[st.node.uid] = qexec._run_step(st, [results[o.uid] for o in st.operands])
+            torch.cuda.synchronize()
+            walls.append(f"{st.node.op} {st.engine} {(time.perf_counter() - t0) * 1e3:.1f}")
+        say(f"[query] Q1 {label}, result cache off, step by step (ms): {'; '.join(walls)}  [{card}]")
+    del results
+    _profiled("[query]", "Q1 warm, result cache off", lambda: tq.execute(q1, cache=None), card)
+    rc = tq.ResultCache()
+    tq.execute(q1, cache=rc)
+    warm_rc = run_q1("warm, result cache on", rc, want_q1, 0,
+                     {"hits": 0, "misses": 0, "delta_rows": 0})
+
+    # one value into an existing chunk of the last copy of a base of A whose
+    # cardinality, plus one, ties no other base's: the planner's cost order
+    # (cardinality, then position) keeps the pack's operand order, so the
+    # resident pack of A takes the delta route
+    cards = np.array([base[b].size for b in range(*Q1_THIRDS[0])])
+    pick = next(b for b in range(*Q1_THIRDS[0])
+                if not np.isin([cards[b], cards[b] + 1], np.delete(cards, b)).any())
+    pos = max(i for i in range(len(bitmaps)) if i % nb == pick)
+    keys_b = np.unique(base[pick] >> 16)
+    cand = np.setdiff1d(np.setdiff1d(uB, uA), uC)
+    cand = cand[np.isin(cand >> 16, keys_b)]
+    if cand.size:
+        val = int(cand[0])
+    else:
+        key = int(keys_b[0])
+        val = int(np.setdiff1d(np.arange(key << 16, (key + 1) << 16), base[pick])[0])
+    bitmaps[pos].add(val)
+    uA2 = np.union1d(uA, [val]).astype(np.uint32)
+    want_mut = np.union1d(np.setdiff1d(np.intersect1d(uA2, uB), uC), t2)
+    leaf_uid = tq.Q.leaf(bitmaps[pos]).uid
+    touched = _step_pack_counts(tq.plan(q1), {leaf_uid})
+    mutated = run_q1(f"after adding {val} to bitmap {pos} (base {pick}, in A)", rc, want_mut, 0,
+                     {"hits": touched[0], "misses": touched[1], "delta_rows": 1})
+    say(f"[query] Q1 after the mutation: the pack of A took the delta route (1 row re-expanded "
+        f"and written with index_copy_, no full repack); {touched[1]} steps over results re-ran")
+    # the delta's scatter alone: one row written into A's resident flat rows
+    a_entry = next(e for e in store.PACK_CACHE._entries.values()
+                   if e.kind == "agg" and len(e.fps) == len(A))
+    flat = a_entry.value.device_words
+    one = torch.tensor([a_entry.row_map[(0, int(A[0].high_low_container.keys[0]))]], device="cuda")
+    scatter = cuda_ms(lambda: flat.index_copy_(0, one, flat.index_select(0, one)))
+    say(f"[query] index_copy_ of one row into A's resident [{flat.shape[0]}, 2048] rows: "
+        f"{scatter:.4f} ms (bound {bound_ms(2 * ROW_BYTES):.6f} ms)  [{card}]")
+    del flat
+    bitmaps[pos].remove(val)  # restore the working set for the queries below
+
+    # Q2: threshold(k) over all 10,000 bitmaps
+    mult = np.bincount(np.arange(len(bitmaps)) % nb, minlength=nb)
+    allv = np.concatenate(base)
+    uniq, inv = np.unique(allv, return_inverse=True)
+    counts = np.bincount(inv, weights=np.repeat(mult, [b.size for b in base]))
+    if uniq.size != OR_SIZE and not real:
+        fail(f"the stand-in's OR has {uniq.size} values, expected {OR_SIZE}")
+    q2_walls = {}
+    for k in THRESHOLD_KS:
+        want = uniq[counts >= k].astype(np.uint32)
+        if want.size in (0, uniq.size) or (not real and want.size != Q2_SIZES[k]):
+            fail(f"Q2 k={k}: the oracle has {want.size} values")
+        q = Q.threshold(k, *bitmaps)
+        for label in ("cold (pack, expansion, padded block)", "warm (resident pack)"):
+            before = store.PACK_CACHE.stats()
+            t0 = time.perf_counter()
+            r = run(q)
+            wall = time.perf_counter() - t0
+            q2_walls.setdefault(k, wall)
+            _check_values(f"Q2 threshold({k}, all {len(bitmaps)}) {label}", r, want, "[query]")
+            if K.LAUNCHES["rb_threshold"] != 1:
+                fail(f"Q2 k={k}: {K.LAUNCHES['rb_threshold']} rb_threshold launches, expected 1")
+            say(f"[query] Q2 k={k} {label}: {wall * 1e3:.1f} ms, one rb_threshold launch; pack "
+                f"cache {_cache_delta(store, before)}  [{card}]")
+
+    # Q3: the n-way andnot's count-only form
+    first = tq.execute(Q.or_(*A) & Q.or_(*B), cache=None)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    got = tq.andnot_nway_cardinality(first, *C)
+    t_q3 = time.perf_counter() - t0
+    for name, n in K.LAUNCHES.items():
+        path_launches[name] += n
+    if got != abc.size:
+        fail(f"Q3 andnot_nway_cardinality = {got}, oracle {abc.size}")
+    if not K.LAUNCHES["rb_popcount_rows"] or not sum(v for k, v in K.LAUNCHES.items() if k.startswith("rb_group_reduce")):
+        fail(f"Q3 did not run on the device: {K.LAUNCHES}")
+    say(f"[query] Q3 andnot_nway_cardinality(or(A) & or(B), *C) = {got}, equal to the oracle; "
+        f"{t_q3 * 1e3:.1f} ms; launches {dict((k, v) for k, v in K.LAUNCHES.items() if v)}  [{card}]")
+    # the andnot mask (torch ops) and its popcount on Q3's rows
+    from roaringbitmap_tpu_torch.query import kernels as qk
+
+    ckeys, _ = qk._covered(first, C)
+    first_rows, union, _, _ = qk._device_andnot_stage(first, C, ckeys)
+    mask_ms = cuda_ms(lambda: K.popcount_rows(first_rows & ~union))
+    say(f"[query] the andnot mask first & ~union + rb_popcount_rows on [{first_rows.shape[0]}, 2048]: "
+        f"{mask_ms:.4f} ms (bound {bound_ms(3 * first_rows.numel() * 4):.6f} ms)  [{card}]")
+    del first_rows, union
+
+    peak = torch.cuda.max_memory_allocated()
+    st = store.PACK_CACHE.stats()
+    say(
+        f"[query] Q1 cold {cold * 1e3:.1f} ms, warm (result cache off) {warm * 1e3:.1f} ms, warm "
+        f"(result cache on) {warm_rc * 1e3:.2f} ms, after a mutation {mutated * 1e3:.1f} ms; Q2 "
+        f"{', '.join(f'k={k} {w * 1e3:.1f} ms' for k, w in q2_walls.items())}; peak device memory "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes); pack cache resident {st['bytes']} bytes in "
+        f"{st['entries']} entries (budget {st['max_bytes']}); phase {time.perf_counter() - t_phase:.1f} s  [{card}]"
+    )
+    store.PACK_CACHE.close()
+    torch.cuda.empty_cache()
+    say(f"[query] launches over the query path: {path_launches}")
+    if not path_launches["rb_threshold"]:
+        fail("rb_threshold was not launched on the query path")
+    return path_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1184,10 +1551,15 @@ def main():
     phase_build()
     timings = phase_kernels(card)
     timings.update(phase_bsi_kernels(card))
-    launches = None  # not counted unless phases 4 and 6 run
+    t0 = time.perf_counter()
+    base, bitmaps, real = build_working_set()
+    build_s = time.perf_counter() - t0
+    timings.update(phase_threshold_kernel(card, bitmaps))
+    launches = None  # not counted unless phases 4, 8 and 6 run
     if args.only is None:
-        bitmaps, agg_launches = phase_main(np.random.default_rng(SEED))
+        agg_launches = phase_main(np.random.default_rng(SEED), base, bitmaps, real, build_s)
         phase_timing(bitmaps, card)
+        query_launches = phase_query(base, bitmaps, real, card)
         del bitmaps
         from roaringbitmap_tpu_torch.models import bsi as tbsi
 
@@ -1196,9 +1568,11 @@ def main():
         vals, bsi_launches = phase_bsi(card)
         phase_range_bitmap(vals)
         # each kernel's count from the path that runs it: the aggregation
-        # path for the reduce kernels, the BSI path for the O'Neil walk and
-        # the masked popcount; the wide reduce is on neither
+        # path for the reduce kernels, the query path for the threshold
+        # kernel, the BSI path for the O'Neil walk and the masked popcount;
+        # the wide reduce is on none
         launches = dict(agg_launches)
+        launches["rb_threshold"] = query_launches["rb_threshold"]
         for name in ("rb_oneil_compare", "rb_oneil_compare[batched]",
                      "rb_oneil_compare[batched-deep]", "rb_popcount_rows[masked]",
                      "wide_reduce_cardinality"):
@@ -1208,8 +1582,9 @@ def main():
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "roaringbitmap_tpu_torch/csrc/"
-            + ("oneil.cu" if name.startswith("rb_oneil") else "reduce.cu"),
+            "source": "roaringbitmap_tpu_torch/csrc/" + (
+                "oneil.cu" if name.startswith("rb_oneil")
+                else "query.cu" if name == "rb_threshold" else "reduce.cu"),
             "replaces": t["replaces"],
             "launches": None if launches is None else launches[name],
             "max_abs_err": t["max_abs_err"],

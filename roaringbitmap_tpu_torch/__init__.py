@@ -1,9 +1,11 @@
 """roaringbitmap_tpu_torch — the Roaring bitmap framework on PyTorch and CUDA.
 
 The port of ``roaringbitmap_tpu`` (JAX on a TPU) to an NVIDIA H100: the same
-containers, facade, serialization format, N-way aggregation engines and
-the bit-sliced index with ``RangeBitmap``, with the device path in PyTorch
-and its kernels written by hand in CUDA (``csrc/``). It imports neither JAX nor the JAX package; that package stays
+containers, facade, serialization format, N-way aggregation engines with
+the resident pack cache, the bit-sliced index with ``RangeBitmap``, and the
+query planner and executor (``roaringbitmap_tpu_torch.query``), with the
+device path in PyTorch and its kernels written by hand in CUDA
+(``csrc/``). It imports neither JAX nor the JAX package; that package stays
 the reference the port is tested against.
 
 Device entry points run on the card (``device="cuda"``) unless the caller

@@ -169,9 +169,6 @@ class RoaringBitmapSliceIndex:
             RoaringBitmap() for _ in range(max(0, int(max_value)).bit_length())
         ]
         self.run_optimized = False
-        # (key, (keys, ebm_w, slices_w)) of the device pack; the key holds
-        # the member bitmaps' fingerprints, so any mutation re-keys it
-        self._pack = None
 
     # ------------------------------------------------------------------
     # construction
@@ -450,38 +447,48 @@ class RoaringBitmapSliceIndex:
         raise ValueError(f"unsupported operation {op}")
 
     # ---- device path --------------------------------------------------
+    def _pack_key(self) -> tuple:
+        """The pack's key in ``store.PACK_CACHE``: the member bitmaps'
+        fingerprints and the device, so any mutation (including one that
+        touches a slice bitmap directly) re-keys it."""
+        return (
+            "bsi",
+            self.ebm.fingerprint(),
+            tuple(s.fingerprint() for s in self.slices),
+            str(resolve_device(config.device)),
+        )
+
     def _pack_dense(self):
         """``(keys, ebm_w, slices_w)``: int32 ``[K, 2048]`` ebm words and
         the ``[S, K, 2048]`` slice tensor over the ebm's K chunk keys, on
-        ``config.device``. Built on the host, sent in one copy, and kept on
-        the index under the member bitmaps' fingerprints and the device:
-        any mutation (including one that touches a slice bitmap directly)
-        re-keys it, and the next query rebuilds."""
+        ``config.device``. Built on the host, sent in one copy, and kept
+        resident in the process-wide pack cache (``store.PACK_CACHE``)
+        under :meth:`_pack_key`: repeat queries skip the host marshal, the
+        BSI tensors share one byte budget and LRU with the aggregation and
+        query packs, and a mutated index re-keys its entry, so the stale
+        pack ages out."""
         device = resolve_device(config.device)
-        key = (
-            self.ebm.fingerprint(),
-            tuple(s.fingerprint() for s in self.slices),
-            str(device),
+
+        def build():
+            keys = list(self.ebm.high_low_container.keys)
+            kidx = {k: i for i, k in enumerate(keys)}
+            s_count = self.bit_count()
+            host = np.zeros((s_count + 1, len(keys), dev.DEVICE_WORDS), dtype=np.int32)
+            for j, c in enumerate(self.ebm.high_low_container.containers):
+                host[s_count, j] = store.container_words(c)
+            for i, s in enumerate(self.slices):
+                hlc = s.high_low_container
+                for k, c in zip(hlc.keys, hlc.containers):
+                    j = kidx.get(k)
+                    if j is not None:
+                        host[i, j] = store.container_words(c)
+            packed = torch.from_numpy(host).to(device)
+            return (keys, packed[s_count], packed[:s_count]), host.nbytes
+
+        return store.PACK_CACHE.get_or_build(
+            self._pack_key(), build,
+            refs=store.static_fp_refs([self.ebm] + list(self.slices)),
         )
-        if self._pack is not None and self._pack[0] == key:
-            return self._pack[1]
-        self._pack = None  # free the stale tensors before building anew
-        keys = list(self.ebm.high_low_container.keys)
-        kidx = {k: i for i, k in enumerate(keys)}
-        s_count = self.bit_count()
-        host = np.zeros((s_count + 1, len(keys), dev.DEVICE_WORDS), dtype=np.int32)
-        for j, c in enumerate(self.ebm.high_low_container.containers):
-            host[s_count, j] = store.container_words(c)
-        for i, s in enumerate(self.slices):
-            hlc = s.high_low_container
-            for k, c in zip(hlc.keys, hlc.containers):
-                j = kidx.get(k)
-                if j is not None:
-                    host[i, j] = store.container_words(c)
-        packed = torch.from_numpy(host).to(device)
-        value = (keys, packed[s_count], packed[:s_count])
-        self._pack = (key, value)
-        return value
 
     @staticmethod
     def _found_words(keys, like: torch.Tensor, found_set: RoaringBitmap) -> torch.Tensor:

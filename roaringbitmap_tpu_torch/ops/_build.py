@@ -28,7 +28,7 @@ from typing import Dict, List, Optional, Tuple
 from ..robust.errors import TierUnavailable
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCES = [PACKAGE_DIR / "csrc" / "reduce.cu", PACKAGE_DIR / "csrc" / "oneil.cu"]
+SOURCES = [PACKAGE_DIR / "csrc" / name for name in ("reduce.cu", "oneil.cu", "query.cu")]
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
@@ -136,6 +136,8 @@ def load() -> ctypes.CDLL:
             lib.rb_oneil_compare.restype = i
             lib.rb_oneil_counts.argtypes = [i, i, vp, i, ll, vp, i, vp, vp, vp, i, ll, vp]
             lib.rb_oneil_counts.restype = i
+            lib.rb_threshold.argtypes = [i, vp, ll, ll, i, ctypes.c_uint, vp, vp, vp]
+            lib.rb_threshold.restype = i
             lib.rb_error_string.argtypes = [i]
             lib.rb_error_string.restype = ctypes.c_char_p
             _LIB = lib

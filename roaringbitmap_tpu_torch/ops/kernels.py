@@ -2,8 +2,8 @@
 and the device-side row expansion.
 
 Counterpart of ``roaringbitmap_tpu/ops/pallas_kernels.py``. Hand-written
-CUDA kernels (``csrc/reduce.cu`` and ``csrc/oneil.cu``, built
-by ``_build``):
+CUDA kernels (``csrc/reduce.cu``, ``csrc/oneil.cu`` and ``csrc/query.cu``,
+built by ``_build``):
 
 * ``rb_group_reduce`` — :func:`group_reduce`. Replaces
   ``pallas_kernels.py:grouped_reduce_pallas`` (padded layout, bucketed
@@ -25,6 +25,11 @@ by ``_build``):
   count-only, on the tiled walk ``rb_oneil_counts``; bound: logic
   instructions, one per walk and slice word, above Q ~ 21);
   ``oneil.cu`` says how.
+* ``rb_threshold`` — :func:`threshold_rows`. Replaces the XLA
+  ``roaringbitmap_tpu/query/kernels.py:_threshold_kernel`` (the
+  bit-sliced adder over the rows of a zero-padded ``[G, M, 2048]`` block,
+  the >= k compare and the popcount, one launch). Bound: device-memory
+  bandwidth, the block read once; ``query.cu`` says how.
 
 :func:`wide_reduce_cardinality` — the flat ``[N, 2048] -> [2048]`` reduce
 of ``pallas_kernels.py:wide_reduce_pallas`` /
@@ -64,6 +69,7 @@ LAUNCHES = {
     "rb_oneil_compare[batched]": 0,
     "rb_oneil_compare[batched-deep]": 0,
     "wide_reduce_cardinality": 0,
+    "rb_threshold": 0,
 }
 
 # rows per chunk (one CTA each): small enough that a 10,000-row group
@@ -590,3 +596,98 @@ def expand_rows(
         carry = ((torch.cumsum(par, dim=1) - par) & 1).to(torch.int32)
         out[torch.from_numpy(run_rows).to(device)] = fill ^ -carry
     return out
+
+
+# ---------------------------------------------------------------------------
+# Threshold(k): bit-sliced adder, >= k compare, popcount
+# ---------------------------------------------------------------------------
+
+# counter slices the kernel keeps in registers (M < 2^32 rows a group)
+MAX_THRESHOLD_SLICES = 32
+
+
+def _check_threshold(words3: torch.Tensor, k: int, n_slices: int) -> None:
+    if words3.dim() != 3:
+        raise ValueError(f"words must be [G, M, 2048], got {tuple(words3.shape)}")
+    _check_words(words3)
+    if not 1 <= int(n_slices) <= MAX_THRESHOLD_SLICES:
+        raise ValueError(f"n_slices must be in 1..{MAX_THRESHOLD_SLICES}, got {n_slices}")
+    if int(k) < 0:
+        raise ValueError(f"k must be >= 0, got {k}")
+
+
+def threshold_rows_plain(words3: torch.Tensor, k: int, n_slices: int):
+    """Plain PyTorch version of :func:`threshold_rows`: the same bit-sliced
+    adder with int32 ops, summing the rows of each group in a tree of
+    pairwise bit-sliced additions (each level adds neighbouring numbers
+    with a ripple carry, widening them by one slice up to ``n_slices``,
+    past which the carry drops as in the sequential counter), then the
+    same MSB->LSB compare and the popcount."""
+    _check_threshold(words3, k, n_slices)
+    g, m, w = words3.shape
+    L = int(n_slices)
+    # nums: [G, n, b, W] — n numbers of b bit-slices each, lowest first
+    nums = words3.unsqueeze(2)
+    if m == 0:
+        nums = torch.zeros((g, 1, 1, w), dtype=torch.int32, device=words3.device)
+    while nums.shape[1] > 1:
+        if nums.shape[1] % 2:
+            nums = torch.cat([nums, torch.zeros_like(nums[:, :1])], dim=1)
+        a, b = nums[:, 0::2], nums[:, 1::2]
+        width = nums.shape[2]
+        carry = torch.zeros_like(a[:, :, 0])
+        out = []
+        for i in range(min(width + 1, L)):
+            if i < width:
+                ai, bi = a[:, :, i], b[:, :, i]
+                out.append(ai ^ bi ^ carry)
+                carry = (ai & bi) | (carry & (ai ^ bi))
+            else:
+                out.append(carry)
+        nums = torch.stack(out, dim=2)
+    slices = [nums[:, 0, i] if i < nums.shape[2] else torch.zeros_like(nums[:, 0, 0])
+              for i in range(L)]
+    eq = torch.full((g, w), -1, dtype=torch.int32, device=words3.device)
+    gt = torch.zeros((g, w), dtype=torch.int32, device=words3.device)
+    for bit in range(L - 1, -1, -1):
+        sl = slices[bit]
+        if (int(k) >> bit) & 1:
+            eq = eq & sl
+        else:
+            gt = gt | (eq & sl)
+            eq = eq & ~sl
+    res = (gt | eq).contiguous()
+    return res, dev.popcount_rows(res)
+
+
+def threshold_rows(words3: torch.Tensor, k: int, n_slices: int):
+    """``_threshold_kernel(k, n_slices)`` of the JAX package: per group g
+    and bit position, count the rows of ``words3[g]`` (int32 ``[G, M,
+    2048]``, zero-filled pad rows add nothing) whose bit is set in an
+    ``n_slices``-bit counter (a carry out of the top slice drops), and set
+    the bit of the result when the counter is >= k, compared slice by
+    slice from the top on the low ``n_slices`` bits of k. Returns int32
+    ``[G, 2048]`` words and int32 ``[G]`` popcounts. The caller decides
+    an empty answer for ``k >> n_slices != 0`` on the host, as the JAX
+    package does; this function computes the compare as written for any
+    k. On the card: one ``rb_threshold`` launch."""
+    _check_threshold(words3, k, n_slices)
+    if words3.device.type == "cpu":
+        return threshold_rows_plain(words3, k, n_slices)
+    if words3.device.type != "cuda":
+        raise ValueError(f"unsupported device {words3.device}")
+    g, m, _ = words3.shape
+    out = torch.empty((g, dev.DEVICE_WORDS), dtype=torch.int32, device=words3.device)
+    cards = torch.zeros(g, dtype=torch.int32, device=words3.device)
+    if g == 0:
+        return out, cards
+    from . import _build
+
+    lib = _build.load()
+    rc = lib.rb_threshold(
+        words3.device.index or 0, words3.data_ptr(), g, m, int(n_slices),
+        int(k) & 0xFFFFFFFF, out.data_ptr(), cards.data_ptr(), _stream(words3),
+    )
+    _build.check(lib, rc, "rb_threshold")
+    LAUNCHES["rb_threshold"] += 1
+    return out, cards

@@ -9,8 +9,13 @@ ParallelAggregation (ParallelAggregation.java:39), as in the JAX package's
   (Container.lazyIOR Container.java:717, repairAfterLazy :873) as
   vectorized numpy.
 * **Device path** — pack all groups into one ``[N, 2048]`` int32 row block
-  on the card (parallel/store.py) and run the grouped reduce + popcount
-  kernels (ops/kernels.py).
+  on the card and run the grouped reduce + popcount kernels
+  (ops/kernels.py). The pack comes from the resident pack cache
+  (``store.packed_for``): a repeated aggregation over unchanged bitmaps
+  pays no host pack, and a mutated bitmap re-ships only its dirty rows.
+  The pack is op-independent, so OR/XOR and the cardinality forms over
+  the same bitmaps share one resident entry; AND packs its key
+  intersection as its own entry.
 
 ``mode="auto"`` picks between them by working-set size only
 (``config.min_device_containers``); ``mode="device"`` always takes the
@@ -124,16 +129,15 @@ def _percontainer_aggregate(
 
 
 def _device_pack(bitmaps: Sequence[RoaringBitmap], keys_filter, device):
-    return store.pack_groups(
-        store.group_by_key(bitmaps, keys_filter=keys_filter),
-        resolve_device(config.device if device is None else device),
+    return store.packed_for(
+        bitmaps, keys_filter, resolve_device(config.device if device is None else device)
     )
 
 
 def _device_aggregate(
     bitmaps: Sequence[RoaringBitmap], keys_filter, op: str, device
 ) -> RoaringBitmap:
-    """Device path: group, pack, reduce, unpack."""
+    """Device path: the resident pack (built on a miss), reduce, unpack."""
     packed = _device_pack(bitmaps, keys_filter, device)
     words, cards = store.reduce_packed(packed, op=op)
     return store.unpack_to_bitmap(packed.group_keys, words, cards)
@@ -248,6 +252,20 @@ class FastAggregation:
     # ---- sequential folds: independent engines to cross-check against ----
 
     @staticmethod
+    def horizontal_or(*bitmaps: RoaringBitmap) -> RoaringBitmap:
+        """Priority-queue merge of container cursors
+        (FastAggregation.horizontal_or :183-230): a heap of (key, cursor)
+        pairs; all same-key containers are folded, then re-compressed
+        once."""
+        return _horizontal(_flatten(bitmaps), "or")
+
+    @staticmethod
+    def horizontal_xor(*bitmaps: RoaringBitmap) -> RoaringBitmap:
+        """Heap-ordered key merge with an XOR fold per group
+        (FastAggregation.horizontal_xor :243)."""
+        return _horizontal(_flatten(bitmaps), "xor")
+
+    @staticmethod
     def naive_or(*bitmaps: RoaringBitmap) -> RoaringBitmap:
         """Sequential lazy fold (FastAggregation.naive_or :541 +
         Container.lazyIOR protocol): accumulate words per key left to right,
@@ -288,6 +306,37 @@ class FastAggregation:
             if acc.is_empty():
                 break
         return acc
+
+
+def _horizontal(bms: List[RoaringBitmap], op: str) -> RoaringBitmap:
+    """The heap merge behind ``horizontal_or`` / ``horizontal_xor``: pop
+    every cursor on the smallest key, fold that group's words, advance."""
+    import heapq
+
+    heap = []  # (key, bitmap_idx, container_idx)
+    for bi, bm in enumerate(bms):
+        if bm.high_low_container.size:
+            heapq.heappush(heap, (bm.high_low_container.keys[0], bi, 0))
+    out = RoaringBitmap()
+    while heap:
+        key, bi, ci = heapq.heappop(heap)
+        group = []
+        while True:
+            hlc = bms[bi].high_low_container
+            group.append(hlc.containers[ci])
+            if ci + 1 < hlc.size:
+                heapq.heappush(heap, (hlc.keys[ci + 1], bi, ci + 1))
+            if not heap or heap[0][0] != key:
+                break
+            _, bi, ci = heapq.heappop(heap)
+        # the reference's forms: an OR passes a lone container through, an
+        # XOR re-compresses every group from its words
+        c = group[0].clone() if len(group) == 1 and op == "or" else best_container_of_words(
+            _fold_group_words(group, op)
+        )
+        if c.cardinality:
+            out.high_low_container.append(key, c)
+    return out
 
 
 def _from_word_accumulators(acc: Dict[int, np.ndarray]) -> RoaringBitmap:

@@ -1,8 +1,9 @@
-"""Device container store: SoA packing of containers onto the card.
+"""Device container store: SoA packing of containers onto the card, and
+the resident pack cache.
 
 Counterpart of ``roaringbitmap_tpu/parallel/store.py`` for the aggregation
-path. All containers of a working set are transposed host-side into
-key-major order (``group_by_key``) and collected into a compact
+and query paths. All containers of a working set are transposed host-side
+into key-major order (``group_by_key``) and collected into a compact
 :class:`RowPayload` — borrows of array values, run intervals and bitmap
 words (``pack_groups``). At first touch the payload is shipped and expanded
 on the device into ONE ``int32 [N, 2048]`` row block (``ops/kernels
@@ -13,14 +14,26 @@ reduce and the per-group popcount through the CUDA kernels
 the host as uint32 words and are re-compressed into containers
 (``unpack_to_bitmap``).
 
-Left out here, relative to the JAX package: the resident pack cache, delta
-repacks, fault sites and the timeline stages. Every aggregation packs
-afresh. There is no fallback: a device call that fails raises.
+:class:`PackCache` (``PACK_CACHE``, ``packed_for``) keeps packed working
+sets, the BSI slice tensors and the query kernels' packs resident across
+calls, keyed by the operands' fingerprints and the device, under one
+byte-budget LRU. A working set whose bitmaps mutated in place is refreshed
+by a delta repack: only the rows of the dirty containers are re-expanded
+and written into the resident rows (``PackedGroups.apply_delta``, one
+``index_copy_``); structural changes repack in full.
+
+Left out here, relative to the JAX package: pinning, the demotion probe,
+the eviction-regret ring, the residency reconciliation, per-route
+bookkeeping, fault sites and the timeline stages. There is no fallback: a
+device call that fails raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+import os
+import threading
+from collections import OrderedDict
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +55,8 @@ from ..utils import bits
 LAYOUT_COUNTS = {"padded": 0, "bucketed": 0, "segmented-scan": 0}
 # default ragged-batch bucket count for the prepare_reduce cost model
 DEFAULT_BUCKETS = 3
+# bytes of one expanded container row on the device
+ROW_BYTES = dev.DEVICE_WORDS * 4
 
 
 class RowPayload:
@@ -188,6 +203,13 @@ class RowPayload:
         return kernels.expand_rows(self.n_rows, *self.materialize(), device)
 
 
+def ship_rows(containers: Sequence[Container], device=None) -> torch.Tensor:
+    """Expand a bare container list straight to flat int32 ``[n, 2048]``
+    rows on ``device`` through the same device-side expansion as the packed
+    working sets (the query kernels' first-operand rows)."""
+    return RowPayload.from_containers(containers).expand_device(resolve_device(device))
+
+
 class PackedGroups:
     """Key-grouped containers packed for device reduction.
 
@@ -197,7 +219,20 @@ class PackedGroups:
     without a card unless ``device="cpu"``).
 
     Row data lives in a compact :class:`RowPayload`; ``device_words`` (the
-    int32 device block) expands from it on first touch."""
+    int32 device block) expands from it on first touch, and the padded and
+    bucketed layouts are gathered from those rows on the device.
+
+    A delta repack (:meth:`apply_delta`) writes fresh rows into the
+    resident flat block in place and drops the derived layouts, which
+    rebuild from the flat rows on next touch. The replaced rows are also
+    kept as host row overrides (at most one per packed row), so a later
+    re-expansion from the payload (after :meth:`close`) converges on the
+    same bits. The layout epoch, bumped by every delta, keeps a lazy build
+    that raced a delta from being published as the current layout.
+
+    While the working set is resident in a :class:`PackCache` the cache
+    owns its lifetime: :meth:`close` is then a no-op, and the derived
+    layouts' device bytes are reported to the cache's byte budget."""
 
     def __init__(self, group_keys, group_offsets, payload: RowPayload, device=None):
         self.group_keys = group_keys
@@ -209,6 +244,16 @@ class PackedGroups:
         self._bucket_cache: Dict[Tuple[int, int], list] = {}
         self._plan_cache: Dict[int, List[np.ndarray]] = {}
         self._reduce_touches: Dict[int, int] = {}
+        self._row_overrides: Dict[int, np.ndarray] = {}  # guarded-by: self._lock
+        self._layout_epoch = 0  # guarded-by: self._lock
+        # derived-layout device bytes by kind, and the owning cache's
+        # byte-accounting callback (None when not cache-held)
+        self._resident_held: Dict[str, int] = {}  # guarded-by: self._lock
+        self._resident_cb: Optional[Callable[[int], None]] = None
+        self._cache_held = False
+        # guards publication of lazily built layouts against a concurrent
+        # delta; never held while calling into the cache
+        self._lock = threading.Lock()
 
     @property
     def n_rows(self) -> int:
@@ -219,12 +264,98 @@ class PackedGroups:
         return len(self.group_keys)
 
     @property
+    def words_nbytes(self) -> int:
+        """Device bytes of the flat row block: the working set's base
+        weight in a cache's byte budget."""
+        return self.n_rows * ROW_BYTES
+
+    @property
     def device_words(self) -> torch.Tensor:
         """The flat int32 [N, 2048] rows on ``device``: the device-side
-        payload expansion, built once, then cached."""
-        if self._device_words is None:
-            self._device_words = self._payload.expand_device(self.device)
-        return self._device_words
+        payload expansion (plus any delta row overrides), built once, then
+        cached."""
+        d = self._device_words
+        if d is None:
+            with self._lock:
+                epoch = self._layout_epoch
+                overrides = dict(self._row_overrides)
+            d = self._payload.expand_device(self.device)
+            if overrides:
+                rows = np.fromiter(overrides, np.int64, len(overrides))
+                d.index_copy_(
+                    0, torch.from_numpy(rows).to(d.device),
+                    torch.from_numpy(np.stack([overrides[int(r)] for r in rows])).to(d.device),
+                )
+            with self._lock:
+                if self._layout_epoch != epoch:
+                    return d  # raced a delta repack: do not publish
+                if self._device_words is None:
+                    self._device_words = d
+                d = self._device_words
+        return d
+
+    def _publish(self, cache: dict, key, value, kind: str, nbytes: int, epoch: int):
+        """Publish a lazily built layout unless a delta moved the epoch
+        since the build started (then the caller still gets its build) or
+        another thread published first; report new device bytes."""
+        with self._lock:
+            if self._layout_epoch != epoch:
+                return value
+            if key in cache:
+                return cache[key]
+            cache[key] = value
+            if nbytes:
+                self._resident_held[kind] = self._resident_held.get(kind, 0) + nbytes
+        self._notify_resident(nbytes)
+        return value
+
+    def _notify_resident(self, delta: int) -> None:
+        cb = self._resident_cb
+        if cb is not None and delta:
+            cb(delta)
+
+    def _drop(self, flat: bool) -> None:
+        """Drop the derived layouts (and with ``flat`` the flat rows too),
+        settling their share of the resident bytes."""
+        with self._lock:
+            freed = sum(self._resident_held.values())
+            self._resident_held.clear()
+            self._padded_cache = {}
+            self._bucket_cache = {}
+            if flat:
+                self._device_words = None
+        self._notify_resident(-freed)
+
+    def close(self) -> None:
+        """Release the device tensors now. A no-op while the working set is
+        resident in a pack cache (the cache owns its lifetime and closes it
+        on eviction); a closed working set stays usable and rebuilds on
+        next touch. Idempotent."""
+        if not self._cache_held:
+            self._drop(flat=True)
+
+    def apply_delta(self, rows: np.ndarray, new_words: np.ndarray) -> None:
+        """Incremental repack: replace flat ``rows`` (int64 [k]) with
+        ``new_words`` (int32 [k, 2048], freshly expanded container words).
+        The resident flat rows are patched in place by one ``index_copy_``
+        (the counterpart of the JAX package's donated row scatter), the
+        rows are recorded as host overrides for any later re-expansion,
+        and every derived layout drops and re-derives from the flat rows on
+        next touch. The group structure is unchanged by contract: a
+        structural change takes the full repack in :class:`PackCache`."""
+        rows = np.asarray(rows, dtype=np.int64)
+        new_words = np.ascontiguousarray(new_words, dtype=np.int32)
+        with self._lock:
+            self._layout_epoch += 1
+            for r, row in zip(rows.tolist(), new_words):
+                self._row_overrides[int(r)] = row.copy()
+            d = self._device_words
+            if d is not None and len(rows):
+                d.index_copy_(
+                    0, torch.from_numpy(rows).to(d.device),
+                    torch.from_numpy(new_words).to(d.device),
+                )
+        self._drop(flat=False)
 
     def padded_device(self, fill: int) -> Optional[torch.Tensor]:
         """Dense-padded int32 [G, M, W] rows on the device, built once per
@@ -232,21 +363,25 @@ class PackedGroups:
         the distribution is too skewed to pad (``dense_pad_plan``'s
         guard)."""
         key = int(fill)
-        if key not in self._padded_cache:
-            plan = dense_pad_plan(self.group_offsets)
-            arr = None
-            if plan is not None:
-                m, slots = plan
-                g = self.n_groups
-                flat = self.device_words
-                arr = torch.full(
-                    (g * m, dev.DEVICE_WORDS), int(fill), dtype=torch.int32,
-                    device=self.device,
-                )
-                arr.index_copy_(0, torch.from_numpy(slots).to(self.device), flat)
-                arr = arr.view(g, m, dev.DEVICE_WORDS)
-            self._padded_cache[key] = arr
-        return self._padded_cache[key]
+        cache = self._padded_cache
+        if key in cache:
+            return cache[key]
+        with self._lock:
+            epoch = self._layout_epoch
+        plan = dense_pad_plan(self.group_offsets)
+        arr = None
+        if plan is not None:
+            m, slots = plan
+            g = self.n_groups
+            flat = self.device_words
+            arr = torch.full(
+                (g * m, dev.DEVICE_WORDS), int(fill), dtype=torch.int32,
+                device=self.device,
+            )
+            arr.index_copy_(0, torch.from_numpy(slots).to(self.device), flat)
+            arr = arr.view(g, m, dev.DEVICE_WORDS)
+        nbytes = 0 if arr is None else arr.numel() * 4
+        return self._publish(cache, key, arr, "padded_groups", nbytes, epoch)
 
     def plan_buckets(self, n_buckets: int = 3) -> List[np.ndarray]:
         """The DP bucket plan for this working set, computed once per
@@ -264,33 +399,37 @@ class PackedGroups:
         (fill, n_buckets); every bucket is one device gather from the flat
         rows into a block prefilled with ``fill``."""
         key = (int(fill), int(n_buckets))
-        if key not in self._bucket_cache:
-            counts = np.diff(self.group_offsets)
-            flat = self.device_words
-            out = []
-            for idx in self.plan_buckets(n_buckets):
-                g_b, m_b = len(idx), int(counts[idx].max())
-                b_counts = counts[idx]
-                src = np.concatenate(
-                    [np.arange(self.group_offsets[gi], self.group_offsets[gi + 1])
-                     for gi in idx]
-                )
-                slot_of_row = np.repeat(np.arange(g_b), b_counts)
-                local = np.arange(len(src)) - np.repeat(
-                    np.cumsum(np.concatenate(([0], b_counts[:-1]))), b_counts
-                )
-                block = torch.full(
-                    (g_b * m_b, dev.DEVICE_WORDS), int(fill), dtype=torch.int32,
-                    device=self.device,
-                )
-                block.index_copy_(
-                    0,
-                    torch.from_numpy(slot_of_row * m_b + local).to(self.device),
-                    flat.index_select(0, torch.from_numpy(src).to(self.device)),
-                )
-                out.append((idx, block.view(g_b, m_b, dev.DEVICE_WORDS)))
-            self._bucket_cache[key] = out
-        return self._bucket_cache[key]
+        cache = self._bucket_cache
+        if key in cache:
+            return cache[key]
+        with self._lock:
+            epoch = self._layout_epoch
+        counts = np.diff(self.group_offsets)
+        flat = self.device_words
+        out = []
+        for idx in self.plan_buckets(n_buckets):
+            g_b, m_b = len(idx), int(counts[idx].max())
+            b_counts = counts[idx]
+            src = np.concatenate(
+                [np.arange(self.group_offsets[gi], self.group_offsets[gi + 1])
+                 for gi in idx]
+            )
+            slot_of_row = np.repeat(np.arange(g_b), b_counts)
+            local = np.arange(len(src)) - np.repeat(
+                np.cumsum(np.concatenate(([0], b_counts[:-1]))), b_counts
+            )
+            block = torch.full(
+                (g_b * m_b, dev.DEVICE_WORDS), int(fill), dtype=torch.int32,
+                device=self.device,
+            )
+            block.index_copy_(
+                0,
+                torch.from_numpy(slot_of_row * m_b + local).to(self.device),
+                flat.index_select(0, torch.from_numpy(src).to(self.device)),
+            )
+            out.append((idx, block.view(g_b, m_b, dev.DEVICE_WORDS)))
+        nbytes = sum(a.numel() * 4 for _, a in out)
+        return self._publish(cache, key, out, "padded_buckets", nbytes, epoch)
 
 
 def container_words(c: Container) -> np.ndarray:
@@ -558,3 +697,470 @@ def iter_group_containers(group_keys: np.ndarray, words_u32: np.ndarray, cards: 
             yield int(key), ArrayContainer(bits.values_from_words(w))
         else:
             yield int(key), BitmapContainer(w.copy(), card)
+
+
+# ---------------------------------------------------------------------------
+# Resident pack cache
+# ---------------------------------------------------------------------------
+
+
+def pack_groups_with_provenance(
+    bitmaps: Sequence[RoaringBitmap], keys_filter: Optional[set] = None, device=None
+) -> Tuple[PackedGroups, Dict[Tuple[int, int], int]]:
+    """``pack_groups(group_by_key(...))`` plus the row provenance the delta
+    repack needs: ``{(bitmap_index, chunk_key): packed_row}``. Row order
+    matches pack_groups exactly — rows sorted by group key, and within a
+    group in bitmap order (the group_by_key append order)."""
+    packed = pack_groups(group_by_key(bitmaps, keys_filter=keys_filter), device)
+    pos = {int(k): int(off) for k, off in zip(packed.group_keys, packed.group_offsets[:-1])}
+    row_map: Dict[Tuple[int, int], int] = {}
+    for bi, bm in enumerate(bitmaps):
+        for k in bm.high_low_container.keys:
+            if keys_filter is not None and k not in keys_filter:
+                continue
+            row_map[(bi, k)] = pos[k]
+            pos[k] += 1
+    return packed, row_map
+
+
+class _PackEntry:
+    __slots__ = ("key", "kind", "value", "nbytes", "fps", "row_map", "refs")
+
+    def __init__(self, key, kind, value, nbytes, fps=None, row_map=None, refs=()):
+        self.key = key
+        self.kind = kind
+        self.value = value
+        self.nbytes = int(nbytes)
+        self.fps = fps          # agg entries: fingerprints at pack time
+        self.row_map = row_map  # agg entries: (bitmap_idx, key) -> row
+        # container arrays behind ("static", id) fingerprints: held so the
+        # id cannot be recycled by GC while the entry is resident
+        self.refs = refs
+
+
+def _fp_ident(fp: tuple):
+    """The mutation-invariant part of a fingerprint: the array generation
+    for (gen, version) fingerprints; static fingerprints never mutate, so
+    the whole fingerprint is the identity (tagged to avoid an int id()
+    colliding with a generation int)."""
+    if fp[0] == "static":
+        return ("s",) + fp[1:]
+    return ("g", fp[0])
+
+
+def _walk_fingerprints(bitmaps) -> Tuple[tuple, tuple]:
+    """ONE pass over the working set producing ``(fps, idents)``, with the
+    fingerprint tuples cached on each container array (invalidated per
+    version bump) and the identity tuples cached for the array's lifetime:
+    a warm lookup allocates nothing per bitmap."""
+    fps: List[tuple] = []
+    idents: List[tuple] = []
+    fps_append, idents_append = fps.append, idents.append
+    for bm in bitmaps:
+        hlc = bm.high_low_container
+        fp = getattr(hlc, "_fp", None)
+        if fp is None:
+            gen = getattr(hlc, "_gen", None)
+            if gen is None:  # static (mapped/immutable): never mutates
+                fp = ("static", id(hlc))
+                fps_append(fp)
+                idents_append(("s",) + fp[1:])
+                continue
+            fp = (gen, hlc._version)
+            try:
+                hlc._fp = fp
+            except AttributeError:  # foreign mutable hlc without the slot
+                fps_append(fp)
+                idents_append(("g", gen))
+                continue
+        ident = getattr(hlc, "_fp_ident", None)
+        if ident is None:
+            ident = ("g", hlc._gen)
+            try:
+                hlc._fp_ident = ident
+            except AttributeError:
+                pass
+        fps_append(fp)
+        idents_append(ident)
+    return tuple(fps), tuple(idents)
+
+
+def static_fp_refs(bitmaps: Sequence[RoaringBitmap]) -> tuple:
+    """The container arrays of operands with ("static", id) fingerprints —
+    cache entries hold these so the ids stay live (see _PackEntry.refs)."""
+    return tuple(
+        bm.high_low_container for bm in bitmaps if bm.fingerprint()[0] == "static"
+    )
+
+
+DEFAULT_HOST_BUDGET = 2 << 30
+
+
+def default_budget(device: torch.device) -> int:
+    """The byte budget a cache takes when neither ``max_bytes`` nor
+    ``RB_TPU_PACK_CACHE_BYTES`` sets one: a quarter of the card's memory on
+    a CUDA device (the census working set alone is 2.52 GB of flat rows
+    plus a 2.54 GB padded block), 2 GiB on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory // 4
+    return DEFAULT_HOST_BUDGET
+
+
+def _value_device(value) -> torch.device:
+    """The device an entry's value lives on (its first packed working set
+    or tensor), which decides the default budget."""
+    parts = value if isinstance(value, tuple) else (value,)
+    for p in parts:
+        if isinstance(p, PackedGroups):
+            return p.device
+        if isinstance(p, torch.Tensor):
+            return p.device
+    return torch.device("cpu")
+
+
+class PackCache:
+    """Process-wide device-resident working-set cache.
+
+    Packed working sets — ``PackedGroups`` with their flat/padded/bucketed
+    device layouts, plus the BSI slice tensors and the query kernels'
+    packs — stay resident across calls, keyed by the participating
+    bitmaps' ``fingerprint()`` tuples and the device. A byte-budget LRU
+    evicts cold entries; ``close()`` frees everything. An entry weighs its
+    flat rows from admission, plus each derived layout as it is built (the
+    residency callback).
+
+    Invalidation is incremental for aggregation entries: when the same
+    bitmaps return with moved versions (same generations), the per-key
+    dirty sets from ``RoaringArray.dirty_keys_since`` identify exactly
+    which packed rows changed, and ``PackedGroups.apply_delta`` re-packs
+    and writes only those rows instead of rebuilding the working set.
+    Structural changes — chunk keys added/removed, an AND
+    key-intersection that grew or shrank, wholesale mutations — take a
+    full repack.
+
+    The budget: ``max_bytes``, else ``RB_TPU_PACK_CACHE_BYTES`` (0
+    disables caching), else :func:`default_budget` of the first stored
+    entry's device, resolved at that first store.
+
+    Thread-safe: one lock around the entry map; full packs build outside
+    the lock (concurrent builders race benignly, first store wins), delta
+    repacks run under it. The lock is re-entrant because the delta path
+    drops derived layouts under it and their residency callbacks settle
+    the byte accounting."""
+
+    def __init__(self, max_bytes: Optional[int] = None):
+        if max_bytes is None and os.environ.get("RB_TPU_PACK_CACHE_BYTES"):
+            max_bytes = int(os.environ["RB_TPU_PACK_CACHE_BYTES"])
+        self._lock = threading.RLock()
+        # None until the first store resolves the default budget
+        self.max_bytes: Optional[int] = None if max_bytes is None else int(max_bytes)  # guarded-by: self._lock
+        self._entries: "OrderedDict[tuple, _PackEntry]" = OrderedDict()  # guarded-by: self._lock
+        self._ident: Dict[tuple, tuple] = {}  # guarded-by: self._lock
+        self._bytes = 0  # guarded-by: self._lock
+        self.hits = 0  # guarded-by: self._lock
+        self.misses = 0  # guarded-by: self._lock
+        self.delta_rows = 0  # guarded-by: self._lock
+        self.evictions = 0  # guarded-by: self._lock
+        # per-kind hit/miss counts ("agg", "andnot", "threshold", "bsi")
+        self._kinds: Dict[str, List[int]] = {}  # guarded-by: self._lock
+
+    # -- public API --------------------------------------------------------
+
+    def _disabled(self) -> bool:
+        return self.max_bytes is not None and self.max_bytes <= 0
+
+    def _count(self, kind: str, hit: bool) -> None:
+        # caller holds self._lock
+        if hit:
+            self.hits += 1
+        else:
+            self.misses += 1
+        self._kinds.setdefault(kind, [0, 0])[0 if hit else 1] += 1
+
+    def get_packed(
+        self, bitmaps: Sequence[RoaringBitmap], keys_filter: Optional[set] = None,
+        device=None,
+    ) -> PackedGroups:
+        """The resident pack for this working set on ``device``, delta-
+        refreshed or rebuilt as needed. ``keys_filter``, when given, must be
+        the AND key-intersection of ``bitmaps`` (the workShyAnd pre-filter)
+        — the delta validator relies on that to detect intersection
+        changes."""
+        bitmaps = list(bitmaps)
+        device = resolve_device(device)
+        marker = "all" if keys_filter is None else "and"
+        fps, idents = _walk_fingerprints(bitmaps)
+        if self._disabled():  # always a fresh uncached pack
+            with self._lock:
+                self._count("agg", False)
+            return pack_groups(group_by_key(bitmaps, keys_filter=keys_filter), device)
+        key = ("agg", marker, str(device), fps)
+        ident = ("agg", marker, str(device), idents)
+        with self._lock:
+            e = self._entries.get(key)
+            if e is not None:
+                self._entries.move_to_end(key)
+                self._count("agg", True)
+                return e.value
+            old_key = self._ident.get(ident)
+            e = None if old_key is None else self._entries.get(old_key)
+            if e is not None:
+                rows = self._try_delta(e, bitmaps, keys_filter, fps)
+                if rows is not None:
+                    del self._entries[old_key]
+                    e.key = key
+                    e.fps = fps
+                    self._entries[key] = e
+                    self._ident[ident] = key
+                    self._count("agg", True)
+                    self.delta_rows += len(rows)
+                    return e.value
+        # full repack outside the lock (a racing thread packing the same
+        # key is benign — first store wins)
+        packed, row_map = pack_groups_with_provenance(bitmaps, keys_filter, device)
+        with self._lock:
+            self._count("agg", False)
+        entry = _PackEntry(
+            key, "agg", packed, packed.words_nbytes, fps=fps, row_map=row_map,
+            refs=static_fp_refs(bitmaps),
+        )
+        return self._store(entry, ident=ident).value
+
+    def get_or_build(self, key: tuple, build: Callable[[], tuple], refs: tuple = ()):
+        """Generic resident entry (BSI slice tensors, query-kernel packs):
+        ``key`` must start with the kind marker and embed every input
+        fingerprint and the device; ``build()`` returns ``(value,
+        nbytes)``. Exact-key hit or full rebuild — no delta path. ``refs``
+        pins the container arrays behind any ("static", id) fingerprints in
+        the key (see ``static_fp_refs``)."""
+        kind = str(key[0])
+        if self._disabled():
+            with self._lock:
+                self._count(kind, False)
+            return build()[0]
+        with self._lock:
+            e = self._entries.get(key)
+            if e is not None:
+                self._entries.move_to_end(key)
+                self._count(kind, True)
+                return e.value
+        value, nbytes = build()
+        with self._lock:
+            self._count(kind, False)
+        return self._store(_PackEntry(key, kind, value, nbytes, refs=refs)).value
+
+    def discard(self, key: tuple) -> None:
+        """Drop one entry by exact key: for builders that discover after
+        the store that the pack cannot serve their device path (threshold's
+        too-skewed-to-pad CPU fold) and must not leave a useless resident
+        entry squatting on the budget."""
+        with self._lock:
+            e = self._entries.get(key)
+            if e is not None and e.kind == "agg":
+                ident = self._agg_ident(e)
+                if self._ident.get(ident) == key:
+                    del self._ident[ident]
+            self._drop(key)
+
+    def close(self) -> None:
+        """Release every resident entry; the cache stays usable and refills
+        on next use."""
+        with self._lock:
+            for e in self._entries.values():
+                self._release(e)
+            self._entries.clear()
+            self._ident.clear()
+            self._bytes = 0
+
+    def configure(self, max_bytes: int) -> None:
+        """Set the byte budget and evict down to it. ``max_bytes <= 0``
+        disables caching and releases every resident entry."""
+        with self._lock:
+            self.max_bytes = int(max_bytes)
+            if self.max_bytes <= 0:
+                self.close()
+            else:
+                self._evict_over_budget()
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "hits": self.hits,
+                "misses": self.misses,
+                "delta_rows": self.delta_rows,
+                "evictions": self.evictions,
+                "entries": len(self._entries),
+                "bytes": self._bytes,
+                "max_bytes": self.max_bytes,
+                "kinds": {k: {"hits": h, "misses": m} for k, (h, m) in self._kinds.items()},
+            }
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def __contains__(self, key: tuple) -> bool:
+        with self._lock:
+            return key in self._entries
+
+    # -- internals ---------------------------------------------------------
+
+    @staticmethod
+    def _agg_ident(e: _PackEntry) -> tuple:
+        return ("agg", e.key[1], e.key[2], tuple(_fp_ident(fp) for fp in e.fps))
+
+    def _store(self, entry: _PackEntry, ident: Optional[tuple] = None) -> _PackEntry:
+        with self._lock:
+            if self.max_bytes is None:
+                self.max_bytes = default_budget(_value_device(entry.value))
+            existing = self._entries.get(entry.key)
+            if existing is not None:
+                # a racing builder stored first; keep theirs, drop ours
+                self._entries.move_to_end(entry.key)
+                for pg in self._packed_parts(entry.value):
+                    pg.close()
+                return existing
+            if ident is not None:
+                superseded = self._ident.pop(ident, None)
+                if superseded is not None and superseded in self._entries:
+                    self._drop(superseded)
+                self._ident[ident] = entry.key
+            for pg in self._packed_parts(entry.value):
+                pg._cache_held = True
+                pg._resident_cb = self._resident_cb(entry)
+            self._entries[entry.key] = entry
+            self._bytes += entry.nbytes
+            self._evict_over_budget()
+            return entry
+
+    @staticmethod
+    def _packed_parts(value):
+        if isinstance(value, PackedGroups):
+            return (value,)
+        if isinstance(value, tuple):
+            return tuple(p for p in value if isinstance(p, PackedGroups))
+        return ()
+
+    def _resident_cb(self, entry: _PackEntry):
+        """Byte-accounting callback for a cache-owned PackedGroups: derived
+        device layouts (padded blocks, buckets) are built lazily AFTER the
+        entry is stored, so their bytes must flow into the entry's weight
+        and the budget."""
+
+        def cb(delta: int) -> None:
+            with self._lock:
+                if self._entries.get(entry.key) is not entry:
+                    return  # raced with eviction: no longer resident
+                entry.nbytes += delta
+                self._bytes += delta
+                if delta > 0:
+                    self._evict_over_budget()
+
+        return cb
+
+    def _drop(self, key: tuple) -> None:
+        # caller holds self._lock
+        e = self._entries.pop(key, None)
+        if e is None:
+            return
+        self._bytes -= e.nbytes
+        self._release(e)
+
+    def _release(self, e: _PackEntry) -> None:
+        # caller holds self._lock; detaches the residency callback FIRST
+        # (e.nbytes already includes the derived layouts, so close()
+        # reporting them again would double-subtract), then really closes
+        for pg in self._packed_parts(e.value):
+            pg._resident_cb = None
+            pg._cache_held = False
+            pg.close()
+
+    def _evict_over_budget(self) -> None:
+        self._evict_to(self.max_bytes)
+
+    def _evict_to(self, target: int) -> None:
+        # caller holds self._lock; LRU order. At least one entry always
+        # survives: a single working set larger than the whole budget
+        # would otherwise thrash store->evict on every call.
+        if target is None or self._bytes <= target:
+            return
+        for key in list(self._entries)[:-1]:
+            if self._bytes <= target:
+                break
+            e = self._entries.pop(key)
+            self._bytes -= e.nbytes
+            self.evictions += 1
+            if e.kind == "agg":
+                ident = self._agg_ident(e)
+                if self._ident.get(ident) == key:
+                    del self._ident[ident]
+            self._release(e)
+
+    def _try_delta(self, e, bitmaps, keys_filter, new_fps):
+        """Validate and apply an incremental repack of entry ``e`` for the
+        new fingerprints; returns the re-packed row list, or None when only
+        a full repack is sound (gen changed, wholesale mutation, or any
+        structural change to the group layout). Caller holds self._lock."""
+        if len(new_fps) != len(e.fps):
+            return None
+        packed: PackedGroups = e.value
+        # cheap pre-pass: a generation change or a wholesale mutation
+        # already forces the full repack — decide from the version counters
+        # before paying the per-key dirty scan
+        changed = []
+        for bi, (old_fp, new_fp) in enumerate(zip(e.fps, new_fps)):
+            if old_fp == new_fp:
+                continue
+            if old_fp[0] != new_fp[0]:  # generation changed (or static id)
+                return None
+            if bitmaps[bi].high_low_container.wholesale_since(old_fp[1]):
+                return None
+            changed.append((bi, old_fp))
+        packed_keys = {int(k) for k in packed.group_keys}
+        dirty_rows: Dict[int, Tuple[int, int]] = {}
+        for bi, old_fp in changed:
+            hlc = bitmaps[bi].high_low_container
+            dirty = hlc.dirty_keys_since(old_fp[1])
+            if dirty is None:  # wholesale / unattributed mutation
+                return None
+            for k in dirty:
+                present_now = hlc.get_index(k) >= 0
+                if keys_filter is not None:  # "and": filter = key intersection
+                    if k in packed_keys:
+                        if not present_now:
+                            return None  # intersection shrank
+                        dirty_rows[e.row_map[(bi, k)]] = (bi, k)
+                    elif present_now and all(
+                        b.high_low_container.get_index(k) >= 0 for b in bitmaps
+                    ):
+                        return None  # intersection grew
+                else:
+                    was_packed = (bi, k) in e.row_map
+                    if was_packed != present_now:
+                        return None  # container added or removed
+                    if present_now:
+                        dirty_rows[e.row_map[(bi, k)]] = (bi, k)
+        if not dirty_rows:
+            return ()
+        rows = sorted(dirty_rows)
+        containers = [
+            bitmaps[bi].high_low_container.get_container(k)
+            for bi, k in (dirty_rows[r] for r in rows)
+        ]
+        host_rows = RowPayload.from_containers(containers).expand_host().view(np.int32)
+        packed.apply_delta(np.asarray(rows, dtype=np.int64), host_rows)
+        return rows
+
+
+# The process-wide cache every routed consumer shares (aggregation engines,
+# BSI device packs, query kernels) — ONE eviction budget for all of them.
+PACK_CACHE = PackCache()
+
+
+def packed_for(
+    bitmaps: Sequence[RoaringBitmap], keys_filter: Optional[set] = None, device=None
+) -> PackedGroups:
+    """The cache-routed replacement for ``pack_groups(group_by_key(...))``
+    on device paths: warm working sets come back resident (zero host work),
+    mutated ones delta-repack O(changed rows)."""
+    return PACK_CACHE.get_packed(bitmaps, keys_filter, device)

@@ -1,0 +1,169 @@
+"""Memoizing plan executor.
+
+Counterpart of ``roaringbitmap_tpu/query/exec.py``. Runs a
+:class:`~.plan.Plan` bottom-up. Every interior step first consults the
+result cache (cache.py) under ``(node uid, leaf fingerprints)``; a hit
+short-circuits that whole subtree, so a repeated query over unchanged
+bitmaps is a handful of dict probes, and a query sharing subtrees with a
+previous one recomputes only the novel nodes. Leaf fingerprints are
+snapshotted once per execution so all steps key against one consistent
+view even if another thread mutates a bitmap mid-run. An identical node
+computing in another query right now is joined through the in-flight
+table (inflight.py) instead of being recomputed.
+
+The returned bitmap is a private clone — callers may mutate it freely
+without corrupting memoized results.
+
+Plans are memoized too: planning reads leaf contents (constant folding,
+cardinality estimates), so a plan is reusable exactly as long as the
+result cache entries are — same (expression, leaf fingerprints, dispatch
+knobs). A leaf mutation re-plans by key miss.
+
+Below the result cache sits the resident pack cache
+(``parallel/store.PACK_CACHE``): every device engine a step dispatches to
+— FastAggregation and/or/xor, the n-way andnot batch, the bit-sliced
+threshold — keys its packed working set by the same leaf fingerprints. A
+repeated query whose result cache is off still packs nothing for its
+steps over leaves: those packs come back resident, shared across the
+query's own nodes and across queries over the same leaves, and a leaf
+mutation delta-repacks O(changed containers) rows. A step whose operands
+are results of other steps works on new bitmaps each run, so its pack is
+built anew. Device steps run on ``aggregation.config.device``.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from typing import Dict, List, Optional, Union
+
+from ..models.roaring import RoaringBitmap
+from ..robust.deadline import deadline_expired, deadline_scope
+from . import inflight as _inflight
+from . import kernels
+from .cache import DEFAULT_CACHE, ResultCache, cache_key, leaf_fps_current
+from .expr import Expr
+from .plan import Plan, PlanStep
+from .plan import plan as build_plan
+
+_PLAN_MEMO_MAX = 128
+_PLAN_MEMO_LOCK = threading.Lock()
+_PLAN_MEMO: "OrderedDict[tuple, Plan]" = OrderedDict()  # guarded-by: _PLAN_MEMO_LOCK
+
+
+def _memo_plan(expr: Expr, mode: Optional[str]) -> Plan:
+    from ..parallel import aggregation
+
+    key = (
+        expr.uid,
+        mode,
+        # the dispatch knobs _use_device consults: a changed regime must
+        # not be served a plan built for the old one
+        aggregation.config.mode,
+        aggregation.config.min_device_containers,
+        tuple(l.fingerprint() for l in expr.leaves),
+    )
+    with _PLAN_MEMO_LOCK:
+        p = _PLAN_MEMO.get(key)
+        if p is not None:
+            _PLAN_MEMO.move_to_end(key)
+            return p
+    p = build_plan(expr, mode=mode)
+    with _PLAN_MEMO_LOCK:
+        _PLAN_MEMO[key] = p
+        while len(_PLAN_MEMO) > _PLAN_MEMO_MAX:
+            _PLAN_MEMO.popitem(last=False)
+    return p
+
+
+def execute(
+    query: Union[Expr, Plan],
+    cache: Optional[ResultCache] = DEFAULT_CACHE,
+    mode: Optional[str] = None,
+    deadline_s: Optional[float] = None,
+) -> RoaringBitmap:
+    """Plan (if given an expression) and evaluate, memoizing interior
+    results in ``cache`` (pass ``cache=None`` to disable memoization;
+    ``mode`` forwards to the planner's engine choice).
+
+    ``deadline_s`` arms a per-query wall-clock budget: once it has run
+    out, every remaining step is routed to its CPU tier before it runs.
+    The result stays bit-exact (the tiers agree by construction); only
+    the remaining steps' engine changes."""
+    p = query if isinstance(query, Plan) else _memo_plan(query, mode)
+    with deadline_scope(deadline_s):
+        leaf_fps = {l.uid: l.fingerprint() for l in p.root.leaves}
+        results: Dict[int, RoaringBitmap] = {l.uid: l.bitmap for l in p.root.leaves}
+        for step in p.steps:
+            key = cache_key(step.node, leaf_fps)
+            entry = None
+            if cache is not None:
+                hit = cache.get(key)
+                if hit is not None:
+                    results[step.node.uid] = hit
+                    continue
+                # an identical node computing in ANOTHER query right now is
+                # joined, not recomputed; a None join (stale / owner failed /
+                # timeout) falls through to computing it ourselves, unclaimed
+                owner, pending = _inflight.TABLE.begin(key)
+                if owner:
+                    entry = pending
+                else:
+                    joined = _inflight.TABLE.join(pending)
+                    if joined is not None:
+                        results[step.node.uid] = joined
+                        continue
+            inputs = [results[o.uid] for o in step.operands]
+            try:
+                val = _run_step(step, inputs, force_cpu=deadline_expired())
+            except BaseException:
+                if entry is not None:  # joiners recompute on their own
+                    _inflight.TABLE.abort(key, entry)
+                raise
+            if cache is not None:
+                # validated publication: a leaf mutated mid-computation
+                # makes this value match neither the key's snapshot nor the
+                # new contents — joiners get None (recompute fresh) and the
+                # cache never stores it
+                valid = leaf_fps_current(step.node, leaf_fps)
+                if entry is not None:
+                    _inflight.TABLE.complete(key, entry, val, valid)
+                if valid:
+                    cache.put(key, val)
+            results[step.node.uid] = val
+        return results[p.root.uid].clone()
+
+
+def _run_step(
+    step: PlanStep, inputs: List[RoaringBitmap], force_cpu: bool = False
+) -> RoaringBitmap:
+    from ..parallel.aggregation import FastAggregation as FA
+
+    eng, op = step.engine, step.node.op
+    if eng == "pairwise":
+        fn = {
+            "and": RoaringBitmap.and_,
+            "or": RoaringBitmap.or_,
+            "xor": RoaringBitmap.xor,
+            "andnot": RoaringBitmap.andnot,
+        }[op]
+        return fn(inputs[0], inputs[1])
+    if eng.startswith("device-"):
+        fn = {"and": FA.and_, "or": FA.or_, "xor": FA.xor}[op]
+        return fn(*inputs, mode="cpu" if force_cpu else "device")
+    if eng == "workshy-and":
+        return FA.and_(*inputs, mode="cpu")
+    if eng == "naive-or":
+        return FA.naive_or(*inputs)
+    if eng == "horizontal-or":
+        return FA.horizontal_or(*inputs)
+    if eng == "naive-xor":
+        return FA.naive_xor(*inputs)
+    if eng == "horizontal-xor":
+        return FA.horizontal_xor(*inputs)
+    mode = "device" if eng.endswith("[device]") and not force_cpu else "cpu"
+    if eng.startswith("andnot-batch"):
+        return kernels.andnot_nway(inputs[0], *inputs[1:], mode=mode)
+    if eng.startswith("threshold-bitsliced"):
+        return kernels.threshold(step.node.k, inputs, mode=mode)
+    raise ValueError(f"unknown engine {eng!r}")  # pragma: no cover

@@ -37,6 +37,7 @@ from roaringbitmap_tpu_torch.models import bsi as tbsi
 from roaringbitmap_tpu_torch.models.bsi_buffer import MutableBitSliceIndex as TMutable
 from roaringbitmap_tpu_torch.ops import device as tdev
 from roaringbitmap_tpu_torch.ops import kernels as K
+from roaringbitmap_tpu_torch.parallel import store as tstore
 from roaringbitmap_tpu_torch.robust.errors import TierUnavailable
 
 SEED = 0xFEEF1F0
@@ -46,9 +47,13 @@ OPS = ("EQ", "NEQ", "GT", "LT", "LE", "GE", "RANGE")
 
 @pytest.fixture(autouse=True)
 def port_on_cpu(monkeypatch):
-    """The port's BSI device path on CPU tensors; its auto mode as shipped."""
+    """The port's BSI device path on CPU tensors; its auto mode as shipped.
+    The shared pack cache is emptied after each test, so no test's packs
+    stay resident."""
     monkeypatch.setattr(tbsi.config, "device", "cpu")
     monkeypatch.setattr(tbsi.config, "mode", "auto")
+    yield
+    tstore.PACK_CACHE.close()
 
 
 def _t(u32):
@@ -418,23 +423,29 @@ def test_device_path_goes_through_the_kernel_wrappers(pair, monkeypatch):
 
 
 def test_pack_is_rekeyed_by_a_mutation():
+    """The pack lives in the shared pack cache under the members'
+    fingerprints: a repeat query hits it, and any mutation (through the
+    index or to a slice bitmap directly) re-keys it."""
     cols, vals = _columns_values(SEED + 2, 20_000, 10)
     t = TBSI()
     t.set_values((cols, vals))
     first = t.compare(TOp.EQ, 77, mode="device")
-    key = t._pack[0]
+    key = t._pack_key()
+    assert key in tstore.PACK_CACHE
+    hits = tstore.PACK_CACHE.stats()["kinds"]["bsi"]["hits"]
     t.compare(TOp.EQ, 77, mode="device")
-    assert t._pack[0] == key  # a repeat query reuses the pack
+    assert t._pack_key() == key  # a repeat query reuses the pack
+    assert tstore.PACK_CACHE.stats()["kinds"]["bsi"]["hits"] == hits + 1
     col = int(cols.max()) + 1  # a fresh column in the ebm's last chunk
     t.set_value(col, 77)
     assert t.compare(TOp.EQ, 77, mode="device").to_array().tolist() == sorted(
         first.to_array().tolist() + [col])
-    assert t._pack[0] != key
-    key = t._pack[0]
+    assert t._pack_key() != key and t._pack_key() in tstore.PACK_CACHE
+    key = t._pack_key()
     t.slices[0].add(int(cols[0]))  # a slice touched behind the index's back
     assert t.compare(TOp.EQ, 77, mode="device").serialize() == t.compare(
         TOp.EQ, 77, mode="cpu").serialize()
-    assert t._pack[0] != key
+    assert t._pack_key() != key
 
 
 def test_cuda_without_a_card_raises(pair, monkeypatch):

@@ -197,6 +197,61 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         )
 
 
+# (G, M, k): odd and even M, k inside and past the counter's width (the
+# kernel compares the low L bits of k; the device path decides k >> L != 0
+# on the host)
+THRESHOLD_CASES = [
+    (1, 1, 1), (3, 5, 2), (2, 7, 3), (4, 13, 5), (1, 9, 20), (2, 16, 16),
+    (3, 33, 17), (2, 64, 33), (1, 100, 300), (5, 6, 6),
+]
+
+
+def _threshold_words(rng, shape, density):
+    """uint32 words with each bit set with probability ``density``, so
+    per-position counts spread around the thresholds."""
+    bits = rng.random((*shape, 32)) < density
+    return np.packbits(bits, axis=-1, bitorder="little").view(np.uint32).reshape(shape)
+
+
+@pytest.mark.parametrize("g,m,k", THRESHOLD_CASES)
+def test_threshold_plain_matches_jax_threshold_kernel(g, m, k):
+    from roaringbitmap_tpu.query import kernels as jk
+
+    rng = np.random.default_rng(SEED + g * 1000 + m)
+    words = _threshold_words(rng, (g, m, W), min(0.9, (k + 0.5) / max(m, 1)))
+    n_slices = max(1, m.bit_length())
+    want_w, want_c = jk._threshold_kernel(k, n_slices)(jnp.asarray(words))
+    got_w, got_c = K.threshold_rows(_t(words), k, n_slices)  # CPU: the plain version
+    assert np.array_equal(_u32(got_w), np.asarray(want_w))
+    assert np.array_equal(got_c.numpy(), np.asarray(want_c))
+    assert got_c.dtype == torch.int32
+
+
+def test_threshold_plain_drops_the_carry_out_of_the_top_slice():
+    """A counter narrower than M wraps, in both packages alike."""
+    from roaringbitmap_tpu.query import kernels as jk
+
+    words = np.full((1, 9, W), 0xFFFFFFFF, dtype=np.uint32)  # every count is 9
+    for n_slices, k in ((2, 1), (3, 1), (3, 2), (4, 9)):
+        want_w, _ = jk._threshold_kernel(k, n_slices)(jnp.asarray(words))
+        got_w, _ = K.threshold_rows(_t(words), k, n_slices)
+        assert np.array_equal(_u32(got_w), np.asarray(want_w))
+    assert int(K.threshold_rows(_t(words), 2, 3)[1][0]) == 0  # 9 mod 8 = 1 < 2
+
+
+def test_threshold_rejects_what_the_kernel_does_not_take():
+    words = torch.zeros((2, 3, W), dtype=torch.int32)
+    for bad in (0, 33):
+        with pytest.raises(ValueError):
+            K.threshold_rows(words, 2, bad)
+    with pytest.raises(ValueError):
+        K.threshold_rows(words.view(6, W), 2, 3)
+    with pytest.raises(TypeError):
+        K.threshold_rows(words.to(torch.int64), 2, 3)
+    with pytest.raises(ValueError):
+        K.threshold_rows(words, -1, 3)
+
+
 # (S, Q, op) -> the tiled walk's plan: (tile words, CTAs an SM, queries a
 # launch, launches)
 TILE_PLANS = [
@@ -447,3 +502,20 @@ def test_cuda_masked_popcount_and_wide_reduce_match_plain_versions():
         assert torch.equal(red, want_red) and int(card) == int(want_card), op
         assert K.LAUNCHES["wide_reduce_cardinality"] == before + 1
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,m,k", THRESHOLD_CASES + [(31, 1000, 64), (1, 997, 1500), (2, 300, 200)])
+def test_cuda_threshold_matches_plain_version(g, m, k):
+    """rb_threshold against its plain version, one launch per call, at odd
+    M, G = 1, and k past the counter's width."""
+    _need_card()
+    rng = np.random.default_rng(SEED + g + m)
+    words = _t(_threshold_words(rng, (g, m, W), min(0.9, (k + 0.5) / m))).cuda()
+    n_slices = max(1, m.bit_length())
+    before = K.LAUNCHES["rb_threshold"]
+    got_w, got_c = K.threshold_rows(words, k, n_slices)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["rb_threshold"] == before + 1
+    want_w, want_c = K.threshold_rows_plain(words, k, n_slices)
+    assert torch.equal(got_w, want_w) and torch.equal(got_c, want_c)

@@ -80,6 +80,14 @@ def _sets():
 SETS = _sets()
 
 
+@pytest.fixture(autouse=True)
+def _empty_pack_cache():
+    """The device-path aggregations keep their packs in the shared pack
+    cache; empty it after each test so none stays resident."""
+    yield
+    tstore.PACK_CACHE.close()
+
+
 def _pair(vals, run_every=3):
     """The same bitmaps in both packages; every ``run_every``-th one is
     run-optimized in both (none when ``run_every`` is 0)."""
