@@ -3,6 +3,12 @@
 
     python3 chip_smoke.py                 # all phases
     python3 chip_smoke.py --only kernels  # phases 1-3: card, build, kernels
+    python3 chip_smoke.py --only paths    # phases 1-2, 5, 8 and 6: the timed paths
+    python3 chip_smoke.py --only columnar --window-pairs 9999  # phases 1-2 and 9, all 9,999 pairs
+
+``--only paths`` runs only the phases whose end-to-end times PERF.md limits
+against a parent commit; copied into a checkout of the parent, it times
+the parent's package on the same phases, so both run in one call.
 
 Phases, each printed as it runs; any failure exits non-zero with no result:
 
@@ -28,7 +34,9 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    ``[131072, 2048]`` for or, and and xor; ``rb_threshold`` on the
    zero-padded ``[31, 10000, 2048]`` block of the census working set's
    real rows at k = 64 and 200, and at an odd shape (G = 1, M = 997, k past
-   the counter's width) — bitwise equality required, with kernel time
+   the counter's width); ``rb_pair_rows`` for and, or, xor and andnot over
+   ``[308100, 2048]`` rows and 150,000 random index pairs (repeats and the
+   last row included) — bitwise equality required, with kernel time
    (CUDA events), bound and the plain version's time;
 4. the main path through the port's entry points: 10,000 census-shaped
    bitmaps (built as ``bench.py`` builds them) through
@@ -63,6 +71,25 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    the values; launch counts zeroed before and read after; first-query,
    steady-kernel (the batched walk beside its bounds), end-to-end
    and batched timings; peak device memory;
+9. (run after phase 8) the columnar pairwise engine on the upstream
+   realdata pairwise benchmark (jmh ``RealDataBenchmarkAnd`` / ``Or`` /
+   ``Xor`` / ``AndNot``, run-optimized corpora, as ``bench.py:307-314``
+   builds it): run-optimized clones of the 10,000 bitmaps, their rows
+   resident as ``colrows`` (308,100 rows), and a window of their adjacent
+   pairs (the first 2,000 of the 9,999 unless ``--window-pairs`` says
+   otherwise) through ``columnar.pairwise_multi(op, pairs, tier="device")``
+   for each op (one ``rb_pair_rows`` launch over the window's dense bucket; and /
+   andnot have none here, a run-optimized census pair holding no bitmap
+   container), every result against numpy's set ops; the routed facade
+   (``and_`` / ``or_`` / ``xor`` / ``andnot``, ``and_cardinality``,
+   ``intersects``) over the first 199 pairs after ``ensure_calibrated()``,
+   and forced onto the device tier, against the per-container walk;
+   bitmap-heavy synthetic pairs (64 and 4,096 containers) on the device
+   tier against the per-container walk; medians of the window per op with
+   its stages, and of the facade's ns per pair on each tier (the tiers
+   taking turns); the routed facade fails the phase if it is more than
+   35% slower than the per-container walk for any op; the kernels line's
+   count for ``rb_pair_rows`` is the window's;
 7. ``RangeBitmap`` at 10,000,000 rows, for correctness only: appender,
    queries, batched counts, the reference-format bytes and ``map`` of
    them, against numpy.
@@ -116,6 +143,21 @@ LOGIC_LANES_PER_SM = 64
 # histogram of 2Q + 1 bins: about 20 whatever Q is (worked out from the
 # instruction counts, not timed)
 RANK_OPS_PER_COLUMN = 20
+PAIR_OPS = ("and", "or", "xor", "andnot")
+PAIR_ROWS_N = 150_000  # index pairs of the phase-3 rb_pair_rows check
+# upstream's realdata pairwise benchmarks walk adjacent pairs of the corpus
+# (jmh RealDataBenchmarkAnd/Or/Xor/AndNot); "and2by2" is its first 199.
+# The window is cut from the 9,999 adjacent pairs to 2,000 to keep the
+# script within about two minutes of its earlier time (the host's container
+# build takes most of each op); --window-pairs 9999 runs them all
+WINDOW_PAIRS = 2_000
+FACADE_PAIRS = 199
+SYNTH_NS = (64, 4096)  # bitmap-heavy pairs: 4096 is the routing window's edge
+COLUMNAR_RUNS = 3  # runs per median of the window's timings
+FACADE_RUNS = 5  # runs per median of the facade's, the tiers taking turns
+# the routed facade may be at most this much slower than the per-container
+# walk it replaces (PERF.md section 2's limit for the facade's ns per pair)
+FACADE_LIMIT = 1.35
 SWEEP_Q = (8, 64, 256)  # the tiled walk against the per-query design
 CHECK_Q = (8, 13, 64, 100, 256)  # bitwise checks of the tiled walk, every op
 ONEIL_OPS = ("EQ", "NEQ", "GT", "LT", "LE", "GE", "RANGE")
@@ -402,6 +444,62 @@ def phase_kernels(card: str):
     del dense
     torch.cuda.empty_cache()
     return results
+
+
+def phase_pair_rows(card: str):
+    """``rb_pair_rows`` against ``pair_rows_reduce_plain`` for every op on
+    random words over ``[308100, 2048]`` rows (the main path's row count)
+    and 150,000 random index pairs into them, repeats and the last row
+    included; one launch per call, bitwise equal words and cards."""
+    from roaringbitmap_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rng = np.random.default_rng(SEED + 6)
+    rows = _rand_dense(gen, (ROWS_MAIN, 2048))
+    ia = rng.integers(0, ROWS_MAIN, PAIR_ROWS_N)
+    ib = rng.integers(0, ROWS_MAIN, PAIR_ROWS_N)
+    ia[:3] = ROWS_MAIN - 1
+    ib[-3:] = ROWS_MAIN - 1
+    ia[100:200] = ia[:100]  # a run of repeated pairs
+    ib[100:200] = ib[:100]
+    ia_t = torch.from_numpy(ia.astype(np.int32)).cuda()
+    ib_t = torch.from_numpy(ib.astype(np.int32)).cuda()
+    # the least the card must move: each distinct row read once (both
+    # streams index the one block), every result row and card written, the
+    # two index streams read
+    distinct = int(np.unique(np.concatenate([ia, ib])).size)
+    nbytes = distinct * ROW_BYTES + PAIR_ROWS_N * (ROW_BYTES + 4 + 8)
+    b = bound_ms(nbytes)
+    out, errs = {}, []
+    for op in PAIR_OPS:
+        before = K.LAUNCHES["rb_pair_rows"]
+        got = K.pair_rows_reduce(rows, ia_t, rows, ib_t, op)
+        torch.cuda.synchronize()
+        if K.LAUNCHES["rb_pair_rows"] != before + 1:
+            fail(f"rb_pair_rows {op}: launches went {before} -> {K.LAUNCHES['rb_pair_rows']}")
+        want = K.pair_rows_reduce_plain(rows, ia_t, rows, ib_t, op)
+        errs.append(max(_compare(f"rb_pair_rows {op} words", got[0], want[0]),
+                        _compare(f"rb_pair_rows {op} cards", got[1], want[1])))
+        bits_set = int(want[1].long().sum())
+        if not 0 < bits_set < PAIR_ROWS_N * 65536:
+            fail(f"rb_pair_rows {op}: the plain answer has {bits_set} bits")
+        del got, want
+        ms = cuda_ms(lambda: K.pair_rows_reduce(rows, ia_t, rows, ib_t, op))
+        plain = cuda_ms(lambda: K.pair_rows_reduce_plain(rows, ia_t, rows, ib_t, op), reps=3, warmup=1)
+        say(
+            f"[kernel] rb_pair_rows {op} [{ROWS_MAIN}, 2048] x {PAIR_ROWS_N} pairs ({distinct} distinct "
+            f"rows): equal ({bits_set} result bits); {ms:.4f} ms, bound {b:.4f} ms ({nbytes} bytes; "
+            f"{b / ms:.1%} of bound), plain {plain:.3f} ms; library call: none  [{card}]"
+        )
+        if op == "or":  # the op of the window's launch on the main path
+            out["rb_pair_rows"] = dict(
+                replaces="roaringbitmap_tpu/ops/pallas_kernels.py:985", ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by="bytes",
+            )
+    out["rb_pair_rows"]["max_abs_err"] = max(errs)
+    del rows
+    torch.cuda.empty_cache()
+    return out
 
 
 def _bits_tensor(walks) -> torch.Tensor:
@@ -1316,6 +1414,304 @@ def phase_query(base, bitmaps, real, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the columnar pairwise engine
+# ---------------------------------------------------------------------------
+
+FACADE = {"and": "and_", "or": "or_", "xor": "xor", "andnot": "andnot"}
+SET_OPS = {"and": np.intersect1d, "or": np.union1d, "xor": np.setxor1d, "andnot": np.setdiff1d}
+# the window's stages, each the wall of the module functions named, summed
+# over one pairwise_multi call (the device ones synchronised)
+WINDOW_STAGES = ("rows", "key plan + classify", "host buckets", "kernel", "copy to host",
+                 "container build", "assembly")
+
+
+class _StageClock:
+    """Wraps the module functions ``pairwise_multi`` reaches so that one
+    call reports the wall of each stage: ``rows`` (resident-row lookups and
+    the concatenation of each side's blocks), ``key plan + classify``,
+    ``host buckets`` (the classes the host serves), ``kernel``
+    (``rb_pair_rows``, synchronised), ``copy to host`` (the result words),
+    ``container build`` and ``assembly``. The call itself is the port's."""
+
+    def __init__(self):
+        from roaringbitmap_tpu_torch.columnar import device as cdev
+        from roaringbitmap_tpu_torch.columnar import engine as E
+        from roaringbitmap_tpu_torch.ops import device as dev
+        from roaringbitmap_tpu_torch.ops import kernels as K
+
+        self.t = dict.fromkeys(WINDOW_STAGES, 0.0)
+        self._open = dict.fromkeys(WINDOW_STAGES, 0)  # a stage's calls in progress
+        self.kernel_ms = 0.0
+        self._patches = [
+            (cdev, "rows_for", "rows", False), (K, "concat_rows", "rows", True),
+            (E, "key_plan", "key plan + classify", False),
+            (cdev, "classify", "key plan + classify", False),
+            (E, "_fill_nonbm", "host buckets", False), (E, "_fill_aa", "host buckets", False),
+            (K, "pair_rows_reduce", "kernel", True),
+            (dev, "to_host_u32", "copy to host", False),
+            (E, "_format_rows_results", "container build", False),
+            (E, "_assemble_pairwise", "assembly", False),
+        ]
+        self._saved = []
+
+    def _wrap(self, fn, stage, sync):
+        def timed(*args, **kw):
+            if self._open[stage]:  # nested in the same stage (_fill_nonbm -> _fill_aa): counted once
+                return fn(*args, **kw)
+            self._open[stage] += 1
+            try:
+                return run(*args, **kw)
+            finally:
+                self._open[stage] -= 1
+
+        def run(*args, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if stage == "kernel":
+                ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                ev0.record()
+                out = fn(*args, **kw)
+                ev1.record()
+                torch.cuda.synchronize()
+                self.kernel_ms += ev0.elapsed_time(ev1)
+            else:
+                out = fn(*args, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+            self.t[stage] += time.perf_counter() - t0
+            return out
+
+        return timed
+
+    def __enter__(self):
+        for mod, name, stage, sync in self._patches:
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, self._wrap(fn, stage, sync))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved = []
+
+
+def _percontainer(op, x, y):
+    from roaringbitmap_tpu_torch import RoaringBitmap, columnar
+
+    with columnar.disabled():
+        return getattr(RoaringBitmap, FACADE[op])(x, y)
+
+
+def _pairs_ns(fns, pairs) -> dict:
+    """Median over FACADE_RUNS runs of the ns per pair of each of ``fns``
+    (name -> function) over the pairs, the functions taking turns within
+    each run so that a drift of the host's speed reaches all alike (each
+    call returns a host bitmap: its work is done)."""
+    walls = {name: [] for name in fns}
+    for _ in range(FACADE_RUNS):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            for x, y in pairs:
+                fn(x, y)
+            walls[name].append(time.perf_counter() - t0)
+    return {name: float(np.median(w)) / len(pairs) * 1e9 for name, w in walls.items()}
+
+
+def phase_columnar(base, bitmaps, card: str, n_pairs: int = WINDOW_PAIRS):
+    """The columnar pairwise engine on the realdata pairwise benchmark's
+    deployment: run-optimized clones of the 10,000 bitmaps, resident as
+    ``colrows``, the first ``n_pairs`` of their 9,999 adjacent pairs
+    through ``pairwise_multi`` on the device tier; the routed facade on
+    the first 199 pairs; bitmap-heavy synthetic pairs; every result
+    against numpy or the per-container walk; the routed facade may be at
+    most FACADE_LIMIT times as slow as the per-container walk for any op.
+    Returns the launch counts of the window (this phase's main path)."""
+    from roaringbitmap_tpu_torch import RoaringBitmap, columnar
+    from roaringbitmap_tpu_torch.columnar import costmodel
+    from roaringbitmap_tpu_torch.columnar import device as cdev
+    from roaringbitmap_tpu_torch.columnar import engine as E
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import store
+
+    t_phase = time.perf_counter()
+    nb = len(base)
+    t0 = time.perf_counter()
+    clones = [b.clone() for b in bitmaps]
+    for c in clones:
+        c.run_optimize()
+    kinds = {}
+    for c in clones:
+        for x in c.high_low_container.containers:
+            kinds[type(x).__name__] = kinds.get(type(x).__name__, 0) + 1
+    pairs = list(zip(clones[:-1], clones[1:]))[:n_pairs]
+    uniq = [np.unique(b).astype(np.uint32) for b in base]
+    oracle = {}
+    for i in range(len(pairs)):
+        k = (i % nb, (i + 1) % nb)
+        if k not in oracle:
+            oracle[k] = {op: SET_OPS[op](uniq[k[0]], uniq[k[1]]) for op in PAIR_OPS}
+    say(f"[columnar] {len(clones)} run-optimized clones ({sum(kinds.values())} containers: {kinds}), "
+        f"{len(pairs)} adjacent pairs, numpy oracles for {len(oracle)} distinct base pairs in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    store.PACK_CACHE.close()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    E.reset_counts()
+    t0 = time.perf_counter()
+    for c in clones:
+        cdev.rows_for(c)
+    torch.cuda.synchronize()
+    t_rows = time.perf_counter() - t0
+    colrows = [e for e in store.PACK_CACHE._entries.values() if e.kind == "colrows"]
+    n_rows = sum(int(e.value.shape[0]) for e in colrows)
+    col_bytes = sum(e.nbytes for e in colrows)
+    say(f"[columnar] resident rows: {len(colrows)} colrows entries, {n_rows} rows, {col_bytes} bytes, "
+        f"built in {t_rows:.1f} s (ship_rows per bitmap)  [{card}]")
+
+    # 1. the whole window, one pairwise_multi per op; the first of its timed runs
+    window = {op: [] for op in PAIR_OPS}
+    stages = {op: [] for op in PAIR_OPS}
+    kernel_ms = {op: [] for op in PAIR_OPS}
+
+    def window_run(op):
+        with _StageClock() as clock:
+            t0 = time.perf_counter()
+            out = columnar.pairwise_multi(op, pairs, tier="device")
+            wall = time.perf_counter() - t0
+        window[op].append(wall)
+        stages[op].append(dict(clock.t))
+        kernel_ms[op].append(clock.kernel_ms)
+        return out
+
+    # --- the main path of this phase: the window, with the counts live ---
+    K.reset_launches()
+    for op in PAIR_OPS:
+        before = K.LAUNCHES["rb_pair_rows"]
+        out = window_run(op)
+        launched = K.LAUNCHES["rb_pair_rows"] - before
+        if len(out) != len(pairs):
+            fail(f"pairwise_multi {op}: {len(out)} results for {len(pairs)} pairs")
+        for i, r in enumerate(out):
+            want = oracle[(i % nb, (i + 1) % nb)][op]
+            got = r.to_array()
+            if got.shape != want.shape or not np.array_equal(got, want):
+                fail(f"pairwise_multi {op}: pair {i} has {got.size} values, the numpy oracle {want.size}")
+        # a run-optimized census pair holds no bitmap container: and/andnot's
+        # dense bucket is empty; or/xor send every pair that is not aa
+        expect = 1 if op in ("or", "xor") or kinds.get("BitmapContainer") else 0
+        if launched != expect:
+            fail(f"pairwise_multi {op}: {launched} rb_pair_rows launches, expected {expect}")
+        n_vals = sum(r.get_cardinality() for r in out)
+        say(f"[columnar] pairwise_multi {op} over {len(pairs)} pairs: every result equal to numpy's "
+            f"{SET_OPS[op].__name__} ({n_vals} values in all); {launched} rb_pair_rows launch(es); "
+            f"{window[op][0] * 1e3:.1f} ms  [{card}]")
+        del out
+    launches = dict(K.LAUNCHES)
+    say(f"[columnar] launches over the window (the columnar path): "
+        f"{dict((k, v) for k, v in launches.items() if v)}")
+    if not launches["rb_pair_rows"]:
+        fail("rb_pair_rows was not launched on the columnar path")
+    batch = {k: v for k, v in E.BATCH_COUNTS.items()}
+    say(f"[columnar] container pairs by op/class over the window: {batch}")
+    say(f"[columnar] colrows {col_bytes} bytes resident; peak device memory over the window "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({torch.cuda.max_memory_allocated()} bytes)  [{card}]")
+
+    # 2. the routed facade over jmh's and2by2 set, after ensure_calibrated()
+    head = pairs[:FACADE_PAIRS]
+    costmodel.MODEL.reset()
+    t0 = time.perf_counter()
+    model = columnar.ensure_calibrated()
+    t_cal = time.perf_counter() - t0
+    if not model.calibrated or not model.device_eligible():
+        fail(f"ensure_calibrated() on the card left calibrated={model.calibrated}")
+    routes0 = dict(E.ROUTE_COUNTS)
+    launches0 = K.LAUNCHES["rb_pair_rows"]
+    for op in PAIR_OPS:
+        fn = getattr(RoaringBitmap, FACADE[op])
+        for x, y in head:
+            want = _percontainer(op, x, y)
+            if fn(x, y) != want:
+                fail(f"routed RoaringBitmap.{FACADE[op]} differs from the per-container walk")
+            if columnar.pairwise(op, x, y, tier="device") != want:
+                fail(f"{op} forced onto the device tier differs from the per-container walk")
+    for x, y in head:
+        with columnar.disabled():
+            card_want, inter_want = RoaringBitmap.and_cardinality(x, y), RoaringBitmap.intersects(x, y)
+        if (RoaringBitmap.and_cardinality(x, y), RoaringBitmap.intersects(x, y)) != (card_want, inter_want):
+            fail("routed and_cardinality / intersects differ from the per-container walk")
+    verdicts = {k: v - routes0[k] for k, v in E.ROUTE_COUNTS.items()}
+    est = {op: model.choose(31, 31, "run", False, op=op)[1].get("est_us") for op in ("and", "or")}
+    say(f"[columnar] routed facade (and_/or_/xor/andnot, and_cardinality, intersects) and the forced "
+        f"device tier over {len(head)} pairs: equal to the per-container walk; ensure_calibrated() "
+        f"{t_cal:.2f} s (device cells included); verdicts by tier {verdicts}; the model's estimates "
+        f"at 31 x 31 run-shaped containers (us): {est}; rb_pair_rows launches "
+        f"{K.LAUNCHES['rb_pair_rows'] - launches0}  [{card}]")
+
+    # 3. bitmap-heavy pairs: real work for and/andnot's dense bucket
+    rng = np.random.default_rng(SEED + 7)
+    for n in SYNTH_NS:
+        t0 = time.perf_counter()
+        a, b = costmodel._synthetic_pair("bitmap", n, rng)
+        t_build = time.perf_counter() - t0
+        for op in PAIR_OPS:
+            before = K.LAUNCHES["rb_pair_rows"]
+            got = columnar.pairwise(op, a, b, tier="device")
+            if K.LAUNCHES["rb_pair_rows"] != before + 1:
+                fail(f"bitmap-heavy {op} n={n}: {K.LAUNCHES['rb_pair_rows'] - before} launches, expected 1")
+            if got != _percontainer(op, a, b):
+                fail(f"bitmap-heavy {op} n={n}: the device tier differs from the per-container walk")
+        say(f"[columnar] bitmap-heavy pair, {n} containers a side ({n // 2} bitmaps, "
+            f"{a.get_container_count() * ROW_BYTES} bytes of rows an operand, built in {t_build:.1f} s): "
+            f"and/or/xor/andnot on the device tier equal to the per-container walk, one rb_pair_rows "
+            f"launch each  [{card}]")
+        del a, b
+
+    # 4. timings: the window per op (medians with stages), the facade per tier
+    for op in PAIR_OPS:
+        for _ in range(COLUMNAR_RUNS - 1):
+            window_run(op)
+        med = float(np.median(window[op]))
+        st = {k: float(np.median([s[k] for s in stages[op]])) for k in WINDOW_STAGES}
+        other = med - sum(st.values())
+        say(f"[columnar] pairwise_multi {op} over {len(pairs)} pairs, {COLUMNAR_RUNS} runs: median "
+            f"{med * 1e3:.1f} ms ({min(window[op]) * 1e3:.1f}-{max(window[op]) * 1e3:.1f}), "
+            f"{med / len(pairs) * 1e9:.0f} ns per pair; stages (median ms): "
+            + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in st.items())
+            + f", other {other * 1e3:.1f}; rb_pair_rows by CUDA events "
+            f"{float(np.median(kernel_ms[op])):.3f} ms  [{card}]")
+    tiers = {
+        "per-container": lambda op: (lambda x, y: _percontainer(op, x, y)),
+        "routed": lambda op: getattr(RoaringBitmap, FACADE[op]),
+        "columnar-cpu": lambda op: (lambda x, y: columnar.pairwise(op, x, y, tier="cpu")),
+        "columnar-device": lambda op: (lambda x, y: columnar.pairwise(op, x, y, tier="device")),
+    }
+    slow = []
+    for op in PAIR_OPS:
+        routes0 = dict(E.ROUTE_COUNTS)
+        ns = _pairs_ns({name: mk(op) for name, mk in tiers.items()}, head)
+        verdicts = {k: v - routes0[k] for k, v in E.ROUTE_COUNTS.items() if v != routes0[k]}
+        ratio = ns["routed"] / ns["per-container"]
+        say(f"[columnar] facade {op} over {len(head)} pairs, ns per pair (median of {FACADE_RUNS}, "
+            f"tiers in turn): " + ", ".join(f"{k} {v:.0f}" for k, v in ns.items())
+            + f"; routed / per-container {ratio:.3f}; verdicts {verdicts}  [{card}]")
+        if ratio > FACADE_LIMIT:
+            slow.append(f"{op} {ratio:.3f}")
+    if slow:
+        fail(f"the routed facade is slower than the per-container walk by more than "
+             f"{FACADE_LIMIT - 1:.0%}: {', '.join(slow)}")
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[columnar] peak device memory {peak / 2**30:.2f} GiB ({peak} bytes); phase "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    del clones, pairs, head
+    store.PACK_CACHE.close()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the BSI north star
 # ---------------------------------------------------------------------------
 
@@ -1542,24 +1938,43 @@ def phase_range_bitmap(vals):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels"], help="run phases 1-3 only")
+    ap.add_argument("--only", choices=["kernels", "paths", "columnar"],
+                    help="kernels: phases 1-3; paths: phases 1-2 and the timed paths 5, 8 and 6; "
+                         "columnar: phases 1-2 and 9")
+    ap.add_argument("--window-pairs", type=int, default=WINDOW_PAIRS,
+                    help=f"adjacent pairs in phase 9's window (default {WINDOW_PAIRS})")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
     t_start = time.perf_counter()
     card, kind, count = phase_card()
     phase_build()
+    if args.only == "paths":
+        base, bitmaps, real = build_working_set()
+        phase_timing(bitmaps, card)
+        phase_query(base, bitmaps, real, card)
+        del bitmaps
+        phase_bsi(card)
+        say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
+        return
+    if args.only == "columnar":
+        base, bitmaps, _real = build_working_set()
+        phase_columnar(base, bitmaps, card, args.window_pairs)
+        say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
+        return
     timings = phase_kernels(card)
     timings.update(phase_bsi_kernels(card))
+    timings.update(phase_pair_rows(card))
     t0 = time.perf_counter()
     base, bitmaps, real = build_working_set()
     build_s = time.perf_counter() - t0
     timings.update(phase_threshold_kernel(card, bitmaps))
-    launches = None  # not counted unless phases 4, 8 and 6 run
+    launches = None  # not counted unless phases 4, 8, 9 and 6 run
     if args.only is None:
         agg_launches = phase_main(np.random.default_rng(SEED), base, bitmaps, real, build_s)
         phase_timing(bitmaps, card)
         query_launches = phase_query(base, bitmaps, real, card)
+        columnar_launches = phase_columnar(base, bitmaps, card, args.window_pairs)
         del bitmaps
         from roaringbitmap_tpu_torch.models import bsi as tbsi
 
@@ -1569,10 +1984,11 @@ def main():
         phase_range_bitmap(vals)
         # each kernel's count from the path that runs it: the aggregation
         # path for the reduce kernels, the query path for the threshold
-        # kernel, the BSI path for the O'Neil walk and the masked popcount;
-        # the wide reduce is on none
+        # kernel, the columnar path for the pair kernel, the BSI path for
+        # the O'Neil walk and the masked popcount; the wide reduce is on none
         launches = dict(agg_launches)
         launches["rb_threshold"] = query_launches["rb_threshold"]
+        launches["rb_pair_rows"] = columnar_launches["rb_pair_rows"]
         for name in ("rb_oneil_compare", "rb_oneil_compare[batched]",
                      "rb_oneil_compare[batched-deep]", "rb_popcount_rows[masked]",
                      "wide_reduce_cardinality"):
@@ -1584,7 +2000,8 @@ def main():
             "route": "cuda",
             "source": "roaringbitmap_tpu_torch/csrc/" + (
                 "oneil.cu" if name.startswith("rb_oneil")
-                else "query.cu" if name == "rb_threshold" else "reduce.cu"),
+                else "query.cu" if name == "rb_threshold"
+                else "columnar.cu" if name == "rb_pair_rows" else "reduce.cu"),
             "replaces": t["replaces"],
             "launches": None if launches is None else launches[name],
             "max_abs_err": t["max_abs_err"],

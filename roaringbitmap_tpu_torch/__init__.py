@@ -2,8 +2,9 @@
 
 The port of ``roaringbitmap_tpu`` (JAX on a TPU) to an NVIDIA H100: the same
 containers, facade, serialization format, N-way aggregation engines with
-the resident pack cache, the bit-sliced index with ``RangeBitmap``, and the
-query planner and executor (``roaringbitmap_tpu_torch.query``), with the
+the resident pack cache, the bit-sliced index with ``RangeBitmap``, the
+query planner and executor (``roaringbitmap_tpu_torch.query``), and the
+columnar pairwise engine (``roaringbitmap_tpu_torch.columnar``), with the
 device path in PyTorch and its kernels written by hand in CUDA
 (``csrc/``). It imports neither JAX nor the JAX package; that package stays
 the reference the port is tested against.

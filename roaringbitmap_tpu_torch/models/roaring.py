@@ -8,8 +8,10 @@ flip :1893), pairwise static algebra (and/or/xor/andNot/orNot
 selectRange (:3095), limit (:2457), runOptimize (:2764), contains-subset
 (:2781), isHammingSimilar (:1831), rangeCardinality (:2590), batch
 iteration, and the RoaringFormatSpec serialization (:3012-3051). Pairwise
-algebra runs the per-container walk; the peekable/reverse/rank iterators and
-the buffer twins are not part of this package yet.
+algebra routes through the columnar engine (``columnar/``) above its
+cutoff, as in the JAX package, and runs the per-container walk below it;
+the peekable/reverse/rank iterators and the buffer twins are not part of
+this package yet.
 
 Values are unsigned 32-bit ints; ranges are half-open ``[start, end)`` with
 ``0 <= start <= end <= 2^32``.
@@ -40,6 +42,20 @@ _MAX32 = 1 << 32
 # the grouping idiom shared by the bulk-probe paths (contains_many /
 # rank_many / select_many) — one home in utils.order_stats
 from ..utils.order_stats import group_positions as _group_positions
+
+# the columnar pairwise engine, bound lazily because the package imports
+# this module; one global probe per process
+_COLUMNAR = None
+
+
+def _columnar():
+    global _COLUMNAR
+    if _COLUMNAR is None:
+        from .. import columnar
+
+        _COLUMNAR = columnar
+    return _COLUMNAR
+
 
 def hlc_fingerprint(hlc) -> tuple:
     """The canonical mutation-tracking token computed from a high-low
@@ -406,12 +422,20 @@ class RoaringBitmap:
         """RoaringBitmap.and (RoaringBitmap.java:377): intersect keys, drop empties.
 
         With more than two operands this delegates to FastAggregation like
-        the reference's ``and(Iterator)`` facade overload (:831-844)."""
+        the reference's ``and(Iterator)`` facade overload (:831-844). Above
+        the columnar cutoff the whole pair executes as one batched op
+        (``columnar/``); the per-container walk below stays the
+        small-operand path and the differential reference."""
         if more:
             from ..parallel.aggregation import FastAggregation
 
             return FastAggregation.and_(x1, x2, *more)
-        return RoaringBitmap._and_percontainer(x1, x2)
+        col = _columnar()
+        tier = col.route(x1.high_low_container, x2.high_low_container, op="and")
+        with col.outcome(tier):
+            if tier != "per-container":
+                return col.pairwise("and", x1, x2, tier=tier)
+            return RoaringBitmap._and_percontainer(x1, x2)
 
     @staticmethod
     def _and_percontainer(x1: "RoaringBitmap", x2: "RoaringBitmap") -> "RoaringBitmap":
@@ -446,7 +470,12 @@ class RoaringBitmap:
             from ..parallel.aggregation import FastAggregation
 
             return FastAggregation.or_(x1, x2, *more)
-        return RoaringBitmap._merge_op(x1, x2, "or")
+        col = _columnar()
+        tier = col.route(x1.high_low_container, x2.high_low_container, op="or")
+        with col.outcome(tier):
+            if tier != "per-container":
+                return col.pairwise("or", x1, x2, tier=tier)
+            return RoaringBitmap._merge_op(x1, x2, "or")
 
     @staticmethod
     def xor(x1: "RoaringBitmap", x2: "RoaringBitmap", *more: "RoaringBitmap") -> "RoaringBitmap":
@@ -454,7 +483,12 @@ class RoaringBitmap:
             from ..parallel.aggregation import FastAggregation
 
             return FastAggregation.xor(x1, x2, *more)
-        return RoaringBitmap._merge_op(x1, x2, "xor")
+        col = _columnar()
+        tier = col.route(x1.high_low_container, x2.high_low_container, op="xor")
+        with col.outcome(tier):
+            if tier != "per-container":
+                return col.pairwise("xor", x1, x2, tier=tier)
+            return RoaringBitmap._merge_op(x1, x2, "xor")
 
     @staticmethod
     def _merge_op(x1, x2, op: str, reuse_left: bool = False) -> "RoaringBitmap":
@@ -551,7 +585,12 @@ class RoaringBitmap:
         in-place iandnot, which discards x1's old index; the static path
         must keep cloning because andnot_range feeds it _restrict views
         that share containers with live bitmaps."""
-        return RoaringBitmap._andnot_percontainer(x1, x2, _reuse_left)
+        col = _columnar()
+        tier = col.route(x1.high_low_container, x2.high_low_container, op="andnot")
+        with col.outcome(tier):
+            if tier != "per-container":
+                return col.pairwise("andnot", x1, x2, reuse_left=_reuse_left, tier=tier)
+            return RoaringBitmap._andnot_percontainer(x1, x2, _reuse_left)
 
     @staticmethod
     def _andnot_percontainer(
@@ -629,7 +668,12 @@ class RoaringBitmap:
 
     @staticmethod
     def and_cardinality(x1: "RoaringBitmap", x2: "RoaringBitmap") -> int:
-        """RoaringBitmap.andCardinality (RoaringBitmap.java:413)."""
+        """RoaringBitmap.andCardinality (RoaringBitmap.java:413). Above
+        the columnar cutoff the count comes from the batched
+        cardinality-only kernels: nothing materializes."""
+        col = _columnar()
+        if col.enabled_for(x1.high_low_container, x2.high_low_container):
+            return col.and_cardinality_pair(x1, x2)
         return RoaringBitmap._and_cardinality_percontainer(x1, x2)
 
     @staticmethod
@@ -672,7 +716,12 @@ class RoaringBitmap:
 
     @staticmethod
     def intersects(x1: "RoaringBitmap", x2: "RoaringBitmap") -> bool:
-        """RoaringBitmap.intersects (RoaringBitmap.java:698)."""
+        """RoaringBitmap.intersects (RoaringBitmap.java:698). The columnar
+        path short-circuits between class batches instead of between
+        containers."""
+        col = _columnar()
+        if col.enabled_for(x1.high_low_container, x2.high_low_container):
+            return col.intersects_pair(x1, x2)
         return RoaringBitmap._intersects_percontainer(x1, x2)
 
     @staticmethod
@@ -693,7 +742,8 @@ class RoaringBitmap:
         return False
 
     # in-place variants + operators. The member-op pass-through transfer
-    # (reuse_left) is safe exactly because these discard self's old index.
+    # (reuse_left, on the columnar engine too) is safe exactly because
+    # these discard self's old index.
     def ior(self, other: "RoaringBitmap") -> "RoaringBitmap":
         self.high_low_container = self._inplace_merge(other, "or")
         return self
@@ -707,9 +757,12 @@ class RoaringBitmap:
         return self
 
     def _inplace_merge(self, other: "RoaringBitmap", op: str):
-        return RoaringBitmap._merge_op(
-            self, other, op, reuse_left=True
-        ).high_low_container
+        col = _columnar()
+        tier = col.route(self.high_low_container, other.high_low_container, op=op)
+        with col.outcome(tier):
+            if tier != "per-container":
+                return col.pairwise(op, self, other, reuse_left=True, tier=tier).high_low_container
+            return RoaringBitmap._merge_op(self, other, op, reuse_left=True).high_low_container
 
     def iandnot(self, other: "RoaringBitmap") -> "RoaringBitmap":
         self.high_low_container = RoaringBitmap.andnot(

@@ -30,6 +30,12 @@ built by ``_build``):
   bit-sliced adder over the rows of a zero-padded ``[G, M, 2048]`` block,
   the >= k compare and the popcount, one launch). Bound: device-memory
   bandwidth, the block read once; ``query.cu`` says how.
+* ``rb_pair_rows`` — :func:`pair_rows_reduce`. Replaces the XLA
+  ``pallas_kernels.py:pair_rows_reduce`` (``_pair_rows_jit``: gather a
+  row of each side per pair, and/or/xor/andnot, popcount, one dispatch),
+  the columnar device tier's dense bucket. Bound: device-memory
+  bandwidth, two rows read and one written per pair; ``columnar.cu`` says
+  how.
 
 :func:`wide_reduce_cardinality` — the flat ``[N, 2048] -> [2048]`` reduce
 of ``pallas_kernels.py:wide_reduce_pallas`` /
@@ -42,7 +48,9 @@ launches the kernel or raises. ``LAUNCHES`` counts kernel launches — one per
 launch, nowhere else — so a run can show that it went through the kernels.
 
 The expansion (:func:`expand_rows`) is plain torch ops on the device, as the
-JAX package's ``expand_rows_device`` is XLA and not Pallas.
+JAX package's ``expand_rows_device`` is XLA and not Pallas; so are
+:func:`concat_rows` and :func:`word_test_rows` (the XLA ``concat_rows``
+and ``ops/device.py:word_test_rows`` of the columnar device tier).
 """
 
 from __future__ import annotations
@@ -70,6 +78,7 @@ LAUNCHES = {
     "rb_oneil_compare[batched-deep]": 0,
     "wide_reduce_cardinality": 0,
     "rb_threshold": 0,
+    "rb_pair_rows": 0,
 }
 
 # rows per chunk (one CTA each): small enough that a 10,000-row group
@@ -691,3 +700,110 @@ def threshold_rows(words3: torch.Tensor, k: int, n_slices: int):
     _build.check(lib, rc, "rb_threshold")
     LAUNCHES["rb_threshold"] += 1
     return out, cards
+
+
+# ---------------------------------------------------------------------------
+# the columnar device tier: gather, op, popcount of row pairs
+# ---------------------------------------------------------------------------
+
+_PAIR_CODE = {"and": 0, "or": 1, "xor": 2, "andnot": 3}
+
+
+def _check_pair(rows_a, ia, rows_b, ib, op):
+    if op not in _PAIR_CODE:
+        raise ValueError(f"op must be one of {sorted(_PAIR_CODE)}, got {op!r}")
+    for rows in (rows_a, rows_b):
+        if rows.dim() != 2:
+            raise ValueError(f"row blocks must be [N, 2048], got {tuple(rows.shape)}")
+        _check_words(rows)
+    for idx in (ia, ib):
+        if idx.dtype != torch.int32 or idx.dim() != 1 or not idx.is_contiguous():
+            raise ValueError("row indices must be contiguous 1-D torch.int32")
+    if ia.shape != ib.shape:
+        raise ValueError(f"index streams differ in length: {ia.numel()} vs {ib.numel()}")
+    if len({t.device for t in (rows_a, ia, rows_b, ib)}) != 1:
+        raise ValueError("rows and indices must lie on one device")
+
+
+def _take_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``rows[idx]``, an index outside the block reading a zero row."""
+    i = idx.long()
+    inside = (i >= 0) & (i < rows.shape[0])
+    if rows.shape[0] == 0:
+        return torch.zeros((i.numel(), dev.DEVICE_WORDS), dtype=torch.int32, device=rows.device)
+    out = rows.index_select(0, torch.where(inside, i, torch.zeros_like(i)))
+    out[~inside] = 0
+    return out
+
+
+def pair_rows_reduce_plain(rows_a, ia, rows_b, ib, op: str):
+    """Plain PyTorch version of :func:`pair_rows_reduce`: two
+    ``index_select`` gathers, the op, and ``popcount_rows_plain``."""
+    _check_pair(rows_a, ia, rows_b, ib, op)
+    a, b = _take_rows(rows_a, ia), _take_rows(rows_b, ib)
+    if op == "and":
+        out = a & b
+    elif op == "or":
+        out = a | b
+    elif op == "xor":
+        out = a ^ b
+    else:  # andnot
+        out = a & ~b
+    return out, popcount_rows_plain(out)
+
+
+def pair_rows_reduce(rows_a, ia, rows_b, ib, op: str):
+    """For each pair j, ``rows_a[ia[j]] OP rows_b[ib[j]]`` and its
+    popcount: int32 ``[n, 2048]`` words and int32 ``[n]`` cards.
+
+    ``rows_a`` / ``rows_b``: int32 ``[N, 2048]`` row blocks; ``ia`` /
+    ``ib``: int32 ``[n]`` row indices on the same device (an index outside
+    its block reads a zero row, as the JAX function's ``take(mode="fill")``
+    does); ``op``: and, or, xor or andnot (``a & ~b``). On the card: one
+    ``rb_pair_rows`` launch."""
+    _check_pair(rows_a, ia, rows_b, ib, op)
+    if rows_a.device.type == "cpu":
+        return pair_rows_reduce_plain(rows_a, ia, rows_b, ib, op)
+    if rows_a.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows_a.device}")
+    for rows in (rows_a, rows_b):
+        if rows.data_ptr() % 16:
+            raise ValueError("row blocks must be 16-byte aligned")
+    n = ia.numel()
+    out = torch.empty((n, dev.DEVICE_WORDS), dtype=torch.int32, device=rows_a.device)
+    cards = torch.empty(n, dtype=torch.int32, device=rows_a.device)
+    if n == 0:
+        return out, cards
+    from . import _build
+
+    lib = _build.load()
+    rc = lib.rb_pair_rows(
+        rows_a.device.index or 0, _PAIR_CODE[op], rows_a.data_ptr(), rows_a.shape[0],
+        ia.data_ptr(), rows_b.data_ptr(), rows_b.shape[0], ib.data_ptr(), n,
+        out.data_ptr(), cards.data_ptr(), _stream(rows_a),
+    )
+    _build.check(lib, rc, "rb_pair_rows")
+    LAUNCHES["rb_pair_rows"] += 1
+    return out, cards
+
+
+def concat_rows(blocks) -> torch.Tensor:
+    """Row blocks ``[n_i, 2048]`` as one block (one ``torch.cat``; a single
+    block is returned as it is): the multi-pair tier's combined gather
+    source. Counterpart of the XLA ``pallas_kernels.py:concat_rows``,
+    without its power-of-two padding (that bounded XLA retraces)."""
+    blocks = list(blocks)
+    if not blocks:
+        raise ValueError("concat_rows needs at least one block")
+    return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=0)
+
+
+def word_test_rows(rows: torch.Tensor, row_ids: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Is bit ``vals[i]`` (0..65535) set in row ``row_ids[i]`` of ``rows``
+    (int32 ``[N, 2048]``)? A bool tensor on the rows' device: torch
+    indexing, one word gathered per probe. Counterpart of the XLA
+    ``ops/device.py:word_test_rows``; only the mask goes to the host."""
+    v = vals.long()
+    w = rows[row_ids.long(), v >> 5]
+    # an arithmetic shift garbles only bits above the one kept
+    return ((w >> (v & 31).to(torch.int32)) & 1).bool()

@@ -89,18 +89,29 @@ def _cpu_folds(first: RoaringBitmap, groups: dict):
     """The shared CPU core: per key of ``first`` yield ``(key, container,
     folded_words)`` — folded_words is None for pass-through keys with no
     subtrahend containers. One fold body serves both the materializing and
-    the count-only entry points so they cannot desynchronize. (The JAX
-    package routes large subtrahend sets through its columnar batched OR
-    fold; the per-container walk here gives the same words.)"""
+    the count-only entry points so they cannot desynchronize.
+
+    Subtrahend sets of at least the fold gate's rows take the per-key
+    union from the columnar batched OR fold (``columnar.or_fold_words``,
+    one scatter/fill pass over every subtrahend container) instead of the
+    per-container ``acc &= ~words`` walk, as in the JAX package."""
+    from .. import columnar
+
     hlc = first.high_low_container
+    union_words = None
+    if columnar.enabled_for_fold(sum(len(cs) for cs in groups.values())):
+        union_words = columnar.or_fold_words(groups)
     for k, c in zip(hlc.keys, hlc.containers):
         cs = groups.get(k)
         if not cs:
             yield k, c, None
             continue
         acc = c.to_words()
-        for rc in cs:
-            acc &= ~_container_words(rc)
+        if union_words is not None:
+            acc &= ~union_words[k]
+        else:
+            for rc in cs:
+                acc &= ~_container_words(rc)
         yield k, c, acc
 
 

@@ -37,6 +37,7 @@ from roaringbitmap_tpu_torch.models import bsi as tbsi
 from roaringbitmap_tpu_torch.models.bsi_buffer import MutableBitSliceIndex as TMutable
 from roaringbitmap_tpu_torch.ops import device as tdev
 from roaringbitmap_tpu_torch.ops import kernels as K
+from roaringbitmap_tpu_torch.parallel import aggregation
 from roaringbitmap_tpu_torch.parallel import store as tstore
 from roaringbitmap_tpu_torch.robust.errors import TierUnavailable
 
@@ -48,9 +49,12 @@ OPS = ("EQ", "NEQ", "GT", "LT", "LE", "GE", "RANGE")
 @pytest.fixture(autouse=True)
 def port_on_cpu(monkeypatch):
     """The port's BSI device path on CPU tensors; its auto mode as shipped.
-    The shared pack cache is emptied after each test, so no test's packs
-    stay resident."""
+    The pairwise ops the BSI runs route through the columnar cost model,
+    whose device tier runs on ``aggregation.config.device``: CPU tensors
+    too. The shared pack cache is emptied after each test, so no test's
+    packs stay resident."""
     monkeypatch.setattr(tbsi.config, "device", "cpu")
+    monkeypatch.setattr(aggregation.config, "device", "cpu")
     monkeypatch.setattr(tbsi.config, "mode", "auto")
     yield
     tstore.PACK_CACHE.close()

@@ -23,11 +23,21 @@ from roaringbitmap_tpu.parallel import store as jstore
 from roaringbitmap_tpu_torch.models import container as tc
 from roaringbitmap_tpu_torch.ops import device as tdev
 from roaringbitmap_tpu_torch.ops import kernels as K
+from roaringbitmap_tpu_torch.parallel import aggregation
 from roaringbitmap_tpu_torch.parallel import store as tstore
 
 SEED = 0xFEEF1F0
 OPS = ("or", "and", "xor")
 W = 2048
+
+
+@pytest.fixture(autouse=True)
+def port_on_cpu(monkeypatch):
+    """The device path on CPU tensors: a pairwise op the columnar cost
+    model routes would otherwise calibrate the device tier on the card."""
+    monkeypatch.setattr(aggregation.config, "device", "cpu")
+    yield
+    tstore.PACK_CACHE.close()
 
 
 def _words(rng, shape, op):

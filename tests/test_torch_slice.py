@@ -31,6 +31,7 @@ from roaringbitmap_tpu_torch import RoaringBitmap as TRB
 from roaringbitmap_tpu_torch import interop
 from roaringbitmap_tpu_torch.device import resolve_device
 from roaringbitmap_tpu_torch.ops import kernels as K
+from roaringbitmap_tpu_torch.parallel import aggregation
 from roaringbitmap_tpu_torch.parallel import store as tstore
 from roaringbitmap_tpu_torch.robust.errors import TierUnavailable
 
@@ -81,9 +82,13 @@ SETS = _sets()
 
 
 @pytest.fixture(autouse=True)
-def _empty_pack_cache():
-    """The device-path aggregations keep their packs in the shared pack
-    cache; empty it after each test so none stays resident."""
+def _empty_pack_cache(monkeypatch):
+    """The device path on CPU tensors unless a test asks for the card (a
+    pairwise op the columnar cost model routes would otherwise calibrate
+    the device tier there). The device-path aggregations keep their packs
+    in the shared pack cache; empty it after each test so none stays
+    resident."""
+    monkeypatch.setattr(aggregation.config, "device", "cpu")
     yield
     tstore.PACK_CACHE.close()
 
@@ -234,7 +239,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "from roaringbitmap_tpu_torch.parallel import store, aggregation\n"
         "from roaringbitmap_tpu_torch.ops import kernels, _build\n"
         "from roaringbitmap_tpu_torch.models import bsi, bsi_buffer, range_bitmap\n"
-        "from roaringbitmap_tpu_torch import interop, serialization\n"
+        "from roaringbitmap_tpu_torch import interop, serialization, columnar\n"
+        "from roaringbitmap_tpu_torch.columnar import costmodel, device, engine\n"
         "bad = [m for m in set(sys.modules) - before\n"
         "       if m in ('jax', 'jaxlib', 'roaringbitmap_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'roaringbitmap_tpu.'))]\n"
@@ -292,9 +298,10 @@ def test_cuda_aggregation_matches_the_cpu_device_path(op):
     assert sum(K.LAUNCHES.values()) > before
 
 
-def test_cuda_without_a_card_raises():
+def test_cuda_without_a_card_raises(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
+    monkeypatch.setattr(aggregation.config, "device", "cuda")  # as shipped
     _, tb = _pair(SETS["padded"])
     with pytest.raises(TierUnavailable):
         resolve_device("cuda")
