@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only kernels  # phases 1-3: card, build, kernels
     python3 chip_smoke.py --only paths    # phases 1-2, 5, 8 and 6: the timed paths
     python3 chip_smoke.py --only columnar --window-pairs 9999  # phases 1-2 and 9, all 9,999 pairs
+    python3 chip_smoke.py --only serving  # phases 1-2 and 10: the fusion window and the lane
 
 ``--only paths`` runs only the phases whose end-to-end times PERF.md limits
 against a parent commit; copied into a checkout of the parent, it times
@@ -36,8 +37,12 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    real rows at k = 64 and 200, and at an odd shape (G = 1, M = 997, k past
    the counter's width); ``rb_pair_rows`` for and, or, xor and andnot over
    ``[308100, 2048]`` rows and 150,000 random index pairs (repeats and the
-   last row included) — bitwise equality required, with kernel time
-   (CUDA events), bound and the plain version's time;
+   last row included); ``rb_expand_rows`` on the census working set's
+   payload (308,100 rows, staged in pinned memory and shipped once) and on
+   the expansion's edge cases (adjacent runs, a run ending at 65535, the
+   full run, 2,047 runs, a 4,096-value array, bitmap rows) with
+   run-optimized census containers — bitwise equality required, with
+   kernel time (CUDA events), bound and the plain version's time;
 4. the main path through the port's entry points: 10,000 census-shaped
    bitmaps (built as ``bench.py`` builds them) through
    ``FastAggregation.or_``, ``ParallelAggregation.or_`` and
@@ -47,7 +52,8 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    set, each against a numpy oracle; the kernel launch counts are zeroed
    before and read after, and the pack cache must serve the repeats of
    the wide set;
-5. timing of the main path: pack, expansion, the cold reduce on the real
+5. timing of the main path: pack (the payload concatenated into pinned
+   staging), expansion (copy, ``rb_expand_rows``), the cold reduce on the real
    rows against the plain fold, steady-state reduce, the wide OR end to
    end cold (pack cache closed before each run) and warm (resident pack),
    peak device memory;
@@ -90,6 +96,21 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    taking turns); the routed facade fails the phase if it is more than
    35% slower than the per-container walk for any op; the kernels line's
    count for ``rb_pair_rows`` is the window's;
+10. (run after phase 9) serving on the census working set at full width:
+   (a) a fusion window of 8 queries through ``query.execute_fused`` — Q1,
+   two more ``(or(A) & or(B)) - or(C')`` shapes, ``or(A) & or(B)`` shared
+   by five of them, pairwise, andnot and threshold steps that merge
+   (two thresholds over the same bases, so one bucket) — every result
+   against serial ``execute`` (bytes) and numpy; the merged andnot must be
+   one ``rb_pair_rows`` launch and each threshold bucket one
+   ``rb_threshold`` launch; window walls fused and serial, cold and warm,
+   median of 3 in turns; ``STEP_COUNTS`` and launches; (b)
+   ``overlap.run_pipelined`` over four wide ORs of disjoint quarters of
+   the 10,000 bitmaps (pack cache closed) against the four run serially
+   and numpy, with the lane's overlap ratio, ``rb_expand_rows`` launches
+   (the kernels line's count) and the device idle share; (c)
+   ``query.execute_pipelined`` over four Q1-shaped queries, one a quarter,
+   against serial and numpy;
 7. ``RangeBitmap`` at 10,000,000 rows, for correctness only: appender,
    queries, batched counts, the reference-format bytes and ``map`` of
    them, against numpy.
@@ -130,7 +151,7 @@ THRESHOLD_OPS_PER_WORD = 5
 THRESHOLD_KS = (64, 200)
 AGGREGATION_KERNELS = (
     "rb_group_reduce[dense]", "rb_group_reduce[csr]", "rb_group_reduce[rowmap]",
-    "rb_popcount_rows",
+    "rb_popcount_rows", "rb_expand_rows",
 )
 REPS = 20
 E2E_RUNS = 10  # end-to-end runs per median: the pass is host-bound and noisy
@@ -890,6 +911,127 @@ def phase_threshold_kernel(card: str, bitmaps):
     return out
 
 
+def _edge_payload_containers():
+    """The expansion's edge cases in the port's containers: adjacent runs
+    (a stop on the next run's start bit), a run ending at 65535, the full
+    run container, 2,047 runs in one container, a full 4,096-value array,
+    array values on bits 0, 31, 32 and 65535, and bitmap rows."""
+    from roaringbitmap_tpu_torch.models import container as tc
+
+    rng = np.random.default_rng(SEED + 9)
+    w = np.zeros(1024, np.uint64)
+    for x in rng.choice(65536, 9000, replace=False):
+        w[x >> 6] |= np.uint64(1) << np.uint64(x & 63)
+    starts = np.arange(0, 65536, 32, dtype=np.int64)[:2047]
+    lengths = np.full(2047, 15, dtype=np.int64)
+    lengths[-1] = 65535 - starts[-1]
+    u16 = lambda a: np.asarray(a, dtype=np.uint16)  # noqa: E731
+    return [
+        tc.RunContainer(u16([0, 10, 20, 31, 32, 96]), u16([9, 9, 10, 0, 63, 1000])),
+        tc.RunContainer(u16([7, 65000]), u16([0, 535])),
+        tc.RunContainer(u16([0]), u16([65535])),
+        tc.RunContainer(u16(starts), u16(lengths)),
+        tc.ArrayContainer(u16(np.sort(rng.choice(65536, 4096, replace=False)))),
+        tc.ArrayContainer(u16([0, 31, 32, 65503, 65535])),
+        tc.BitmapContainer(w),
+        tc.BitmapContainer(np.full(1024, np.uint64(0xFFFFFFFFFFFFFFFF))),
+    ]
+
+
+def phase_expand_kernel(card: str, base, bitmaps):
+    """``rb_expand_rows`` against ``expand_rows_plain`` on the census
+    working set's payload (308,100 rows, in the main path's row order) and
+    on the edge cases plus run-optimized census containers: one launch per
+    call, bitwise equal rows. The payload is staged in pinned host memory
+    and shipped once; the kernel is timed on it with CUDA events beside its
+    bound (every row written once, the payload read once) and the plain
+    version's time; the copy is timed beside the host link's bound."""
+    from roaringbitmap_tpu_torch import RoaringBitmap
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import store
+
+    packed = store.pack_groups(store.group_by_key(bitmaps), "cuda")
+    payload = packed._payload
+    n = payload.n_rows
+    if n != ROWS_MAIN:
+        fail(f"the census payload has {n} rows, expected {ROWS_MAIN}")
+    t0 = time.perf_counter()
+    staged = payload.materialize(pinned=True)
+    t_stage = time.perf_counter() - t0
+    parts = K.payload_parts(n, *staged)
+    in_bytes = sum(t.numel() * t.element_size() for t in parts)
+    pinned = all(t.is_pinned() for t in parts if t.numel())  # an empty part holds no memory
+
+    def copy_ms(host_parts):
+        """Wall of one ship of ``host_parts`` to the card (synchronised),
+        the first and the median of three more."""
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = K.ship_payload(host_parts, "cuda")
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            del out
+        return walls[0], float(np.median(walls[1:]))
+
+    copy_first, copy_ms_pinned = copy_ms(parts)
+    pageable = K.payload_parts(n, *payload.materialize())
+    _first, copy_ms_pageable = copy_ms(pageable)
+    del pageable
+    shipped = K.ship_payload(parts, "cuda")
+    before = K.LAUNCHES["rb_expand_rows"]
+    got = K.expand_shipped(n, shipped)
+    torch.cuda.synchronize()
+    if K.LAUNCHES["rb_expand_rows"] != before + 1:
+        fail(f"rb_expand_rows: launches went {before} -> {K.LAUNCHES['rb_expand_rows']}")
+    want = K.expand_rows_plain(n, *shipped, "cuda")
+    err = _compare("rb_expand_rows census payload", got, want)
+    bits_set = int(K.popcount_rows(want).long().sum())
+    del got, want
+    ms = cuda_ms(lambda: K.expand_shipped(n, shipped))
+    plain = cuda_ms(lambda: K.expand_rows_plain(n, *shipped, "cuda"), reps=3, warmup=1)
+    nbytes = in_bytes + n * ROW_BYTES
+    b = bound_ms(nbytes)
+    kinds = {"array": len(payload.arr_rows), "bitmap": len(payload.bmp_rows), "run": len(payload.run_rows)}
+    say(
+        f"[kernel] rb_expand_rows census payload ({n} rows {kinds}, {payload.n_values} array values, "
+        f"{payload.n_run_intervals} runs; {in_bytes} payload bytes): equal ({bits_set} bits); "
+        f"{ms:.4f} ms, bound {b:.4f} ms ({nbytes} bytes: the payload read once, every row written "
+        f"once; {b / ms:.1%} of bound), plain {plain:.3f} ms; library call: none; pinned staging "
+        f"(concatenate) {t_stage * 1e3:.1f} ms; copy to the card from pinned staging (all pinned: "
+        f"{pinned}) first {copy_first:.3f} ms, then median {copy_ms_pinned:.3f} ms "
+        f"({in_bytes / copy_ms_pinned / 1e6:.2f} GB/s), from pageable numpy {copy_ms_pageable:.3f} ms "
+        f"(host link bound {in_bytes / PCIE_BYTES_PER_S * 1e3:.4f} ms)  [{card}]"
+    )
+    del shipped, staged, parts, packed
+    torch.cuda.empty_cache()
+
+    cs = _edge_payload_containers()
+    for vals in base[:40]:
+        b2 = RoaringBitmap(vals)
+        b2.run_optimize()
+        cs.extend(b2.high_low_container.containers)
+    edge = store.RowPayload.from_containers(cs)
+    before = K.LAUNCHES["rb_expand_rows"]
+    got = edge.expand_device("cuda")  # the pinned staging path
+    torch.cuda.synchronize()
+    if K.LAUNCHES["rb_expand_rows"] != before + 1:
+        fail("rb_expand_rows: the edge payload did not take one launch")
+    want = K.expand_rows_plain(edge.n_rows, *edge.materialize(), "cuda")
+    err = max(err, _compare("rb_expand_rows edge cases", got, want))
+    if not np.array_equal(got.cpu().numpy().view(np.uint32), edge.expand_host()):
+        fail("rb_expand_rows edge cases differ from the host expansion")
+    say(f"[kernel] rb_expand_rows edge cases + run-optimized census ({edge.n_rows} rows: "
+        f"{len(edge.arr_rows)} array, {len(edge.bmp_rows)} bitmap, {len(edge.run_rows)} run; "
+        f"adjacent runs, a run ending at 65535, the full run, 2,047 runs, a 4,096-value array): "
+        f"equal to the plain version and the host expansion  [{card}]")
+    return {"rb_expand_rows": dict(
+        replaces="roaringbitmap_tpu/ops/pallas_kernels.py:expand_rows_device", max_abs_err=err,
+        ms=ms, plain_ms=plain, bound_ms=b, bound_by="bytes",
+    )}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -1081,17 +1223,26 @@ def phase_timing(bitmaps, card: str):
     t_groups = time.perf_counter()
     packed = store.pack_groups(groups, "cuda")
     t_payload = time.perf_counter()
-    packed._payload.materialize()
+    staged = packed._payload.materialize(pinned=True)
     t_concat = time.perf_counter()
     t_pack = t_concat - t_start
     t0 = time.perf_counter()
-    flat = packed.device_words
+    shipped = K.ship_payload(K.payload_parts(packed.n_rows, *staged), "cuda")
     torch.cuda.synchronize()
-    t_expand = time.perf_counter() - t0
+    t_copy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    K.expand_shipped(packed.n_rows, shipped)
+    torch.cuda.synchronize()
+    t_kernel = time.perf_counter() - t0
+    t_expand = t_copy + t_kernel
+    del staged, shipped
+    flat = packed.device_words  # the same expansion, through the pack
+    torch.cuda.synchronize()
     say(
         f"[time] pack {t_pack * 1e3:.1f} ms (group_by_key {(t_groups - t_start) * 1e3:.1f}, "
-        f"payload {(t_payload - t_groups) * 1e3:.1f}, concatenate {(t_concat - t_payload) * 1e3:.1f}); "
-        f"expansion (ship payload + expand on device) {t_expand * 1e3:.1f} ms "
+        f"payload {(t_payload - t_groups) * 1e3:.1f}, concatenate into pinned staging "
+        f"{(t_concat - t_payload) * 1e3:.1f}); expansion {t_expand * 1e3:.1f} ms (check + copy "
+        f"{t_copy * 1e3:.1f}, rb_expand_rows {t_kernel * 1e3:.1f}, synchronised) "
         f"for {packed.n_rows} rows, {packed._payload.nbytes} payload bytes; bound "
         f"{max(bound_ms(packed.n_rows * ROW_BYTES), packed._payload.nbytes / PCIE_BYTES_PER_S * 1e3):.4f} ms "
         f"(rows written on the card {bound_ms(packed.n_rows * ROW_BYTES):.4f} ms, payload over "
@@ -1712,6 +1863,289 @@ def phase_columnar(base, bitmaps, card: str, n_pairs: int = WINDOW_PAIRS):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: serving — the fusion window and the overlap shipping lane
+# ---------------------------------------------------------------------------
+
+SERVING_RUNS = 3  # window walls: median of 3, fused and serial in turns
+
+
+def _union_of(base, idx):
+    return np.unique(np.concatenate([base[i] for i in idx]))
+
+
+def _at_least(base, idx, k):
+    v, c = np.unique(np.concatenate([base[i] for i in idx]), return_counts=True)
+    return v[c >= k]
+
+
+class _TierProbe:
+    """Wraps the fused executor's merged device tiers for one window:
+    records each call's step count and the kernel launches it made, and
+    the shapes ``threshold_rows`` was given."""
+
+    def __init__(self, fusion, K):
+        self.fusion, self.K = fusion, K
+        self.andnot, self.threshold, self.threshold_calls = [], [], []
+
+    def __enter__(self):
+        fusion, K = self.fusion, self.K
+        self.saved = (fusion._merged_andnot_device, fusion._merged_threshold_device, K.threshold_rows)
+        real_andnot, real_thr, real_rows = self.saved
+
+        def andnot(ready, results):
+            before = K.LAUNCHES["rb_pair_rows"]
+            out = real_andnot(ready, results)
+            self.andnot.append((len(ready), K.LAUNCHES["rb_pair_rows"] - before))
+            return out
+
+        def thr(ready, results):
+            before = K.LAUNCHES["rb_threshold"]
+            out = real_thr(ready, results)
+            self.threshold.append((len(ready), K.LAUNCHES["rb_threshold"] - before))
+            return out
+
+        def rows(words3, k, n_slices):
+            self.threshold_calls.append((int(k), int(n_slices), tuple(words3.shape[:2])))
+            return real_rows(words3, k, n_slices)
+
+        fusion._merged_andnot_device, fusion._merged_threshold_device = andnot, thr
+        K.threshold_rows = rows
+        return self
+
+    def __exit__(self, *exc):
+        self.fusion._merged_andnot_device, self.fusion._merged_threshold_device, self.K.threshold_rows = self.saved
+
+
+def phase_serving(base, bitmaps, card: str):
+    """The serving shape on the census working set at full width: (a) a
+    fusion window of 8 queries over Q1's A / B / C sets and heads through
+    ``execute_fused`` against serial ``execute`` and numpy; (b)
+    ``run_pipelined`` over four wide ORs of disjoint quarters of the 10,000
+    bitmaps against the same four run serially; (c) ``execute_pipelined``
+    over four Q1-shaped queries, one a quarter, against serial. Returns
+    the launch counts of (b), the lane's path."""
+    from roaringbitmap_tpu_torch import FastAggregation
+    from roaringbitmap_tpu_torch import query as tq
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import overlap, store
+    from roaringbitmap_tpu_torch.query import fusion
+
+    t_phase = time.perf_counter()
+    nb = len(base)
+    if not overlap.LANE.threaded():
+        fail(f"the shipping lane is not threaded on this host ({overlap.LANE.threading_mode})")
+    sel = lambda lo, hi, bms=bitmaps: [b for i, b in enumerate(bms) if lo <= i % nb < hi]  # noqa: E731
+    (lo_a, hi_a), (lo_b, hi_b), (lo_c, hi_c) = Q1_THIRDS
+    mid_c = (lo_c + hi_c) // 2
+    A, B, C = sel(lo_a, hi_a), sel(lo_b, hi_b), sel(lo_c, hi_c)
+    C1, C2 = sel(lo_c, mid_c), sel(mid_c, hi_c)
+    head, head2, head3 = bitmaps[:8], bitmaps[nb:nb + 8], bitmaps[8:16]  # head2: head's bases again
+    uA, uB, uC = (_union_of(base, range(lo, hi)) for lo, hi in Q1_THIRDS)
+    uC1, uC2 = _union_of(base, range(lo_c, mid_c)), _union_of(base, range(mid_c, hi_c))
+    t2 = _at_least(base, range(8), 2)
+    t3_3 = _at_least(base, range(8, 16), 3)
+    ab = np.intersect1d(uA, uB)
+
+    # eight single bitmaps with the fewest containers: two-operand steps
+    # over them stay under the planner's device gate, so they take the
+    # pairwise engine (the columnar router's class)
+    xi = sorted(range(16, nb), key=lambda i: (bitmaps[i].get_container_count(), i))[:8]
+    x = [bitmaps[i] for i in xi]
+    u = [np.unique(base[i % nb]) for i in xi]
+    Q = tq.Q
+    orA, orB, orC, orC1, orC2 = (Q.or_(*s_) for s_ in (A, B, C, C1, C2))
+    L = [Q.leaf(b) for b in x]
+    AB = orA & orB  # one hash-consed node, shared by five queries
+    thr_head, thr_head2 = Q.threshold(2, *head), Q.threshold(2, *head2)
+    window = [
+        ("Q1", (AB - orC) | thr_head, np.union1d(np.setdiff1d(ab, uC), t2)),
+        ("(A&B)-C1 | T2(head')", (AB - orC1) | thr_head2, np.union1d(np.setdiff1d(ab, uC1), t2)),
+        ("(A&B)-C2 | T3(head3)", (AB - orC2) | Q.threshold(3, *head3), np.union1d(np.setdiff1d(ab, uC2), t3_3)),
+        ("(A&B) | (x0&x1)", AB | (L[0] & L[1]), np.union1d(ab, np.intersect1d(u[0], u[1]))),
+        ("(A&B) ^ (x2&x3)", AB ^ (L[2] & L[3]), np.setxor1d(ab, np.intersect1d(u[2], u[3]))),
+        ("(x4&x5) | (x6^x7)", (L[4] & L[5]) | (L[6] ^ L[7]),
+         np.union1d(np.intersect1d(u[4], u[5]), np.setxor1d(u[6], u[7]))),
+        ("B - C1", orB - orC1, np.setdiff1d(uB, uC1)),
+        ("T2(head') & A", thr_head2 & orA, np.intersect1d(t2, uA)),
+    ]
+    qs = [q for _n, q, _w in window]
+    plans = [tq.plan(q) for q in qs]
+    unique = {}
+    for p in plans:
+        for st in p.steps:
+            unique.setdefault(st.node.uid, st)
+    classes = {}
+    for st in unique.values():
+        cls = fusion._merge_class(st)[0]
+        classes[cls] = classes.get(cls, 0) + 1
+    shared = sum(AB.uid in {st.node.uid for st in p.steps} for p in plans)
+    say(f"[serving] fusion window: {len(qs)} queries over A, B, C ({len(A)}, {len(B)}, {len(C)} "
+        f"bitmaps; C1, C2 {len(C1)}, {len(C2)}) and three heads of 8; {sum(len(p.steps) for p in plans)} "
+        f"plan steps, {len(unique)} unique; unique steps by merge class {classes}; or(A) & or(B) in "
+        f"{shared} plans")
+    for cls in ("pairwise", "andnot", "threshold-device"):
+        if classes.get(cls, 0) < 2:
+            fail(f"the window has {classes.get(cls, 0)} {cls} steps, expected at least 2")
+    if shared < 3:
+        fail(f"or(A) & or(B) is shared by {shared} plans, expected at least 3")
+
+    def check(label, outs):
+        for (name, _q, want), r in zip(window, outs):
+            got = r.to_array()
+            if got.shape != want.shape or not np.array_equal(got, want.astype(np.uint32)):
+                fail(f"{label} {name}: {got.size} values, the numpy oracle {want.size}")
+
+    def serial():
+        return [tq.execute(q, cache=None) for q in qs]
+
+    def fused():
+        return tq.execute_fused(qs, cache=None)
+
+    # --- the window's main path: fused, cold, with the counts live ---
+    store.PACK_CACHE.close()
+    K.reset_launches()
+    fusion.reset_counts()
+    with _TierProbe(fusion, K) as probe:
+        t0 = time.perf_counter()
+        outs = fused()
+        wall = time.perf_counter() - t0
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    check("fused", outs)
+    ref = serial()
+    check("serial", ref)
+    for (name, _q, _w), f, r in zip(window, outs, ref):
+        if f.serialize() != r.serialize():
+            fail(f"fused {name}: the bytes differ from serial execute")
+    say(f"[serving] fused window, cold: every result equal to serial execute (bytes) and the numpy "
+        f"oracle; {wall * 1e3:.1f} ms; STEP_COUNTS {fusion.STEP_COUNTS}; launches {launches}; merged "
+        f"andnot tiers (steps, rb_pair_rows launches) {probe.andnot}; merged threshold tiers (steps, "
+        f"rb_threshold launches) {probe.threshold}; threshold_rows calls (k, n_slices, [G, M]) "
+        f"{probe.threshold_calls}  [{card}]")
+    if not probe.andnot or any(n_launch != 1 for _s, n_launch in probe.andnot) or max(
+        s for s, _l in probe.andnot
+    ) < 2:
+        fail(f"the merged andnot did not run as one rb_pair_rows launch over >= 2 steps: {probe.andnot}")
+    buckets = {(k, ns, m) for k, ns, (_g, m) in probe.threshold_calls}
+    n_thr_steps = sum(s for s, _l in probe.threshold)
+    if len(buckets) != len(probe.threshold_calls) or sum(l for _s, l in probe.threshold) != len(buckets) \
+            or len(buckets) >= n_thr_steps:
+        fail(f"the equal-bucket thresholds did not run as one rb_threshold launch a bucket: "
+             f"{probe.threshold_calls} for {n_thr_steps} steps")
+    if fusion.STEP_COUNTS["deduped"] < 4 or fusion.STEP_COUNTS["merged"] < 6:
+        fail(f"the window deduped or merged too little: {fusion.STEP_COUNTS}")
+    del outs, ref
+
+    walls = {("serial", "cold"): [], ("fused", "cold"): [], ("serial", "warm"): [], ("fused", "warm"): []}
+    for state in ("cold", "warm"):
+        if state == "warm":
+            fused()  # the packs of the steps over leaves resident
+        for _ in range(SERVING_RUNS):
+            for kind, fn in (("serial", serial), ("fused", fused)):
+                if state == "cold":
+                    store.PACK_CACHE.close()
+                t0 = time.perf_counter()
+                fn()
+                walls[(kind, state)].append(time.perf_counter() - t0)
+    say("[serving] window walls, " + f"{SERVING_RUNS} runs each, fused and serial in turns (result cache off): "
+        + "; ".join(f"{kind} {state} median {np.median(w) * 1e3:.1f} ms ({min(w) * 1e3:.1f}-{max(w) * 1e3:.1f})"
+                    for (kind, state), w in walls.items()) + f"  [{card}]")
+    store.PACK_CACHE.close()
+    _profiled("[serving]", "execute_fused window, cold", lambda: (store.PACK_CACHE.close(), fused()), card)
+
+    # (b) run_pipelined over four wide ORs of disjoint quarters
+    quarter = len(bitmaps) // 4
+    quarters = [bitmaps[i * quarter:(i + 1) * quarter] for i in range(4)]
+    jobs = [(q, "or") for q in quarters]
+    want_q = [_union_of(base, sorted({i % nb for i in range(j * quarter, (j + 1) * quarter)})) for j in range(4)]
+
+    def check_or(label, outs):
+        for j, (r, want) in enumerate(zip(outs, want_q)):
+            got = r.to_array()
+            if got.shape != want.shape or not np.array_equal(got, want.astype(np.uint32)):
+                fail(f"{label} quarter {j}: {got.size} values, the numpy oracle {want.size}")
+
+    def or_serial():
+        return [FastAggregation.or_(*q) for q in quarters]
+
+    def or_pipelined():
+        return overlap.run_pipelined(jobs)
+
+    # --- the lane's main path: counts zeroed just before, read just after ---
+    store.PACK_CACHE.close()
+    overlap.LANE.reset_stats()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    outs = or_pipelined()
+    lane_launches = dict(K.LAUNCHES)
+    stats = overlap.LANE.stats()
+    check_or("run_pipelined", outs)
+    check_or("serial", or_serial())
+    say(f"[serving] run_pipelined over 4 wide ORs of {quarter} bitmaps each (pack cache closed): "
+        f"every result equal to serial FastAggregation.or_ and the numpy oracle; launches "
+        f"{dict((k, v) for k, v in lane_launches.items() if v)}; lane {stats}")
+    if lane_launches["rb_expand_rows"] != 4:
+        fail(f"run_pipelined made {lane_launches['rb_expand_rows']} rb_expand_rows launches, expected 4")
+    if stats["staged_s"] <= 0:
+        fail("the lane staged nothing in run_pipelined")
+    pw = {"serial": [], "pipelined": []}
+    ratios = []
+    for kind in ("serial", "pipelined", "pipelined", "serial"):
+        store.PACK_CACHE.close()
+        overlap.LANE.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (or_serial if kind == "serial" else or_pipelined)()
+        pw[kind].append(time.perf_counter() - t0)
+        if kind == "pipelined":
+            ratios.append(overlap.LANE.stats()["overlap_ratio"])
+    say(f"[serving] 4 wide ORs cold, serial / pipelined in turns (ms): serial "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in pw['serial'])}; pipelined "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in pw['pipelined'])}; lane overlap ratio (hidden / staged) "
+        f"{', '.join(f'{r:.4f}' for r in ratios)}  [{card}]")
+    _profiled("[serving]", "run_pipelined 4 wide ORs, cold", lambda: (store.PACK_CACHE.close(), or_pipelined()), card)
+    _profiled("[serving]", "4 wide ORs serial, cold", lambda: (store.PACK_CACHE.close(), or_serial()), card)
+    del outs
+
+    # (c) execute_pipelined over four Q1-shaped queries, one a quarter
+    q1s, wants = [], []
+    for j, q in enumerate(quarters):
+        sets = [[b for i, b in enumerate(q) if lo <= (j * quarter + i) % nb < hi] for lo, hi in Q1_THIRDS]
+        head_bases = [(j * quarter + i) % nb for i in range(Q1_HEAD)]
+        q1s.append(((Q.or_(*sets[0]) & Q.or_(*sets[1])) - Q.or_(*sets[2])) | Q.threshold(2, *q[:Q1_HEAD]))
+        wants.append(np.union1d(np.setdiff1d(ab, uC), _at_least(base, head_bases, 2)))
+
+    def check_q(label, outs):
+        for j, (r, want) in enumerate(zip(outs, wants)):
+            got = r.to_array()
+            if got.shape != want.shape or not np.array_equal(got, want.astype(np.uint32)):
+                fail(f"{label} Q1 of quarter {j}: {got.size} values, the numpy oracle {want.size}")
+
+    qw = {"serial": [], "pipelined": []}
+    ratios = []
+    for kind in ("serial", "pipelined", "pipelined", "serial"):
+        store.PACK_CACHE.close()
+        overlap.LANE.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = (tq.execute_pipelined(q1s, cache=None) if kind == "pipelined"
+                else [tq.execute(q, cache=None) for q in q1s])
+        qw[kind].append(time.perf_counter() - t0)
+        check_q(kind, outs)
+        if kind == "pipelined":
+            ratios.append(overlap.LANE.stats()["overlap_ratio"])
+    say(f"[serving] execute_pipelined over 4 Q1-shaped queries (one a quarter, pack cache closed): "
+        f"every result equal to the numpy oracle, as serial execute's; serial / pipelined in turns "
+        f"(ms): serial {', '.join(f'{w * 1e3:.1f}' for w in qw['serial'])}; pipelined "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in qw['pipelined'])}; lane overlap ratio "
+        f"{', '.join(f'{r:.4f}' for r in ratios)}  [{card}]")
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[serving] peak device memory {peak / 2**30:.2f} GiB; phase {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    store.PACK_CACHE.close()
+    torch.cuda.empty_cache()
+    return lane_launches
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the BSI north star
 # ---------------------------------------------------------------------------
 
@@ -1938,9 +2372,9 @@ def phase_range_bitmap(vals):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "paths", "columnar"],
+    ap.add_argument("--only", choices=["kernels", "paths", "columnar", "serving"],
                     help="kernels: phases 1-3; paths: phases 1-2 and the timed paths 5, 8 and 6; "
-                         "columnar: phases 1-2 and 9")
+                         "columnar: phases 1-2 and 9; serving: phases 1-2 and 10")
     ap.add_argument("--window-pairs", type=int, default=WINDOW_PAIRS,
                     help=f"adjacent pairs in phase 9's window (default {WINDOW_PAIRS})")
     args = ap.parse_args()
@@ -1962,6 +2396,11 @@ def main():
         phase_columnar(base, bitmaps, card, args.window_pairs)
         say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
         return
+    if args.only == "serving":
+        base, bitmaps, _real = build_working_set()
+        phase_serving(base, bitmaps, card)
+        say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
+        return
     timings = phase_kernels(card)
     timings.update(phase_bsi_kernels(card))
     timings.update(phase_pair_rows(card))
@@ -1969,12 +2408,14 @@ def main():
     base, bitmaps, real = build_working_set()
     build_s = time.perf_counter() - t0
     timings.update(phase_threshold_kernel(card, bitmaps))
-    launches = None  # not counted unless phases 4, 8, 9 and 6 run
+    timings.update(phase_expand_kernel(card, base, bitmaps))
+    launches = None  # not counted unless phases 4, 8, 9, 10 and 6 run
     if args.only is None:
         agg_launches = phase_main(np.random.default_rng(SEED), base, bitmaps, real, build_s)
         phase_timing(bitmaps, card)
         query_launches = phase_query(base, bitmaps, real, card)
         columnar_launches = phase_columnar(base, bitmaps, card, args.window_pairs)
+        serving_launches = phase_serving(base, bitmaps, card)
         del bitmaps
         from roaringbitmap_tpu_torch.models import bsi as tbsi
 
@@ -1984,11 +2425,13 @@ def main():
         phase_range_bitmap(vals)
         # each kernel's count from the path that runs it: the aggregation
         # path for the reduce kernels, the query path for the threshold
-        # kernel, the columnar path for the pair kernel, the BSI path for
-        # the O'Neil walk and the masked popcount; the wide reduce is on none
+        # kernel, the columnar path for the pair kernel, the lane's path
+        # (run_pipelined) for the expansion, the BSI path for the O'Neil
+        # walk and the masked popcount; the wide reduce is on none
         launches = dict(agg_launches)
         launches["rb_threshold"] = query_launches["rb_threshold"]
         launches["rb_pair_rows"] = columnar_launches["rb_pair_rows"]
+        launches["rb_expand_rows"] = serving_launches["rb_expand_rows"]
         for name in ("rb_oneil_compare", "rb_oneil_compare[batched]",
                      "rb_oneil_compare[batched-deep]", "rb_popcount_rows[masked]",
                      "wide_reduce_cardinality"):
@@ -2001,7 +2444,8 @@ def main():
             "source": "roaringbitmap_tpu_torch/csrc/" + (
                 "oneil.cu" if name.startswith("rb_oneil")
                 else "query.cu" if name == "rb_threshold"
-                else "columnar.cu" if name == "rb_pair_rows" else "reduce.cu"),
+                else "columnar.cu" if name == "rb_pair_rows"
+                else "expand.cu" if name == "rb_expand_rows" else "reduce.cu"),
             "replaces": t["replaces"],
             "launches": None if launches is None else launches[name],
             "max_abs_err": t["max_abs_err"],

@@ -3,8 +3,9 @@
 The port of ``roaringbitmap_tpu`` (JAX on a TPU) to an NVIDIA H100: the same
 containers, facade, serialization format, N-way aggregation engines with
 the resident pack cache, the bit-sliced index with ``RangeBitmap``, the
-query planner and executor (``roaringbitmap_tpu_torch.query``), and the
-columnar pairwise engine (``roaringbitmap_tpu_torch.columnar``), with the
+query planner, executor and fusion window (``roaringbitmap_tpu_torch.query``),
+the overlap shipping lane (``parallel/overlap.py``, ``run_pipelined``), and
+the columnar pairwise engine (``roaringbitmap_tpu_torch.columnar``), with the
 device path in PyTorch and its kernels written by hand in CUDA
 (``csrc/``). It imports neither JAX nor the JAX package; that package stays
 the reference the port is tested against.
@@ -17,6 +18,7 @@ from .models.bsi import Operation, RoaringBitmapSliceIndex
 from .models.range_bitmap import RangeBitmap
 from .models.roaring import RoaringBitmap
 from .parallel.aggregation import FastAggregation, ParallelAggregation
+from .parallel.overlap import run_pipelined
 
 __all__ = [
     "RoaringBitmap",
@@ -25,4 +27,5 @@ __all__ = [
     "RoaringBitmapSliceIndex",
     "Operation",
     "RangeBitmap",
+    "run_pipelined",
 ]

@@ -83,8 +83,13 @@ class CostModel:
 
     def device_eligible(self) -> bool:
         """Is the device tier worth pricing? Only when the device path runs
-        on a CUDA device (on the CPU the "device" rows are host memory)."""
-        return _backend() == "cuda"
+        on a CUDA device (on the CPU the "device" rows are host memory) and
+        a card is there: the one probe the JAX package makes here (its
+        backend query), so a routed facade op on a host without a card
+        answers on the CPU engines. The facade takes no ``device=``; the
+        aggregation entry points, which do, still raise for ``"cuda"``
+        without a card."""
+        return _backend() == "cuda" and torch.cuda.is_available()
 
     def choose(
         self,

@@ -28,7 +28,10 @@ from typing import Dict, List, Optional, Tuple
 from ..robust.errors import TierUnavailable
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCES = [PACKAGE_DIR / "csrc" / name for name in ("reduce.cu", "oneil.cu", "query.cu", "columnar.cu")]
+SOURCES = [
+    PACKAGE_DIR / "csrc" / name
+    for name in ("reduce.cu", "oneil.cu", "query.cu", "columnar.cu", "expand.cu")
+]
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
@@ -140,6 +143,8 @@ def load() -> ctypes.CDLL:
             lib.rb_threshold.restype = i
             lib.rb_pair_rows.argtypes = [i, i, vp, ll, vp, vp, ll, vp, ll, vp, vp, vp]
             lib.rb_pair_rows.restype = i
+            lib.rb_expand_rows.argtypes = [i, ll, vp, vp, vp, ll, vp, vp, ll, vp, vp, vp, vp, vp, vp]
+            lib.rb_expand_rows.restype = i
             lib.rb_error_string.argtypes = [i]
             lib.rb_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -2,8 +2,8 @@
 and the device-side row expansion.
 
 Counterpart of ``roaringbitmap_tpu/ops/pallas_kernels.py``. Hand-written
-CUDA kernels (``csrc/reduce.cu``, ``csrc/oneil.cu`` and ``csrc/query.cu``,
-built by ``_build``):
+CUDA kernels (``csrc/reduce.cu``, ``csrc/oneil.cu``, ``csrc/query.cu``,
+``csrc/columnar.cu`` and ``csrc/expand.cu``, built by ``_build``):
 
 * ``rb_group_reduce`` — :func:`group_reduce`. Replaces
   ``pallas_kernels.py:grouped_reduce_pallas`` (padded layout, bucketed
@@ -37,6 +37,13 @@ built by ``_build``):
   bandwidth, two rows read and one written per pair; ``columnar.cu`` says
   how.
 
+* ``rb_expand_rows`` — :func:`expand_rows`. Replaces the XLA
+  ``pallas_kernels.py:expand_rows_device`` (``_expand_rows_jit``: the
+  compact container payload turned into word rows on the device). Bound:
+  device-memory bandwidth, every row written once (8 KiB) and the payload
+  read once; ``expand.cu`` says how. The payload's host-to-device copy
+  before it is bound by the host link.
+
 :func:`wide_reduce_cardinality` — the flat ``[N, 2048] -> [2048]`` reduce
 of ``pallas_kernels.py:wide_reduce_pallas`` /
 ``wide_reduce_cardinality_pallas`` — is ``rb_group_reduce`` over one
@@ -47,10 +54,9 @@ only because the tensor it was given lies on the CPU; for a CUDA tensor it
 launches the kernel or raises. ``LAUNCHES`` counts kernel launches — one per
 launch, nowhere else — so a run can show that it went through the kernels.
 
-The expansion (:func:`expand_rows`) is plain torch ops on the device, as the
-JAX package's ``expand_rows_device`` is XLA and not Pallas; so are
 :func:`concat_rows` and :func:`word_test_rows` (the XLA ``concat_rows``
-and ``ops/device.py:word_test_rows`` of the columnar device tier).
+and ``ops/device.py:word_test_rows`` of the columnar device tier) stay
+torch ops, as they were XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -79,6 +85,7 @@ LAUNCHES = {
     "wide_reduce_cardinality": 0,
     "rb_threshold": 0,
     "rb_pair_rows": 0,
+    "rb_expand_rows": 0,
 }
 
 # rows per chunk (one CTA each): small enough that a 10,000-row group
@@ -531,11 +538,24 @@ def oneil_counts_per_query(slices, bits, ebm, fixed, op: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _u16(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """uint16 numpy -> int64 tensor on ``device`` (shipped as 2 bytes a
-    value: torch has no general uint16, so it travels as int16 bits and is
-    masked back to 0..65535 after widening)."""
-    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint16).view(np.int16))
+def _host_tensor(a) -> torch.Tensor:
+    """A payload array as a host tensor: a torch tensor (the pinned staging
+    of ``RowPayload.materialize(pinned=True)``) as it is, a numpy array
+    wrapped without a copy, uint16 as int16 bits and uint64 as int64 bits
+    (torch has no general unsigned types)."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint16:
+        a = a.view(np.int16)
+    elif a.dtype == np.uint64:
+        a = a.view(np.int64)
+    return torch.from_numpy(a)
+
+
+def _u16(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """uint16 bits (an int16 tensor) -> int64 tensor on ``device``, masked
+    back to 0..65535 after widening."""
     return t.to(device).to(torch.int64) & 0xFFFF
 
 
@@ -552,43 +572,113 @@ def _parity32(x: torch.Tensor) -> torch.Tensor:
     return x & 1
 
 
-def expand_rows(
+_PAYLOAD_DTYPES = (
+    ("arr_rows", torch.int64), ("arr_offsets", torch.int64), ("arr_values", torch.int16),
+    ("bmp_rows", torch.int64), ("bmp_words", torch.int64), ("run_rows", torch.int64),
+    ("run_counts", torch.int64), ("run_starts", torch.int16), ("run_lengths", torch.int16),
+)
+
+
+def _check_payload(n_rows, parts) -> None:
+    """Types and shapes of a payload (host or device tensors): each row
+    holds exactly one container, as ``RowPayload.append`` builds it."""
+    if len(parts) != len(_PAYLOAD_DTYPES):
+        raise ValueError(f"a payload has {len(_PAYLOAD_DTYPES)} parts, got {len(parts)}")
+    if len({t.device for t in parts}) != 1:
+        raise ValueError("the payload's parts must lie on one device")
+    for (name, dtype), t in zip(_PAYLOAD_DTYPES, parts):
+        if t.dtype != dtype or t.dim() != (2 if name == "bmp_words" else 1) or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous array of {dtype} bits")
+    arr_rows, arr_offsets, arr_values, bmp_rows, bmp_words, run_rows, run_counts, run_starts, run_lengths = parts
+    n_arr, n_bmp, n_run = arr_rows.numel(), bmp_rows.numel(), run_rows.numel()
+    if n_arr + n_bmp + n_run != int(n_rows):
+        raise ValueError(
+            f"{n_arr} + {n_bmp} + {n_run} containers for {n_rows} rows: each row holds one"
+        )
+    if bmp_words.shape != (n_bmp, dev.DEVICE_WORDS // 2):
+        raise ValueError(f"bmp_words must be [{n_bmp}, 1024], got {tuple(bmp_words.shape)}")
+    if arr_offsets.numel() != n_arr + 1 or run_counts.numel() != n_run:
+        raise ValueError("arr_offsets needs n_arr + 1 entries and run_counts n_run")
+    if run_lengths.numel() != run_starts.numel():
+        raise ValueError("run_starts and run_lengths differ in length")
+
+
+def payload_parts(
+    n_rows, arr_rows, arr_offsets, arr_values, bmp_rows, bmp_words,
+    run_rows, run_counts, run_starts, run_lengths,
+):
+    """The payload (numpy arrays or host tensors) as checked host tensors:
+    types and shapes as :func:`_check_payload`, the row indices a
+    permutation of the block's rows (the kernel writes each row once and
+    leaves its output unset), and the CSR offsets and counts matching
+    their value arrays."""
+    parts = [_host_tensor(a) for a in (
+        arr_rows, arr_offsets, arr_values, bmp_rows, bmp_words,
+        run_rows, run_counts, run_starts, run_lengths,
+    )]
+    if parts[0].device.type != "cpu":
+        raise ValueError("payload_parts takes a host payload")
+    _check_payload(n_rows, parts)
+    arr_rows, arr_offsets, arr_values, bmp_rows, _bmp, run_rows, run_counts, run_starts, _len = parts
+    if int(arr_offsets[0]) != 0 or int(arr_offsets[-1]) != arr_values.numel() or bool(
+        (torch.diff(arr_offsets) < 0).any()
+    ):
+        raise ValueError("arr_offsets must rise from 0 to len(arr_values)")
+    if bool((run_counts < 0).any()) or int(run_counts.sum()) != run_starts.numel():
+        raise ValueError("run_counts must sum to len(run_starts)")
+    rows = torch.cat((arr_rows, bmp_rows, run_rows))
+    if rows.numel() and (int(rows.min()) < 0 or int(rows.max()) >= int(n_rows)):
+        raise ValueError(f"row index outside the block of {n_rows} rows")
+    if not bool(torch.bincount(rows, minlength=int(n_rows)).eq(1).all()):
+        raise ValueError("a row index repeats: each row holds one container")
+    return parts
+
+
+def ship_payload(parts, device) -> tuple:
+    """Checked host parts (:func:`payload_parts`) copied to ``device``
+    without blocking on the current stream (asynchronous from pinned
+    memory)."""
+    return tuple(t.to(torch.device(device), non_blocking=True) for t in parts)
+
+
+def expand_rows_plain(
     n_rows: int, arr_rows, arr_offsets, arr_values, bmp_rows, bmp_words,
     run_rows, run_counts, run_starts, run_lengths, device,
 ) -> torch.Tensor:
-    """Expand a compact payload (``store.RowPayload.materialize()``) into
-    int32 ``[n_rows, 2048]`` rows on ``device``. Only the payload crosses
-    to the device (2 bytes per array value, 4 per run, 8 KiB per bitmap
-    row); indices are built there, exact-length and int64.
-
-    Array values add their bit masks into the rows (distinct values of a
-    container set distinct bits, so add == or). Runs add start toggles and
-    stop toggles into two separate blocks that are XORed — a stop that
-    lands on the next run's start bit (adjacent runs) cancels it instead
-    of carrying, and a run ending at 65535 has no stop toggle — then a
-    prefix-XOR within each word (five doubling shifts) and an exclusive
-    cumulative parity across words fill the intervals. Bitmap rows are
-    copied."""
+    """Plain PyTorch version of :func:`expand_rows`, torch ops on
+    ``device`` over a host payload or one already there. Array values add
+    their bit masks into the rows (distinct values of a container set
+    distinct bits, so add == or). Runs add start toggles and stop toggles
+    into two separate blocks that are XORed — a stop that lands on the
+    next run's start bit (adjacent runs) cancels it instead of carrying,
+    and a run ending at 65535 has no stop toggle — then a prefix-XOR
+    within each word (five doubling shifts) and an exclusive cumulative
+    parity across words fill the intervals. Bitmap rows are copied."""
     device = torch.device(device)
+    parts = [_host_tensor(a) for a in (
+        arr_rows, arr_offsets, arr_values, bmp_rows, bmp_words,
+        run_rows, run_counts, run_starts, run_lengths,
+    )]
+    if parts[0].device.type == "cpu":
+        parts = payload_parts(n_rows, *parts)
+    else:
+        _check_payload(n_rows, parts)
+    (arr_rows, arr_offsets, arr_values, bmp_rows, bmp_words,
+     run_rows, run_counts, run_starts, run_lengths) = parts
     w = dev.DEVICE_WORDS
     out = torch.zeros(n_rows * w, dtype=torch.int32, device=device)
-    if len(arr_values):
-        lens = torch.from_numpy(np.diff(arr_offsets)).to(device)
-        rows = torch.repeat_interleave(torch.from_numpy(arr_rows).to(device), lens)
+    if arr_values.numel():
+        lens = torch.diff(arr_offsets).to(device)
+        rows = torch.repeat_interleave(arr_rows.to(device), lens)
         v = _u16(arr_values, device)
         out.index_add_(0, rows * w + (v >> 5), _bit32(v & 31))
         del rows, v
     out = out.view(n_rows, w)
-    if len(bmp_rows):
-        rows = torch.from_numpy(bmp_rows).to(device)
-        out[rows] = torch.from_numpy(
-            np.ascontiguousarray(bmp_words).view(np.int32).reshape(len(bmp_rows), w)
-        ).to(device)
-    kr = len(run_rows)
+    if bmp_rows.numel():
+        out[bmp_rows.to(device)] = bmp_words.view(torch.int32).reshape(-1, w).to(device)
+    kr = run_rows.numel()
     if kr:
-        compact = torch.repeat_interleave(
-            torch.arange(kr, device=device), torch.from_numpy(run_counts).to(device)
-        )
+        compact = torch.repeat_interleave(torch.arange(kr, device=device), run_counts.to(device))
         s = _u16(run_starts, device)
         e1 = s + _u16(run_lengths, device) + 1
         tog_s = torch.zeros(kr * w, dtype=torch.int32, device=device)
@@ -603,7 +693,66 @@ def expand_rows(
             fill = fill ^ (fill << sh)
         par = _parity32(tog)
         carry = ((torch.cumsum(par, dim=1) - par) & 1).to(torch.int32)
-        out[torch.from_numpy(run_rows).to(device)] = fill ^ -carry
+        out[run_rows.to(device)] = fill ^ -carry
+    return out
+
+
+def expand_rows(
+    n_rows: int, arr_rows, arr_offsets, arr_values, bmp_rows, bmp_words,
+    run_rows, run_counts, run_starts, run_lengths, device,
+) -> torch.Tensor:
+    """Expand a compact host payload (``store.RowPayload.materialize()``,
+    numpy arrays or the pinned host tensors of ``materialize(pinned=True)``)
+    into int32 ``[n_rows, 2048]`` rows on ``device``: array containers as
+    CSR (``arr_rows``, ``arr_offsets`` int64, ``arr_values`` uint16),
+    bitmap containers as ``bmp_rows`` int64 and ``bmp_words`` uint64
+    ``[n_bmp, 1024]``, run containers as ``run_rows`` / ``run_counts``
+    int64 and ``run_starts`` / ``run_lengths`` uint16, each run covering
+    ``[start, start + length]``. Each row holds exactly one container.
+
+    On the card only the payload crosses the host link (2 bytes per array
+    value, 4 per run, 8 KiB per bitmap row; :func:`ship_payload`), and
+    one ``rb_expand_rows`` launch builds every row
+    (:func:`expand_shipped`)."""
+    device = torch.device(device)
+    parts = payload_parts(
+        n_rows, arr_rows, arr_offsets, arr_values, bmp_rows, bmp_words,
+        run_rows, run_counts, run_starts, run_lengths,
+    )
+    if device.type == "cpu":
+        return expand_rows_plain(n_rows, *parts, device)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    return expand_shipped(n_rows, ship_payload(parts, device))
+
+
+def expand_shipped(n_rows: int, shipped) -> torch.Tensor:
+    """One ``rb_expand_rows`` launch over a payload already on the card:
+    the parts as :func:`ship_payload` leaves them, whose values were
+    checked on the host by :func:`payload_parts`."""
+    _check_payload(n_rows, shipped)
+    (arr_rows, arr_offsets, arr_values, bmp_rows, bmp_words,
+     run_rows, run_counts, run_starts, run_lengths) = shipped
+    if arr_rows.device.type != "cuda":
+        raise ValueError(f"expand_shipped takes a payload on a CUDA device, not {arr_rows.device}")
+    out = torch.empty((int(n_rows), dev.DEVICE_WORDS), dtype=torch.int32, device=arr_rows.device)
+    if out.shape[0] == 0:
+        return out
+    if bmp_words.numel() and bmp_words.data_ptr() % 16:
+        raise ValueError("bmp_words must be 16-byte aligned")
+    run_ends = torch.cumsum(run_counts, 0)
+    from . import _build
+
+    lib = _build.load()
+    rc = lib.rb_expand_rows(
+        out.device.index,
+        arr_rows.numel(), arr_rows.data_ptr(), arr_offsets.data_ptr(), arr_values.data_ptr(),
+        bmp_rows.numel(), bmp_rows.data_ptr(), bmp_words.data_ptr(),
+        run_rows.numel(), run_rows.data_ptr(), run_ends.data_ptr(), run_starts.data_ptr(),
+        run_lengths.data_ptr(), out.data_ptr(), _stream(out),
+    )
+    _build.check(lib, rc, "rb_expand_rows")
+    LAUNCHES["rb_expand_rows"] += 1
     return out
 
 

@@ -179,6 +179,30 @@ def _dispatch_prelude(bitmaps: Sequence[RoaringBitmap], op: str):
     return None, sum(bm.high_low_container.size for bm in bitmaps)
 
 
+def prefetch(bitmaps, op: str = "or", mode: Optional[str] = None, device=None):
+    """Stage a working set's pack and device expansion on the overlap
+    shipping lane (``overlap.LANE``): call with the NEXT query's operands
+    while the current query reduces, and its dispatch finds the pack
+    resident. The same dispatch prelude and device gate as the engines
+    (AND key intersection, ``_use_device``), so only working sets that
+    would take the device path stage. Returns the staging ticket, or None
+    when nothing stages (CPU route, trivial AND, lane not threaded or its
+    window full)."""
+    bitmaps = [bitmaps] if hasattr(bitmaps, "high_low_container") else list(bitmaps)
+    if len(bitmaps) < 2:
+        return None
+    keys, n = _dispatch_prelude(bitmaps, op)
+    if keys is not None and not keys:
+        return None  # trivial AND: nothing will pack
+    if not _use_device(n, mode):
+        return None
+    from . import overlap
+
+    return overlap.LANE.prefetch(
+        bitmaps, keys, resolve_device(config.device if device is None else device)
+    )
+
+
 def _aggregate(
     bitmaps: Sequence[RoaringBitmap],
     op: str,

@@ -127,10 +127,18 @@ class RowPayload:
             + (len(self.arr_rows) + len(self.run_rows) + len(self.bmp_rows)) * 8
         )
 
-    def materialize(self):
+    def materialize(self, pinned: bool = False):
         """Concatenate the borrows into flat numpy arrays (cached):
         ``(arr_rows, arr_offsets, arr_values, bmp_rows, bmp_words64,
-        run_rows, run_counts, run_starts, run_lengths)``."""
+        run_rows, run_counts, run_starts, run_lengths)``.
+
+        ``pinned=True`` returns the same arrays as host tensors in pinned
+        (page-locked) memory, each concatenated straight into its buffer
+        (``np.concatenate(..., out=)``, no second copy; uint16 as int16
+        bits, uint64 as int64 bits), not cached: the staging the card's
+        ``non_blocking`` copies read."""
+        if pinned:
+            return self._materialize_pinned()
         m = self._mat
         if m is None:
             arr_rows = np.asarray(self.arr_rows, dtype=np.int64)
@@ -169,6 +177,38 @@ class RowPayload:
             )
         return m
 
+    def _materialize_pinned(self):
+        def buf(shape, dtype):
+            t = torch.empty(shape, dtype=dtype, pin_memory=True)
+            return t, t.numpy()
+
+        n_arr, n_bmp, n_run = len(self.arr_rows), len(self.bmp_rows), len(self.run_rows)
+        arr_rows, a = buf(n_arr, torch.int64)
+        a[:] = self.arr_rows
+        arr_offsets, a = buf(n_arr + 1, torch.int64)
+        a[0] = 0
+        np.cumsum(np.fromiter((v.size for v in self.arr_vals), np.int64, n_arr), out=a[1:])
+        arr_values, a = buf(self.n_values, torch.int16)
+        if n_arr:
+            np.concatenate(self.arr_vals, out=a.view(np.uint16))
+        bmp_rows, a = buf(n_bmp, torch.int64)
+        a[:] = self.bmp_rows
+        bmp_words, a = buf((n_bmp, bits.WORDS_PER_CONTAINER), torch.int64)
+        if n_bmp:
+            np.stack(self.bmp_list, out=a.view(np.uint64))
+        run_rows, a = buf(n_run, torch.int64)
+        a[:] = self.run_rows
+        run_counts, a = buf(n_run, torch.int64)
+        a[:] = np.fromiter((v.size for v in self.run_starts), np.int64, n_run)
+        run_starts, a = buf(self.n_run_intervals, torch.int16)
+        if n_run:
+            np.concatenate(self.run_starts, out=a.view(np.uint16))
+        run_lengths, a = buf(self.n_run_intervals, torch.int16)
+        if n_run:
+            np.concatenate(self.run_lengths, out=a.view(np.uint16))
+        return (arr_rows, arr_offsets, arr_values, bmp_rows, bmp_words,
+                run_rows, run_counts, run_starts, run_lengths)
+
     def expand_host(self) -> np.ndarray:
         """Expand to the uint32 [n, 2048] host word block with numpy:
         bitmap rows bulk-copy, array values scatter in one
@@ -199,8 +239,14 @@ class RowPayload:
 
     def expand_device(self, device) -> torch.Tensor:
         """Ship the compact payload and expand it into int32 [n, 2048]
-        rows on ``device`` (``ops/kernels.expand_rows``)."""
-        return kernels.expand_rows(self.n_rows, *self.materialize(), device)
+        rows on ``device`` (``ops/kernels.expand_rows``). On a CUDA device
+        the payload is staged in pinned host memory and copied without
+        blocking on the current stream (PyTorch's pinned allocator keeps
+        each buffer until the copies that read it have completed)."""
+        device = torch.device(device)
+        if device.type != "cuda":
+            return kernels.expand_rows(self.n_rows, *self.materialize(), device)
+        return kernels.expand_rows(self.n_rows, *self.materialize(pinned=True), device)
 
 
 def ship_rows(containers: Sequence[Container], device=None) -> torch.Tensor:
@@ -232,7 +278,17 @@ class PackedGroups:
 
     While the working set is resident in a :class:`PackCache` the cache
     owns its lifetime: :meth:`close` is then a no-op, and the derived
-    layouts' device bytes are reported to the cache's byte budget."""
+    layouts' device bytes are reported to the cache's byte budget.
+
+    On the card the flat rows may be written (expanded or delta-patched)
+    on one stream, the overlap lane's, and read on another, so the
+    ordering lives here. Every write records an event on its stream. A
+    read from another stream waits for that event and marks the rows as
+    in use on its stream (``record_stream``), so the caching allocator
+    cannot hand the block to a new tensor while that read is queued. A
+    delta patch first waits for the last writing stream and every stream
+    that has read the rows since. The derived layouts are built from the
+    flat rows on the reading stream."""
 
     def __init__(self, group_keys, group_offsets, payload: RowPayload, device=None):
         self.group_keys = group_keys
@@ -240,6 +296,10 @@ class PackedGroups:
         self.device = resolve_device(device)
         self._payload = payload
         self._device_words: Optional[torch.Tensor] = None
+        # on the card: (event, stream) of the last write to the flat rows,
+        # and the other streams that have read them since
+        self._written: Optional[tuple] = None  # guarded-by: self._lock
+        self._readers: set = set()  # guarded-by: self._lock
         self._padded_cache: Dict[int, Optional[torch.Tensor]] = {}
         self._bucket_cache: Dict[Tuple[int, int], list] = {}
         self._plan_cache: Dict[int, List[np.ndarray]] = {}
@@ -273,7 +333,8 @@ class PackedGroups:
     def device_words(self) -> torch.Tensor:
         """The flat int32 [N, 2048] rows on ``device``: the device-side
         payload expansion (plus any delta row overrides), built once, then
-        cached."""
+        cached, and ordered after their last write for the current
+        stream."""
         d = self._device_words
         if d is None:
             with self._lock:
@@ -290,9 +351,57 @@ class PackedGroups:
                 if self._layout_epoch != epoch:
                     return d  # raced a delta repack: do not publish
                 if self._device_words is None:
+                    self._wrote(d)
                     self._device_words = d
                 d = self._device_words
+        return self._read_order(d)
+
+    def _wrote(self, d: torch.Tensor) -> None:
+        """Record a write to the flat rows just queued on the current
+        stream. Caller holds self._lock."""
+        if d.is_cuda:
+            stream = torch.cuda.current_stream(d.device)
+            event = torch.cuda.Event()
+            event.record(stream)
+            self._written = (event, stream)
+            self._readers = set()
+
+    def _read_order(self, d: torch.Tensor) -> torch.Tensor:
+        """Order a read of the flat rows on the current stream after their
+        last write, when another stream made it."""
+        written = self._written
+        if written is None or not d.is_cuda:
+            return d
+        event, stream = written
+        cur = torch.cuda.current_stream(d.device)
+        if cur != stream:
+            cur.wait_event(event)
+            d.record_stream(cur)
+            with self._lock:
+                self._readers.add(cur)
         return d
+
+    def _write_order(self, d: torch.Tensor) -> None:
+        """Order a write to the flat rows on the current stream after the
+        last write and every read queued since on other streams. Caller
+        holds self._lock."""
+        if self._written is None or not d.is_cuda:
+            return
+        cur = torch.cuda.current_stream(d.device)
+        for stream in {self._written[1], *self._readers}:
+            if stream != cur:
+                cur.wait_stream(stream)
+        d.record_stream(cur)
+
+    def device_tensors(self) -> List[torch.Tensor]:
+        """Every device tensor the working set holds now: the flat rows and
+        the derived layouts built so far."""
+        with self._lock:
+            out = [] if self._device_words is None else [self._device_words]
+            out += [a for a in self._padded_cache.values() if a is not None]
+            for buckets in self._bucket_cache.values():
+                out += [a for _idx, a in buckets]
+        return out
 
     def _publish(self, cache: dict, key, value, kind: str, nbytes: int, epoch: int):
         """Publish a lazily built layout unless a delta moved the epoch
@@ -324,6 +433,8 @@ class PackedGroups:
             self._bucket_cache = {}
             if flat:
                 self._device_words = None
+                self._written = None
+                self._readers = set()
         self._notify_resident(-freed)
 
     def close(self) -> None:
@@ -351,10 +462,12 @@ class PackedGroups:
                 self._row_overrides[int(r)] = row.copy()
             d = self._device_words
             if d is not None and len(rows):
+                self._write_order(d)
                 d.index_copy_(
                     0, torch.from_numpy(rows).to(d.device),
                     torch.from_numpy(new_words).to(d.device),
                 )
+                self._wrote(d)
         self._drop(flat=False)
 
     def padded_device(self, fill: int) -> Optional[torch.Tensor]:

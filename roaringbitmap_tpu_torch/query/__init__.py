@@ -19,9 +19,14 @@ time:
   each with CPU and device paths (``rb_group_reduce`` and
   ``rb_threshold`` on the card).
 
-The JAX package's micro-batching fusion executor (``fusion``,
-``FusionExecutor``, ``execute_fused``) and ``execute_pipelined`` are not
-ported yet.
+* ``fusion.py`` — the micro-batching executor: :func:`execute_fused`
+  runs a window of concurrent queries with shared subexpressions deduped
+  and same-class steps merged into one dispatch per tier
+  (``rb_pair_rows``, ``rb_threshold``, ``rb_group_reduce`` on the card);
+  :class:`FusionExecutor` is its serving shape (``submit`` -> future).
+* ``exec.execute_pipelined`` — back-to-back queries with the overlap
+  shipping lane (``parallel/overlap.py``) staging the next query's leaf
+  packs while the current one runs.
 
 Quick start::
 
@@ -34,8 +39,10 @@ Quick start::
 """
 
 from .cache import DEFAULT_CACHE, ResultCache, cache_key, leaf_fps_current
-from .exec import execute
+from . import fusion
+from .exec import execute, execute_pipelined
 from .expr import Expr, Leaf, Q, as_expr, evaluate_naive
+from .fusion import FusionExecutor, execute_fused
 from .inflight import TABLE as INFLIGHT
 from .inflight import InflightTable
 from .kernels import andnot_nway, andnot_nway_cardinality, threshold
@@ -52,6 +59,10 @@ __all__ = [
     "Plan",
     "PlanStep",
     "execute",
+    "execute_fused",
+    "execute_pipelined",
+    "FusionExecutor",
+    "fusion",
     "InflightTable",
     "INFLIGHT",
     "ResultCache",

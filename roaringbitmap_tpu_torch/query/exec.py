@@ -29,13 +29,17 @@ query's own nodes and across queries over the same leaves, and a leaf
 mutation delta-repacks O(changed containers) rows. A step whose operands
 are results of other steps works on new bitmaps each run, so its pack is
 built anew. Device steps run on ``aggregation.config.device``.
+
+:func:`execute_pipelined` runs back-to-back queries with the overlap
+shipping lane staging the next query's leaf packs while the current one
+runs.
 """
 
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 from ..models.roaring import RoaringBitmap
 from ..robust.deadline import deadline_expired, deadline_scope
@@ -132,6 +136,63 @@ def execute(
                     cache.put(key, val)
             results[step.node.uid] = val
         return results[p.root.uid].clone()
+
+
+def execute_pipelined(
+    queries: Sequence[Union[Expr, Plan]],
+    cache: Optional[ResultCache] = DEFAULT_CACHE,
+    mode: Optional[str] = None,
+    deadline_s: Optional[float] = None,
+) -> List[RoaringBitmap]:
+    """Execute back-to-back queries with the overlap shipping lane
+    (``parallel/overlap.py``): while query i runs, query i+1's
+    device-routed leaf working sets stage on the lane, so steady
+    multi-query traffic does not idle the device on the marshal. Results
+    are identical to ``[execute(q, ...) for q in queries]`` — staging only
+    warms the resident pack cache the engines read anyway."""
+    plans = [q if isinstance(q, Plan) else _memo_plan(q, mode) for q in queries]
+    out = []
+    for i, p in enumerate(plans):
+        # join our own stagings FIRST (prefetched while query i-1 ran):
+        # popping them frees the lane window for the next prefetch
+        _join_plan(p)
+        if i + 1 < len(plans):
+            _prefetch_plan(plans[i + 1], mode)
+        out.append(execute(p, cache=cache, mode=mode, deadline_s=deadline_s))
+    return out
+
+
+def _device_step_leaves(p: Plan):
+    """Yield ``(leaves, op)`` for the plan's device-routed all-leaf steps —
+    device-* n-ary and/or/xor only: the andnot and threshold kernels key
+    their packs differently (kind-prefixed ``get_or_build`` keys), so
+    staging an aggregation pack for either would be waste."""
+    for step in p.steps:
+        if not step.engine.startswith("device-"):
+            continue
+        leaves = [getattr(o, "bitmap", None) for o in step.operands]
+        if len(leaves) >= 2 and all(b is not None for b in leaves):
+            yield leaves, step.node.op
+
+
+def _prefetch_plan(p: Plan, mode: Optional[str]) -> None:
+    """Stage the plan's device-routed all-leaf steps on the overlap lane
+    (``aggregation.prefetch`` re-checks the device gate, so a step the
+    executor would run on the CPU stages nothing)."""
+    from ..parallel import aggregation
+
+    for leaves, op in _device_step_leaves(p):
+        aggregation.prefetch(leaves, op, mode=mode)
+
+
+def _join_plan(p: Plan) -> None:
+    """Pop the plan's stagings off the overlap lane (a no-op for steps
+    that never staged); the packs are in ``PACK_CACHE``, so only the
+    window slot and the overlap accounting ride on the join."""
+    from ..parallel import overlap
+
+    for leaves, op in _device_step_leaves(p):
+        overlap.LANE.join(leaves, op)
 
 
 def _run_step(

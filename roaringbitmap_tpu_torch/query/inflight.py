@@ -4,7 +4,9 @@ Counterpart of ``roaringbitmap_tpu/query/inflight.py``. The result cache
 (cache.py) dedups *completed* work; this table adds a pending tier: the
 first executor to reach a node key becomes the **owner** and computes; any
 executor reaching the same key mid-flight becomes a **joiner** and blocks
-on the owner's completion instead of recomputing. Keys are the result
+on the owner's completion instead of recomputing (:meth:`InflightTable.join`;
+the fused executor, which holds claims of its own, only polls:
+:meth:`InflightTable.poll`). Keys are the result
 cache's own ``(node uid, leaf fingerprints)``.
 
 **The dedup contract**: a published value must correspond to the leaf
@@ -98,6 +100,16 @@ class InflightTable:
             return None
         return entry.value if entry.valid else None
 
+    def poll(self, entry: _Entry):
+        """Non-blocking join: the already-published validated value, or
+        ``None`` (still computing / stale / failed — compute it yourself).
+        The fused executor's form: it claims a whole merged group before
+        publishing any of it, so a BLOCKING join there could mutually
+        stall two windows claiming shared nodes in opposite orders."""
+        if not entry.event.is_set():
+            return None
+        return entry.value if entry.valid else None
+
     def _remove(self, key: tuple, entry: _Entry) -> None:
         with self._lock:
             if self._pending.get(key) is entry:
@@ -115,6 +127,14 @@ class InflightTable:
                 "stale": self.stale,
                 "pending": len(self._pending),
             }
+
+    def clear(self) -> None:
+        """Tests only: wake anything parked and drop all entries."""
+        with self._lock:
+            entries = list(self._pending.values())
+            self._pending.clear()
+        for e in entries:
+            e.event.set()
 
 
 # The process-wide table: every executor dedups through this one

@@ -605,11 +605,17 @@ def test_uncalibrated_routes_match_jax():
 
 
 def test_device_eligible_follows_the_config(monkeypatch):
-    """The device tier is priced only where the device path runs on CUDA;
-    deciding it probes nothing (this host may have no card)."""
+    """The device tier is priced only where the device path runs on CUDA
+    and a card is there (``torch.cuda.is_available()``, the one probe the
+    JAX package's backend query stands for)."""
     assert not tcost.MODEL.device_eligible()
     monkeypatch.setattr(aggregation.config, "device", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert not tcost.MODEL.device_eligible()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert tcost.MODEL.device_eligible()
+    monkeypatch.setattr(aggregation.config, "device", "cpu")
+    assert not tcost.MODEL.device_eligible()
 
 
 def test_a_failing_calibration_raises_on_every_routed_call(monkeypatch):
@@ -617,6 +623,9 @@ def test_a_failing_calibration_raises_on_every_routed_call(monkeypatch):
     calibration raises, and so does the next routed call; no call falls
     back to the uncalibrated gate."""
     monkeypatch.setattr(aggregation.config, "device", "cuda")
+    # a card that reports itself present: the tier is eligible, so the
+    # first routed op calibrates it
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     attempts = []
 
     def unusable(bm, device=None):
