@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only paths    # phases 1-2, 5, 8 and 6: the timed paths
     python3 chip_smoke.py --only columnar --window-pairs 9999  # phases 1-2 and 9, all 9,999 pairs
     python3 chip_smoke.py --only serving  # phases 1-2 and 10: the fusion window and the lane
+    python3 chip_smoke.py --only host     # phases 1-2, 11 and 6: the native host tier against numpy
 
 ``--only paths`` runs only the phases whose end-to-end times PERF.md limits
 against a parent commit; copied into a checkout of the parent, it times
@@ -17,7 +18,11 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
 2. build: ``nvcc`` of ``roaringbitmap_tpu_torch/csrc/*.cu`` (one compiler
    per source, started together) with ``-Xptxas -v`` (registers, shared
    memory, spills), and the instruction count of the tiled O'Neil walk's
-   slice loop from ``cuobjdump -sass``;
+   slice loop from ``cuobjdump -sass``; then ``g++`` of the native host
+   tier (``roaringbitmap_tpu_torch/native/kernels.cpp`` for ``ctypes`` and
+   ``ext.cpp`` as a CPython extension, started together), with the
+   compiler's version, each compile's seconds, ``backend_tier()``, the
+   OpenMP thread count and the CPU model;
 3. kernels against their plain PyTorch versions at the main paths' shapes —
    ``rb_group_reduce`` dense ``[31, 10000, 2048]``, CSR over skewed
    offsets and through a row map, for or, and and xor; ``rb_popcount_rows``
@@ -95,7 +100,11 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    its stages, and of the facade's ns per pair on each tier (the tiers
    taking turns); the routed facade fails the phase if it is more than
    35% slower than the per-container walk for any op; the kernels line's
-   count for ``rb_pair_rows`` is the window's;
+   count for ``rb_pair_rows`` is the window's; the or window's array
+   results taken out of their words both ways on the same words (one
+   extension call a row, the native tier's way, and
+   ``kernels.values_rows``' batches, the numpy tier's), timed and held
+   equal;
 10. (run after phase 9) serving on the census working set at full width:
    (a) a fusion window of 8 queries through ``query.execute_fused`` — Q1,
    two more ``(or(A) & or(B)) - or(C')`` shapes, ``or(A) & or(B)`` shared
@@ -111,11 +120,25 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    (the kernels line's count) and the device idle share; (c)
    ``query.execute_pipelined`` over four Q1-shaped queries, one a quarter,
    against serial and numpy;
+11. (run after phase 10) the native host tier: every ``rb_*`` entry point
+   of ``native/kernels.cpp`` (and the extension's probes), on each binding
+   that serves it, against its numpy version on census-shaped inputs (the
+   matched containers of adjacent bases, 2,000 pairs; every batch entry
+   point over the whole batch, each op), exact, each timed; the delta
+   repack's host expansion on each tier; then, with the two host tiers
+   taking turns (``native.set_tier``), phase 9's window cut to 500 pairs
+   (the numpy tier's andnot takes ~3.1 ms a pair) with its stages, the
+   routed facade's and the per-container walk's ns per pair over the 199
+   pairs, Q1 cold and warm, and phase 10's fusion window cold and warm,
+   every result against numpy; phase 6 then times ``compare`` GE and its
+   ``unpack_to_bitmap`` with the tiers in turns;
 7. ``RangeBitmap`` at 10,000,000 rows, for correctness only: appender,
    queries, batched counts, the reference-format bytes and ``map`` of
    them, against numpy.
 
-The last two lines are a JSON object describing every kernel and the JSON
+The last three lines are a JSON object of the host tier's entry points
+(``{"host_tier": [...]}``, each one's native and numpy ms; not with
+``--only kernels``), a JSON object describing every kernel and the JSON
 result ``{"ok": true, "device": {...}}``. The port needs no JAX and nothing
 of the JAX package.
 """
@@ -297,6 +320,29 @@ def phase_build():
             say(f"[build] {line.strip()}")
     _build.load()
     say(f"[build] {sass_slice_loop(path)}")
+    build_host_tier()
+
+
+def build_host_tier():
+    """g++ of the native host tier (both bindings, compiled anew), with the
+    compiler's version, the seconds, the tier's state and the CPU."""
+    from roaringbitmap_tpu_torch import native
+
+    t0 = time.perf_counter()
+    paths = native.build(force=True)
+    native.load()
+    t_host = time.perf_counter() - t0
+    gxx = native.build_commands()["ctypes"][0][0]
+    version = subprocess.run([gxx, "--version"], capture_output=True, text=True, timeout=60).stdout
+    sec = native.BUILD_SECONDS
+    say(
+        f"[build] host tier: {version.splitlines()[0] if version else gxx}; g++ "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in sec.items() if k != "wall")
+        + f" (started together), build {sec['wall']:.2f} s, build and load {t_host:.2f} s: "
+        + ", ".join(p.name for p in paths.values())
+        + f"; backend_tier() {native.backend_tier()}; OpenMP threads {native.omp_threads()}; "
+        f"CPU {_cpu_model()}"
+    )
 
 
 # the tiled walk's GE instance and the shape of its slice loop (oneil.cu:
@@ -1655,19 +1701,59 @@ def _percontainer(op, x, y):
         return getattr(RoaringBitmap, FACADE[op])(x, y)
 
 
-def _pairs_ns(fns, pairs) -> dict:
-    """Median over FACADE_RUNS runs of the ns per pair of each of ``fns``
+def _pairs_ns(fns, pairs, runs: int = FACADE_RUNS) -> dict:
+    """Median over ``runs`` runs of the ns per pair of each of ``fns``
     (name -> function) over the pairs, the functions taking turns within
     each run so that a drift of the host's speed reaches all alike (each
     call returns a host bitmap: its work is done)."""
     walls = {name: [] for name in fns}
-    for _ in range(FACADE_RUNS):
+    for _ in range(runs):
         for name, fn in fns.items():
             t0 = time.perf_counter()
             for x, y in pairs:
                 fn(x, y)
             walls[name].append(time.perf_counter() - t0)
     return {name: float(np.median(w)) / len(pairs) * 1e9 for name, w in walls.items()}
+
+
+def _unpack_race(E, pairs, card: str) -> None:
+    """One more or window, its array results taken out of their words both
+    ways on the same words before the engine formats them: one extension
+    call a row (``bits.values_from_words``, the native tier's way and the
+    engine's there) and ``kernels.values_rows`` in its blocks (the numpy
+    tier's); the two must give the same values."""
+    from roaringbitmap_tpu_torch import columnar
+    from roaringbitmap_tpu_torch.columnar import kernels as ck
+    from roaringbitmap_tpu_torch.utils import bits
+
+    real = E._format_rows_results
+    t = {"rows": 0, "values": 0, "per-row extension": 0.0, "values_rows": 0.0}
+
+    def fmt(words64, cards, idx, results):
+        c = np.asarray(cards, dtype=np.int64)
+        small = np.flatnonzero((c > 0) & (c <= 4096))
+        t0 = time.perf_counter()
+        rows = [bits.values_from_words(words64[j]) for j in small.tolist()]
+        t1 = time.perf_counter()
+        blocks = [ck.values_rows(words64[small[lo:lo + E._VALUES_BLOCK]])[0]
+                  for lo in range(0, small.size, E._VALUES_BLOCK)]
+        t2 = time.perf_counter()
+        if rows and not np.array_equal(np.concatenate(rows), np.concatenate(blocks)):
+            fail("the or window's values: per-row extension calls and values_rows differ")
+        t["rows"] += small.size
+        t["values"] += sum(r.size for r in rows)
+        t["per-row extension"] += t1 - t0
+        t["values_rows"] += t2 - t1
+        return real(words64, cards, idx, results)
+
+    E._format_rows_results = fmt
+    try:
+        columnar.pairwise_multi("or", pairs, tier="device")
+    finally:
+        E._format_rows_results = real
+    say(f"[columnar] or window's array results out of their words ({t['rows']} rows, {t['values']} values): "
+        f"one extension call a row {t['per-row extension'] * 1e3:.1f} ms, kernels.values_rows in blocks of "
+        f"{E._VALUES_BLOCK} {t['values_rows'] * 1e3:.1f} ms, the same values  [{card}]")
 
 
 def phase_columnar(base, bitmaps, card: str, n_pairs: int = WINDOW_PAIRS):
@@ -1833,6 +1919,7 @@ def phase_columnar(base, bitmaps, card: str, n_pairs: int = WINDOW_PAIRS):
             + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in st.items())
             + f", other {other * 1e3:.1f}; rb_pair_rows by CUDA events "
             f"{float(np.median(kernel_ms[op])):.3f} ms  [{card}]")
+    _unpack_race(E, pairs, card)
     tiers = {
         "per-container": lambda op: (lambda x, y: _percontainer(op, x, y)),
         "routed": lambda op: getattr(RoaringBitmap, FACADE[op]),
@@ -1916,24 +2003,12 @@ class _TierProbe:
         self.fusion._merged_andnot_device, self.fusion._merged_threshold_device, self.K.threshold_rows = self.saved
 
 
-def phase_serving(base, bitmaps, card: str):
-    """The serving shape on the census working set at full width: (a) a
-    fusion window of 8 queries over Q1's A / B / C sets and heads through
-    ``execute_fused`` against serial ``execute`` and numpy; (b)
-    ``run_pipelined`` over four wide ORs of disjoint quarters of the 10,000
-    bitmaps against the same four run serially; (c) ``execute_pipelined``
-    over four Q1-shaped queries, one a quarter, against serial. Returns
-    the launch counts of (b), the lane's path."""
-    from roaringbitmap_tpu_torch import FastAggregation
-    from roaringbitmap_tpu_torch import query as tq
-    from roaringbitmap_tpu_torch.ops import kernels as K
-    from roaringbitmap_tpu_torch.parallel import overlap, store
-    from roaringbitmap_tpu_torch.query import fusion
-
-    t_phase = time.perf_counter()
+def _serving_window(base, bitmaps, Q):
+    """Phase 10's window of 8 queries over Q1's sets and heads, built with
+    the query API ``Q``: ``(window, (A, B, C, C1, C2), AB, ab, uC)`` where
+    ``window`` lists (name, query, numpy oracle), Q1 first, and ``AB`` is
+    the ``or(A) & or(B)`` node five of them share (``ab`` its oracle)."""
     nb = len(base)
-    if not overlap.LANE.threaded():
-        fail(f"the shipping lane is not threaded on this host ({overlap.LANE.threading_mode})")
     sel = lambda lo, hi, bms=bitmaps: [b for i, b in enumerate(bms) if lo <= i % nb < hi]  # noqa: E731
     (lo_a, hi_a), (lo_b, hi_b), (lo_c, hi_c) = Q1_THIRDS
     mid_c = (lo_c + hi_c) // 2
@@ -1952,7 +2027,6 @@ def phase_serving(base, bitmaps, card: str):
     xi = sorted(range(16, nb), key=lambda i: (bitmaps[i].get_container_count(), i))[:8]
     x = [bitmaps[i] for i in xi]
     u = [np.unique(base[i % nb]) for i in xi]
-    Q = tq.Q
     orA, orB, orC, orC1, orC2 = (Q.or_(*s_) for s_ in (A, B, C, C1, C2))
     L = [Q.leaf(b) for b in x]
     AB = orA & orB  # one hash-consed node, shared by five queries
@@ -1968,6 +2042,29 @@ def phase_serving(base, bitmaps, card: str):
         ("B - C1", orB - orC1, np.setdiff1d(uB, uC1)),
         ("T2(head') & A", thr_head2 & orA, np.intersect1d(t2, uA)),
     ]
+    return window, (A, B, C, C1, C2), AB, ab, uC
+
+
+def phase_serving(base, bitmaps, card: str):
+    """The serving shape on the census working set at full width: (a) a
+    fusion window of 8 queries over Q1's A / B / C sets and heads through
+    ``execute_fused`` against serial ``execute`` and numpy; (b)
+    ``run_pipelined`` over four wide ORs of disjoint quarters of the 10,000
+    bitmaps against the same four run serially; (c) ``execute_pipelined``
+    over four Q1-shaped queries, one a quarter, against serial. Returns
+    the launch counts of (b), the lane's path."""
+    from roaringbitmap_tpu_torch import FastAggregation
+    from roaringbitmap_tpu_torch import query as tq
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import overlap, store
+    from roaringbitmap_tpu_torch.query import fusion
+
+    t_phase = time.perf_counter()
+    nb = len(base)
+    if not overlap.LANE.threaded():
+        fail(f"the shipping lane is not threaded on this host ({overlap.LANE.threading_mode})")
+    Q = tq.Q
+    window, (A, B, C, C1, C2), AB, ab, uC = _serving_window(base, bitmaps, Q)
     qs = [q for _n, q, _w in window]
     plans = [tq.plan(q) for q in qs]
     unique = {}
@@ -2146,6 +2243,399 @@ def phase_serving(base, bitmaps, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the native host tier against its numpy tier
+# ---------------------------------------------------------------------------
+
+HOST_PAIRS = 2_000  # container pairs of the entry-point checks
+# phase 9's window, cut for the tiers' turns (the numpy tier's and/andnot
+# take ~1.0 and ~3.1 ms a pair); phase 9 runs the whole window on the native tier
+HOST_WINDOW_PAIRS = 500
+HOST_RUNS = 3  # turns of each tier per median
+HOST_TIERS = ("native", "numpy")
+
+
+def _cpu_model() -> str:
+    """The CPU model as ``lscpu`` gives it (``/proc/cpuinfo``'s where lscpu
+    has none) and the CPU count."""
+    import os
+
+    out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=60).stdout
+    m = re.search(r"^Model name:\s*(.+)$", out, re.M)
+    model = m.group(1).strip() if m else "unknown"
+    if model == "unknown":
+        try:
+            with open("/proc/cpuinfo") as f:
+                m = re.search(r"^model name\s*:\s*(.+)$", f.read(), re.M)
+            model = f"lscpu: unknown; /proc/cpuinfo: {m.group(1).strip() if m else 'unknown'}"
+        except OSError:
+            pass
+    return f"{model}, {os.cpu_count()} CPUs"
+
+
+def _same(x, y) -> bool:
+    """Exact equality of two results: arrays by dtype, shape and values,
+    tuples item by item, scalars by value and type."""
+    if isinstance(x, tuple):
+        return isinstance(y, tuple) and len(x) == len(y) and all(_same(a, b) for a, b in zip(x, y))
+    if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+        x, y = np.asarray(x), np.asarray(y)
+        return x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y)
+    return type(x) is type(y) and x == y
+
+
+def _wall(fn, calls):
+    """(seconds, results) of ``fn(*args)`` over every args tuple of ``calls``."""
+    t0 = time.perf_counter()
+    out = [fn(*a) for a in calls]
+    return time.perf_counter() - t0, out
+
+
+def _tier_turns(fn, runs: int = HOST_RUNS) -> dict:
+    """``{tier: [fn(tier) per run]}``, the two host tiers taking turns
+    within each run; the native tier is restored after."""
+    from roaringbitmap_tpu_torch import native
+
+    out = {t: [] for t in HOST_TIERS}
+    try:
+        for _ in range(runs):
+            for tier in HOST_TIERS:
+                native.set_tier(tier)
+                out[tier].append(fn(tier))
+    finally:
+        native.set_tier("native")
+    return out
+
+
+def _med_ms(walls) -> str:
+    return f"{np.median(walls) * 1e3:.1f} ({min(walls) * 1e3:.1f}-{max(walls) * 1e3:.1f})"
+
+
+def _host_inputs(bitmaps, nb: int):
+    """Census-shaped inputs: the matched containers of adjacent base
+    bitmaps, as sorted uint16 values (HOST_PAIRS pairs)."""
+    a_list, b_list = [], []
+    for i in range(nb - 1):
+        x, y = bitmaps[i].high_low_container, bitmaps[i + 1].high_low_container
+        ky = dict(zip(y.keys, y.containers))
+        for k, c in zip(x.keys, x.containers):
+            if k in ky:
+                a_list.append(np.ascontiguousarray(c.to_array(), dtype=np.uint16))
+                b_list.append(np.ascontiguousarray(ky[k].to_array(), dtype=np.uint16))
+        if len(a_list) >= HOST_PAIRS:
+            break
+    return a_list[:HOST_PAIRS], b_list[:HOST_PAIRS]
+
+
+def _host_entry_points(bitmaps, nb: int, card: str, cpu: str):
+    """Every ``rb_*`` entry point on each binding that serves it (the
+    extension, ctypes) against its numpy version on the same census-shaped
+    inputs: exact results required; each timed over the whole input set.
+    Returns the ``host_tier`` entries."""
+    from roaringbitmap_tpu_torch import native
+    from roaringbitmap_tpu_torch.columnar import kernels as ck
+    from roaringbitmap_tpu_torch.parallel import store
+    from roaringbitmap_tpu_torch.utils import bits
+
+    _lib, ext = native.load()
+    A, B = _host_inputs(bitmaps, nb)
+    n = len(A)
+    words = [bits.words_from_values_numpy(a) for a in A]
+    runs = [bits.runs_from_values_numpy(a) for a in A]
+    probes = [(a, int(b[0]) if b.size else 0) for a, b in zip(A, B)]
+    ab = list(zip(A, B))
+
+    def searched(a, x):
+        i = int(np.searchsorted(a, np.uint16(x)))
+        return bool(i < a.size and a[i] == x)
+
+    def run_has(st, ln, x):
+        i = int(np.searchsorted(st, x, side="right")) - 1
+        return bool(i >= 0 and x - int(st[i]) <= int(ln[i]))
+
+    def or_into(acc, v):
+        return bits.or_values_into_words_numpy(acc.copy(), v)
+
+    def or_into_native(acc, v):
+        return native.or_values_into_words(acc.copy(), v)
+
+    acc0 = bits.words_from_values_numpy(np.arange(0, 1 << 16, 97, dtype=np.uint16))
+    # (entry point, wrapper, numpy version, calls, bindings: name -> function)
+    per_call = [
+        ("rb_intersect_u16", "intersect_sorted", bits.intersect_sorted_numpy, ab, None),
+        ("rb_union_u16", "merge_sorted_unique", bits.merge_sorted_unique_numpy, ab, None),
+        ("rb_difference_u16", "difference_sorted", bits.difference_sorted_numpy, ab, None),
+        ("rb_xor_u16", "xor_sorted", bits.xor_sorted_numpy, ab, None),
+        ("rb_intersect_card_u16", "intersect_cardinality",
+         lambda a, b: int(bits.intersect_sorted_numpy(a, b).size), ab, None),
+        ("rb_contains_many_u16", "contains_many", lambda a, b: np.isin(b, a), ab, None),
+        ("rb_advance_until", "advance_until", lambda a, _pos, x: int(np.searchsorted(a, np.uint16(x))),
+         [(a, -1, x) for a, x in probes], None),
+        ("rb_advance_until", "lower_bound", bits.lower_bound_numpy, probes, None),
+        ("rb_advance_until", "contains_u16", searched, probes, {"ext": ext.contains_u16}),
+        ("rb_words_from_values", "words_from_values", bits.words_from_values_numpy, [(a,) for a in A], None),
+        ("rb_words_from_values", "or_values_into_words", or_into, [(acc0, b) for b in B],
+         {"ctypes": or_into_native}),
+        ("rb_popcount_words", "cardinality_of_words", bits.cardinality_of_words_numpy, [(w,) for w in words], None),
+        ("rb_values_from_words", "values_from_words", bits.values_from_words_numpy, [(w,) for w in words], None),
+        ("rb_num_runs_words", "num_runs_in_words", bits.num_runs_in_words_numpy, [(w,) for w in words], None),
+        ("rb_select_words", "select_in_words", bits.select_in_words_numpy,
+         [(w, a.size // 2) for w, a in zip(words, A) if a.size], None),
+        ("rb_cardinality_in_range", "cardinality_in_range", bits.cardinality_in_range_numpy,
+         [(w, 1000, 40000) for w in words], None),
+        ("word_bit", "word_bit", lambda w, x: bool(bits.get_bit(w, x)),
+         [(w, x) for w, (_a, x) in zip(words, probes)], {"ext": ext.word_bit}),
+        ("rb_runs_from_values", "runs_from_values", bits.runs_from_values_numpy, [(a,) for a in A], None),
+        ("rb_num_runs_values", "num_runs_in_values", lambda a: int(bits.runs_from_values_numpy(a)[0].size),
+         [(a,) for a in A], None),
+        ("rb_advance_until", "run_contains", run_has,
+         [(st, ln, x) for (st, ln), (_a, x) in zip(runs, probes)], {"ext": ext.run_contains}),
+        ("rb_words_from_intervals", "words_from_intervals", bits.words_from_intervals_numpy,
+         [(st.astype(np.int64), st.astype(np.int64) + ln + 1) for st, ln in runs], None),
+        ("is_strictly_increasing", "validate_sorted_u16", bits.validate_sorted_u16_numpy, [(a,) for a in A], None),
+        ("runs_valid", "validate_runs_u16", bits.validate_runs_u16_numpy,
+         [(np.stack([st, ln], axis=1).reshape(-1),) for st, ln in runs], None),
+    ]
+    rows64 = np.stack(words[:256])
+    for op in ("or", "and", "xor"):
+        fn = {"or": np.bitwise_or, "and": np.bitwise_and, "xor": np.bitwise_xor}[op]
+
+        def plain(r, o, fn=fn):
+            w = fn.reduce(r, axis=0)
+            return w, bits.cardinality_of_words_numpy(w)
+
+        per_call.append((f"rb_wide_op_words[{op}]", "wide_op_words", plain, [(rows64, op)], None))
+    entries = []
+    for entry, wrapper, plain, calls, bindings in per_call:
+        t_np, want = _wall(plain, calls)
+        if bindings is None:
+            bindings = {k: d[wrapper] for k, d in (("ext", native.EXT), ("ctypes", native.CTYPES)) if wrapper in d}
+            bindings = bindings or {"ctypes": getattr(native, wrapper)}
+        for binding, fn in bindings.items():
+            t_nat, got = _wall(fn, calls)
+            bad = next((i for i, (g, w) in enumerate(zip(got, want)) if not _same(g, w)), None)
+            if bad is not None:
+                fail(f"host tier {entry} ({wrapper}, {binding}): call {bad} differs from the numpy version")
+            entries.append({"entry": entry, "wrapper": wrapper, "binding": binding, "calls": len(calls),
+                            "native_ms": t_nat * 1e3, "numpy_ms": t_np * 1e3, "exact": True})
+
+    # the batch entry points, one call over the whole batch
+    def csr(sets):
+        return (np.concatenate(sets).astype(np.uint16),
+                np.concatenate(([0], np.cumsum([s.size for s in sets]))).astype(np.int64))
+
+    av, ao = csr(A)
+    bv, bo = csr(B)
+    alen, blen = np.diff(ao), np.diff(bo)
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return time.perf_counter() - t0, out
+
+    def add(entry, wrapper, t_nat, t_np, ok, calls=1):
+        if not ok:
+            fail(f"host tier {entry} ({wrapper}): the batch differs from the numpy version")
+        entries.append({"entry": entry, "wrapper": wrapper, "binding": "ctypes", "calls": calls,
+                        "native_ms": t_nat * 1e3, "numpy_ms": t_np * 1e3, "exact": True})
+
+    for op in PAIR_OPS:
+        t_np, (vals, starts, counts) = timed(ck.batch_pairwise_numpy, av, ao, bv, bo, op)
+        bound = {"and": np.minimum(alen, blen), "andnot": alen}.get(op, alen + blen)
+        oo = np.concatenate(([0], np.cumsum(bound)))
+        t_nat, (out, got_c) = timed(native.batch_pairwise_u16, av, ao, bv, bo, op, oo[:-1], int(oo[-1]))
+        keep = np.repeat(oo[:-1], got_c) + (np.arange(int(got_c.sum())) - np.repeat(np.cumsum(got_c) - got_c, got_c))
+        add(f"rb_batch_pairwise_u16[{op}]", "batch_pairwise_u16", t_nat, t_np,
+            np.array_equal(got_c, counts) and np.array_equal(out[keep], vals))
+    rs, rl = np.concatenate([st for st, _ in runs]), np.concatenate([ln for _, ln in runs])
+    rc = np.array([st.size for st, _ in runs], np.int64)
+    b_runs = [bits.runs_from_values_numpy(b) for b in B]
+    bs_, bl = np.concatenate([s for s, _ in b_runs]), np.concatenate([l for _, l in b_runs])
+    bc = np.array([s.size for s, _ in b_runs], np.int64)
+    roffs, boffs2 = np.concatenate(([0], np.cumsum(rc))), np.concatenate(([0], np.cumsum(bc)))
+    for op in ("and", "andnot"):
+        t_np, cards = timed(ck.interval_batch, rs, rl, rc, bs_, bl, bc, op, True)
+        t_nat, got = timed(native.batch_run_pairwise, rs, rl, roffs, bs_, bl, boffs2, op, None, 0)
+        add(f"rb_batch_run_pairwise[{op}, cards only]", "batch_run_pairwise", t_nat, t_np,
+            np.array_equal(got[3], cards))
+        t_np, (o_s, o_e, o_st, o_c) = timed(ck.interval_batch, rs, rl, rc, bs_, bl, bc, op)
+        oo = np.concatenate(([0], np.cumsum(rc + bc)))
+        t_nat, (n_s, n_l, n_c, n_cards) = timed(
+            native.batch_run_pairwise, rs, rl, roffs, bs_, bl, boffs2, op, oo[:-1], int(oo[-1]))
+        keep = np.repeat(oo[:-1], n_c) + (np.arange(int(n_c.sum())) - np.repeat(np.cumsum(n_c) - n_c, n_c))
+        want_m = np.zeros((n, 1024), np.uint64)
+        got_m = np.zeros((n, 1024), np.uint64)
+        rows = np.arange(n, dtype=np.int64)
+        ck.fill_intervals_rows_numpy(rows, np.concatenate(([0], np.cumsum(o_c))), o_s, o_e, want_m)
+        ks = n_s[keep].astype(np.int64)
+        ck.fill_intervals_rows_numpy(rows, np.concatenate(([0], np.cumsum(n_c))), ks,
+                                     ks + n_l[keep].astype(np.int64) + 1, got_m)
+        add(f"rb_batch_run_pairwise[{op}]", "batch_run_pairwise", t_nat, t_np,
+            np.array_equal(got_m, want_m) and np.array_equal(n_cards, ck.popcount_rows_numpy(want_m)))
+    t_np, want = timed(ck.batch_and_cardinality_numpy, av, ao, bv, bo)
+    t_nat, got = timed(native.batch_intersect_card_u16, av, ao, bv, bo)
+    add("rb_batch_intersect_card_u16", "batch_intersect_card_u16", t_nat, t_np, _same(got, want))
+    mat = np.stack(words)
+    t_np, want = timed(ck.popcount_rows_numpy, mat)
+    t_nat, got = timed(native.popcount_rows, mat)
+    add("rb_popcount_rows", "popcount_rows", t_nat, t_np, _same(got, want))
+    rep_rows = (np.arange(n) % 256).astype(np.int64)  # rows repeat: fold accumulators
+    start = np.stack(words[:256])
+    for op in ("or", "xor", "clear"):
+        want, got = start.copy(), start.copy()
+        t_np, _ = timed(ck.scatter_values_rows_numpy, rep_rows, bo, bv, want, op)
+        t_nat, _ = timed(native.scatter_values_rows, rep_rows, bo, bv, got, op)
+        add(f"rb_scatter_values_rows[{op}]", "scatter_values_rows", t_nat, t_np, np.array_equal(got, want))
+    b_st = bs_.astype(np.int64)
+    b_en = b_st + bl.astype(np.int64) + 1
+    for op in ("or", "xor"):
+        want, got = start.copy(), start.copy()
+        t_np, _ = timed(ck.fill_intervals_rows_numpy, rep_rows, boffs2, b_st, b_en, want, op)
+        t_nat, _ = timed(native.fill_intervals_rows, rep_rows, boffs2, b_st, b_en, got, op)
+        add(f"rb_fill_intervals_rows[{op}]", "fill_intervals_rows", t_nat, t_np, np.array_equal(got, want))
+    perm = np.random.default_rng(SEED).permutation(n).astype(np.int64)
+    want, got = np.zeros((n, 1024), np.uint64), np.zeros((n, 1024), np.uint64)
+    t_np, _ = timed(ck.scatter_values_rows_numpy, perm, ao, av, want, "or")
+    t_nat, _ = timed(native.pack_array_rows, perm, ao, av, got)
+    add("rb_pack_array_rows", "pack_array_rows", t_nat, t_np, np.array_equal(got, want))
+    # the delta repack's host expansion, whole, on each tier
+    conts = [c for b in bitmaps[:nb] for c in b.high_low_container.containers][:HOST_PAIRS]
+    walls = _tier_turns(lambda tier: timed(lambda: store.RowPayload.from_containers(conts).expand_host())[0])
+    native.set_tier("numpy")
+    want = store.RowPayload.from_containers(conts).expand_host()
+    native.set_tier("native")
+    if not np.array_equal(store.RowPayload.from_containers(conts).expand_host(), want):
+        fail("RowPayload.expand_host differs between the host tiers")
+    entries.append({"entry": "rb_pack_array_rows", "wrapper": "RowPayload.expand_host", "binding": "ctypes",
+                    "calls": len(conts), "native_ms": float(np.median(walls["native"])) * 1e3,
+                    "numpy_ms": float(np.median(walls["numpy"])) * 1e3, "exact": True})
+    say(f"[host] {len(entries)} entry points and bindings, each exact against its numpy version on "
+        f"{n} census container pairs ({int(ao[-1])} + {int(bv.size)} values); ms native / numpy, calls: "
+        + "; ".join(f"{e['entry']} {e['wrapper']} {e['binding']} {e['native_ms']:.3f} / {e['numpy_ms']:.3f} "
+                    f"x{e['calls']}" for e in entries) + f"  [{cpu}; {card}]")
+    return entries
+
+
+def phase_host(base, bitmaps, card: str):
+    """The native host tier: every entry point on both bindings exact
+    against numpy, then the slice's paths with the two host tiers taking
+    turns: phase 9's window (cut to HOST_WINDOW_PAIRS) with its stages,
+    the routed facade's ns per pair, Q1 cold and warm, and phase 10's
+    fusion window cold and warm. Returns the ``host_tier`` entries."""
+    from roaringbitmap_tpu_torch import RoaringBitmap, columnar, native
+    from roaringbitmap_tpu_torch import query as tq
+    from roaringbitmap_tpu_torch.columnar import device as cdev
+    from roaringbitmap_tpu_torch.columnar import engine as E
+    from roaringbitmap_tpu_torch.parallel import store
+
+    t_phase = time.perf_counter()
+    cpu = _cpu_model()
+    say(f"[host] {cpu}; host tier {native.backend_tier()}  [{card}]")
+    nb = len(base)
+    entries = _host_entry_points(bitmaps, nb, card, cpu)
+
+    # (b) phase 9's window, cut, the tiers in turns
+    clones = [b.clone() for b in bitmaps[:HOST_WINDOW_PAIRS + 1]]
+    for c in clones:
+        c.run_optimize()
+    pairs = list(zip(clones[:-1], clones[1:]))
+    uniq = [np.unique(b).astype(np.uint32) for b in base]
+    store.PACK_CACHE.close()
+    for c in clones:
+        cdev.rows_for(c)
+    torch.cuda.synchronize()
+    checked = set()
+
+    def window(op):
+        def run(tier):
+            with _StageClock() as clock:
+                t0 = time.perf_counter()
+                out = columnar.pairwise_multi(op, pairs, tier="device")
+                wall = time.perf_counter() - t0
+            if tier not in checked:
+                for i, r in enumerate(out):
+                    want = SET_OPS[op](uniq[i % nb], uniq[(i + 1) % nb])
+                    if not np.array_equal(r.to_array(), want):
+                        fail(f"[host] pairwise_multi {op} on the {tier} tier: pair {i} differs from numpy")
+                checked.add(tier)
+            return wall, dict(clock.t)
+
+        res = _tier_turns(run)
+        checked.clear()
+        return res
+
+    for op in PAIR_OPS:
+        res = window(op)
+        parts = []
+        for tier in HOST_TIERS:
+            walls = [w for w, _ in res[tier]]
+            st = {k: float(np.median([s[k] for _, s in res[tier]])) for k in WINDOW_STAGES}
+            parts.append(f"{tier} median {_med_ms(walls)} ms, stages (median ms) "
+                         + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in st.items()))
+        say(f"[host] pairwise_multi {op} over {len(pairs)} pairs (device tier), {HOST_RUNS} runs, host tiers "
+            f"in turns, every result equal to numpy: " + "; ".join(parts) + f"  [{cpu}; {card}]")
+
+    # (c) the routed facade over the first 199 pairs: per-container walk and routed, per tier
+    head = pairs[:FACADE_PAIRS]
+    columnar.ensure_calibrated()
+    for op in PAIR_OPS:
+        routes0 = dict(E.ROUTE_COUNTS)
+        fns = {"per-container": lambda x, y, op=op: _percontainer(op, x, y),
+               "routed": getattr(RoaringBitmap, FACADE[op])}
+        ns = _tier_turns(lambda tier: _pairs_ns(fns, head, 1))
+        verdicts = {k: v - routes0[k] for k, v in E.ROUTE_COUNTS.items() if v != routes0[k]}
+        parts = []
+        for tier in HOST_TIERS:
+            pc = float(np.median([r["per-container"] for r in ns[tier]]))
+            ro = float(np.median([r["routed"] for r in ns[tier]]))
+            parts.append(f"{tier}: per-container {pc:.0f}, routed {ro:.0f}, routed / per-container {ro / pc:.3f}")
+        say(f"[host] facade {op} over {len(head)} pairs, ns per pair (median of {HOST_RUNS} turns, the walk "
+            f"and the routed facade in turns within each): " + "; ".join(parts) + f"; verdicts {verdicts}  [{cpu}; {card}]")
+    del clones, pairs, head
+    store.PACK_CACHE.close()
+
+    # (d) Q1 cold and warm, and phase 10's fusion window cold and warm
+    win, _sets, _ab_node, _ab, _uc = _serving_window(base, bitmaps, tq.Q)
+    q1, want_q1 = win[0][1], win[0][2]
+    qs = [q for _n, q, _w in win]
+
+    def check(label, outs, wants):
+        for r, w in zip(outs, wants):
+            if not np.array_equal(r.to_array(), w.astype(np.uint32)):
+                fail(f"[host] {label}: a result differs from the numpy oracle")
+
+    def q1_run(tier):
+        store.PACK_CACHE.close()
+        t0 = time.perf_counter()
+        cold = tq.execute(q1, cache=None)
+        t1 = time.perf_counter()
+        warm = tq.execute(q1, cache=None)
+        t2 = time.perf_counter()
+        check(f"Q1 on the {tier} tier", [cold, warm], [want_q1, want_q1])
+        return t1 - t0, t2 - t1
+
+    def window_run(tier):
+        store.PACK_CACHE.close()
+        t0 = time.perf_counter()
+        cold = tq.execute_fused(qs, cache=None)
+        t1 = time.perf_counter()
+        warm = tq.execute_fused(qs, cache=None)
+        t2 = time.perf_counter()
+        check(f"the fused window on the {tier} tier", cold + warm, [w for _n, _q, w in win] * 2)
+        return t1 - t0, t2 - t1
+
+    for label, fn in (("Q1 (execute, result cache off)", q1_run), ("fused window of 8", window_run)):
+        res = _tier_turns(fn)
+        say(f"[host] {label}, {HOST_RUNS} runs, host tiers in turns, every result equal to numpy: "
+            + "; ".join(f"{tier} cold {_med_ms([c for c, _w in res[tier]])} ms, warm "
+                        f"{_med_ms([w for _c, w in res[tier]])} ms" for tier in HOST_TIERS)
+            + f"  [{cpu}; {card}]")
+    store.PACK_CACHE.close()
+    torch.cuda.empty_cache()
+    say(f"[host] phase {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the BSI north star
 # ---------------------------------------------------------------------------
 
@@ -2286,6 +2776,26 @@ def phase_bsi(card: str):
         index.compare(Operation.GE, med)  # returns a host bitmap: the work is done
         walls.append(time.perf_counter() - t0)
     e2e = float(np.median(walls))
+
+    def tiers_run(tier):
+        t0 = time.perf_counter()
+        r = index.compare(Operation.GE, med)
+        t1 = time.perf_counter()
+        k_, out_, cards_, _ = index._o_neil_device_walk(Operation.GE, med, None)
+        w_, c_ = dev.to_host_u32(out_), cards_.cpu().numpy().astype(np.int64)
+        t2 = time.perf_counter()
+        u = store.unpack_to_bitmap(np.asarray(k_, dtype=np.int64), w_, c_)
+        t3 = time.perf_counter()
+        if r.get_cardinality() != queries[0][5].size or u.get_cardinality() != queries[0][5].size:
+            fail(f"compare GE median on the {tier} host tier: wrong cardinality")
+        return t1 - t0, t3 - t2
+
+    turns = _tier_turns(tiers_run, E2E_RUNS // 2)
+    say(f"[bsi] compare GE median end to end and its unpack_to_bitmap, host tiers in turns "
+        f"({E2E_RUNS // 2} runs each, ms): "
+        + "; ".join(f"{tier} compare {_med_ms([a for a, _b in turns[tier]])}, unpack "
+                    f"{_med_ms([b for _a, b in turns[tier]])}" for tier in HOST_TIERS)
+        + f"  [{_cpu_model()}; {card}]")
     t0 = time.perf_counter()
     index.compare_cardinality_many(Operation.GE, q_vals)
     t_many = time.perf_counter() - t0
@@ -2372,9 +2882,9 @@ def phase_range_bitmap(vals):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "paths", "columnar", "serving"],
+    ap.add_argument("--only", choices=["kernels", "paths", "columnar", "serving", "host"],
                     help="kernels: phases 1-3; paths: phases 1-2 and the timed paths 5, 8 and 6; "
-                         "columnar: phases 1-2 and 9; serving: phases 1-2 and 10")
+                         "columnar: phases 1-2 and 9; serving: phases 1-2 and 10; host: phases 1-2, 11 and 6")
     ap.add_argument("--window-pairs", type=int, default=WINDOW_PAIRS,
                     help=f"adjacent pairs in phase 9's window (default {WINDOW_PAIRS})")
     args = ap.parse_args()
@@ -2401,6 +2911,14 @@ def main():
         phase_serving(base, bitmaps, card)
         say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
         return
+    if args.only == "host":
+        base, bitmaps, _real = build_working_set()
+        host = phase_host(base, bitmaps, card)
+        del bitmaps
+        phase_bsi(card)
+        say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
+        say(json.dumps({"host_tier": host}))
+        return
     timings = phase_kernels(card)
     timings.update(phase_bsi_kernels(card))
     timings.update(phase_pair_rows(card))
@@ -2410,12 +2928,14 @@ def main():
     timings.update(phase_threshold_kernel(card, bitmaps))
     timings.update(phase_expand_kernel(card, base, bitmaps))
     launches = None  # not counted unless phases 4, 8, 9, 10 and 6 run
+    host = None
     if args.only is None:
         agg_launches = phase_main(np.random.default_rng(SEED), base, bitmaps, real, build_s)
         phase_timing(bitmaps, card)
         query_launches = phase_query(base, bitmaps, real, card)
         columnar_launches = phase_columnar(base, bitmaps, card, args.window_pairs)
         serving_launches = phase_serving(base, bitmaps, card)
+        host = phase_host(base, bitmaps, card)
         del bitmaps
         from roaringbitmap_tpu_torch.models import bsi as tbsi
 
@@ -2456,6 +2976,8 @@ def main():
             "library_ms": None,
         })
     say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
+    if host is not None:
+        say(json.dumps({"host_tier": host}))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

@@ -16,10 +16,10 @@ under member-op semantics (``reuse_left``), cloned otherwise.
 
 Left out here, relative to the JAX package: the decision log, the outcome
 join and the timeline spans (``route`` returns a plain ``str`` and
-``outcome()`` is a null context), the native run-unified tier
-(``_fill_runs_native``), and the degradation ladder — a failure of the
-device tier raises. The batch and route counters are plain dicts
-(``BATCH_COUNTS``, ``ROUTE_COUNTS``), read like ``ops/kernels.LAUNCHES``.
+``outcome()`` is a null context), and the degradation ladder — a failure
+of the device tier or of the native host tier raises. The batch and route
+counters are plain dicts (``BATCH_COUNTS``, ``ROUTE_COUNTS``), read like
+``ops/kernels.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -292,6 +292,57 @@ def _fill_gather(op: str, probe_cs, dense_cs, idx: np.ndarray, results, dense_is
     _build_gather_results(op, vals, offs, mask, idx, results)
 
 
+def _fill_runs_native(op: str, acs, bcs, idx: np.ndarray, results) -> None:
+    """All bitmap-free classes (aa/ar/ra/rr) of and/andnot through ONE
+    native call: payloads unify as CSR run lists (arrays are length-0
+    runs), ``rb_batch_run_pairwise`` two-pointer-merges every pair in C
+    emitting result intervals, and the whole batch's container formats are
+    selected by the reference's size rule (run iff 2+4·nruns smallest, so
+    run-shaped results stay compressed; small ones expand to arrays in one
+    vectorized pass). The numpy tier builds arrays where this builds runs:
+    the values agree, the bytes need not."""
+    if idx.size == 0:
+        return
+    as_, al, acnt = gather_intervals(acs, idx)
+    bs_, bl, bcnt = gather_intervals(bcs, idx)
+    out_s, out_l, starts, counts, cards = kernels.batch_run_pairwise(as_, al, acnt, bs_, bl, bcnt, op)
+    starts_l, counts_l, cards_l = starts.tolist(), counts.tolist(), cards.tolist()
+    arr_js: List[int] = []  # pairs whose result becomes an array container
+    for j, i in enumerate(idx.tolist()):
+        card = cards_l[j]
+        if card == 0:
+            continue
+        n = counts_l[j]
+        run_size = 2 + 4 * n
+        other = 8192 if card > ARRAY_MAX_SIZE else 2 + 2 * card
+        if run_size <= other:
+            s = starts_l[j]
+            rc = RunContainer(out_s[s : s + n].copy(), out_l[s : s + n].copy())
+            rc._card = card
+            results[i] = rc
+        elif card <= ARRAY_MAX_SIZE:
+            arr_js.append(j)
+        else:
+            s = starts_l[j]
+            s64 = out_s[s : s + n].astype(np.int64)
+            e64 = s64 + out_l[s : s + n].astype(np.int64) + 1
+            results[i] = BitmapContainer(bits.words_from_intervals(s64, e64), card)
+    if arr_js:
+        # one vectorized interval -> value expansion for every array result
+        seg_s = np.concatenate([out_s[starts_l[j] : starts_l[j] + counts_l[j]] for j in arr_js]).astype(np.int64)
+        seg_l = np.concatenate([out_l[starts_l[j] : starts_l[j] + counts_l[j]] for j in arr_js]).astype(np.int64)
+        lens = seg_l + 1
+        total = int(lens.sum())
+        prefix = np.concatenate(([0], np.cumsum(lens)[:-1]))
+        vals = (np.repeat(seg_s - prefix, lens) + np.arange(total, dtype=np.int64)).astype(np.uint16)
+        pos = 0
+        idx_l = idx.tolist()
+        for j in arr_js:
+            card = cards_l[j]
+            results[idx_l[j]] = _wrap_u16(vals[pos : pos + card].copy())
+            pos += card
+
+
 def _fill_interval(op: str, acs, bcs, idx: np.ndarray, results) -> None:
     """run x run (plus andnot's run minus array): the banded interval
     algebra, one global sort for the whole bucket; each pair's result
@@ -361,17 +412,24 @@ def _format_rows_results(words64: np.ndarray, cards, idx, results) -> None:
     CPU word-matrix classes, the folds and the device tier (whose
     popcounts arrive with the words): one copy of the threshold, so the
     tiers' container formats cannot drift. The array results' values come
-    out of the words in batches (``kernels.values_rows``)."""
+    out of the words one row a call on the native tier (the extension's
+    ``values_from_words``, as the JAX package does), in batches on the
+    numpy tier (``kernels.values_rows``)."""
     cards = np.asarray(cards, dtype=np.int64)
     idx = np.asarray(idx).tolist()
     small = np.flatnonzero((cards > 0) & (cards <= ARRAY_MAX_SIZE))
-    for lo in range(0, small.size, _VALUES_BLOCK):
-        block = small[lo : lo + _VALUES_BLOCK]
-        vals, offs = kernels.values_rows(words64[block])
-        offs_l = offs.tolist()
-        for n, j in enumerate(block.tolist()):
-            # copy: the batch buffer is shared scratch; a view would pin it
-            results[idx[j]] = _wrap_u16(vals[offs_l[n] : offs_l[n + 1]].copy())
+    if small.size and kernels.has_native():
+        unpack = bits.values_from_words
+        for j in small.tolist():
+            results[idx[j]] = _wrap_u16(unpack(words64[j]))
+    else:
+        for lo in range(0, small.size, _VALUES_BLOCK):
+            block = small[lo : lo + _VALUES_BLOCK]
+            vals, offs = kernels.values_rows(words64[block])
+            offs_l = offs.tolist()
+            for n, j in enumerate(block.tolist()):
+                # copy: the batch buffer is shared scratch; a view would pin it
+                results[idx[j]] = _wrap_u16(vals[offs_l[n] : offs_l[n + 1]].copy())
     for j in np.flatnonzero(cards > ARRAY_MAX_SIZE).tolist():
         results[idx[j]] = BitmapContainer(words64[j].copy(), int(cards[j]))
 
@@ -425,18 +483,23 @@ def _fill_nonbm(
     CPU and device tiers (the device tier keeps them on the host: their
     payloads are value-sized and the interval algebra keeps run-shaped
     results compressed). A pure array x array bucket rides the CSR values
-    kernel alone."""
+    kernel alone; with a run among them, the native tier serves every
+    class in one run-unified call."""
     n_aa = int(hist[0])
     n_runish = int(hist[2] + hist[6] + hist[8])  # ar + ra + rr
     if not n_aa and not n_runish:
         return
     a_arr = codes_a == ARRAY
     b_arr = codes_b == ARRAY
-    _fill_aa(op, acs, bcs, np.flatnonzero(a_arr & b_arr), results)
     if not n_runish:
+        _fill_aa(op, acs, bcs, np.flatnonzero(a_arr & b_arr), results)
         return
     a_bm = codes_a == BITMAP
     b_bm = codes_b == BITMAP
+    if kernels.has_native():
+        _fill_runs_native(op, acs, bcs, np.flatnonzero(~a_bm & ~b_bm), results)
+        return
+    _fill_aa(op, acs, bcs, np.flatnonzero(a_arr & b_arr), results)
     a_run = ~a_arr & ~a_bm
     b_run = ~b_arr & ~b_bm
     # banded run probes for the array x run directions
@@ -629,26 +692,38 @@ def _cardinality_batches(acs, bcs):
     b_arr = codes_b == ARRAY
     a_bm = codes_a == BITMAP
     b_bm = codes_b == BITMAP
-    a_run = ~a_arr & ~a_bm
-    b_run = ~b_arr & ~b_bm
-    aa = np.flatnonzero(a_arr & b_arr)
-    if aa.size:
-        avals, aoffs = gather_values(acs, aa)
-        bvals, boffs = gather_values(bcs, aa)
-        yield int(kernels.batch_and_cardinality(avals, aoffs, bvals, boffs).sum())
-    iv = np.flatnonzero(a_run & b_run)  # rr
-    if iv.size:
-        as_, al, acnt = gather_intervals(acs, iv)
-        bs_, bl, bcnt = gather_intervals(bcs, iv)
-        yield int(kernels.interval_batch(as_, al, acnt, bs_, bl, bcnt, "and", cards_only=True).sum())
-    for idx, probe_cs, dense_cs, dense_is_run in (
-        (np.flatnonzero(a_arr & b_run), acs, bcs, True),
-        (np.flatnonzero(b_arr & a_run), bcs, acs, True),
-        (np.flatnonzero(a_arr & b_bm), acs, bcs, False),
-        (np.flatnonzero(b_arr & a_bm), bcs, acs, False),
+    nonbm = np.flatnonzero(~a_bm & ~b_bm)
+    if nonbm.size and kernels.has_native():
+        # every bitmap-free class in one count-only run-unified call
+        as_, al, acnt = gather_intervals(acs, nonbm)
+        bs_, bl, bcnt = gather_intervals(bcs, nonbm)
+        yield int(kernels.batch_run_pairwise(as_, al, acnt, bs_, bl, bcnt, "and", cards_only=True).sum())
+    elif nonbm.size:
+        a_run = ~a_arr & ~a_bm
+        b_run = ~b_arr & ~b_bm
+        aa = np.flatnonzero(a_arr & b_arr)
+        if aa.size:
+            avals, aoffs = gather_values(acs, aa)
+            bvals, boffs = gather_values(bcs, aa)
+            yield int(kernels.batch_and_cardinality(avals, aoffs, bvals, boffs).sum())
+        iv = np.flatnonzero(a_run & b_run)  # rr
+        if iv.size:
+            as_, al, acnt = gather_intervals(acs, iv)
+            bs_, bl, bcnt = gather_intervals(bcs, iv)
+            yield int(kernels.interval_batch(as_, al, acnt, bs_, bl, bcnt, "and", cards_only=True).sum())
+        for idx, probe_cs, dense_cs in (
+            (np.flatnonzero(a_arr & b_run), acs, bcs),
+            (np.flatnonzero(b_arr & a_run), bcs, acs),
+        ):
+            if idx.size:
+                _v, _o, mask = _gather_mask(probe_cs, dense_cs, idx, True)
+                yield int(mask.sum())
+    for idx, probe_cs, dense_cs in (
+        (np.flatnonzero(a_arr & b_bm), acs, bcs),
+        (np.flatnonzero(b_arr & a_bm), bcs, acs),
     ):
         if idx.size:
-            _v, _o, mask = _gather_mask(probe_cs, dense_cs, idx, dense_is_run)
+            _v, _o, mask = _gather_mask(probe_cs, dense_cs, idx, False)
             yield int(mask.sum())
     ww = np.flatnonzero((a_bm & ~b_arr) | (~a_arr & b_bm))
     if ww.size:

@@ -1,15 +1,17 @@
 """Batched per-class host kernels of the columnar pairwise engine.
 
-Counterpart of the numpy tier of ``roaringbitmap_tpu/columnar/kernels.py``
-(the tier the JAX package runs under ``ROARINGBITMAP_TPU_NO_NATIVE=1``,
-with the same bits as its native ``rb_batch_*`` tier). The port has no
-native host tier yet, so this is the only one.
-
-Every primitive executes a whole batch of container payloads in one call
-through the *banding* trick: pair ``j``'s uint16 payload is lifted into its
-own disjoint int64 band ``j * 2^16 + value``, after which ONE global sort /
-searchsorted over the concatenation performs every pair's merge at once
-(bands never interleave, so a global sort is a per-pair merge).
+Counterpart of ``roaringbitmap_tpu/columnar/kernels.py``. Two host tiers
+compute the same bits. Under the native tier (``native.config.tier``, the
+default) every batch primitive is one call of a compiled two-pointer loop
+over CSR offset arrays (``native/kernels.cpp`` ``rb_batch_*``, OpenMP over
+the pairs). The ``*_numpy`` functions are the plain versions, and the
+numpy tier: every primitive executes a whole batch of container payloads
+in one call through the *banding* trick: pair ``j``'s uint16 payload is
+lifted into its own disjoint int64 band ``j * 2^16 + value``, after which
+ONE global sort / searchsorted over the concatenation performs every
+pair's merge at once (bands never interleave, so a global sort is a
+per-pair merge). A failure of the native tier raises; nothing degrades to
+numpy.
 
 Ops are the four pairwise set operations on sorted unique uint16 arrays;
 the word-matrix primitives (scatter, interval fill, per-row popcount)
@@ -24,6 +26,8 @@ from typing import Tuple
 
 import numpy as np
 
+from .. import native
+from ..robust.errors import TierUnavailable
 from ..utils import bits
 
 _WORDS = bits.WORDS_PER_CONTAINER  # 1024
@@ -56,13 +60,46 @@ def _member(ag: np.ndarray, bg: np.ndarray) -> np.ndarray:
     return (pos < bg.size) & (bg[posc] == ag)
 
 
+def has_native() -> bool:
+    """Does the native tier serve the batch kernels? (Built at the first
+    call under ``native.config.tier == "native"``; a failed build raises
+    TierUnavailable.)"""
+    return native.available()
+
+
 def batch_pairwise(
     avals: np.ndarray, aoffs: np.ndarray, bvals: np.ndarray, boffs: np.ndarray, op: str
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """All pairs' ``a[j] OP b[j]`` in one call.
 
     Returns ``(values, starts, counts)``: pair j's result values are
-    ``values[starts[j] : starts[j] + counts[j]]``."""
+    ``values[starts[j] : starts[j] + counts[j]]`` (on the native tier the
+    values buffer is a scratch sized by each pair's worst case: callers
+    copy their slice out before holding it)."""
+    n = aoffs.size - 1
+    if n == 0:
+        z = np.empty(0, dtype=np.int64)
+        return np.empty(0, dtype=np.uint16), z, z
+    if not has_native():
+        return batch_pairwise_numpy(avals, aoffs, bvals, boffs, op)
+    alens = np.diff(aoffs)
+    blens = np.diff(boffs)
+    if op == "and":
+        bounds = np.minimum(alens, blens)
+    elif op == "andnot":
+        bounds = alens
+    else:
+        bounds = alens + blens
+    starts = np.concatenate(([0], np.cumsum(bounds)))
+    out, counts = native.batch_pairwise_u16(avals, aoffs, bvals, boffs, op, starts[:-1], int(starts[-1]))
+    return out, starts[:-1], counts
+
+
+def batch_pairwise_numpy(
+    avals: np.ndarray, aoffs: np.ndarray, bvals: np.ndarray, boffs: np.ndarray, op: str
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The banded plain version of :func:`batch_pairwise` (results
+    packed, no scratch)."""
     n = aoffs.size - 1
     if n == 0:
         z = np.empty(0, dtype=np.int64)
@@ -88,10 +125,48 @@ def batch_pairwise(
     return (kept & 0xFFFF).astype(np.uint16), offs[:-1], counts
 
 
+def batch_run_pairwise(
+    as_: np.ndarray, al: np.ndarray, acnt: np.ndarray,
+    bs_: np.ndarray, bl: np.ndarray, bcnt: np.ndarray,
+    op: str, cards_only: bool = False,
+):
+    """Run-unified batch AND/ANDNOT over CSR run payloads (arrays enter as
+    length-0 runs), native tier only: the numpy tier serves these classes
+    with ``run_member_mask`` and ``interval_batch``. Returns ``(out_starts,
+    out_lengths, starts, interval_counts, cards)`` — result intervals, pair
+    j's at ``starts[j] : starts[j] + interval_counts[j]`` — or just the
+    per-pair cardinalities when ``cards_only``."""
+    if not has_native():
+        raise TierUnavailable("batch_run_pairwise runs on the native host tier only")
+    aoffs = np.concatenate(([0], np.cumsum(acnt)))
+    boffs = np.concatenate(([0], np.cumsum(bcnt)))
+    if cards_only:
+        _s, _l, _counts, cards = native.batch_run_pairwise(as_, al, aoffs, bs_, bl, boffs, op, None, 0)
+        return cards
+    bounds = acnt + bcnt  # an output interval ends at an input endpoint
+    starts = np.concatenate(([0], np.cumsum(bounds)))
+    out_s, out_l, counts, cards = native.batch_run_pairwise(
+        as_, al, aoffs, bs_, bl, boffs, op, starts[:-1], int(starts[-1])
+    )
+    return out_s, out_l, starts[:-1], counts, cards
+
+
 def batch_and_cardinality(
     avals: np.ndarray, aoffs: np.ndarray, bvals: np.ndarray, boffs: np.ndarray
 ) -> np.ndarray:
     """Per-pair ``|a[j] & b[j]|`` without materialization."""
+    n = aoffs.size - 1
+    if n == 0:
+        return np.empty(0, dtype=np.int64)
+    if has_native():
+        return native.batch_intersect_card_u16(avals, aoffs, bvals, boffs)
+    return batch_and_cardinality_numpy(avals, aoffs, bvals, boffs)
+
+
+def batch_and_cardinality_numpy(
+    avals: np.ndarray, aoffs: np.ndarray, bvals: np.ndarray, boffs: np.ndarray
+) -> np.ndarray:
+    """The banded plain version of :func:`batch_and_cardinality`."""
     n = aoffs.size - 1
     if n == 0:
         return np.empty(0, dtype=np.int64)
@@ -110,6 +185,15 @@ def popcount_rows(mat: np.ndarray) -> np.ndarray:
     cardinalities: one call for the whole batch's format selection)."""
     if mat.shape[0] == 0:
         return np.empty(0, dtype=np.int64)
+    if mat.flags.c_contiguous and has_native():
+        return native.popcount_rows(mat)
+    return popcount_rows_numpy(mat)
+
+
+def popcount_rows_numpy(mat: np.ndarray) -> np.ndarray:
+    """The plain version of :func:`popcount_rows`."""
+    if mat.shape[0] == 0:
+        return np.empty(0, dtype=np.int64)
     return bits.popcount64(mat).sum(axis=1).astype(np.int64)
 
 
@@ -119,6 +203,19 @@ def scatter_values_rows(
 ) -> None:
     """Scatter concatenated array-container values into word rows with
     or/xor/clear combine; ``row_ids`` may repeat (fold accumulators)."""
+    if row_ids.size == 0:
+        return
+    if has_native():
+        native.scatter_values_rows(row_ids, offsets, vals, out64, op)
+        return
+    scatter_values_rows_numpy(row_ids, offsets, vals, out64, op)
+
+
+def scatter_values_rows_numpy(
+    row_ids: np.ndarray, offsets: np.ndarray, vals: np.ndarray,
+    out64: np.ndarray, op: str = "or",
+) -> None:
+    """The plain version of :func:`scatter_values_rows`."""
     if row_ids.size == 0:
         return
     lens = np.diff(offsets)
@@ -140,10 +237,24 @@ def fill_intervals_rows(
     ends: np.ndarray, out64: np.ndarray, op: str = "or",
 ) -> None:
     """Expand many run containers' half-open [start, end) intervals into
-    word rows (or: set, xor: flip) in one vectorized pass: each interval's
-    first and last words take a masked combine, the whole words between
-    are set (or) or flipped (xor). Rows may repeat and intervals overlap
-    (fold accumulators): the combines are unbuffered (``ufunc.at``)."""
+    word rows (or: set, xor: flip) in one call; rows may repeat (fold
+    accumulators)."""
+    if row_ids.size == 0:
+        return
+    if has_native():
+        native.fill_intervals_rows(row_ids, run_offs, starts, ends, out64, op)
+        return
+    fill_intervals_rows_numpy(row_ids, run_offs, starts, ends, out64, op)
+
+
+def fill_intervals_rows_numpy(
+    row_ids: np.ndarray, run_offs: np.ndarray, starts: np.ndarray,
+    ends: np.ndarray, out64: np.ndarray, op: str = "or",
+) -> None:
+    """The plain version of :func:`fill_intervals_rows`, one vectorized
+    pass: each interval's first and last words take a masked combine, the
+    whole words between are set (or) or flipped (xor). Rows may repeat and
+    intervals overlap: the combines are unbuffered (``ufunc.at``)."""
     if row_ids.size == 0:
         return
     rows = np.repeat(np.asarray(row_ids, dtype=np.int64), np.diff(run_offs))

@@ -15,7 +15,7 @@ is chosen by the same cardinality rule the reference converges to
 (<=4096 -> array, else bitmap; runs arise from ``run_optimize``, range
 constructors and deserialization). Value semantics and serialized-form
 validity are identical; the batched device path (parallel/store.py) is where
-the performance lives. Containers here use the numpy tier only.
+the performance lives.
 
 Containers are value-semantic: mutating ops return the (possibly new,
 possibly different-type) container, Java-style (``c = c.add(x)``).
@@ -27,7 +27,48 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..utils import bits
+
+# raw C point-probe kernels of the native tier's extension, bound once:
+# scalar contains is the per-call latency floor (simplebenchmark contains
+# row; Util.java:697's unsignedBinarySearch role), and every avoided Python
+# frame or numpy scalar-index on that path is ~70-150 ns
+_EXT_CONTAINS = None  # contains_u16(sorted_content, x) -> bool
+_EXT_WORDBIT = None  # word_bit(words_u64, x) -> bool
+_EXT_RUNCONTAINS = None  # run_contains(starts, lengths, x) -> bool
+_EXT_ADVANCE = None  # advance_until(sorted, pos, min) -> first idx with a[i] >= min
+_EXT_PROBES_TRIED = False
+
+
+def _bind_scalar_probes():
+    # callers share one stanza shape (keep it when adding probes):
+    #   e = _EXT_X
+    #   if e is None and not _EXT_PROBES_TRIED:
+    #       _bind_scalar_probes()
+    #       e = _EXT_X
+    # — a helper function here would cost the hot path the very frame the
+    # probes exist to avoid
+    global _EXT_CONTAINS, _EXT_WORDBIT, _EXT_RUNCONTAINS, _EXT_ADVANCE
+    global _EXT_PROBES_TRIED
+    if not _EXT_PROBES_TRIED:
+        if native.available():  # a failed build raises here, on every call
+            _, e = native.load()
+            _EXT_CONTAINS = e.contains_u16
+            _EXT_WORDBIT = e.word_bit
+            _EXT_RUNCONTAINS = e.run_contains
+            _EXT_ADVANCE = e.advance_until
+        _EXT_PROBES_TRIED = True
+    return _EXT_CONTAINS
+
+
+def _unbind_scalar_probes() -> None:
+    """Forget the bound probes (``native.set_tier`` calls this)."""
+    global _EXT_CONTAINS, _EXT_WORDBIT, _EXT_RUNCONTAINS, _EXT_ADVANCE
+    global _EXT_PROBES_TRIED
+    _EXT_CONTAINS = _EXT_WORDBIT = _EXT_RUNCONTAINS = _EXT_ADVANCE = None
+    _EXT_PROBES_TRIED = False
+
 
 ARRAY_MAX_SIZE = 4096  # ArrayContainer.java:27 DEFAULT_MAX_SIZE
 MAX_CAPACITY = 1 << 16  # BitmapContainer.java:25
@@ -295,6 +336,12 @@ class ArrayContainer(Container):
 
     def contains(self, x: int) -> bool:
         c = self.content
+        e = _EXT_CONTAINS
+        if e is None and not _EXT_PROBES_TRIED:
+            _bind_scalar_probes()
+            e = _EXT_CONTAINS
+        if e is not None:
+            return e(c, x)
         i = bits.lower_bound(c, x)
         return bool(i < c.size and c[i] == x)
 
@@ -308,7 +355,11 @@ class ArrayContainer(Container):
 
     def add(self, x: int) -> Container:
         c = self.content
-        i = bits.lower_bound(c, x)
+        e = _EXT_ADVANCE
+        if e is None and not _EXT_PROBES_TRIED:
+            _bind_scalar_probes()
+            e = _EXT_ADVANCE
+        i = e(c, -1, x) if e is not None else bits.lower_bound(c, x)
         if i < c.size and c[i] == x:
             return self
         if c.size >= ARRAY_MAX_SIZE:
@@ -324,7 +375,11 @@ class ArrayContainer(Container):
 
     def remove(self, x: int) -> Container:
         c = self.content
-        i = bits.lower_bound(c, x)
+        e = _EXT_ADVANCE
+        if e is None and not _EXT_PROBES_TRIED:
+            _bind_scalar_probes()
+            e = _EXT_ADVANCE
+        i = e(c, -1, x) if e is not None else bits.lower_bound(c, x)
         if i < c.size and c[i] == x:
             out = np.empty(c.size - 1, dtype=np.uint16)
             out[:i] = c[:i]
@@ -379,6 +434,12 @@ class ArrayContainer(Container):
         # values <= x == first index with content[i] >= x+1
         if x >= 0xFFFF:
             return self.content.size
+        e = _EXT_ADVANCE
+        if e is None and not _EXT_PROBES_TRIED:
+            _bind_scalar_probes()
+            e = _EXT_ADVANCE
+        if e is not None:
+            return e(self.content, -1, int(x) + 1)
         return bits.lower_bound(self.content, int(x) + 1)
 
     def rank_many(self, lows: np.ndarray) -> np.ndarray:
@@ -434,6 +495,12 @@ class BitmapContainer(Container):
         return 8192
 
     def contains(self, x: int) -> bool:
+        e = _EXT_WORDBIT
+        if e is None and not _EXT_PROBES_TRIED:
+            _bind_scalar_probes()
+            e = _EXT_WORDBIT
+        if e is not None:
+            return e(self.words, x)
         return bits.get_bit(self.words, x)
 
     def contains_many(self, values: np.ndarray) -> np.ndarray:
@@ -687,9 +754,18 @@ class RunContainer(Container):
         return self.serialized_size_for(self.num_runs())
 
     def contains(self, x: int) -> bool:
-        # scalar fast path: one searchsorted instead of the vectorized
-        # _run_contains_many machinery
+        # scalar fast path: one C probe over (starts, lengths) — or one
+        # searchsorted on the numpy tier — instead of the vectorized
+        # _run_contains_many machinery (~8x less overhead per point probe)
+        e = _EXT_RUNCONTAINS
+        if e is None and not _EXT_PROBES_TRIED:
+            _bind_scalar_probes()
+            e = _EXT_RUNCONTAINS
         starts = self.starts
+        # strided views of the starts are rejected by the extension; a flags
+        # check is ~100 ns against a raised-and-caught TypeError per probe
+        if e is not None and starts.flags.c_contiguous:
+            return e(starts, self.lengths, x)
         i = int(np.searchsorted(starts, x, side="right")) - 1
         if i < 0:
             return False

@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..device import resolve_device
 from ..models.container import (
     ArrayContainer,
@@ -210,15 +211,18 @@ class RowPayload:
                 run_rows, run_counts, run_starts, run_lengths)
 
     def expand_host(self) -> np.ndarray:
-        """Expand to the uint32 [n, 2048] host word block with numpy:
-        bitmap rows bulk-copy, array values scatter in one
-        ``np.bitwise_or.at`` pass, run rows fill per interval."""
+        """Expand to the uint32 [n, 2048] host word block: bitmap rows
+        bulk-copy, array values scatter in one pass (the native tier's
+        ``rb_pack_array_rows``, else ``np.bitwise_or.at``), run rows fill
+        per interval."""
         (arr_rows, arr_offsets, arr_values, bmp_rows, bmp_words,
          run_rows, run_counts, run_starts, run_lengths) = self.materialize()
         out64 = np.zeros((self.n_rows, bits.WORDS_PER_CONTAINER), dtype=np.uint64)
         if len(bmp_rows):
             out64[bmp_rows] = bmp_words
-        if len(arr_rows):
+        if len(arr_rows) and native.available():
+            native.pack_array_rows(arr_rows, arr_offsets, arr_values, out64)
+        elif len(arr_rows):
             lens = np.diff(arr_offsets)
             rows = np.repeat(arr_rows, lens)
             v = arr_values.astype(np.int64)

@@ -1,4 +1,4 @@
-"""L0 word/array kernels (host side, numpy).
+"""L0 word/array kernels (host side): numpy, rebound to the native tier.
 
 Vectorized re-expression of the reference's branchless bit hacks
 (reference Util.java / BitSetUtil.java — e.g. setBitmapRange Util.java:616,
@@ -309,3 +309,69 @@ def validate_runs_u16(pairs: np.ndarray) -> bool:
         starts.size
         and (bool(np.any(s32[1:] <= ends[:-1])) or bool(np.any(ends > 0xFFFF)))
     )
+
+
+# ---------------------------------------------------------------------------
+# native dispatch, as in roaringbitmap_tpu/utils/bits.py: under the native
+# host tier (``native.config.tier``, the default) these entry points rebind
+# to the compiled kernels (native/kernels.cpp, through the extension where
+# it serves them). The numpy versions above stay reachable as *_numpy: the
+# plain versions the native tier is held against, and the numpy tier.
+#
+# Resolution is lazy: the first call to a dispatched name builds and loads
+# the native tier (importing the package never runs g++), then rebinds the
+# module attribute. Callers reach these as ``bits.<name>`` so the rebinding
+# reaches them. ``native.set_tier`` puts the trampolines back. A failed
+# build raises TierUnavailable at every call; nothing falls back.
+# ---------------------------------------------------------------------------
+
+_DISPATCHED = (
+    "intersect_sorted",
+    "merge_sorted_unique",
+    "difference_sorted",
+    "xor_sorted",
+    "cardinality_of_words",
+    "values_from_words",
+    "words_from_values",
+    "or_values_into_words",
+    "num_runs_in_words",
+    "select_in_words",
+    "cardinality_in_range",
+    "runs_from_values",
+    "words_from_intervals",
+    "validate_sorted_u16",
+    "validate_runs_u16",
+    "lower_bound",
+)
+
+for _name in _DISPATCHED:
+    globals()[_name + "_numpy"] = globals()[_name]
+
+
+def _resolve_native() -> None:
+    """Bind every dispatched name to its native or numpy implementation."""
+    from .. import native as _native
+
+    use = _native.available()
+    g = globals()
+    for name in _DISPATCHED:
+        g[name] = getattr(_native, name) if use else g[name + "_numpy"]
+
+
+def _make_trampoline(name: str):
+    def trampoline(*args, **kwargs):
+        _resolve_native()
+        return globals()[name](*args, **kwargs)
+
+    trampoline.__name__ = name
+    trampoline.__doc__ = globals()[name + "_numpy"].__doc__
+    return trampoline
+
+
+def _install_trampolines() -> None:
+    for name in _DISPATCHED:
+        globals()[name] = _make_trampoline(name)
+
+
+_install_trampolines()
+del _name

@@ -5,10 +5,12 @@ The same seeded bitmaps are built in both packages. The key plan, the
 (the port's on CPU tensors, ``aggregation.config.device = "cpu"``; the JAX
 package's on its CPU backend), ``pairwise_multi``, the folds and the
 count-only pairs must give identical serialized bytes tier against tier.
-The JAX package runs with its numpy tier forced (its native ``rb_batch_*``
-tier builds run containers where the numpy tier builds arrays; values are
-the same either way), the tier the port has. Across tiers the container
-forms differ (the device tier builds arrays or bitmaps by cardinality),
+Both packages run on the same host tier: the numpy tier by default
+(the JAX package's forced, the port's chosen through ``native.set_tier``),
+and both native in the parity tests' ``host_tier="native"`` cases (the
+native ``rb_batch_*`` tier builds run containers where the numpy tier
+builds arrays; values are the same either way, bytes are not). Across
+device tiers the container forms differ (the device tier builds arrays or bitmaps by cardinality),
 so there results are compared with ``==``. The routed facade is held
 against the per-container walk under ``columnar.disabled()``; the cost
 model's tests assert nothing that depends on a clock. ``rb_pair_rows``
@@ -38,6 +40,7 @@ from roaringbitmap_tpu_torch import FastAggregation as TFA
 from roaringbitmap_tpu_torch import ParallelAggregation as TPA
 from roaringbitmap_tpu_torch import RoaringBitmap as TRB
 from roaringbitmap_tpu_torch import columnar as tcol
+from roaringbitmap_tpu_torch import native as tnative
 from roaringbitmap_tpu_torch.columnar import costmodel as tcost
 from roaringbitmap_tpu_torch.columnar import device as tdevice
 from roaringbitmap_tpu_torch.columnar import engine as tengine
@@ -58,23 +61,37 @@ FACADE = {
     "xor": "xor",
     "andnot": "andnot",
 }
+HOST_TIERS = ("numpy", "native")
+_J_NATIVE = jkernels._native  # the JAX package's own host-tier probe
 
 
 @pytest.fixture(autouse=True)
 def port_on_cpu(monkeypatch):
-    """The device tier on CPU tensors, the JAX package on its numpy tier,
-    both cost models uncalibrated, and no resident rows left behind."""
+    """The device tier on CPU tensors, both packages on their numpy host
+    tier, both cost models uncalibrated, and no resident rows left behind."""
     monkeypatch.setattr(aggregation.config, "device", "cpu")
     monkeypatch.setattr(jkernels, "_native", lambda: None)
+    tnative.set_tier("numpy")
     monkeypatch.delenv("RB_TPU_COLUMNAR_CAL", raising=False)
     tcost.MODEL.reset()
     jcost.MODEL.reset()
     tstore.PACK_CACHE.close()
     yield
+    tnative.set_tier("native")
     tcost.MODEL.reset()
     jcost.MODEL.reset()
     tstore.PACK_CACHE.close()
     jstore.PACK_CACHE.close()
+
+
+@pytest.fixture(params=HOST_TIERS)
+def host_tier(request, monkeypatch):
+    """Both packages on one host tier: numpy (as ``port_on_cpu`` leaves
+    them) or native (each package's default)."""
+    if request.param == "native":
+        monkeypatch.setattr(jkernels, "_native", _J_NATIVE)
+        tnative.set_tier("native")
+    return request.param
 
 
 # ---------------------------------------------------------------------------
@@ -175,7 +192,7 @@ def test_classify_and_histogram_match_jax():
 
 @pytest.mark.parametrize("tier", TIERS)
 @pytest.mark.parametrize("op", OPS)
-def test_nine_classes_match_jax(op, tier):
+def test_nine_classes_match_jax(op, tier, host_tier):
     """Every matched class through ``pairwise``: the same bytes as the JAX
     package's tier, the same values as the per-container walk."""
     rng = np.random.default_rng(105)
@@ -193,7 +210,7 @@ def test_nine_classes_match_jax(op, tier):
 
 
 @pytest.mark.parametrize("seed", [11, 12, 13])
-def test_random_pairs_match_jax(seed):
+def test_random_pairs_match_jax(seed, host_tier):
     rng = np.random.default_rng(seed)
     (ja, ta), (jb, tb) = _random_pair(rng)
     for op in OPS:
@@ -206,7 +223,7 @@ def test_random_pairs_match_jax(seed):
             assert cpu == getattr(TRB, FACADE[op])(ta, tb)
 
 
-def test_empty_and_disjoint_operands():
+def test_empty_and_disjoint_operands(host_tier):
     rng = np.random.default_rng(17)
     (ja, ta), _ = _random_pair(rng)
     empty_j, empty_t = JRB(), TRB()
@@ -220,7 +237,7 @@ def test_empty_and_disjoint_operands():
 
 @pytest.mark.parametrize("tier", TIERS)
 @pytest.mark.parametrize("op", OPS)
-def test_pairwise_multi_matches_jax(op, tier):
+def test_pairwise_multi_matches_jax(op, tier, host_tier):
     """Several pairs in one batch pass, one operand shared by two pairs
     (its resident block concatenated once): the JAX package's bytes, and
     the per-pair results."""
@@ -241,7 +258,7 @@ def test_pairwise_multi_matches_jax(op, tier):
 
 
 @pytest.mark.parametrize("seed", [31, 32])
-def test_and_cardinality_and_intersects_pairs_match_jax(seed):
+def test_and_cardinality_and_intersects_pairs_match_jax(seed, host_tier):
     rng = np.random.default_rng(seed)
     (ja, ta), (jb, tb) = _random_pair(rng)
     (jn, tn), _ = _nine_class_pair(rng)
@@ -255,7 +272,7 @@ def test_and_cardinality_and_intersects_pairs_match_jax(seed):
 
 @pytest.mark.parametrize("tier", TIERS)
 @pytest.mark.parametrize("op", OPS)
-def test_census_pairs_match_jax(op, tier):
+def test_census_pairs_match_jax(op, tier, host_tier):
     """Adjacent run-optimized pairs of the census-shaped corpus (the
     realdata pairwise benchmark's data: short runs and small arrays, so
     or/xor results are mostly array-sized): the JAX package's bytes tier
@@ -287,7 +304,7 @@ def _fold_sets(rng, n_sets=2):
 
 
 @pytest.mark.parametrize("op", ("or", "xor", "and"))
-def test_fold_matches_jax(op):
+def test_fold_matches_jax(op, host_tier):
     rng = np.random.default_rng(41)
     (bms,) = _fold_sets(rng, 1)
     jb, tb = [j for j, _ in bms], [t for _, t in bms]
@@ -308,7 +325,7 @@ def test_fold_matches_jax(op):
 
 
 @pytest.mark.parametrize("op", ("or", "xor"))
-def test_fold_multi_matches_jax(op):
+def test_fold_multi_matches_jax(op, host_tier):
     rng = np.random.default_rng(43)
     sets = _fold_sets(rng, 3)
     jgs = [jstore.group_by_key([j for j, _ in s]) for s in sets]
@@ -321,7 +338,7 @@ def test_fold_multi_matches_jax(op):
         tcol.fold_multi(tgs, "and")
 
 
-def test_or_fold_words_matches_jax():
+def test_or_fold_words_matches_jax(host_tier):
     rng = np.random.default_rng(47)
     (bms,) = _fold_sets(rng, 1)
     got = tcol.or_fold_words(tstore.group_by_key([t for _, t in bms]))
@@ -334,7 +351,7 @@ def test_or_fold_words_matches_jax():
 
 @pytest.mark.parametrize("engine", ("fast", "parallel"))
 @pytest.mark.parametrize("op", ("or", "xor"))
-def test_cpu_aggregation_routes_the_columnar_fold(op, engine):
+def test_cpu_aggregation_routes_the_columnar_fold(op, engine, host_tier):
     """The CPU path of an or/xor aggregation of at least the fold gate's
     rows runs ``columnar.fold`` (its counter moves) and gives the JAX
     package's bytes."""
@@ -351,7 +368,7 @@ def test_cpu_aggregation_routes_the_columnar_fold(op, engine):
     assert card == got.get_cardinality()
 
 
-def test_query_cpu_folds_take_the_columnar_union():
+def test_query_cpu_folds_take_the_columnar_union(host_tier):
     rng = np.random.default_rng(59)
     first = _typed(["array"] * 30, rng)
     rest = [_typed(["array", "run"] * 15, rng) for _ in range(4)]
@@ -467,7 +484,7 @@ def test_word_test_rows_and_concat_rows_match_jax():
 
 
 @pytest.mark.parametrize("op", OPS)
-def test_routed_facade_matches_percontainer(op):
+def test_routed_facade_matches_percontainer(op, host_tier):
     """Above the cutoff the facade takes the columnar CPU tier (the
     uncalibrated gate); the result equals the per-container walk and the
     JAX package's routed facade."""

@@ -12,7 +12,10 @@ alone (pairwise on the columnar device tier, the merged andnot's single
 every claim aborted, no serial rerun), the in-flight ``poll``, the
 ``FusionExecutor`` window, the fusion pricing model against the JAX
 package's, and the routed facade on a host without a card under the
-default config.
+default config. Both packages run on the numpy host tier, and the tests
+that compare bytes with the JAX package run again with both on their
+native host tier (``host_tier``): the two tiers build different container
+forms for the same values.
 """
 
 import threading
@@ -37,6 +40,7 @@ from roaringbitmap_tpu.query import plan as jplan
 
 from roaringbitmap_tpu_torch import RoaringBitmap as TRB
 from roaringbitmap_tpu_torch import columnar as tcol
+from roaringbitmap_tpu_torch import native as tnative
 from roaringbitmap_tpu_torch import query as tq
 from roaringbitmap_tpu_torch.columnar import costmodel as tcost
 from roaringbitmap_tpu_torch.columnar import engine as tengine
@@ -48,17 +52,20 @@ from roaringbitmap_tpu_torch.query import fusion
 from roaringbitmap_tpu_torch.query import inflight
 
 MODES = (None, "device")
+HOST_TIERS = ("numpy", "native")
+_J_NATIVE = jkernels._native  # the JAX package's own host-tier probe
 
 
 @pytest.fixture(autouse=True)
 def port_on_cpu(monkeypatch):
-    """The port's device path on CPU tensors, the JAX package's columnar
-    engine on its numpy tier, both columnar cost models uncalibrated, and
-    both packages' shared caches and in-flight tables emptied around each
-    test (the JAX ones are process-wide and a later test of that package
-    reads their byte ledgers)."""
+    """The port's device path on CPU tensors, both packages on their
+    numpy host tier, both columnar cost models uncalibrated, and both
+    packages' shared caches and in-flight tables emptied around each test
+    (the JAX ones are process-wide and a later test of that package reads
+    their byte ledgers)."""
     monkeypatch.setattr(aggregation.config, "device", "cpu")
     monkeypatch.setattr(jkernels, "_native", lambda: None)
+    tnative.set_tier("numpy")
     monkeypatch.delenv("RB_TPU_COLUMNAR_CAL", raising=False)
     tcost.MODEL.reset()
     jcost.MODEL.reset()
@@ -66,6 +73,7 @@ def port_on_cpu(monkeypatch):
     tq.DEFAULT_CACHE.clear()
     inflight.TABLE.clear()
     yield
+    tnative.set_tier("native")
     fusion.configure(enabled=True)
     inflight.TABLE.clear()
     jinflight.TABLE.clear()
@@ -74,6 +82,16 @@ def port_on_cpu(monkeypatch):
     store.PACK_CACHE.close()
     jstore.PACK_CACHE.close()
     tq.DEFAULT_CACHE.clear()
+
+
+@pytest.fixture(params=HOST_TIERS)
+def host_tier(request, monkeypatch):
+    """Both packages on one host tier: numpy (as ``port_on_cpu`` leaves
+    them) or native (each package's default)."""
+    if request.param == "native":
+        monkeypatch.setattr(jkernels, "_native", _J_NATIVE)
+        tnative.set_tier("native")
+    return request.param
 
 
 def _bms(rng, k, n=2000, space=1 << 18):
@@ -148,7 +166,7 @@ def _window(name):
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("cached", [False, True])
 @pytest.mark.parametrize("name", sorted(WINDOWS))
-def test_fused_equals_serial_and_the_jax_package(name, cached, mode):
+def test_fused_equals_serial_and_the_jax_package(name, cached, mode, host_tier):
     tqs, jqs = _window(name)
     if mode == "device":  # the same plans in both packages
         for tq_, jq_ in zip(tqs, jqs):
@@ -203,7 +221,7 @@ def test_a_shared_subexpression_runs_once(monkeypatch):
 
 
 @pytest.mark.parametrize("op", ["and", "or", "xor", "andnot"])
-def test_merged_pairwise_on_the_device_tier_equals_solo(op, monkeypatch):
+def test_merged_pairwise_on_the_device_tier_equals_solo(op, monkeypatch, host_tier):
     """Pairwise steps sharing an operand, the columnar router's verdict
     pinned to its device tier (rows on CPU tensors): one merged
     ``pairwise_multi`` equal to each pair alone and to the JAX package's
@@ -244,7 +262,7 @@ def _counted(monkeypatch, name):
     return calls
 
 
-def test_merged_andnot_on_the_device_is_one_pair_rows_launch(monkeypatch):
+def test_merged_andnot_on_the_device_is_one_pair_rows_launch(monkeypatch, host_tier):
     tqs, jqs = _window("device-tiers")
     andnots = [tqs[2], tqs[3]]
     for q in andnots:
@@ -258,7 +276,7 @@ def test_merged_andnot_on_the_device_is_one_pair_rows_launch(monkeypatch):
         assert g.serialize() == texec.execute(q, cache=None, mode="device").serialize()
 
 
-def test_equal_bucket_thresholds_are_one_threshold_launch(monkeypatch):
+def test_equal_bucket_thresholds_are_one_threshold_launch(monkeypatch, host_tier):
     """Two thresholds with equal (k, n_slices, M): one ``threshold_rows``
     over their blocks concatenated along G; a third with another k takes
     its own launch."""
@@ -517,7 +535,7 @@ def _facade_pair(rng, n_keys):
 
 
 @pytest.mark.parametrize("n_keys", [16, 4096])
-def test_routed_facade_answers_without_a_card_under_the_default_config(n_keys, monkeypatch):
+def test_routed_facade_answers_without_a_card_under_the_default_config(n_keys, monkeypatch, host_tier):
     """With ``aggregation.config.device`` at its default ``"cuda"`` and no
     card, the routed two-operand ops answer on the CPU engines with the JAX
     package's bytes (the device tier is not eligible, so nothing
