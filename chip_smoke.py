@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only columnar --window-pairs 9999  # phases 1-2 and 9, all 9,999 pairs
     python3 chip_smoke.py --only serving  # phases 1-2 and 10: the fusion window and the lane
     python3 chip_smoke.py --only host     # phases 1-2, 11 and 6: the native host tier against numpy
+    python3 chip_smoke.py --only batch    # phases 1-3 and 12: batch similarity
 
 ``--only paths`` runs only the phases whose end-to-end times PERF.md limits
 against a parent commit; copied into a checkout of the parent, it times
@@ -46,8 +47,14 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    payload (308,100 rows, staged in pinned memory and shipped once) and on
    the expansion's edge cases (adjacent runs, a run ending at 65535, the
    full run, 2,047 runs, a 4,096-value array, bitmap rows) with
-   run-optimized census containers — bitwise equality required, with
-   kernel time (CUDA events), bound and the plain version's time;
+   run-optimized census containers; ``rb_pair_rows``' counts-only mode
+   (``rb_pair_rows[counts]``, and and andnot, with the rows mode beside
+   it) on config 5's ``[64, 16, 2048]`` batch and the census batch
+   ``[10000, 31, 2048]``; ``rb_pairwise_and_card`` on ragged tiles (n, m
+   not multiples of 64; K = 1, 3, 31) and on all-ones ``[1, 65536,
+   2048]`` rows whose one pair holds 2^32 bits — bitwise equality
+   required, with kernel time (CUDA events), bound and the plain version's
+   time;
 4. the main path through the port's entry points: 10,000 census-shaped
    bitmaps (built as ``bench.py`` builds them) through
    ``FastAggregation.or_``, ``ParallelAggregation.or_`` and
@@ -132,6 +139,30 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    pairs, Q1 cold and warm, and phase 10's fusion window cold and warm,
    every result against numpy; phase 6 then times ``compare`` GE and its
    ``unpack_to_bitmap`` with the tiers in turns;
+12. (run after phase 11) batch similarity through ``parallel/batch.py``'s
+   entry points, on 10,000 bitmaps built anew from the bases (so phase
+   8's mutation stays out): (a) filtered-ANN, BASELINE.md config 5 as
+   ``benchmarks/filtered_ann.py`` builds it (a 1M-doc filter at density
+   0.3, 64 top-1000 candidate sets): ``batched_cardinality`` and /
+   andnot, ``batched_intersects``, ``batched_op`` and / andnot and the 24 x
+   24 ``pairwise_and_cardinality`` against the per-query facade, the
+   prepared ``run()`` timed in the steady state and the whole call; (b)
+   census facet counts, or(A) of phase 8 against all 10,000 bitmaps
+   (``[10000, 31, 2048]``): the counts against the plain version for all
+   and the facade for 500, ``batched_op`` and's cardinalities for all and
+   500 results against ``and_``; (c) the census all-pairs matrix 10,000 x
+   10,000 over 31 keys: ``pairwise_and_cardinality`` (auto must pick
+   mxu), ``pairwise_jaccard`` and ``pairwise_cardinality`` or / xor /
+   andnot, held to the diagonal (the cardinalities), to equal rows and
+   columns for equal bitmaps, to the plain version on the 200 x 200 block
+   of distinct bases and to the facade on sampled entries; the kernel
+   timed (mean of 3) beside its bounds and the library row ``torch._int_mm``
+   over int8 0/1 bits per key (its sum must equal the kernel's matrix);
+   the kernel, the plain version and the library row timed whole on the
+   first 320 left rows against all 10,000 (the kernels line's shape; the
+   plain rows must equal the kernel's and the matrix's); the stages (pack,
+   kernel, copy, inclusion-exclusion) and the walls; launch counts zeroed
+   before each entry-point call and read after;
 7. ``RangeBitmap`` at 10,000,000 rows, for correctness only: appender,
    queries, batched counts, the reference-format bytes and ``map`` of
    them, against numpy.
@@ -2880,11 +2911,434 @@ def phase_range_bitmap(vals):
     say(f"[range] launches: {dict(K.LAUNCHES)}")
 
 
+# ---------------------------------------------------------------------------
+# phase 3 (batch kernels) and phase 12: batch similarity
+# ---------------------------------------------------------------------------
+
+ANN_DOCS, ANN_QUERIES, ANN_TOP_K, ANN_DENSITY = 1_000_000, 64, 1000, 0.3  # filtered_ann.py:25-28
+ANN_PAIRS_HALF = 24  # filtered_ann.py:85-103
+ANN_RUNS, ANN_BLOCKS = 200, 5  # steady-state run(): blocks of calls, each block's median
+FACET_SAMPLE = 500  # facet counts and results checked against the facade
+PAIR_SAMPLE = 2_000  # all-pairs entries checked against and_cardinality
+PAIR_OP_SAMPLE = 200  # or / xor / andnot entries checked against the facade
+PAIRWISE_BLOCK = 200  # the census block of distinct bases held against the plain version
+PAIR_REPS = 3  # kernel timing at the census scale: one launch takes seconds
+# the kernels line's shape for the all-pairs kernel: this many left rows
+# against all the right rows, where the plain version runs whole in a few
+# seconds (five 64-row tiles x 157 column tiles, ~6 waves of CTAs on 132 SMs)
+PAIRWISE_LINE_ROWS = 320
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
+POPC_PER_SM_CLOCK = 16  # 32-bit popcounts a clock per SM, compute capability 9.0 (CUDA guide)
+# ragged tiles (n, m not multiples of 64) and key counts of the phase-3 check
+PAIRWISE_CASES = ((1, 1, 1), (65, 63, 1), (130, 77, 3), (100, 129, 31), (257, 200, 31))
+
+
+def ann_workload():
+    """BASELINE.md config 5 as ``benchmarks/filtered_ann.py:31-40`` builds
+    it: a 1M-doc filter at density 0.3 and 64 top-1000 candidate sets."""
+    from roaringbitmap_tpu_torch import RoaringBitmap
+
+    rng = np.random.default_rng(SEED)
+    docs = rng.choice(ANN_DOCS, size=int(ANN_DOCS * ANN_DENSITY), replace=False)
+    doc_filter = RoaringBitmap(np.sort(docs).astype(np.uint32))
+    queries = [
+        np.sort(rng.choice(ANN_DOCS, size=ANN_TOP_K, replace=False)).astype(np.uint32)
+        for _ in range(ANN_QUERIES)
+    ]
+    return doc_filter, [RoaringBitmap(q) for q in queries]
+
+
+def facet_filter(base):
+    """or(A) of phase 8: the union of the bases with index in [0, 67)."""
+    from roaringbitmap_tpu_torch import RoaringBitmap
+
+    lo, hi = Q1_THIRDS[0]
+    return RoaringBitmap(np.unique(np.concatenate(base[lo:hi])).astype(np.uint32))
+
+
+def _mask_bound_ms(q: int, k: int) -> float:
+    """The masked count's least time: the batch and filter read once, the
+    [Q, K] counts written once."""
+    return bound_ms(q * k * ROW_BYTES + k * ROW_BYTES + q * k * 4)
+
+
+def pairwise_bound(n: int, m: int, k: int):
+    """(bound ms, "operations" or "bytes", byte ms, tensor-core ms, popcount
+    floor ms) of the n x m AND-popcount matrix over K keys: the operations
+    as 0/1 int8 products on the tensor cores, the bytes both sides read once
+    and the int64 matrix written once; the CUDA-core design's own floor is
+    one popcount a word pair at the card's popcount rate."""
+    b_bytes = bound_ms(4 * 2048 * k * (n + m) + 8 * n * m)
+    b_ops = 2 * n * m * k * 65536 / INT8_OPS_PER_S * 1e3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floor = n * m * k * 2048 / (sms * POPC_PER_SM_CLOCK * max_sm_mhz() * 1e6) * 1e3
+    return max(b_bytes, b_ops), "operations" if b_ops > b_bytes else "bytes", b_bytes, b_ops, floor
+
+
+def phase_batch_kernels(card: str, base, bitmaps):
+    """``rb_pair_rows`` counts-only against ``pair_rows_cardinality_plain``
+    at config 5's batch and at the census batch (and, andnot; the rows mode
+    too), timed at the census batch; ``rb_pairwise_and_card`` against
+    ``pairwise_and_card_plain`` on ragged tiles (K = 1, 3, 31) and on
+    all-ones rows whose one pair holds 2^32 bits. Bitwise equal."""
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import batch
+
+    out, errs = {}, []
+    doc_filter, cands = ann_workload()
+    cases = (("config 5", doc_filter, cands), ("census", facet_filter(base), bitmaps))
+    for label, one, many in cases:
+        filt, words, _ = batch._pack_one_vs_many(one, many, torch.device("cuda"))
+        q, k, _w = words.shape
+        ia, ib = batch._mask_streams(q, k, words.device)
+        flat = words.view(q * k, 2048)
+        for op in ("and", "andnot"):
+            before = K.LAUNCHES["rb_pair_rows[counts]"]
+            got = K.pair_rows_cardinality(flat, ia, filt, ib, op)
+            torch.cuda.synchronize()
+            if K.LAUNCHES["rb_pair_rows[counts]"] != before + 1:
+                fail(f"rb_pair_rows[counts] {op}: no launch counted")
+            want = K.pair_rows_cardinality_plain(flat, ia, filt, ib, op)
+            errs.append(_compare(f"rb_pair_rows[counts] {label} {op}", got, want))
+            total = int(want.long().sum())
+            if not 0 < total < q * k * 65536:
+                fail(f"rb_pair_rows[counts] {label} {op}: the plain answer has {total} bits")
+            del got, want
+        rows, cards = K.pair_rows_reduce(flat, ia, filt, ib, "and")
+        want_rows, want_cards = K.pair_rows_reduce_plain(flat, ia, filt, ib, "and")
+        _compare(f"rb_pair_rows rows mode {label} words", rows, want_rows)
+        _compare(f"rb_pair_rows rows mode {label} cards", cards, want_cards)
+        del rows, cards, want_rows, want_cards
+        ms = cuda_ms(lambda: K.pair_rows_cardinality(flat, ia, filt, ib, "and"))
+        plain = cuda_ms(lambda: K.pair_rows_cardinality_plain(flat, ia, filt, ib, "and"), reps=3, warmup=1)
+        b = _mask_bound_ms(q, k)
+        say(
+            f"[kernel] rb_pair_rows[counts] {label} batch [{q}, {k}, 2048]: equal (and, andnot; rows "
+            f"mode equal); {ms:.4f} ms, bound {b:.4f} ms ({b / ms:.1%} of bound), plain {plain:.3f} ms; "
+            f"library call: none  [{card}]"
+        )
+        if label == "census":  # the shape of phase 12's facet counts
+            out["rb_pair_rows[counts]"] = dict(
+                replaces="roaringbitmap_tpu/parallel/batch.py:63", ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by="bytes",
+            )
+        del filt, words, flat, ia, ib
+        torch.cuda.empty_cache()
+    out["rb_pair_rows[counts]"]["max_abs_err"] = max(errs)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    perrs = []
+    for n, m, k in PAIRWISE_CASES:
+        left = _rand_dense(gen, (n, k, 2048))
+        right = _rand_dense(gen, (m, k, 2048)) & _rand_dense(gen, (m, k, 2048))
+        before = K.LAUNCHES["rb_pairwise_and_card"]
+        got = K.pairwise_and_card(left, right)
+        torch.cuda.synchronize()
+        if K.LAUNCHES["rb_pairwise_and_card"] != before + 1:
+            fail("rb_pairwise_and_card: no launch counted")
+        perrs.append(_compare(f"rb_pairwise_and_card [{n}, {k}] x [{m}, {k}]", got,
+                              K.pairwise_and_card_plain(left, right)))
+    ones = torch.full((1, 1 << 16, 2048), -1, dtype=torch.int32, device="cuda")
+    got = K.pairwise_and_card(ones, ones)
+    perrs.append(_compare("rb_pairwise_and_card all-ones [1, 65536, 2048]", got,
+                          K.pairwise_and_card_plain(ones, ones)))
+    if int(got.item()) != 1 << 32:
+        fail(f"rb_pairwise_and_card all-ones: {int(got.item())}, expected 2^32")
+    del ones, got
+    torch.cuda.empty_cache()
+    say(f"[kernel] rb_pairwise_and_card: equal on {len(PAIRWISE_CASES)} ragged shapes (n, m, K) = "
+        f"{PAIRWISE_CASES} and on all-ones [1, 65536, 2048] (one pair of 2^32 bits)  [{card}]")
+    out["rb_pairwise_and_card"] = dict(
+        replaces="roaringbitmap_tpu/parallel/batch.py:184", max_abs_err=max(perrs),
+        ms=None, plain_ms=None, bound_ms=None, bound_by="operations", library_ms=None,
+    )
+    return out
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t0) * 1e3
+
+
+def _bits_int8(words: torch.Tensor) -> torch.Tensor:
+    """int32 [s, 2048] words -> int8 [s, 65536] 0/1 bits. The shift is
+    arithmetic on int32, so the bit is masked after it."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words.unsqueeze(-1) >> shifts) & 1).to(torch.int8).reshape(words.shape[0], -1)
+
+
+def _int_mm_row(lw, rw, want, card: str):
+    """The library row: per key, ``torch._int_mm`` of the [n, 65536] and
+    [m, 65536] int8 bit matrices, summed in int64. Returns (matmul ms,
+    expansion ms); fails if the sum is not the kernel's matrix."""
+    n, k, _ = lw.shape
+    m = rw.shape[0]
+    acc = torch.zeros((n, m), dtype=torch.int64, device="cuda")
+    mm_ms = exp_ms = 0.0
+    torch._int_mm(_bits_int8(lw[:, 0].contiguous()), _bits_int8(rw[:, 0].contiguous()).t())  # warm-up
+    for key in range(k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        lb = _bits_int8(lw[:, key].contiguous())
+        rb = _bits_int8(rw[:, key].contiguous())
+        ev[1].record()
+        part = torch._int_mm(lb, rb.t())
+        ev[2].record()
+        acc += part
+        torch.cuda.synchronize()
+        exp_ms += ev[0].elapsed_time(ev[1])
+        mm_ms += ev[1].elapsed_time(ev[2])
+        del lb, rb, part
+    if not torch.equal(acc, want):
+        fail("torch._int_mm over the bit matrices disagrees with rb_pairwise_and_card")
+    say(f"[batch] library row: torch._int_mm over int8 0/1 bits, {k} keys of [{n}, 65536] x [65536, {m}]: "
+        f"matmuls {mm_ms:.3f} ms, bit expansion {exp_ms:.3f} ms (apart); sum equal to the kernel's  [{card}]")
+    del acc
+    torch.cuda.empty_cache()
+    return mm_ms, exp_ms
+
+
+def _steady_blocks(run) -> str:
+    """``ANN_BLOCKS`` blocks of ``ANN_RUNS`` back-to-back ``run()`` calls:
+    the median over every call (ms and ns a query), and the least and
+    greatest block median."""
+    blocks = [[_timed(run)[1] for _ in range(ANN_RUNS)] for _ in range(ANN_BLOCKS)]
+    med = float(np.median(np.concatenate(blocks)))
+    per_block = [float(np.median(b)) for b in blocks]
+    return (f"median of {ANN_BLOCKS} x {ANN_RUNS} calls {med:.4f} ms ({med * 1e6 / ANN_QUERIES:.1f} ns/query), "
+            f"block medians {min(per_block):.4f}-{max(per_block):.4f} ms")
+
+
+def _event_ms(fn):
+    """(result, milliseconds) of one call of ``fn``, timed with CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    r = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return r, start.elapsed_time(stop)
+
+
+def phase_batch(base, card: str, n_left: int = N_BITMAPS):
+    """Phase 12: batch similarity through the port's entry points. (a)
+    filtered-ANN (config 5); (b) census facet counts over 10,000 bitmaps;
+    (c) the census all-pairs matrix. Returns the launch counts of the
+    entry-point calls (zeroed before each, timing and checks excluded) and
+    the kernels line's numbers for the all-pairs kernel."""
+    from roaringbitmap_tpu_torch import RoaringBitmap
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import batch, store
+
+    t_phase = time.perf_counter()
+    store.PACK_CACHE.close()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(SEED + 12)
+    nb = len(base)
+    bitmaps = [RoaringBitmap(base[i % nb]) for i in range(N_BITMAPS)]
+    cards = np.array([b.get_cardinality() for b in bitmaps], dtype=np.int64)
+    path = {k: 0 for k in K.LAUNCHES}
+
+    def on_path(fn):
+        """Run an entry-point call with the counts zeroed just before it
+        and read just after."""
+        K.reset_launches()
+        r = fn()
+        torch.cuda.synchronize()
+        for key, v in K.LAUNCHES.items():
+            path[key] += v
+        return r
+
+    # (a) filtered-ANN, BASELINE.md config 5
+    doc_filter, cands = ann_workload()
+    keys = sorted({k for c in cands for k in c.high_low_container.keys})
+    say(f"[batch] (a) config 5: filter {doc_filter.get_cardinality()} of {ANN_DOCS} docs, "
+        f"{len(cands)} candidate sets of {ANN_TOP_K}, {len(keys)} keys: batch [{len(cands)}, {len(keys)}, 2048]")
+    want_and = [RoaringBitmap.and_(c, doc_filter) for c in cands]
+    want_andnot = [RoaringBitmap.andnot(c, doc_filter) for c in cands]
+    got = on_path(lambda: batch.batched_cardinality(doc_filter, cands, "and"))
+    if got.tolist() != [w.get_cardinality() for w in want_and]:
+        fail("(a) batched_cardinality and differs from the per-query and_")
+    got = on_path(lambda: batch.batched_cardinality(doc_filter, cands, "andnot"))
+    if got.tolist() != [w.get_cardinality() for w in want_andnot]:
+        fail("(a) batched_cardinality andnot differs from the per-query andnot")
+    got = on_path(lambda: batch.batched_intersects(doc_filter, cands))
+    if got.tolist() != [RoaringBitmap.intersects(c, doc_filter) for c in cands]:
+        fail("(a) batched_intersects differs from intersects")
+    for op, want in (("and", want_and), ("andnot", want_andnot)):
+        res = on_path(lambda: batch.batched_op(doc_filter, cands, op))
+        if res != want:
+            fail(f"(a) batched_op {op} differs from the per-query facade")
+    left, right = cands[:ANN_PAIRS_HALF], cands[ANN_PAIRS_HALF:2 * ANN_PAIRS_HALF]
+    mat = on_path(lambda: batch.pairwise_and_cardinality(left, right))
+    if mat.tolist() != [[RoaringBitmap.and_cardinality(a, b) for b in right] for a in left]:
+        fail("(a) the 24 x 24 pairwise_and_cardinality differs from the and_cardinality loop")
+    say("[batch] (a) batched_cardinality and / andnot, batched_intersects, batched_op and / andnot "
+        "and the 24 x 24 overlap matrix: equal to the per-query facade")
+    run = batch.prepare_batched_cardinality(doc_filter, cands)
+    steady = _steady_blocks(run)
+    calls = [_timed(lambda: batch.batched_cardinality(doc_filter, cands))[1] for _ in range(11)]
+    facade = [_timed(lambda: [RoaringBitmap.and_(doc_filter, c) for c in cands])[1] for _ in range(5)]
+    say(f"[batch] (a) steady run() {steady}; whole batched_cardinality median of 11 {np.median(calls):.3f} ms "
+        f"({np.median(calls) * 1e6 / ANN_QUERIES:.1f} ns/query), per-query and_ loop {np.median(facade):.3f} ms  [{card}]")
+    _profiled("[batch] (a)", "steady run()", run, card, calls=20)
+    say(f"[batch] (a) steady run() again, after the profiler: {_steady_blocks(run)}  [{card}]")
+    mw = [_timed(lambda: batch.pairwise_and_cardinality(left, right))[1] for _ in range(5)]
+    say(f"[batch] (a) 24 x 24 matrix median {np.median(mw):.3f} ms ({np.median(mw) * 1e6 / 576:.1f} ns/pair)  [{card}]")
+    del run
+
+    # (b) census facet counts: or(A) against all 10,000 bitmaps
+    filt = facet_filter(base)
+    keys = sorted({k for c in bitmaps for k in c.high_low_container.keys})
+    say(f"[batch] (b) facet filter or(A) {filt.get_cardinality()} values; {len(bitmaps)} bitmaps over "
+        f"{len(keys)} keys: batch [{len(bitmaps)}, {len(keys)}, 2048]")
+    fc, fwall = {}, {}
+    for op in ("and", "andnot"):
+        t0 = time.perf_counter()
+        fc[op] = on_path(lambda: batch.batched_cardinality(filt, bitmaps, op))
+        fwall[op] = (time.perf_counter() - t0) * 1e3
+    ops, owall = _timed(lambda: on_path(lambda: batch.batched_op(filt, bitmaps, "and")))
+    t0 = time.perf_counter()
+    fwords, bwords, _ = batch._pack_one_vs_many(filt, bitmaps, torch.device("cuda"))
+    torch.cuda.synchronize()
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    q, k, _w = bwords.shape
+    ia, ib = batch._mask_streams(q, k, bwords.device)
+    for op in ("and", "andnot"):
+        plain = K.pair_rows_cardinality_plain(bwords.view(q * k, 2048), ia, fwords, ib, op)
+        plain = plain.view(q, k).cpu().numpy().astype(np.int64).sum(axis=1)
+        if not np.array_equal(fc[op], plain):
+            fail(f"(b) batched_cardinality {op} differs from the plain version in {int((fc[op] != plain).sum())} sets")
+        ref = RoaringBitmap.and_ if op == "and" else RoaringBitmap.andnot
+        for i in rng.choice(len(bitmaps), FACET_SAMPLE, replace=False).tolist():
+            if fc[op][i] != ref(bitmaps[i], filt).get_cardinality():
+                fail(f"(b) batched_cardinality {op} of bitmap {i} differs from the facade")
+    if [r.get_cardinality() for r in ops] != fc["and"].tolist():
+        fail("(b) batched_op and: result cardinalities differ from batched_cardinality")
+    for i in rng.choice(len(bitmaps), FACET_SAMPLE, replace=False).tolist():
+        if ops[i] != RoaringBitmap.and_(bitmaps[i], filt):
+            fail(f"(b) batched_op and: bitmap {i} differs from the facade's and_")
+    del ops
+    step = batch._step("and", True)
+    kern = cuda_ms(lambda: step(bwords, fwords), reps=5, warmup=1)
+    counts_dev = step(bwords, fwords)
+    torch.cuda.synchronize()  # the copy's time alone
+    _, copy_ms = _timed(lambda: counts_dev.cpu())
+    say(f"[batch] (b) equal: counts (and, andnot) for all {len(bitmaps)} against the plain version, "
+        f"{FACET_SAMPLE} sampled against the facade; batched_op's {len(bitmaps)} cardinalities, "
+        f"{FACET_SAMPLE} sampled results against and_")
+    say(f"[batch] (b) walls: batched_cardinality and {fwall['and']:.1f} ms, andnot {fwall['andnot']:.1f} ms, "
+        f"batched_op and {owall:.1f} ms; stages: pack {pack_ms:.1f} ms, mask streams + kernel {kern:.4f} ms, "
+        f"copy {copy_ms:.3f} ms  [{card}]")
+    _profiled("[batch] (b)", "batched_cardinality and", lambda: batch.batched_cardinality(filt, bitmaps), card)
+    del fwords, bwords, ia, ib, counts_dev
+    torch.cuda.empty_cache()
+
+    # (c) census all-pairs, n_left x 10,000 over the shared keys
+    lefts = bitmaps[:n_left]
+    say(f"[batch] (c) all-pairs {len(lefts)} x {len(bitmaps)}")
+    pc = dict(batch.PAIRWISE_COUNTS)
+    inter, w_and = _timed(lambda: on_path(lambda: batch.pairwise_and_cardinality(lefts, bitmaps)))
+    if batch.PAIRWISE_COUNTS["mxu"] != pc["mxu"] + 1:
+        fail(f"(c) impl auto did not pick mxu on the card: {batch.PAIRWISE_COUNTS} from {pc}")
+    jac, w_jac = _timed(lambda: on_path(lambda: batch.pairwise_jaccard(lefts, bitmaps)))
+    derived, w_ops = {}, {}
+    for op in ("or", "xor", "andnot"):
+        derived[op], w_ops[op] = _timed(lambda: on_path(lambda: batch.pairwise_cardinality(lefts, bitmaps, op=op)))
+    n, m = inter.shape
+    if inter.shape != (len(lefts), len(bitmaps)) or inter.dtype != np.int64:
+        fail(f"(c) matrix {inter.shape} {inter.dtype}")
+    if not np.array_equal(np.diagonal(inter), cards[:n]):
+        fail("(c) the diagonal differs from the cardinalities")
+    if not np.array_equal(inter, inter[np.arange(n) % nb]) or not np.array_equal(inter, inter[:, np.arange(m) % nb]):
+        fail("(c) equal bitmaps (copies of one base) have unequal rows or columns")
+    for i, j in zip(rng.integers(0, n, PAIR_SAMPLE).tolist(), rng.integers(0, m, PAIR_SAMPLE).tolist()):
+        if inter[i, j] != RoaringBitmap.and_cardinality(lefts[i], bitmaps[j]):
+            fail(f"(c) entry ({i}, {j}) differs from and_cardinality")
+    scalar = {"or": RoaringBitmap.or_cardinality, "xor": RoaringBitmap.xor_cardinality,
+              "andnot": RoaringBitmap.andnot_cardinality}
+    for i, j in zip(rng.integers(0, n, PAIR_OP_SAMPLE).tolist(), rng.integers(0, m, PAIR_OP_SAMPLE).tolist()):
+        for op, fn in scalar.items():
+            if derived[op][i, j] != fn(lefts[i], bitmaps[j]):
+                fail(f"(c) pairwise_cardinality {op} entry ({i}, {j}) differs from the facade")
+        u = scalar["or"](lefts[i], bitmaps[j])
+        if jac[i, j] != (inter[i, j] / u if u else 0.0):
+            fail(f"(c) jaccard entry ({i}, {j}) differs from and / or cardinality")
+
+    t0 = time.perf_counter()
+    run = batch.prepare_pairwise_mxu(lefts, bitmaps)
+    torch.cuda.synchronize()
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    lw, rw = run.device_tensors
+    blk = min(PAIRWISE_BLOCK, n)
+    plain_blk = K.pairwise_and_card_plain(lw[:blk].contiguous(), rw[:blk].contiguous())
+    err = _compare("(c) rb_pairwise_and_card census block", K.pairwise_and_card(lw[:blk].contiguous(), rw[:blk].contiguous()), plain_blk)
+    if not np.array_equal(inter[:blk, :blk], plain_blk.cpu().numpy()):
+        fail(f"(c) the {blk} x {blk} block of distinct bases differs from the plain version")
+    say(f"[batch] (c) equal: diagonal = cardinalities, equal rows and columns for equal bitmaps, the "
+        f"{blk} x {blk} block of distinct bases = the plain version on the card, {PAIR_SAMPLE} sampled "
+        f"entries = and_cardinality, {PAIR_OP_SAMPLE} sampled or / xor / andnot / jaccard entries = the facade")
+    kms = cuda_ms(lambda: K.pairwise_and_card(lw, rw), reps=PAIR_REPS, warmup=1)
+    dev_mat = K.pairwise_and_card(lw, rw)
+    torch.cuda.synchronize()  # the copy's time alone
+    host_mat, copy_ms = _timed(lambda: dev_mat.cpu().numpy())
+    if not np.array_equal(host_mat, inter):
+        fail("(c) the prepared run's matrix differs from pairwise_and_cardinality's")
+    _, ie_ms = _timed(lambda: batch._inclusion_exclusion("or", inter, lefts, bitmaps))
+    k_keys = lw.shape[1]
+    b, by, b_bytes, b_ops, floor = pairwise_bound(n, m, k_keys)
+    lib_full, _exp = _int_mm_row(lw, rw, dev_mat, card)
+    del dev_mat, host_mat
+    say(f"[kernel] rb_pairwise_and_card census [{n}, {k_keys}, 2048] x [{m}, {k_keys}, 2048]: {kms:.3f} ms "
+        f"(mean of {PAIR_REPS}), bound {b:.3f} ms by {by} ({b / kms:.1%} of bound; tensor-core ops {b_ops:.3f} ms, "
+        f"bytes {b_bytes:.3f} ms), popcount floor of this design {floor:.3f} ms ({floor / kms:.1%}), "
+        f"{n * m * k_keys * 2048 / kms / 1e9:.3f} T word-popcounts/s; library torch._int_mm {lib_full:.3f} ms  "
+        f"[{card}] [{smi_clocks()}]")
+    # the kernels line: the kernel, its plain version and the library call,
+    # each timed whole on the first rows of the left side against all m
+    s = min(PAIRWISE_LINE_ROWS, n)
+    ls = lw[:s].contiguous()
+    s_ms = cuda_ms(lambda: K.pairwise_and_card(ls, rw), reps=5, warmup=1)
+    s_mat = K.pairwise_and_card(ls, rw)
+    K.pairwise_and_card_plain(ls[:2].contiguous(), rw)  # warm-up
+    s_plain, plain_ms = _event_ms(lambda: K.pairwise_and_card_plain(ls, rw))
+    s_err = _compare(f"(c) rb_pairwise_and_card [{s}, {k_keys}, 2048] x [{m}, {k_keys}, 2048]", s_mat, s_plain)
+    if not np.array_equal(inter[:s], s_plain.cpu().numpy()):
+        fail(f"(c) the plain version's first {s} rows differ from pairwise_and_cardinality's")
+    s_b, s_by, _, _, s_floor = pairwise_bound(s, m, k_keys)
+    lib_ms, exp_ms = _int_mm_row(ls, rw, s_mat, card)
+    shape = f"[{s}, {k_keys}, 2048] x [{m}, {k_keys}, 2048]"
+    say(f"[kernel] rb_pairwise_and_card {shape} (the kernels line's shape): {s_ms:.3f} ms (mean of 5), "
+        f"bound {s_b:.3f} ms by {s_by} ({s_b / s_ms:.1%}), popcount floor {s_floor:.3f} ms ({s_floor / s_ms:.1%}); "
+        f"plain {plain_ms:.1f} ms (one call, equal to the kernel and to the matrix's first {s} rows); "
+        f"library torch._int_mm {lib_ms:.3f} ms (+ bit expansion {exp_ms:.3f} ms)  [{card}]")
+    del s_mat, s_plain, ls
+    say(f"[batch] (c) walls: pairwise_and_cardinality {w_and:.1f} ms, pairwise_jaccard {w_jac:.1f} ms, "
+        + ", ".join(f"pairwise_cardinality {op} {w:.1f} ms" for op, w in w_ops.items())
+        + f"; stages: pack both sides {pack_ms:.1f} ms, kernel {kms:.1f} ms, copy {copy_ms:.1f} ms, "
+        f"inclusion-exclusion (or) {ie_ms:.1f} ms  [{card}]")
+    del run, lw, rw, plain_blk
+    torch.cuda.empty_cache()
+    _profiled("[batch] (c)", "pairwise_and_cardinality", lambda: batch.pairwise_and_cardinality(lefts, bitmaps), card)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for key in ("rb_pair_rows[counts]", "rb_pairwise_and_card"):
+        if path[key] == 0:
+            fail(f"phase 12 ran no {key}")
+    say("[batch] launches on the path: " + ", ".join(f"{k} {v}" for k, v in path.items() if v)
+        + f"; peak device memory {peak:.2f} GiB; phase {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return path, dict(ms=s_ms, plain_ms=plain_ms, bound_ms=s_b, bound_by=s_by, library_ms=lib_ms,
+                      max_abs_err=max(err, s_err), shape=shape)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "paths", "columnar", "serving", "host"],
+    ap.add_argument("--only", choices=["kernels", "paths", "columnar", "serving", "host", "batch"],
                     help="kernels: phases 1-3; paths: phases 1-2 and the timed paths 5, 8 and 6; "
-                         "columnar: phases 1-2 and 9; serving: phases 1-2 and 10; host: phases 1-2, 11 and 6")
+                         "columnar: phases 1-2 and 9; serving: phases 1-2 and 10; host: phases 1-2, 11 "
+                         "and 6; batch: phases 1-3 and 12")
     ap.add_argument("--window-pairs", type=int, default=WINDOW_PAIRS,
                     help=f"adjacent pairs in phase 9's window (default {WINDOW_PAIRS})")
     args = ap.parse_args()
@@ -2927,8 +3381,13 @@ def main():
     build_s = time.perf_counter() - t0
     timings.update(phase_threshold_kernel(card, bitmaps))
     timings.update(phase_expand_kernel(card, base, bitmaps))
-    launches = None  # not counted unless phases 4, 8, 9, 10 and 6 run
+    timings.update(phase_batch_kernels(card, base, bitmaps))
+    launches = None  # not counted unless phases 4, 8, 9, 10, 12 and 6 run
     host = None
+    if args.only == "batch":
+        del bitmaps
+        batch_launches, pairwise = phase_batch(base, card)
+        launches = {name: None for name in timings}
     if args.only is None:
         agg_launches = phase_main(np.random.default_rng(SEED), base, bitmaps, real, build_s)
         phase_timing(bitmaps, card)
@@ -2937,6 +3396,7 @@ def main():
         serving_launches = phase_serving(base, bitmaps, card)
         host = phase_host(base, bitmaps, card)
         del bitmaps
+        batch_launches, pairwise = phase_batch(base, card)
         from roaringbitmap_tpu_torch.models import bsi as tbsi
 
         if (tbsi.config.device, tbsi.config.mode) != ("cuda", "auto"):
@@ -2956,6 +3416,13 @@ def main():
                      "rb_oneil_compare[batched-deep]", "rb_popcount_rows[masked]",
                      "wide_reduce_cardinality"):
             launches[name] = bsi_launches[name]
+    if args.only in (None, "batch"):
+        # the batch path (phase 12) for the masked counts and the all-pairs
+        # kernel, whose census-scale times come from that phase too
+        for name in ("rb_pair_rows[counts]", "rb_pairwise_and_card"):
+            launches[name] = batch_launches[name]
+        err = max(timings["rb_pairwise_and_card"]["max_abs_err"], pairwise["max_abs_err"])
+        timings["rb_pairwise_and_card"].update(pairwise, max_abs_err=err)
     kernels = []
     for name, t in timings.items():
         kernels.append({
@@ -2964,7 +3431,8 @@ def main():
             "source": "roaringbitmap_tpu_torch/csrc/" + (
                 "oneil.cu" if name.startswith("rb_oneil")
                 else "query.cu" if name == "rb_threshold"
-                else "columnar.cu" if name == "rb_pair_rows"
+                else "columnar.cu" if name.startswith("rb_pair_rows")
+                else "batch.cu" if name == "rb_pairwise_and_card"
                 else "expand.cu" if name == "rb_expand_rows" else "reduce.cu"),
             "replaces": t["replaces"],
             "launches": None if launches is None else launches[name],
@@ -2973,7 +3441,8 @@ def main():
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t.get("bound_by", "bytes"),
-            "library_ms": None,
+            "library_ms": t.get("library_ms"),
+            **({"shape": t["shape"]} if "shape" in t else {}),
         })
     say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
     if host is not None:

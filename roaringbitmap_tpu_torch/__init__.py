@@ -4,8 +4,10 @@ The port of ``roaringbitmap_tpu`` (JAX on a TPU) to an NVIDIA H100: the same
 containers, facade, serialization format, N-way aggregation engines with
 the resident pack cache, the bit-sliced index with ``RangeBitmap``, the
 query planner, executor and fusion window (``roaringbitmap_tpu_torch.query``),
-the overlap shipping lane (``parallel/overlap.py``, ``run_pipelined``), and
-the columnar pairwise engine (``roaringbitmap_tpu_torch.columnar``), with the
+the overlap shipping lane (``parallel/overlap.py``, ``run_pipelined``), the
+columnar pairwise engine (``roaringbitmap_tpu_torch.columnar``), and batch
+similarity (``parallel/batch.py``: one-vs-many masked counts and the
+all-pairs overlap matrices), with the
 device path in PyTorch and its kernels written by hand in CUDA
 (``csrc/``). It imports neither JAX nor the JAX package; that package stays
 the reference the port is tested against.
@@ -18,6 +20,15 @@ from .models.bsi import Operation, RoaringBitmapSliceIndex
 from .models.range_bitmap import RangeBitmap
 from .models.roaring import RoaringBitmap
 from .parallel.aggregation import FastAggregation, ParallelAggregation
+from .parallel.batch import (
+    batched_cardinality,
+    batched_intersects,
+    batched_op,
+    pairwise_and_cardinality,
+    pairwise_cardinality,
+    pairwise_jaccard,
+    prepare_batched_cardinality,
+)
 from .parallel.overlap import run_pipelined
 
 __all__ = [
@@ -28,4 +39,11 @@ __all__ = [
     "Operation",
     "RangeBitmap",
     "run_pipelined",
+    "batched_cardinality",
+    "batched_intersects",
+    "batched_op",
+    "pairwise_and_cardinality",
+    "pairwise_cardinality",
+    "pairwise_jaccard",
+    "prepare_batched_cardinality",
 ]

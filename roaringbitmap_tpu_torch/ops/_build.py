@@ -30,7 +30,7 @@ from ..robust.errors import TierUnavailable
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SOURCES = [
     PACKAGE_DIR / "csrc" / name
-    for name in ("reduce.cu", "oneil.cu", "query.cu", "columnar.cu", "expand.cu")
+    for name in ("reduce.cu", "oneil.cu", "query.cu", "columnar.cu", "expand.cu", "batch.cu")
 ]
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -145,6 +145,8 @@ def load() -> ctypes.CDLL:
             lib.rb_pair_rows.restype = i
             lib.rb_expand_rows.argtypes = [i, ll, vp, vp, vp, ll, vp, vp, ll, vp, vp, vp, vp, vp, vp]
             lib.rb_expand_rows.restype = i
+            lib.rb_pairwise_and_card.argtypes = [i, vp, ll, vp, ll, ll, vp, vp]
+            lib.rb_pairwise_and_card.restype = i
             lib.rb_error_string.argtypes = [i]
             lib.rb_error_string.restype = ctypes.c_char_p
             _LIB = lib

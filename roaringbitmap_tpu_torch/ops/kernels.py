@@ -3,7 +3,8 @@ and the device-side row expansion.
 
 Counterpart of ``roaringbitmap_tpu/ops/pallas_kernels.py``. Hand-written
 CUDA kernels (``csrc/reduce.cu``, ``csrc/oneil.cu``, ``csrc/query.cu``,
-``csrc/columnar.cu`` and ``csrc/expand.cu``, built by ``_build``):
+``csrc/columnar.cu``, ``csrc/expand.cu`` and ``csrc/batch.cu``, built by
+``_build``):
 
 * ``rb_group_reduce`` — :func:`group_reduce`. Replaces
   ``pallas_kernels.py:grouped_reduce_pallas`` (padded layout, bucketed
@@ -36,6 +37,18 @@ CUDA kernels (``csrc/reduce.cu``, ``csrc/oneil.cu``, ``csrc/query.cu``,
   the columnar device tier's dense bucket. Bound: device-memory
   bandwidth, two rows read and one written per pair; ``columnar.cu`` says
   how.
+
+* ``rb_pair_rows`` with a null ``out`` — :func:`pair_rows_cardinality`,
+  the counts alone. Replaces the XLA ``parallel/batch.py:_step``
+  (``cards_only=True``: a ``[Q, K, 2048]`` batch masked against a
+  ``[K, 2048]`` filter, one popcount per (query, key)). Bound: the batch
+  read once.
+* ``rb_pairwise_and_card`` — :func:`pairwise_and_card`. Replaces the XLA
+  ``parallel/batch.py:_pairwise_step`` and ``_pairwise_mxu_step`` (the
+  all-pairs AND-popcount matrix over ``[n, K, 2048]`` and ``[m, K, 2048]``
+  rows). Bound: operations, n * m * K * 2048 word AND-popcounts (on the
+  int8 tensor cores as 0/1 products); ``batch.cu`` says how its tiled
+  CUDA-core design stands against that.
 
 * ``rb_expand_rows`` — :func:`expand_rows`. Replaces the XLA
   ``pallas_kernels.py:expand_rows_device`` (``_expand_rows_jit``: the
@@ -85,7 +98,9 @@ LAUNCHES = {
     "wide_reduce_cardinality": 0,
     "rb_threshold": 0,
     "rb_pair_rows": 0,
+    "rb_pair_rows[counts]": 0,
     "rb_expand_rows": 0,
+    "rb_pairwise_and_card": 0,
 }
 
 # rows per chunk (one CTA each): small enough that a 10,000-row group
@@ -856,6 +871,7 @@ def threshold_rows(words3: torch.Tensor, k: int, n_slices: int):
 # ---------------------------------------------------------------------------
 
 _PAIR_CODE = {"and": 0, "or": 1, "xor": 2, "andnot": 3}
+_INT32_MAX = (1 << 31) - 1
 
 
 def _check_pair(rows_a, ia, rows_b, ib, op):
@@ -870,6 +886,10 @@ def _check_pair(rows_a, ia, rows_b, ib, op):
             raise ValueError("row indices must be contiguous 1-D torch.int32")
     if ia.shape != ib.shape:
         raise ValueError(f"index streams differ in length: {ia.numel()} vs {ib.numel()}")
+    if max(rows_a.shape[0], rows_b.shape[0]) > _INT32_MAX:
+        raise ValueError(
+            f"int32 indices reach rows below 2^31 only, got {rows_a.shape[0]} and {rows_b.shape[0]}"
+        )
     if len({t.device for t in (rows_a, ia, rows_b, ib)}) != 1:
         raise ValueError("rows and indices must lie on one device")
 
@@ -913,27 +933,135 @@ def pair_rows_reduce(rows_a, ia, rows_b, ib, op: str):
     _check_pair(rows_a, ia, rows_b, ib, op)
     if rows_a.device.type == "cpu":
         return pair_rows_reduce_plain(rows_a, ia, rows_b, ib, op)
+    n = ia.numel()
+    out = torch.empty((n, dev.DEVICE_WORDS), dtype=torch.int32, device=rows_a.device)
+    return out, _launch_pair_rows(rows_a, ia, rows_b, ib, op, out)
+
+
+def pair_rows_cardinality_plain(rows_a, ia, rows_b, ib, op: str):
+    """Plain PyTorch version of :func:`pair_rows_cardinality`: the cards of
+    :func:`pair_rows_reduce_plain`."""
+    return pair_rows_reduce_plain(rows_a, ia, rows_b, ib, op)[1]
+
+
+def pair_rows_cardinality(rows_a, ia, rows_b, ib, op: str):
+    """The int32 ``[n]`` cards of :func:`pair_rows_reduce` without the
+    rows, on the same arguments. On the card: one ``rb_pair_rows`` launch
+    with a null ``out`` (launch key ``rb_pair_rows[counts]``), which writes
+    no rows."""
+    _check_pair(rows_a, ia, rows_b, ib, op)
+    if rows_a.device.type == "cpu":
+        return pair_rows_cardinality_plain(rows_a, ia, rows_b, ib, op)
+    return _launch_pair_rows(rows_a, ia, rows_b, ib, op, None)
+
+
+def _launch_pair_rows(rows_a, ia, rows_b, ib, op: str, out) -> torch.Tensor:
+    """One ``rb_pair_rows`` launch on checked CUDA operands, writing ``out``
+    (or, where it is None, the cards alone); returns the cards."""
     if rows_a.device.type != "cuda":
         raise ValueError(f"unsupported device {rows_a.device}")
     for rows in (rows_a, rows_b):
         if rows.data_ptr() % 16:
             raise ValueError("row blocks must be 16-byte aligned")
     n = ia.numel()
-    out = torch.empty((n, dev.DEVICE_WORDS), dtype=torch.int32, device=rows_a.device)
     cards = torch.empty(n, dtype=torch.int32, device=rows_a.device)
     if n == 0:
-        return out, cards
+        return cards
     from . import _build
 
     lib = _build.load()
     rc = lib.rb_pair_rows(
         rows_a.device.index or 0, _PAIR_CODE[op], rows_a.data_ptr(), rows_a.shape[0],
         ia.data_ptr(), rows_b.data_ptr(), rows_b.shape[0], ib.data_ptr(), n,
-        out.data_ptr(), cards.data_ptr(), _stream(rows_a),
+        None if out is None else out.data_ptr(), cards.data_ptr(), _stream(rows_a),
     )
     _build.check(lib, rc, "rb_pair_rows")
-    LAUNCHES["rb_pair_rows"] += 1
-    return out, cards
+    LAUNCHES["rb_pair_rows" if out is not None else "rb_pair_rows[counts]"] += 1
+    return cards
+
+
+# ---------------------------------------------------------------------------
+# batch similarity: the all-pairs AND-popcount matrix
+# ---------------------------------------------------------------------------
+
+# the plain version's left-axis tile: the [nb, m, K, 2048] intermediate
+# stays under this many bytes (the JAX package's tile_bytes default)
+PAIRWISE_TILE_BYTES = 256 << 20
+# rb_pairwise_and_card's CTA tile, and the most left rows its grid covers
+PAIRWISE_TILE = 64
+MAX_PAIRWISE_ROWS = PAIRWISE_TILE * 65535
+
+
+def _check_pairwise(left: torch.Tensor, right: torch.Tensor) -> None:
+    for t in (left, right):
+        if t.dtype != torch.int32:
+            raise TypeError(f"word rows must be torch.int32, got {t.dtype}")
+        if t.dim() != 3 or t.shape[2] != dev.DEVICE_WORDS:
+            raise ValueError(f"pairwise operands must be [n, K, 2048], got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("pairwise operands must be contiguous")
+    if left.shape[1] != right.shape[1] or left.shape[1] == 0:
+        raise ValueError(
+            f"both sides need the same K >= 1 keys, got {left.shape[1]} and {right.shape[1]}"
+        )
+    if left.device != right.device:
+        raise ValueError("both sides must lie on one device")
+
+
+def pairwise_and_card_plain(
+    left: torch.Tensor, right: torch.Tensor, tile_bytes: int = PAIRWISE_TILE_BYTES
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`pairwise_and_card`: the left axis
+    cut into tiles of ``nb`` rows so the broadcast ``[nb, m, K, 2048]`` AND
+    stays under ``tile_bytes`` (as ``batch.py:312-322`` does), each tile
+    popcounted per (pair, key) and summed over the keys in int64."""
+    _check_pairwise(left, right)
+    n, k, w = left.shape
+    m = right.shape[0]
+    out = torch.zeros((n, m), dtype=torch.int64, device=left.device)
+    if n == 0 or m == 0:
+        return out
+    nb = max(1, min(n, tile_bytes // (4 * m * k * w)))
+    for s in range(0, n, nb):
+        masked = left[s : s + nb, None] & right[None]
+        per_key = dev.popcount_rows(masked.view(-1, w)).view(-1, m, k)
+        out[s : s + nb] = per_key.sum(dim=2, dtype=torch.int64)
+    return out
+
+
+def pairwise_and_card(
+    left: torch.Tensor, right: torch.Tensor, tile_bytes: int = PAIRWISE_TILE_BYTES
+) -> torch.Tensor:
+    """``out[i, j] = sum over keys and words of popcount(left[i] &
+    right[j])``: int64 ``[n, m]`` from int32 ``[n, K, 2048]`` and
+    ``[m, K, 2048]`` word rows on one device. ``tile_bytes`` bounds the
+    plain version's intermediate (CPU tensors). On the card: one
+    ``rb_pairwise_and_card`` launch, exact past 2^32 a pair."""
+    _check_pairwise(left, right)
+    if left.device.type == "cpu":
+        return pairwise_and_card_plain(left, right, tile_bytes)
+    if left.device.type != "cuda":
+        raise ValueError(f"unsupported device {left.device}")
+    n, k, _ = left.shape
+    m = right.shape[0]
+    if n > MAX_PAIRWISE_ROWS:
+        raise ValueError(f"at most {MAX_PAIRWISE_ROWS} left rows a launch, got {n}")
+    for t in (left, right):
+        if t.data_ptr() % 16:
+            raise ValueError("pairwise operands must be 16-byte aligned")
+    out = torch.empty((n, m), dtype=torch.int64, device=left.device)
+    if n == 0 or m == 0:
+        return out
+    from . import _build
+
+    lib = _build.load()
+    rc = lib.rb_pairwise_and_card(
+        left.device.index or 0, left.data_ptr(), n, right.data_ptr(), m, k,
+        out.data_ptr(), _stream(left),
+    )
+    _build.check(lib, rc, "rb_pairwise_and_card")
+    LAUNCHES["rb_pairwise_and_card"] += 1
+    return out
 
 
 def concat_rows(blocks) -> torch.Tensor:
