@@ -17,8 +17,10 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
 
 1. card: ``nvidia-smi`` name and power limit, torch's device name and count;
 2. build: ``nvcc`` of ``roaringbitmap_tpu_torch/csrc/*.cu`` (one compiler
-   per source, started together) with ``-Xptxas -v`` (registers, shared
-   memory, spills), and the instruction count of the tiled O'Neil walk's
+   per source, and one per form of the tensor-core probe ``mma_probe.cu``,
+   started together) with ``-Xptxas -v`` (registers, shared memory,
+   spills), the all-pairs kernel's registers and dynamic shared memory,
+   and the instruction count of the tiled O'Neil walk's
    slice loop from ``cuobjdump -sass``; then ``g++`` of the native host
    tier (``roaringbitmap_tpu_torch/native/kernels.cpp`` for ``ctypes`` and
    ``ext.cpp`` as a CPython extension, started together), with the
@@ -50,11 +52,14 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    run-optimized census containers; ``rb_pair_rows``' counts-only mode
    (``rb_pair_rows[counts]``, and and andnot, with the rows mode beside
    it) on config 5's ``[64, 16, 2048]`` batch and the census batch
-   ``[10000, 31, 2048]``; ``rb_pairwise_and_card`` on ragged tiles (n, m
-   not multiples of 64; K = 1, 3, 31) and on all-ones ``[1, 65536,
-   2048]`` rows whose one pair holds 2^32 bits — bitwise equality
-   required, with kernel time (CUDA events), bound and the plain version's
-   time;
+   ``[10000, 31, 2048]``; the tensor-core probe's rates in bit pairs a
+   second (wgmma int8 m64n256k32, wgmma b1 m64n256k256, mma.sync b1
+   m16n8k256, or "refused by ptxas") and the operand form they choose;
+   ``rb_pairwise_and_card`` on (n, m) among 127/128/129 x 255/256/257,
+   (1, 1) and (300, 77) at K = 1, 3 and 31, and on all-ones ``[1, 32768,
+   2048]`` and ``[1, 65536, 2048]`` rows whose one pair holds 2^31 and
+   2^32 bits — bitwise equality required, with kernel time (CUDA events),
+   bound and the plain version's time;
 4. the main path through the port's entry points: 10,000 census-shaped
    bitmaps (built as ``bench.py`` builds them) through
    ``FastAggregation.or_``, ``ParallelAggregation.or_`` and
@@ -156,7 +161,8 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    andnot, held to the diagonal (the cardinalities), to equal rows and
    columns for equal bitmaps, to the plain version on the 200 x 200 block
    of distinct bases and to the facade on sampled entries; the kernel
-   timed (mean of 3) beside its bounds and the library row ``torch._int_mm``
+   timed (mean of 10) beside its bounds (the operations at the probe's b1
+   rate, and at the int8 data sheet's) and the library row ``torch._int_mm``
    over int8 0/1 bits per key (its sum must equal the kernel's matrix);
    the kernel, the plain version and the library row timed whole on the
    first 320 left rows against all 10,000 (the kernels line's shape; the
@@ -177,6 +183,7 @@ of the JAX package.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import re
 import subprocess
@@ -340,7 +347,7 @@ def phase_build():
     path, log = _build.build(verbose=True)
     say(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
     sec = _build.BUILD_SECONDS
-    compiles = {k: v for k, v in sec.items() if k.endswith(".cu")}
+    compiles = {k: v for k, v in sec.items() if k not in ("link", "wall")}
     say(
         "[build] nvcc " + ", ".join(f"{k} {v:.2f} s" for k, v in compiles.items())
         + f" (started together), link {sec['link']:.2f} s: build {sec['wall']:.2f} s, "
@@ -349,7 +356,13 @@ def phase_build():
     for line in log.splitlines():
         if any(k in line for k in ("registers", "spill", "Compiling entry", "error", "warning")):
             say(f"[build] {line.strip()}")
-    _build.load()
+    lib = _build.load()
+    regs, smem = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib, lib.rb_pairwise_and_card_attrs(0, ctypes.byref(regs), ctypes.byref(smem)),
+                 "rb_pairwise_and_card_attrs")
+    say(f"[build] rb_pairwise_and_card: {regs.value} registers a thread (setmaxnreg then moves them: "
+        f"producer 40, consumers 232), {smem.value} bytes of dynamic shared memory (4 stages of 48 KB, "
+        f"1 KB alignment, 8 mbarriers), 384 threads")
     say(f"[build] {sass_slice_loop(path)}")
     build_host_tier()
 
@@ -2922,15 +2935,74 @@ FACET_SAMPLE = 500  # facet counts and results checked against the facade
 PAIR_SAMPLE = 2_000  # all-pairs entries checked against and_cardinality
 PAIR_OP_SAMPLE = 200  # or / xor / andnot entries checked against the facade
 PAIRWISE_BLOCK = 200  # the census block of distinct bases held against the plain version
-PAIR_REPS = 3  # kernel timing at the census scale: one launch takes seconds
+PAIR_REPS = 10  # kernel timing at the census scale
 # the kernels line's shape for the all-pairs kernel: this many left rows
-# against all the right rows, where the plain version runs whole in a few
-# seconds (five 64-row tiles x 157 column tiles, ~6 waves of CTAs on 132 SMs)
+# against all the right rows, where the plain version runs whole in ~12 s
+# (three 128-row tiles x 40 column tiles of 256: 120 CTAs, under one wave)
 PAIRWISE_LINE_ROWS = 320
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
-POPC_PER_SM_CLOCK = 16  # 32-bit popcounts a clock per SM, compute capability 9.0 (CUDA guide)
-# ragged tiles (n, m not multiples of 64) and key counts of the phase-3 check
-PAIRWISE_CASES = ((1, 1, 1), (65, 63, 1), (130, 77, 3), (100, 129, 31), (257, 200, 31))
+# (n, m) pairs of the phase-3 check that straddle the kernel's 128 x 256
+# tile, two more ragged shapes, and the key counts each runs at
+PAIRWISE_EDGES = [(a, b) for a in (127, 128, 129) for b in (255, 256, 257)] + [(1, 1), (300, 77)]
+PAIRWISE_KEYS = (1, 3, 31)
+# all-ones [1, keys, 2048] pairs: 2^31 bits, one key past an s32 chunk of
+# the kernel, and 2^32, across two chunk boundaries
+ALL_ONES = ((1 << 15, 1 << 31), (1 << 16, 1 << 32))
+# the tensor-core probe (csrc/mma_probe.cu): each form, its label and the
+# bit pairs one CTA computes an iteration (an int8 MAC of 0/1 bytes is one)
+PROBE_FORMS = (
+    ("wgmma_s8", "wgmma int8 m64n256k32", 2 * 4 * 64 * 256 * 32),
+    ("wgmma_b1", "wgmma b1 m64n256k256", 2 * 4 * 64 * 256 * 256),
+    ("mma_b1", "mma.sync b1 m16n8k256", 16 * 4 * 16 * 8 * 256),
+)
+PROBE_MS = 50.0  # each form's timed launch lasts about this long
+# the probe's rates in bit pairs a second (None: refused by ptxas), once measured
+MMA_RATES: dict = {}
+
+
+def mma_probe(card: str) -> dict:
+    """Time each tensor-core form of ``csrc/mma_probe.cu`` on every SM (one
+    launch of ~``PROBE_MS``, CUDA events) and print the rates in bit pairs
+    a second on one line, with the operand form they choose for the
+    all-pairs kernel: b1 ``wgmma`` if it assembles and runs at least 1.25x
+    int8's rate, else int8."""
+    from roaringbitmap_tpu_torch.ops import _build
+
+    lib = _build.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    for form, label, per_iter in PROBE_FORMS:
+        name = f"rb_mma_probe_{form}"
+        if not hasattr(lib, name):
+            MMA_RATES[form] = None
+            continue
+        fn = getattr(lib, name)
+        out = torch.empty(sms * getattr(lib, f"{name}_threads")(), dtype=torch.int32, device="cuda")
+
+        def run(iters):
+            _build.check(lib, fn(0, sms, iters, out.data_ptr(), stream), name)
+
+        run(16)
+        _, ms = _event_ms(lambda: run(256))
+        iters = max(256, int(256 * PROBE_MS / max(ms, 1e-3)))
+        _, ms = _event_ms(lambda: run(iters))
+        MMA_RATES[form] = sms * iters * per_iter / (ms / 1e3)
+    s8, b1 = MMA_RATES["wgmma_s8"], MMA_RATES["wgmma_b1"]
+    if s8 is None:
+        fail(f"the int8 wgmma probe did not assemble: {_build.PROBE_REFUSED.get('wgmma_s8')}")
+    chosen = "b1" if b1 is not None and b1 >= 1.25 * s8 else "int8"
+    MMA_RATES["chosen"] = chosen
+    say("[probe] tensor-core rates, bit pairs/s on all SMs: " + ", ".join(
+        f"{label} " + (f"{MMA_RATES[form] / 1e12:.1f} T/s ({MMA_RATES[form] / s8:.2f}x int8)"
+                       if MMA_RATES[form] is not None else "refused by ptxas")
+        for form, label, _ in PROBE_FORMS)
+        + f"; int8 data sheet {INT8_OPS_PER_S / 2 / 1e12:.1f} T MAC/s; chosen form: {chosen} "
+        f"(rb_pairwise_and_card is built in the b1 form)  [{card}] [{smi_clocks()}]")
+    for form, why in _build.PROBE_REFUSED.items():
+        say(f"[probe] {form} refused: {why.splitlines()[0] if why else '(no message)'}")
+    if chosen != "b1":
+        say("[probe] on this card the probe's rule picks int8: the b1 kernel is held to the int8 bound")
+    return dict(MMA_RATES)
 
 
 def ann_workload():
@@ -2963,24 +3035,32 @@ def _mask_bound_ms(q: int, k: int) -> float:
 
 
 def pairwise_bound(n: int, m: int, k: int):
-    """(bound ms, "operations" or "bytes", byte ms, tensor-core ms, popcount
-    floor ms) of the n x m AND-popcount matrix over K keys: the operations
-    as 0/1 int8 products on the tensor cores, the bytes both sides read once
-    and the int64 matrix written once; the CUDA-core design's own floor is
-    one popcount a word pair at the card's popcount rate."""
+    """(bound ms, "operations" or "bytes", byte ms, operation ms, int8 ms,
+    what the operations are timed at) of the n x m AND-popcount matrix over
+    K keys. Bytes: both sides read once, the int64 matrix written once.
+    Operations: the n * m * K * 65536 bit pairs at the single-bit wgmma rate
+    the probe measured where the b1 form was chosen and runs faster than
+    int8's data-sheet rate (no data sheet gives a b1 rate), else as 0/1 int8
+    products at 1,979 TOPS; the int8 time is returned either way."""
     b_bytes = bound_ms(4 * 2048 * k * (n + m) + 8 * n * m)
-    b_ops = 2 * n * m * k * 65536 / INT8_OPS_PER_S * 1e3
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    floor = n * m * k * 2048 / (sms * POPC_PER_SM_CLOCK * max_sm_mhz() * 1e6) * 1e3
-    return max(b_bytes, b_ops), "operations" if b_ops > b_bytes else "bytes", b_bytes, b_ops, floor
+    pairs = n * m * k * 65536
+    b_int8 = 2 * pairs / INT8_OPS_PER_S * 1e3
+    b1 = MMA_RATES.get("wgmma_b1")
+    if MMA_RATES.get("chosen") == "b1" and b1 > INT8_OPS_PER_S / 2:
+        b_ops, at = pairs / b1 * 1e3, f"the measured b1 wgmma rate, {b1 / 1e12:.1f} T bit pairs/s"
+    else:
+        b_ops, at = b_int8, "the int8 data-sheet rate, 1,979 TOPS"
+    return max(b_bytes, b_ops), "operations" if b_ops > b_bytes else "bytes", b_bytes, b_ops, b_int8, at
 
 
 def phase_batch_kernels(card: str, base, bitmaps):
     """``rb_pair_rows`` counts-only against ``pair_rows_cardinality_plain``
     at config 5's batch and at the census batch (and, andnot; the rows mode
-    too), timed at the census batch; ``rb_pairwise_and_card`` against
-    ``pairwise_and_card_plain`` on ragged tiles (K = 1, 3, 31) and on
-    all-ones rows whose one pair holds 2^32 bits. Bitwise equal."""
+    too), timed at the census batch; the tensor-core probe
+    (:func:`mma_probe`); ``rb_pairwise_and_card`` against
+    ``pairwise_and_card_plain`` on shapes that straddle its 128 x 256 tile
+    (K = 1, 3, 31) and on all-ones rows whose one pair holds 2^31 and 2^32
+    bits. Bitwise equal."""
     from roaringbitmap_tpu_torch.ops import kernels as K
     from roaringbitmap_tpu_torch.parallel import batch
 
@@ -3026,28 +3106,32 @@ def phase_batch_kernels(card: str, base, bitmaps):
         torch.cuda.empty_cache()
     out["rb_pair_rows[counts]"]["max_abs_err"] = max(errs)
 
+    mma_probe(card)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     perrs = []
-    for n, m, k in PAIRWISE_CASES:
-        left = _rand_dense(gen, (n, k, 2048))
-        right = _rand_dense(gen, (m, k, 2048)) & _rand_dense(gen, (m, k, 2048))
-        before = K.LAUNCHES["rb_pairwise_and_card"]
-        got = K.pairwise_and_card(left, right)
-        torch.cuda.synchronize()
-        if K.LAUNCHES["rb_pairwise_and_card"] != before + 1:
-            fail("rb_pairwise_and_card: no launch counted")
-        perrs.append(_compare(f"rb_pairwise_and_card [{n}, {k}] x [{m}, {k}]", got,
-                              K.pairwise_and_card_plain(left, right)))
-    ones = torch.full((1, 1 << 16, 2048), -1, dtype=torch.int32, device="cuda")
-    got = K.pairwise_and_card(ones, ones)
-    perrs.append(_compare("rb_pairwise_and_card all-ones [1, 65536, 2048]", got,
-                          K.pairwise_and_card_plain(ones, ones)))
-    if int(got.item()) != 1 << 32:
-        fail(f"rb_pairwise_and_card all-ones: {int(got.item())}, expected 2^32")
-    del ones, got
-    torch.cuda.empty_cache()
-    say(f"[kernel] rb_pairwise_and_card: equal on {len(PAIRWISE_CASES)} ragged shapes (n, m, K) = "
-        f"{PAIRWISE_CASES} and on all-ones [1, 65536, 2048] (one pair of 2^32 bits)  [{card}]")
+    for n, m in PAIRWISE_EDGES:
+        for k in PAIRWISE_KEYS:
+            left = _rand_dense(gen, (n, k, 2048))
+            right = _rand_dense(gen, (m, k, 2048)) & _rand_dense(gen, (m, k, 2048))
+            before = K.LAUNCHES["rb_pairwise_and_card"]
+            got = K.pairwise_and_card(left, right)
+            torch.cuda.synchronize()
+            if K.LAUNCHES["rb_pairwise_and_card"] != before + 1:
+                fail("rb_pairwise_and_card: no launch counted")
+            perrs.append(_compare(f"rb_pairwise_and_card [{n}, {k}] x [{m}, {k}]", got,
+                                  K.pairwise_and_card_plain(left, right)))
+    say(f"[kernel] rb_pairwise_and_card: equal on (n, m) = {PAIRWISE_EDGES} at K = {PAIRWISE_KEYS}  [{card}]")
+    for keys, expect in ALL_ONES:
+        ones = torch.full((1, keys, 2048), -1, dtype=torch.int32, device="cuda")
+        got, ms = _event_ms(lambda: K.pairwise_and_card(ones, ones))
+        perrs.append(_compare(f"rb_pairwise_and_card all-ones [1, {keys}, 2048]", got,
+                              K.pairwise_and_card_plain(ones, ones)))
+        if int(got.item()) != expect:
+            fail(f"rb_pairwise_and_card all-ones [1, {keys}, 2048]: {int(got.item())}, expected {expect}")
+        say(f"[kernel] rb_pairwise_and_card all-ones [1, {keys}, 2048]: {int(got.item())} = 2^"
+            f"{expect.bit_length() - 1}, equal to the plain version; {ms:.1f} ms (one CTA)  [{card}]")
+        del ones, got
+        torch.cuda.empty_cache()
     out["rb_pairwise_and_card"] = dict(
         replaces="roaringbitmap_tpu/parallel/batch.py:184", max_abs_err=max(perrs),
         ms=None, plain_ms=None, bound_ms=None, bound_by="operations", library_ms=None,
@@ -3289,30 +3373,30 @@ def phase_batch(base, card: str, n_left: int = N_BITMAPS):
         fail("(c) the prepared run's matrix differs from pairwise_and_cardinality's")
     _, ie_ms = _timed(lambda: batch._inclusion_exclusion("or", inter, lefts, bitmaps))
     k_keys = lw.shape[1]
-    b, by, b_bytes, b_ops, floor = pairwise_bound(n, m, k_keys)
+    b, by, b_bytes, b_ops, b_int8, at = pairwise_bound(n, m, k_keys)
     lib_full, _exp = _int_mm_row(lw, rw, dev_mat, card)
     del dev_mat, host_mat
     say(f"[kernel] rb_pairwise_and_card census [{n}, {k_keys}, 2048] x [{m}, {k_keys}, 2048]: {kms:.3f} ms "
-        f"(mean of {PAIR_REPS}), bound {b:.3f} ms by {by} ({b / kms:.1%} of bound; tensor-core ops {b_ops:.3f} ms, "
-        f"bytes {b_bytes:.3f} ms), popcount floor of this design {floor:.3f} ms ({floor / kms:.1%}), "
-        f"{n * m * k_keys * 2048 / kms / 1e9:.3f} T word-popcounts/s; library torch._int_mm {lib_full:.3f} ms  "
+        f"(mean of {PAIR_REPS}), bound {b:.3f} ms by {by} at {at} ({b / kms:.1%} of bound; bytes "
+        f"{b_bytes:.3f} ms; int8 tensor cores {b_int8:.3f} ms, {b_int8 / kms:.1%}), "
+        f"{n * m * k_keys * 65536 / kms / 1e9:.1f} T bit pairs/s; library torch._int_mm {lib_full:.3f} ms  "
         f"[{card}] [{smi_clocks()}]")
     # the kernels line: the kernel, its plain version and the library call,
     # each timed whole on the first rows of the left side against all m
     s = min(PAIRWISE_LINE_ROWS, n)
     ls = lw[:s].contiguous()
-    s_ms = cuda_ms(lambda: K.pairwise_and_card(ls, rw), reps=5, warmup=1)
+    s_ms = cuda_ms(lambda: K.pairwise_and_card(ls, rw))
     s_mat = K.pairwise_and_card(ls, rw)
     K.pairwise_and_card_plain(ls[:2].contiguous(), rw)  # warm-up
     s_plain, plain_ms = _event_ms(lambda: K.pairwise_and_card_plain(ls, rw))
     s_err = _compare(f"(c) rb_pairwise_and_card [{s}, {k_keys}, 2048] x [{m}, {k_keys}, 2048]", s_mat, s_plain)
     if not np.array_equal(inter[:s], s_plain.cpu().numpy()):
         fail(f"(c) the plain version's first {s} rows differ from pairwise_and_cardinality's")
-    s_b, s_by, _, _, s_floor = pairwise_bound(s, m, k_keys)
+    s_b, s_by, _, _, s_int8, _ = pairwise_bound(s, m, k_keys)
     lib_ms, exp_ms = _int_mm_row(ls, rw, s_mat, card)
     shape = f"[{s}, {k_keys}, 2048] x [{m}, {k_keys}, 2048]"
-    say(f"[kernel] rb_pairwise_and_card {shape} (the kernels line's shape): {s_ms:.3f} ms (mean of 5), "
-        f"bound {s_b:.3f} ms by {s_by} ({s_b / s_ms:.1%}), popcount floor {s_floor:.3f} ms ({s_floor / s_ms:.1%}); "
+    say(f"[kernel] rb_pairwise_and_card {shape} (the kernels line's shape): {s_ms:.3f} ms (mean of {REPS}), "
+        f"bound {s_b:.3f} ms by {s_by} ({s_b / s_ms:.1%}; int8 tensor cores {s_int8:.3f} ms); "
         f"plain {plain_ms:.1f} ms (one call, equal to the kernel and to the matrix's first {s} rows); "
         f"library torch._int_mm {lib_ms:.3f} ms (+ bit expansion {exp_ms:.3f} ms)  [{card}]")
     del s_mat, s_plain, ls

@@ -9,7 +9,11 @@ nothing is built when the module is imported.
 
 A missing ``nvcc`` or a failed compile raises
 :class:`~..robust.errors.TierUnavailable` with the compiler's output: the
-kernels are the device path, so there is nothing to fall back to.
+kernels are the device path, so there is nothing to fall back to. The
+one exception is the tensor-core probe (``csrc/mma_probe.cu``), compiled
+once for each form it measures: a form ``ptxas`` refuses is left out of
+the library and recorded in :data:`PROBE_REFUSED`, since which forms the
+card's assembler takes is what the probe is there to find out.
 """
 
 from __future__ import annotations
@@ -32,6 +36,10 @@ SOURCES = [
     PACKAGE_DIR / "csrc" / name
     for name in ("reduce.cu", "oneil.cu", "query.cu", "columnar.cu", "expand.cu", "batch.cu")
 ]
+HEADERS = [PACKAGE_DIR / "csrc" / "wgmma.cuh"]
+PROBE_SOURCE = PACKAGE_DIR / "csrc" / "mma_probe.cu"
+# the probe's forms (entry point rb_mma_probe_<form>), each its own compile
+PROBE_FORMS = {"wgmma_s8": 0, "wgmma_b1": 1, "mma_b1": 2}
 BUILD_DIR = PACKAGE_DIR / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
@@ -41,6 +49,9 @@ _LIB: Optional[ctypes.CDLL] = None  # guarded-by: _LOCK
 # seconds of the last compile in this process: each source's own nvcc (they
 # run together), the link, and the whole build's wall time
 BUILD_SECONDS: Dict[str, float] = {}
+# probe forms the last compile in this process left out, with the
+# compiler's error lines
+PROBE_REFUSED: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -62,7 +73,7 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS, PROBE_SOURCE):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"librb_kernels_{h.hexdigest()[:16]}.so"
@@ -92,22 +103,30 @@ def build(verbose: bool = False) -> Tuple[Path, str]:
     tag = f"{out.stem}.{os.getpid()}"
     nvcc = nvcc_path()
     extra = ["-Xptxas", "-v"] if verbose else []
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    # (name, object, flags and source, probe form or None) of each compile
+    jobs = [(src.name, BUILD_DIR / f"{tag}.{src.stem}.o", [str(src)], None) for src in SOURCES] + [
+        (f"{PROBE_SOURCE.name}[{form}]", BUILD_DIR / f"{tag}.probe_{form}.o",
+         [f"-DRB_PROBE_FORM={code}", str(PROBE_SOURCE)], form)
+        for form, code in PROBE_FORMS.items()
+    ]
     tmp = BUILD_DIR / f"{tag}.so.tmp"
     t0 = time.perf_counter()
     times = {}
+    refused = {}
     try:
-        cmds = [
-            [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(src)]
-            for src, obj in zip(SOURCES, objs)
-        ]
+        cmds = [[nvcc, *NVCC_FLAGS, *extra, "-c", "-o", str(obj), *args] for _, obj, args, _ in jobs]
         logs = []
-        for src, cmd, (rc, log, sec) in zip(SOURCES, cmds, _run_all(cmds)):
+        linked = []
+        for (name, obj, _, form), cmd, (rc, log, sec) in zip(jobs, cmds, _run_all(cmds)):
             logs.append(log)
-            times[src.name] = sec
-            if rc != 0:
+            times[name] = sec
+            if rc == 0:
+                linked.append(obj)
+            elif form is not None:
+                refused[form] = "\n".join(ln for ln in log.splitlines() if "error" in ln.lower()) or log
+            else:
                 raise TierUnavailable(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
-        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, linked)]
         ((rc, log, times["link"]),) = _run_all([cmd])
         logs.append(log)
         if rc != 0:
@@ -115,11 +134,13 @@ def build(verbose: bool = False) -> Tuple[Path, str]:
         os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     finally:
         tmp.unlink(missing_ok=True)
-        for obj in objs:
+        for _, obj, _, _ in jobs:
             obj.unlink(missing_ok=True)
     times["wall"] = time.perf_counter() - t0
     BUILD_SECONDS.clear()
     BUILD_SECONDS.update(times)
+    PROBE_REFUSED.clear()
+    PROBE_REFUSED.update(refused)
     return out, "".join(logs)
 
 
@@ -147,6 +168,14 @@ def load() -> ctypes.CDLL:
             lib.rb_expand_rows.restype = i
             lib.rb_pairwise_and_card.argtypes = [i, vp, ll, vp, ll, ll, vp, vp]
             lib.rb_pairwise_and_card.restype = i
+            lib.rb_pairwise_and_card_attrs.argtypes = [i, vp, vp]
+            lib.rb_pairwise_and_card_attrs.restype = i
+            for form in PROBE_FORMS:
+                name = f"rb_mma_probe_{form}"
+                if hasattr(lib, name):  # absent where ptxas refused the form
+                    getattr(lib, name).argtypes = [i, i, ll, vp, vp]
+                    getattr(lib, name).restype = i
+                    getattr(lib, f"{name}_threads").restype = i
             lib.rb_error_string.argtypes = [i]
             lib.rb_error_string.restype = ctypes.c_char_p
             _LIB = lib

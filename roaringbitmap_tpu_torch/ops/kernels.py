@@ -46,9 +46,9 @@ CUDA kernels (``csrc/reduce.cu``, ``csrc/oneil.cu``, ``csrc/query.cu``,
 * ``rb_pairwise_and_card`` — :func:`pairwise_and_card`. Replaces the XLA
   ``parallel/batch.py:_pairwise_step`` and ``_pairwise_mxu_step`` (the
   all-pairs AND-popcount matrix over ``[n, K, 2048]`` and ``[m, K, 2048]``
-  rows). Bound: operations, n * m * K * 2048 word AND-popcounts (on the
-  int8 tensor cores as 0/1 products); ``batch.cu`` says how its tiled
-  CUDA-core design stands against that.
+  rows). Bound: operations, n * m * K * 65536 bit pairs at the tensor
+  cores' single-bit AND-popcount rate (``csrc/mma_probe.cu`` measures
+  it); ``batch.cu`` says how its warpgroup design meets it.
 
 * ``rb_expand_rows`` — :func:`expand_rows`. Replaces the XLA
   ``pallas_kernels.py:expand_rows_device`` (``_expand_rows_jit``: the
@@ -987,9 +987,19 @@ def _launch_pair_rows(rows_a, ia, rows_b, ib, op: str, out) -> torch.Tensor:
 # the plain version's left-axis tile: the [nb, m, K, 2048] intermediate
 # stays under this many bytes (the JAX package's tile_bytes default)
 PAIRWISE_TILE_BYTES = 256 << 20
-# rb_pairwise_and_card's CTA tile, and the most left rows its grid covers
-PAIRWISE_TILE = 64
-MAX_PAIRWISE_ROWS = PAIRWISE_TILE * 65535
+# rb_pairwise_and_card's CTA tile (left rows, right rows) and the most
+# tiles its one-dimensional grid takes
+PAIRWISE_TILE = (128, 256)
+MAX_PAIRWISE_TILES = 2**31 - 1
+
+
+def pairwise_tiles(n: int, m: int) -> int:
+    """CTAs of one ``rb_pairwise_and_card`` launch over ``n`` x ``m`` pairs
+    (one a 128 x 256 tile); raises past the grid's limit."""
+    tiles = -(-n // PAIRWISE_TILE[0]) * -(-m // PAIRWISE_TILE[1])
+    if tiles > MAX_PAIRWISE_TILES:
+        raise ValueError(f"at most {MAX_PAIRWISE_TILES} tiles of 128 x 256 pairs a launch, got {tiles}")
+    return tiles
 
 
 def _check_pairwise(left: torch.Tensor, right: torch.Tensor) -> None:
@@ -1036,7 +1046,8 @@ def pairwise_and_card(
     right[j])``: int64 ``[n, m]`` from int32 ``[n, K, 2048]`` and
     ``[m, K, 2048]`` word rows on one device. ``tile_bytes`` bounds the
     plain version's intermediate (CPU tensors). On the card: one
-    ``rb_pairwise_and_card`` launch, exact past 2^32 a pair."""
+    ``rb_pairwise_and_card`` launch (tensor-core single-bit products),
+    exact past 2^32 a pair."""
     _check_pairwise(left, right)
     if left.device.type == "cpu":
         return pairwise_and_card_plain(left, right, tile_bytes)
@@ -1044,8 +1055,7 @@ def pairwise_and_card(
         raise ValueError(f"unsupported device {left.device}")
     n, k, _ = left.shape
     m = right.shape[0]
-    if n > MAX_PAIRWISE_ROWS:
-        raise ValueError(f"at most {MAX_PAIRWISE_ROWS} left rows a launch, got {n}")
+    pairwise_tiles(n, m)
     for t in (left, right):
         if t.data_ptr() % 16:
             raise ValueError("pairwise operands must be 16-byte aligned")

@@ -393,7 +393,16 @@ def test_masked_plain_versions_equal_jax_step(op, cards_only):
         assert np.array_equal(cards.numpy().reshape(q, k), np.asarray(want[1]))
 
 
-@pytest.mark.parametrize("n,m,k,tile", [(5, 7, 3, 1 << 30), (9, 4, 1, 1 << 16), (3, 3, 5, 0)])
+# (n, m) pairs that straddle rb_pairwise_and_card's 128 x 256 tile, and two
+# more ragged shapes
+TILE_EDGES = [(a, b) for a in (127, 128, 129) for b in (255, 256, 257)] + [(1, 1), (300, 77)]
+
+
+@pytest.mark.parametrize(
+    "n,m,k,tile",
+    [(5, 7, 3, 1 << 30), (9, 4, 1, 1 << 16), (3, 3, 5, 0)]
+    + [(n, m, 1, 1 << 24) for n, m in TILE_EDGES],
+)
 def test_pairwise_plain_version_equals_jax_steps(n, m, k, tile):
     rng = np.random.default_rng(73 + n)
     left = _words(rng, (n, k, W), 0.5)
@@ -434,6 +443,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         K.pairwise_and_card(a[:, :0].contiguous(), a[:, :0].contiguous())
     with pytest.raises(ValueError, match="one device"):
         K.pairwise_and_card(a, a.to("meta"))
+    # one CTA a 128 x 256 tile, on a one-dimensional grid
+    assert [K.pairwise_tiles(n, m) for n, m in TILE_EDGES] == [1, 1, 2, 1, 1, 2, 2, 2, 4, 1, 3]
+    widest = 256 * K.MAX_PAIRWISE_TILES
+    assert K.pairwise_tiles(128, widest) == K.MAX_PAIRWISE_TILES == 2**31 - 1
+    for n, m in ((129, widest), (1 << 22, 1 << 24)):
+        with pytest.raises(ValueError, match="tiles of 128 x 256"):
+            K.pairwise_tiles(n, m)
     rows = torch.zeros((4, W), dtype=torch.int32)
     idx = torch.zeros(3, dtype=torch.int32)
     with pytest.raises(ValueError, match="op must be"):
@@ -446,6 +462,50 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tb._mask_streams(1 << 16, 1 << 15, torch.device(CPU))
     with pytest.raises(ValueError, match="'and' or 'andnot'"):
         tb.batched_cardinality(TRB.bitmap_of(1), [TRB.bitmap_of(2)], op="or", device=CPU)
+
+
+def _fake_nvcc(tmp_path, refuse):
+    """A stand-in ``nvcc`` that logs each command line, writes its ``-o``
+    file and fails any compile whose arguments hold ``refuse``."""
+    script = tmp_path / "nvcc"
+    script.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {tmp_path / "calls"}\n'
+        'out=""; prev=""\n'
+        'for a in "$@"; do\n'
+        f'  if [ "$a" = "{refuse}" ]; then echo "ptxas error: not supported on sm_90a"; exit 1; fi\n'
+        '  if [ "$prev" = "-o" ]; then out="$a"; fi; prev="$a"\n'
+        "done\n"
+        ': > "$out"\n'
+    )
+    script.chmod(0o755)
+    return str(script)
+
+
+def test_build_leaves_out_a_refused_probe_form_only(tmp_path, monkeypatch):
+    """A probe form ptxas refuses is recorded and kept out of the link; a
+    kernel source that fails to compile raises."""
+    from roaringbitmap_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "BUILD_SECONDS", {})
+    monkeypatch.setattr(_build, "PROBE_REFUSED", {})
+    monkeypatch.setattr(_build, "nvcc_path", lambda: _fake_nvcc(tmp_path, "-DRB_PROBE_FORM=1"))
+    path, log = _build.build()
+    assert path.is_file() and "ptxas error" in log
+    assert _build.PROBE_REFUSED == {"wgmma_b1": "ptxas error: not supported on sm_90a"}
+    link = (tmp_path / "calls").read_text().splitlines()[-1].split()
+    assert "-shared" in link
+    objs = [a for a in link if a.endswith(".o")]
+    assert len(objs) == len(_build.SOURCES) + 2
+    assert not any("probe_wgmma_b1" in a for a in objs)
+    assert set(_build.BUILD_SECONDS) == {s.name for s in _build.SOURCES} | {
+        f"mma_probe.cu[{f}]" for f in _build.PROBE_FORMS} | {"link", "wall"}
+    assert not list((tmp_path / "build").glob("*.o"))
+    monkeypatch.setattr(_build, "nvcc_path", lambda: _fake_nvcc(tmp_path, str(_build.SOURCES[-1])))
+    path.unlink()
+    with pytest.raises(TierUnavailable, match="nvcc failed"):
+        _build.build()
 
 
 def test_every_entry_point_raises_without_a_card(workload, matrices):
@@ -515,7 +575,11 @@ def test_cuda_pair_rows_counts_match_plain_version(op):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m,k", [(1, 1, 1), (65, 63, 1), (130, 77, 3), (100, 129, 31)])
+@pytest.mark.parametrize(
+    "n,m,k",
+    [(65, 63, 1), (130, 77, 3), (100, 129, 31)]
+    + [(n, m, k) for n, m in TILE_EDGES for k in (1, 3, 31)],
+)
 def test_cuda_pairwise_and_card_matches_plain_version(n, m, k):
     _need_card()
     rng = np.random.default_rng(89 + n)
@@ -527,6 +591,20 @@ def test_cuda_pairwise_and_card_matches_plain_version(n, m, k):
     assert K.LAUNCHES["rb_pairwise_and_card"] == before + 1
     assert got.dtype == torch.int64 and tuple(got.shape) == (n, m)
     assert torch.equal(got, K.pairwise_and_card_plain(left, right))
+
+
+@pytest.mark.cuda
+def test_cuda_pairwise_and_card_counts_2_31():
+    """All-ones rows over 32,768 keys: the one pair holds exactly 2^31
+    bits, one key past what an s32 chunk of the kernel may hold (32,767
+    keys); a chunk one key longer would wrap negative."""
+    _need_card()
+    ones = torch.full((1, 1 << 15, W), -1, dtype=torch.int32, device="cuda")
+    got = K.pairwise_and_card(ones, ones)
+    torch.cuda.synchronize()
+    assert got.item() == 1 << 31
+    del ones
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda
