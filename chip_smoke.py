@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only serving  # phases 1-2 and 10: the fusion window and the lane
     python3 chip_smoke.py --only host     # phases 1-2, 11 and 6: the native host tier against numpy
     python3 chip_smoke.py --only batch    # phases 1-3 and 12: batch similarity
+    python3 chip_smoke.py --only mapped   # phases 1-2, 6, 7 and 13: memory-mapped bitmaps
 
 ``--only paths`` runs only the phases whose end-to-end times PERF.md limits
 against a parent commit; copied into a checkout of the parent, it times
@@ -171,11 +172,36 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    before each entry-point call and read after;
 7. ``RangeBitmap`` at 10,000,000 rows, for correctness only: appender,
    queries, batched counts, the reference-format bytes and ``map`` of
-   them, against numpy.
+   them, against numpy; the native-form bytes mapped, whose slices must be
+   ``ImmutableRoaringBitmap`` views of the source buffer (no payload
+   copied);
+13. (run after phase 7) memory-mapped bitmaps through the buffer package:
+   the 10,000 census bitmaps serialized into one file (the 200 base
+   bitmaps cycled 50 times) in a temporary directory, mapped read-only
+   and viewed as 10,000 ``ImmutableRoaringBitmap``s; ``BufferFastAggregation``
+   ``or_`` / ``xor`` (all but the last) / ``and_`` (workShy) /
+   ``or_cardinality`` and ``BufferParallelAggregation.or_`` with
+   ``mode="device"``: cold (pack cache closed before each) on the first
+   mapping, cold again on a second mapping, warm on the resident pack
+   (every warm call a pack-cache hit under the ``("static", id)``
+   fingerprints), and over mixed operands (every other bitmap heap),
+   each result against the heap path's bytes and a numpy oracle; the
+   launch counts zeroed before and read after; the cold OR's stages on a
+   fresh mapping (view build, ``group_by_key``, payload build, pinned
+   staging, copy, ``rb_expand_rows``, reduce, unpack), the cold (mapped
+   and heap in turns) and warm medians, both profiled (device idle
+   share), peak device memory; every per-container native entry point on
+   both bindings on mapped words at addresses 2, 4 and 6 (mod 8) against
+   numpy; a mapped skewed set on the segmented layout; then phase 6's index
+   serialized to a file and mapped as an ``ImmutableBitSliceIndex``: the
+   first ``compare(GE, median)`` from the fresh map, the steady ``compare``
+   and ``compare_cardinality_many`` over 64 quantiles, each equal to the
+   heap index's answer and timed beside phase 6's.
 
 The last three lines are a JSON object of the host tier's entry points
 (``{"host_tier": [...]}``, each one's native and numpy ms; not with
-``--only kernels``), a JSON object describing every kernel and the JSON
+``--only kernels``), a JSON object describing every kernel (``launches``
+on its main path, ``launches_mapped`` on phase 13's) and the JSON
 result ``{"ok": true, "device": {...}}``. The port needs no JAX and nothing
 of the JAX package.
 """
@@ -2692,7 +2718,10 @@ def _check_values(name, bm, oracle, tag="[bsi]"):
 
 
 def phase_bsi(card: str):
-    """The 100M-row, 32-slice BSI through the port's entry points."""
+    """The 100M-row, 32-slice BSI through the port's entry points. Returns
+    the values, the launch counts of the checked queries, the index (for
+    phase 13, which maps its serialized bytes) and its first-query,
+    compare and batched-count times."""
     from roaringbitmap_tpu_torch import Operation, RoaringBitmap, RoaringBitmapSliceIndex
     from roaringbitmap_tpu_torch.ops import device as dev
     from roaringbitmap_tpu_torch.ops import kernels as K
@@ -2869,9 +2898,10 @@ def phase_bsi(card: str):
         f"ns/query; peak device memory {peak / 2**30:.3f} GiB ({peak} bytes; "
         f"{peak_queries} bytes over the checked queries)  [{card}]"
     )
-    del keys, ebm_w, slices_w, index
+    del keys, ebm_w, slices_w
     torch.cuda.empty_cache()
-    return vals, launches
+    times = {"first_ms": t_first * 1e3, "compare_ms": e2e * 1e3, "many_ns": t_many / BATCH_Q * 1e9}
+    return vals, launches, index, times
 
 
 # ---------------------------------------------------------------------------
@@ -2919,9 +2949,428 @@ def phase_range_bitmap(vals):
         say(f"[range] RangeBitmap {label}: gte/between_cardinality_many equal to the oracle")
     if RangeBitmap.map(mapped.serialize()).serialize() != blob:
         fail("RangeBitmap bytes do not round-trip through map")
+    # the native form: every slice a zero-copy ImmutableRoaringBitmap view
+    from roaringbitmap_tpu_torch import ImmutableRoaringBitmap
+    from roaringbitmap_tpu_torch.models.container import ArrayContainer, BitmapContainer
+
+    native_blob = rb.serialize(form="native")
+    nmap = RangeBitmap.map(native_blob)
+    lo = np.frombuffer(native_blob, dtype=np.uint8).ctypes.data
+    hi = lo + len(native_blob)
+    n_views = 0
+    for i in range(nmap._slice_count):
+        s = nmap._slice(i)
+        if type(s) is not ImmutableRoaringBitmap or s._buf.obj is not native_blob:
+            fail(f"RangeBitmap native-form slice {i} is not a view of the source buffer")
+        for c in s.high_low_container.containers:
+            arrays = ((c.words,) if type(c) is BitmapContainer
+                      else (c.content,) if type(c) is ArrayContainer else (c.starts, c.lengths))
+            for arr in arrays:
+                if arr.size and not lo <= arr.ctypes.data < hi:
+                    fail(f"RangeBitmap native-form slice {i}: a container payload was copied")
+            n_views += 1
+    _check_values("RangeBitmap mapped from the native bytes gte(median)", nmap.gte(med),
+                  np.flatnonzero(rows >= med), "[range]")
+    if not np.array_equal(nmap.gte_cardinality_many(qs), RANGE_ROWS - np.searchsorted(srt, qs.astype(np.uint64), side="left")):
+        fail("RangeBitmap mapped from the native bytes: gte_cardinality_many differs from the oracle")
+    if nmap.serialize() != native_blob:
+        fail("RangeBitmap native bytes do not round-trip through map")
+    say(f"[range] native form ({len(native_blob)} bytes) mapped: {nmap._slice_count} slices, "
+        f"{n_views} container payloads, all views of the source buffer (none copied)")
     if K.LAUNCHES["rb_oneil_compare"] == 0 or K.LAUNCHES["rb_oneil_compare[batched]"] == 0:
         fail(f"RangeBitmap queries did not run through rb_oneil_compare: {K.LAUNCHES}")
     say(f"[range] launches: {dict(K.LAUNCHES)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: memory-mapped bitmaps (the buffer package)
+# ---------------------------------------------------------------------------
+
+MAPPED_RUNS = 5  # cold runs per median of the mapped wide OR (each repacks 2.52 GB of rows)
+
+
+def _write_blobs(path, blobs):
+    """The blobs back to back in one file; returns each one's (offset, length)."""
+    extents = []
+    with open(path, "wb") as f:
+        for blob in blobs:
+            extents.append((f.tell(), len(blob)))
+            f.write(blob)
+    return extents
+
+
+def _map_file(path):
+    """The whole file mapped read-only (ACCESS_READ), as a memoryview."""
+    import mmap
+
+    with open(path, "rb") as f:
+        return memoryview(mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ))
+
+
+def _map_bitmaps(view, extents):
+    """One ImmutableRoaringBitmap over each extent of a mapping (header
+    parses only); returns (bitmaps, seconds)."""
+    from roaringbitmap_tpu_torch import ImmutableRoaringBitmap
+
+    t0 = time.perf_counter()
+    out = [ImmutableRoaringBitmap(view[o : o + n]) for o, n in extents]
+    return out, time.perf_counter() - t0
+
+
+def _unaligned_entry_points(mapped, card: str) -> None:
+    """Every per-container native entry point, on both bindings, on mapped
+    bitmap words at addresses 2, 4 and 6 (mod 8) and on mapped array
+    values, against its numpy version on an aligned copy: exact."""
+    from roaringbitmap_tpu_torch import native
+    from roaringbitmap_tpu_torch.models.container import ArrayContainer, BitmapContainer
+    from roaringbitmap_tpu_torch.utils import bits
+
+    _, ext = native.load()
+    words_at, arrays = {}, []
+    for m in mapped[:400]:
+        for c in m.high_low_container.containers:
+            if type(c) is BitmapContainer:
+                words_at.setdefault(c.words.ctypes.data % 8, c.words)
+            elif type(c) is ArrayContainer and c.content.size > 200 and len(arrays) < 2:
+                arrays.append(c.content)
+    if not {2, 4, 6} <= set(words_at) or len(arrays) < 2:
+        fail(f"the mapped file has bitmap words at residues {sorted(words_at)} (mod 8), "
+             f"{len(arrays)} long arrays: not the unaligned cases")
+    a, b = arrays
+    ac, bc = a.copy(), b.copy()
+    n_calls = 0
+    for residue in (2, 4, 6):
+        w = words_at[residue]
+        wc = w.copy()
+        for name, args, plain in (
+            ("cardinality_of_words", (w,), lambda: bits.cardinality_of_words_numpy(wc)),
+            ("values_from_words", (w,), lambda: bits.values_from_words_numpy(wc)),
+            ("num_runs_in_words", (w,), lambda: bits.num_runs_in_words_numpy(wc)),
+            ("select_in_words", (w, 100), lambda: bits.select_in_words_numpy(wc, 100)),
+            ("cardinality_in_range", (w, 3, 50_001), lambda: bits.cardinality_in_range_numpy(wc, 3, 50_001)),
+            ("words_from_values", (a,), lambda: bits.words_from_values_numpy(ac)),
+            ("intersect_sorted", (a, b), lambda: bits.intersect_sorted_numpy(ac, bc)),
+            ("merge_sorted_unique", (a, b), lambda: bits.merge_sorted_unique_numpy(ac, bc)),
+            ("difference_sorted", (a, b), lambda: bits.difference_sorted_numpy(ac, bc)),
+            ("xor_sorted", (a, b), lambda: bits.xor_sorted_numpy(ac, bc)),
+            ("intersect_cardinality", (a, b), lambda: int(bits.intersect_sorted_numpy(ac, bc).size)),
+            ("contains_many", (a, b), lambda: np.isin(bc, ac)),
+            ("advance_until", (a, 5, int(a[100])), lambda: 100),
+        ):
+            want = plain()
+            for binding, fn in (("ext", native.EXT[name]), ("ctypes", native.CTYPES[name])):
+                got = fn(*args)
+                n_calls += 1
+                if not np.array_equal(np.asarray(got), np.asarray(want)):
+                    fail(f"native {name} ({binding}) on words at residue {residue} (mod 8) differs from numpy")
+        for x in (0, 63, 64, 4097, 65535):
+            if ext.word_bit(w, x) != bits.get_bit(wc, x):
+                fail(f"the extension's word_bit on words at residue {residue} differs from numpy")
+        out, cnt = native.wide_op_words(np.stack([w, w]), "or")
+        if not np.array_equal(out, wc) or not np.array_equal(native.popcount_rows(np.stack([w, w])), np.array([cnt, cnt])):
+            fail(f"wide_op_words / popcount_rows on words at residue {residue} differ from numpy")
+        n_calls += 5 + 2
+    say(f"[mapped] native entry points on mapped words at residues 2, 4, 6 (mod 8), both bindings: "
+        f"{n_calls} calls, all equal to numpy  [{_cpu_model()}; {card}]")
+
+
+def phase_mapped(base, index, vals, bsi_times, card: str):
+    """Phase 13: the census bitmaps and the BSI north star served from one
+    memory-mapped file each, through the buffer package's entry points."""
+    import os
+    import tempfile
+
+    from roaringbitmap_tpu_torch import (
+        BufferFastAggregation,
+        BufferParallelAggregation,
+        FastAggregation,
+        ImmutableBitSliceIndex,
+        MutableRoaringBitmap,
+        Operation,
+        RoaringBitmap,
+    )
+    from roaringbitmap_tpu_torch.ops import device as dev
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import aggregation, store
+
+    if aggregation.config.device != "cuda":
+        fail(f"aggregation.config.device is {aggregation.config.device!r}, expected 'cuda'")
+    t_phase = time.perf_counter()
+    store.PACK_CACHE.close()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    nb = len(base)
+    tmp = tempfile.TemporaryDirectory(prefix="rb_mapped_")
+    path = os.path.join(tmp.name, "census.bin")
+    t0 = time.perf_counter()
+    base_blobs = [RoaringBitmap(v).serialize() for v in base]
+    blobs = [base_blobs[i % nb] for i in range(N_BITMAPS)]
+    extents = _write_blobs(path, blobs)
+    t_write = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    say(f"[mapped] {N_BITMAPS} census bitmaps serialized into one file: {size} bytes ({nb} base "
+        f"bitmaps {sum(len(b) for b in base_blobs)} bytes, cycled {N_BITMAPS // nb} times), "
+        f"written in {t_write:.2f} s")
+
+    # the heap path and numpy on the same 10,000 bitmaps
+    heap = [RoaringBitmap.deserialize(b) for b in blobs]
+    oracle_or = np.unique(np.concatenate(list(base)))
+    mult = np.bincount(np.arange(N_BITMAPS - 1) % nb, minlength=nb)
+    odd = [base[i] for i in np.flatnonzero(mult % 2)]
+    oracle_xor = _count_oracle(odd, len(odd))[1]
+    oracle_and = _count_oracle([np.unique(v) for v in base], nb)[0]
+    # XOR over all but the last bitmap, as in phase 4: copies cancel in
+    # pairs, so every row changes the answer
+    entry = {
+        "or_": (lambda bms: BufferFastAggregation.or_(*bms, mode="device"), oracle_or),
+        "xor": (lambda bms: BufferFastAggregation.xor(*bms[:-1], mode="device"), oracle_xor),
+        "and_ (workShy)": (lambda bms: BufferFastAggregation.and_(*bms, mode="device"), oracle_and),
+        "or_cardinality": (lambda bms: BufferFastAggregation.or_cardinality(*bms, mode="device"), oracle_or),
+        "BufferParallelAggregation.or_": (lambda bms: BufferParallelAggregation.or_(*bms, mode="device"), oracle_or),
+    }
+    store.PACK_CACHE.close()
+    want_bytes = {
+        "or_": FastAggregation.or_(*heap, mode="device").serialize(),
+        "xor": FastAggregation.xor(*heap[:-1], mode="device").serialize(),
+        "and_ (workShy)": FastAggregation.and_(*heap, mode="device").serialize(),
+    }
+    want_bytes["BufferParallelAggregation.or_"] = want_bytes["or_"]
+    store.PACK_CACHE.close()
+
+    def check(label, name, got):
+        oracle = entry[name][1]
+        if isinstance(got, int):
+            if got != oracle.size:
+                fail(f"{label} {name} = {got}, oracle {oracle.size}")
+            return
+        if type(got) is not MutableRoaringBitmap:
+            fail(f"{label} {name} returned {type(got).__name__}, not MutableRoaringBitmap")
+        arr = got.to_array()
+        if arr.shape != oracle.shape or not np.array_equal(arr, oracle):
+            fail(f"{label} {name}: {arr.size} values, the numpy oracle {oracle.size}")
+        if got.serialize() != want_bytes[name]:
+            fail(f"{label} {name}: serialized bytes differ from the heap path's")
+
+    # --- the mapped path, counts zeroed just before and read just after ---
+    K.reset_launches()
+    view1 = _map_file(path)
+    mapped1, t_parse1 = _map_bitmaps(view1, extents)
+    walls = {}
+    for name, (fn, _) in entry.items():
+        store.PACK_CACHE.close()
+        t0 = time.perf_counter()
+        got = fn(mapped1)
+        walls[name] = time.perf_counter() - t0
+        check("first mapping, cold", name, got)
+    say(f"[mapped] first mapping ({t_parse1 * 1e3:.1f} ms to parse {N_BITMAPS} headers; the file's pages "
+        f"as the write left them in the page cache), cold (pack cache closed before each; the first "
+        f"call also builds the container views), ms: "
+        + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in walls.items())
+        + f"; every result equal to the heap path's bytes and numpy  [{card}]")
+    view2 = _map_file(path)
+    mapped2, t_parse2 = _map_bitmaps(view2, extents)
+    walls2 = {}
+    for name, (fn, _) in entry.items():
+        store.PACK_CACHE.close()
+        t0 = time.perf_counter()
+        got = fn(mapped2)
+        walls2[name] = time.perf_counter() - t0
+        check("second mapping, cold", name, got)
+    say(f"[mapped] second mapping of the same file ({t_parse2 * 1e3:.1f} ms to parse), cold, ms: "
+        + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in walls2.items()) + f"  [{card}]")
+    # warm: the resident pack under the mapped arrays' ("static", id) keys
+    store.PACK_CACHE.close()
+    BufferFastAggregation.or_(*mapped2, mode="device")
+    BufferFastAggregation.or_(*mapped2, mode="device")  # second touch: the padded block
+    agg = dict(store.PACK_CACHE.stats()["kinds"]["agg"])
+    if any(m.fingerprint() != ("static", id(m.high_low_container)) for m in mapped2[:100]):
+        fail("a mapped bitmap's fingerprint is not its static array identity")
+    warm = []
+    for _ in range(E2E_RUNS):
+        t0 = time.perf_counter()
+        got = BufferFastAggregation.or_(*mapped2, mode="device")
+        warm.append(time.perf_counter() - t0)
+    check("warm", "or_", got)
+    check("warm", "or_cardinality", BufferFastAggregation.or_cardinality(*mapped2, mode="device"))
+    check("warm", "BufferParallelAggregation.or_", BufferParallelAggregation.or_(*mapped2, mode="device"))
+    agg2 = store.PACK_CACHE.stats()["kinds"]["agg"]
+    hits, misses = agg2["hits"] - agg["hits"], agg2["misses"] - agg["misses"]
+    if (hits, misses) != (E2E_RUNS + 2, 0):
+        fail(f"the warm mapped runs took {hits} pack-cache hits and {misses} misses, "
+             f"expected {E2E_RUNS + 2} hits and none")
+    # mixed operands: half heap, half mapped
+    mixed = [heap[i] if i % 2 == 0 else mapped2[i] for i in range(N_BITMAPS)]
+    wallsm = {}
+    for name, (fn, _) in entry.items():
+        store.PACK_CACHE.close()
+        t0 = time.perf_counter()
+        got = fn(mixed)
+        wallsm[name] = time.perf_counter() - t0
+        check("mixed heap and mapped", name, got)
+    launches = dict(K.LAUNCHES)
+    say(f"[mapped] warm (resident pack, {hits} hits, 0 misses): or_ median "
+        f"{float(np.median(warm)) * 1e3:.2f} ms over {E2E_RUNS} runs; mixed (every other bitmap heap), "
+        f"cold, ms: " + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in wallsm.items()) + f"  [{card}]")
+    say(f"[mapped] launches over the mapped aggregation path: {launches}")
+    for name in ("rb_expand_rows", "rb_popcount_rows"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the mapped path")
+    if launches["rb_group_reduce[dense]"] + launches["rb_group_reduce[rowmap]"] == 0:
+        fail("rb_group_reduce was not launched on the mapped path")
+    path_launches = dict(launches)
+
+    # --- timing: the cold wide OR's stages on a fresh mapping, and medians ---
+    view3 = _map_file(path)
+    mapped3, _ = _map_bitmaps(view3, extents)
+    store.PACK_CACHE.close()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_views = sum(len(list(m.high_low_container.containers)) for m in mapped3)
+    t1 = time.perf_counter()
+    groups = store.group_by_key(mapped3)
+    t2 = time.perf_counter()
+    packed = store.pack_groups(groups, "cuda")
+    t3 = time.perf_counter()
+    staged = packed._payload.materialize(pinned=True)
+    t4 = time.perf_counter()
+    shipped = K.ship_payload(K.payload_parts(packed.n_rows, *staged), "cuda")
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    K.expand_shipped(packed.n_rows, shipped)
+    torch.cuda.synchronize()
+    t6 = time.perf_counter()
+    del staged, shipped
+    flat = packed.device_words  # the same expansion, through the pack
+    torch.cuda.synchronize()
+    t7 = time.perf_counter()
+    run, layout = store.prepare_reduce(packed, "or")
+    red, cards = run()
+    torch.cuda.synchronize()
+    t8 = time.perf_counter()
+    words_host, cards_host = dev.to_host_u32(red), cards.cpu().numpy().astype(np.int64)
+    r = store.unpack_to_bitmap(packed.group_keys, words_host, cards_host)
+    t9 = time.perf_counter()
+    if r.serialize() != RoaringBitmap.deserialize(want_bytes["or_"]).serialize():
+        fail("the staged mapped OR differs from the heap path's")
+    say(f"[mapped] cold OR stages on a fresh mapping: view build {(t1 - t0) * 1e3:.1f} ms ({n_views} "
+        f"container views, run payloads checked), group_by_key {(t2 - t1) * 1e3:.1f}, payload build "
+        f"{(t3 - t2) * 1e3:.1f}, concatenate into pinned staging (page faults) {(t4 - t3) * 1e3:.1f}, "
+        f"copy {(t5 - t4) * 1e3:.1f}, rb_expand_rows {(t6 - t5) * 1e3:.1f}, reduce ({layout}, row map) "
+        f"{(t8 - t7) * 1e3:.1f}, result to the host + unpack {(t9 - t8) * 1e3:.1f}; {packed.n_rows} rows, "
+        f"{packed._payload.nbytes} payload bytes  [{card}]")
+    del flat, red, cards, packed, groups
+    torch.cuda.empty_cache()
+    cold, heap_cold = [], []
+    for _ in range(MAPPED_RUNS):  # mapped and heap in turns
+        for walls_, fn in ((cold, BufferFastAggregation.or_), (heap_cold, FastAggregation.or_)):
+            store.PACK_CACHE.close()
+            t0 = time.perf_counter()
+            fn(*(mapped2 if walls_ is cold else heap), mode="device")
+            walls_.append(time.perf_counter() - t0)
+    med, med_heap, med_warm = float(np.median(cold)), float(np.median(heap_cold)), float(np.median(warm))
+    say(f"[mapped] BufferFastAggregation.or_ end to end over the mapped bitmaps, {MAPPED_RUNS} runs: cold "
+        f"median {med * 1e3:.2f} ms (min {min(cold) * 1e3:.2f}, max {max(cold) * 1e3:.2f}), "
+        f"{1 / med:.3f} aggregations/s; the heap FastAggregation.or_ in turn: median "
+        f"{med_heap * 1e3:.2f} ms; warm median {med_warm * 1e3:.2f} ms, {1 / med_warm:.3f} "
+        f"aggregations/s  [{card}]")
+
+    def cold_or():
+        store.PACK_CACHE.close()
+        return BufferFastAggregation.or_(*mapped2, mode="device")
+
+    _profiled("[mapped]", "BufferFastAggregation.or_ cold", cold_or, card)
+    BufferFastAggregation.or_(*mapped2, mode="device")
+    _profiled("[mapped]", "BufferFastAggregation.or_ warm",
+              lambda: BufferFastAggregation.or_(*mapped2, mode="device"), card)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[mapped] peak device memory {peak / 2**30:.2f} GiB ({peak} bytes)  [{card}]")
+    _unaligned_entry_points(mapped2, card)
+
+    # --- the skewed mix on the segmented layout, mapped ---
+    rng = np.random.default_rng(SEED + 13)
+    sizes = np.round(146 ** (np.arange(18) / 17)).astype(int)
+    seg_vals = []
+    for j in range(int(sizes.max())):
+        seg_vals.append(np.concatenate([
+            ((k << 16) + rng.choice(1 << 16, size=int(rng.integers(1, 5000)), replace=False)).astype(np.uint32)
+            for k in range(18) if j < sizes[k]
+        ]))
+    seg_path = os.path.join(tmp.name, "skewed.bin")
+    seg_extents = _write_blobs(seg_path, [RoaringBitmap(v).serialize() for v in seg_vals])
+    seg_mapped, _ = _map_bitmaps(_map_file(seg_path), seg_extents)
+    before = dict(store.LAYOUT_COUNTS)
+    K.reset_launches()
+    got = BufferFastAggregation.or_(*seg_mapped, mode="device")
+    seg_launches = dict(K.LAUNCHES)
+    if _layout_delta(store, before) != {"segmented-scan": 1}:
+        fail(f"the mapped skewed set took layout {_layout_delta(store, before)}, expected segmented-scan")
+    _check_values("mapped skewed set (18 groups, 1..146 rows) BufferFastAggregation.or_", got,
+                  np.unique(np.concatenate(seg_vals)), "[mapped]")
+    if seg_launches["rb_group_reduce[csr]"] + seg_launches["rb_group_reduce[rowmap]"] == 0:
+        fail(f"the mapped skewed set did not reduce on rb_group_reduce: {seg_launches}")
+    for k, v in seg_launches.items():
+        path_launches[k] += v
+    say(f"[mapped] skewed set: layout segmented-scan, launches {seg_launches}")
+    store.PACK_CACHE.close()
+    del mapped1, mapped3, seg_mapped, heap, mixed
+    torch.cuda.empty_cache()
+
+    # --- the mapped BSI: phase 6's index, serialized and mapped ---
+    t0 = time.perf_counter()
+    bsi_path = os.path.join(tmp.name, "bsi.bin")
+    blob = index.serialize()
+    with open(bsi_path, "wb") as f:
+        f.write(blob)
+    t_bsi_write = time.perf_counter() - t0
+    med_v = int(np.median(vals))
+    q_vals = np.quantile(vals, np.linspace(0.05, 0.95, BATCH_Q)).astype(np.int64)
+    want_ge = index.compare(Operation.GE, med_v).serialize()
+    want_many = index.compare_cardinality_many(Operation.GE, q_vals)
+    del blob
+    bview = _map_file(bsi_path)
+    t0 = time.perf_counter()
+    mbsi = ImmutableBitSliceIndex(bview)
+    t_map = time.perf_counter() - t0
+    K.reset_launches()
+    t0 = time.perf_counter()
+    first = mbsi.compare(Operation.GE, med_v)
+    t_first = time.perf_counter() - t0
+    if first.serialize() != want_ge:
+        fail("the mapped BSI's first compare GE median differs from the heap index's")
+    _check_values("mapped BSI compare GE median (first query from the fresh map)", first,
+                  np.flatnonzero(vals >= med_v), "[mapped]")
+    bw = []
+    for _ in range(E2E_RUNS):
+        t0 = time.perf_counter()
+        got = mbsi.compare(Operation.GE, med_v)
+        bw.append(time.perf_counter() - t0)
+    if got.serialize() != want_ge:
+        fail("the mapped BSI's steady compare differs from the heap index's")
+    t0 = time.perf_counter()
+    many = mbsi.compare_cardinality_many(Operation.GE, q_vals)
+    t_many = time.perf_counter() - t0
+    if not np.array_equal(many, want_many):
+        fail("the mapped BSI's compare_cardinality_many differs from the heap index's")
+    bsi_l = dict(K.LAUNCHES)
+    if bsi_l["rb_oneil_compare"] == 0 or bsi_l["rb_oneil_compare[batched]"] != 1:
+        fail(f"the mapped BSI did not run on rb_oneil_compare and one rb_oneil_counts: {bsi_l}")
+    for k, v in bsi_l.items():
+        path_launches[k] += v
+    bsi_med = float(np.median(bw))
+    say(f"[mapped] BSI serialized and written in {t_bsi_write:.2f} s ({os.path.getsize(bsi_path)} bytes), "
+        f"mapped as ImmutableBitSliceIndex in {t_map * 1e3:.1f} ms; first compare GE median from the "
+        f"fresh map {t_first * 1e3:.1f} ms (phase 6's heap index: {bsi_times['first_ms']:.1f}); steady "
+        f"compare median {bsi_med * 1e3:.2f} ms over {E2E_RUNS} runs, {1 / bsi_med:.2f} queries/s "
+        f"(phase 6: {bsi_times['compare_ms']:.2f}); compare_cardinality_many GE x{BATCH_Q} "
+        f"{t_many * 1e3:.2f} ms, {t_many / BATCH_Q * 1e9:.0f} ns/query (phase 6: "
+        f"{bsi_times['many_ns']:.0f}); every answer equal to the heap index's; launches {bsi_l}  [{card}]")
+    del mbsi, first, got
+    store.PACK_CACHE.close()
+    torch.cuda.empty_cache()
+    del mapped2
+    tmp.cleanup()
+    say(f"[mapped] phase 13 took {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return path_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3419,10 +3868,10 @@ def phase_batch(base, card: str, n_left: int = N_BITMAPS):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "paths", "columnar", "serving", "host", "batch"],
+    ap.add_argument("--only", choices=["kernels", "paths", "columnar", "serving", "host", "batch", "mapped"],
                     help="kernels: phases 1-3; paths: phases 1-2 and the timed paths 5, 8 and 6; "
                          "columnar: phases 1-2 and 9; serving: phases 1-2 and 10; host: phases 1-2, 11 "
-                         "and 6; batch: phases 1-3 and 12")
+                         "and 6; batch: phases 1-3 and 12; mapped: phases 1-2, 6, 7 and 13")
     ap.add_argument("--window-pairs", type=int, default=WINDOW_PAIRS,
                     help=f"adjacent pairs in phase 9's window (default {WINDOW_PAIRS})")
     args = ap.parse_args()
@@ -3457,6 +3906,15 @@ def main():
         say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
         say(json.dumps({"host_tier": host}))
         return
+    if args.only == "mapped":
+        from roaringbitmap_tpu_torch.utils import datasets
+
+        base, _real = datasets.load_or_synthesize("census1881")
+        vals, _launches, index, bsi_times = phase_bsi(card)
+        phase_range_bitmap(vals)
+        phase_mapped(base, index, vals, bsi_times, card)
+        say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
+        return
     timings = phase_kernels(card)
     timings.update(phase_bsi_kernels(card))
     timings.update(phase_pair_rows(card))
@@ -3467,6 +3925,7 @@ def main():
     timings.update(phase_expand_kernel(card, base, bitmaps))
     timings.update(phase_batch_kernels(card, base, bitmaps))
     launches = None  # not counted unless phases 4, 8, 9, 10, 12 and 6 run
+    mapped_launches = None  # phase 13's path, counted when it runs
     host = None
     if args.only == "batch":
         del bitmaps
@@ -3485,8 +3944,10 @@ def main():
 
         if (tbsi.config.device, tbsi.config.mode) != ("cuda", "auto"):
             fail(f"BSI config is {tbsi.config.device}/{tbsi.config.mode}, expected cuda/auto")
-        vals, bsi_launches = phase_bsi(card)
+        vals, bsi_launches, index, bsi_times = phase_bsi(card)
         phase_range_bitmap(vals)
+        mapped_launches = phase_mapped(base, index, vals, bsi_times, card)
+        del index
         # each kernel's count from the path that runs it: the aggregation
         # path for the reduce kernels, the query path for the threshold
         # kernel, the columnar path for the pair kernel, the lane's path
@@ -3520,6 +3981,7 @@ def main():
                 else "expand.cu" if name == "rb_expand_rows" else "reduce.cu"),
             "replaces": t["replaces"],
             "launches": None if launches is None else launches[name],
+            "launches_mapped": None if mapped_launches is None else mapped_launches[name],
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

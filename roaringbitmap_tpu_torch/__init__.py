@@ -5,9 +5,13 @@ containers, facade, serialization format, N-way aggregation engines with
 the resident pack cache, the bit-sliced index with ``RangeBitmap``, the
 query planner, executor and fusion window (``roaringbitmap_tpu_torch.query``),
 the overlap shipping lane (``parallel/overlap.py``, ``run_pipelined``), the
-columnar pairwise engine (``roaringbitmap_tpu_torch.columnar``), and batch
+columnar pairwise engine (``roaringbitmap_tpu_torch.columnar``), batch
 similarity (``parallel/batch.py``: one-vs-many masked counts and the
-all-pairs overlap matrices), with the
+all-pairs overlap matrices), and the buffer package: memory-mapped
+``ImmutableRoaringBitmap``s and ``ImmutableBitSliceIndex``es queried
+without a parse, ``MutableRoaringBitmap``, ``BufferFastAggregation`` /
+``BufferParallelAggregation``, with the iterators, writers, ``RoaringBitSet``,
+``FastRankRoaringBitmap`` and ``insights``; with the
 device path in PyTorch and its kernels written by hand in CUDA
 (``csrc/``). It imports neither JAX nor the JAX package; that package stays
 the reference the port is tested against.
@@ -16,9 +20,29 @@ Device entry points run on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``; a missing card raises instead of falling back.
 """
 
+from .models.bitset import RoaringBitSet
 from .models.bsi import Operation, RoaringBitmapSliceIndex
+from .models.bsi_buffer import ImmutableBitSliceIndex, MutableBitSliceIndex
+from .models.buffer import BufferFastAggregation, BufferParallelAggregation, MutableRoaringBitmap
+from .models.container import (
+    ArrayContainer,
+    BitmapContainer,
+    RunContainer,
+    container_from_values,
+    container_range_of_ones,
+)
+from .models.fastrank import FastRankRoaringBitmap
+from .models.immutable import ImmutableRoaringBitmap
+from .models.iterators import (
+    BatchIntIterator,
+    PeekableIntIterator,
+    PeekableIntRankIterator,
+    ReverseIntIterator,
+    RoaringBatchIterator,
+)
 from .models.range_bitmap import RangeBitmap
 from .models.roaring import RoaringBitmap
+from .models.writer import RoaringBitmapWriter
 from .parallel.aggregation import FastAggregation, ParallelAggregation
 from .parallel.batch import (
     batched_cardinality,
@@ -30,14 +54,37 @@ from .parallel.batch import (
     prepare_batched_cardinality,
 )
 from .parallel.overlap import run_pipelined
+from .serialization import InvalidRoaringFormat
+from . import insights
 
 __all__ = [
+    "ArrayContainer",
+    "BitmapContainer",
+    "RunContainer",
+    "container_from_values",
+    "container_range_of_ones",
     "RoaringBitmap",
+    "MutableRoaringBitmap",
+    "ImmutableRoaringBitmap",
+    "RoaringBitSet",
+    "FastRankRoaringBitmap",
+    "RoaringBitmapWriter",
     "FastAggregation",
     "ParallelAggregation",
+    "BufferFastAggregation",
+    "BufferParallelAggregation",
     "RoaringBitmapSliceIndex",
+    "MutableBitSliceIndex",
+    "ImmutableBitSliceIndex",
     "Operation",
     "RangeBitmap",
+    "InvalidRoaringFormat",
+    "PeekableIntIterator",
+    "PeekableIntRankIterator",
+    "ReverseIntIterator",
+    "RoaringBatchIterator",
+    "BatchIntIterator",
+    "insights",
     "run_pipelined",
     "batched_cardinality",
     "batched_intersects",

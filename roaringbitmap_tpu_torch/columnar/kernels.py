@@ -215,7 +215,10 @@ def scatter_values_rows_numpy(
     row_ids: np.ndarray, offsets: np.ndarray, vals: np.ndarray,
     out64: np.ndarray, op: str = "or",
 ) -> None:
-    """The plain version of :func:`scatter_values_rows`."""
+    """The plain version of :func:`scatter_values_rows`. A read-only
+    target raises (``ufunc.at`` would write through the flag)."""
+    if not out64.flags.writeable:
+        raise ValueError("scatter_values_rows needs a writable target")
     if row_ids.size == 0:
         return
     lens = np.diff(offsets)
@@ -254,7 +257,10 @@ def fill_intervals_rows_numpy(
     """The plain version of :func:`fill_intervals_rows`, one vectorized
     pass: each interval's first and last words take a masked combine, the
     whole words between are set (or) or flipped (xor). Rows may repeat and
-    intervals overlap: the combines are unbuffered (``ufunc.at``)."""
+    intervals overlap: the combines are unbuffered (``ufunc.at``), so a
+    read-only target raises here rather than being written through."""
+    if not out64.flags.writeable:
+        raise ValueError("fill_intervals_rows needs a writable target")
     if row_ids.size == 0:
         return
     rows = np.repeat(np.asarray(row_ids, dtype=np.int64), np.diff(run_offs))

@@ -32,7 +32,13 @@ pack cache, which waits for the store's ``PackCache``.
 
 Serialization: the reference's ByteBuffer layout (RoaringBitmapSliceIndex
 .serialize(ByteBuffer) :240-255): int32 minValue, int32 maxValue, byte
-runOptimized, ebm, int32 sliceCount, slices — little-endian.
+runOptimized, ebm, int32 sliceCount, slices — little-endian. The fields are
+Java ints and the values here are non-negative up to 2^32 - 1, so a min or
+max at or above 2^31 is written as its two's-complement int32 bits (the int
+Java holds for those 32 bits) and a negative field reads back as that value
+plus 2^32. (The JAX package's ``struct.pack("<iib")`` raises on such an
+index instead.) A min or max past 32 bits does not fit the format and
+raises.
 """
 
 from __future__ import annotations
@@ -151,6 +157,24 @@ def transpose_value_counts(cols: np.ndarray, slices, dtype=np.int64):
     """(distinct values, multiplicities) over the given columns — the body
     of transposeWithCount (BitSliceIndexBase.java:578)."""
     return np.unique(values_for_columns(cols, slices, dtype=dtype), return_counts=True)
+
+
+def pack_header(min_value: int, max_value: int, run_optimized: bool) -> bytes:
+    """The wire format's 9-byte header: min and max as int32 fields holding
+    the values' 32 bits, and the run-optimized flag."""
+    fields = []
+    for v in (int(min_value), int(max_value)):
+        if not 0 <= v < 1 << 32:
+            raise ValueError(f"BSI min/max {v} does not fit the format's 32-bit fields")
+        fields.append(v - (1 << 32) if v >= 1 << 31 else v)
+    return struct.pack("<iib", fields[0], fields[1], 1 if run_optimized else 0)
+
+
+def unpack_header(buf, offset: int = 0) -> Tuple[int, int, bool]:
+    """``(min_value, max_value, run_optimized)`` from :func:`pack_header`'s
+    bytes: a negative field is a value at or above 2^31."""
+    min_v, max_v, ro = struct.unpack_from("<iib", buf, offset)
+    return min_v % (1 << 32), max_v % (1 << 32), bool(ro)
 
 
 def _bits_high_first(value: int, s_count: int) -> List[int]:
@@ -691,7 +715,7 @@ class RoaringBitmapSliceIndex:
     # ------------------------------------------------------------------
     def serialize(self) -> bytes:
         parts = [
-            struct.pack("<iib", self.min_value, self.max_value, 1 if self.run_optimized else 0),
+            pack_header(self.min_value, self.max_value, self.run_optimized),
             self.ebm.serialize(),
             struct.pack("<i", self.bit_count()),
         ]
@@ -726,10 +750,10 @@ class RoaringBitmapSliceIndex:
         (depth,) = struct.unpack("<i", read_exact(fileobj, 4))
         if depth < 0 or depth > 64:
             raise InvalidRoaringFormat(f"implausible BSI depth {depth}")
-        min_v, max_v, ro = struct.unpack("<iib", header)
+        min_v, max_v, ro = unpack_header(header)
         out = cls()
         out.min_value, out.max_value = min_v, max_v
-        out.run_optimized = bool(ro)
+        out.run_optimized = ro
         out.ebm = ebm
         out.slices = [RoaringBitmap.deserialize_from(fileobj) for _ in range(depth)]
         return out
@@ -744,11 +768,11 @@ class RoaringBitmapSliceIndex:
         buf = memoryview(data if isinstance(data, (bytes, bytearray, memoryview)) else bytes(data))
         if len(buf) < 9:
             raise InvalidRoaringFormat("truncated BSI header")
-        min_v, max_v, ro = struct.unpack_from("<iib", buf, 0)
+        min_v, max_v, ro = unpack_header(buf)
         pos = 9
         out = RoaringBitmapSliceIndex()
         out.min_value, out.max_value = min_v, max_v
-        out.run_optimized = bool(ro)
+        out.run_optimized = ro
         out.ebm = RoaringBitmap()
         pos += read_into(out.ebm, buf[pos:])
         if pos + 4 > len(buf):

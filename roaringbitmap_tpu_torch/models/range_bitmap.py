@@ -20,10 +20,8 @@ Three design obligations carried over from the reference:
   header and the slice directory; each slice is materialized on first
   access, and ``serialize()`` of a mapped index re-emits the stored payload
   bytes without decoding. A reference-format slice is assembled from its
-  chunk directory. A native-form slice is deserialized into a
-  ``RoaringBitmap`` — the same values; the JAX package's zero-copy
-  ``ImmutableRoaringBitmap`` view comes with the port of
-  ``models/immutable.py``.
+  chunk directory. A native-form slice is an ``ImmutableRoaringBitmap``
+  view of its payload (``models/immutable.py``): no payload is copied.
 * **Context-masked chunk skipping** (computeRange, RangeBitmap.java:551-620):
   queries with a ``context`` pre-filter walk only the 2^16-row chunks whose
   key appears in the context, running the O'Neil slice recurrence at
@@ -78,6 +76,7 @@ import numpy as np
 from ..serialization import InvalidRoaringFormat
 from .bsi import Operation, RoaringBitmapSliceIndex
 from .container import Container, container_from_values, container_range_of_ones
+from .immutable import ImmutableRoaringBitmap
 from .roaring import RoaringBitmap
 from .roaring_array import RoaringArray
 
@@ -372,7 +371,8 @@ class RangeBitmap:
                 s = RoaringBitmap()
                 s.high_low_container = arr
             else:
-                s = RoaringBitmap.deserialize(bytes(self._payloads[i]))
+                # native form: the slice is a zero-copy view of its payload
+                s = ImmutableRoaringBitmap(self._payloads[i])
             self._slices[i] = s
         return s
 

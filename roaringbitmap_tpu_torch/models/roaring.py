@@ -7,11 +7,12 @@ flip :1893), pairwise static algebra (and/or/xor/andNot/orNot
 (:2622/2820), next/previous(+absent) value (:2838-2929), addOffset (:230),
 selectRange (:3095), limit (:2457), runOptimize (:2764), contains-subset
 (:2781), isHammingSimilar (:1831), rangeCardinality (:2590), batch
-iteration, and the RoaringFormatSpec serialization (:3012-3051). Pairwise
-algebra routes through the columnar engine (``columnar/``) above its
-cutoff, as in the JAX package, and runs the per-container walk below it;
-the peekable/reverse/rank iterators and the buffer twins are not part of
-this package yet.
+iteration, the peekable, reverse and rank iterators (``iterators.py``),
+and the RoaringFormatSpec serialization (:3012-3051). Pairwise algebra
+routes through the columnar engine (``columnar/``) above its cutoff, as in
+the JAX package, and runs the per-container walk below it. The buffer
+twins (``buffer.py``, ``immutable.py``) take any mix of heap and mapped
+operands through the same algebra.
 
 Values are unsigned 32-bit ints; ranges are half-open ``[start, end)`` with
 ``0 <= start <= end <= 2^32``.
@@ -124,6 +125,13 @@ class RoaringBitmap:
         out = RoaringBitmap()
         out.high_low_container = self.high_low_container.clone()
         return out
+
+    def to_mutable_roaring_bitmap(self):
+        """Deep-copy into the buffer-world mutable twin
+        (RoaringBitmap.toMutableRoaringBitmap)."""
+        from .buffer import MutableRoaringBitmap
+
+        return MutableRoaringBitmap.of(self)
 
     # ------------------------------------------------------------------
     # point ops
@@ -1122,6 +1130,44 @@ class RoaringBitmap:
             base = k << 16
             for v in reversed(c.to_array().tolist()):
                 yield base | v
+
+    def get_int_iterator(self):
+        """Peekable forward iterator (getIntIterator; PeekableIntIterator)."""
+        from .iterators import PeekableIntIterator
+
+        return PeekableIntIterator(self)
+
+    def get_signed_int_iterator(self) -> Iterator[int]:
+        """Values in signed-int32 order: the upper half (>= 2^31, as
+        negatives) first (RoaringBitmap.getSignedIntIterator). The first
+        pass skips whole containers straight to the upper half."""
+        half = 1 << 31
+        it = self.get_int_iterator()
+        it.advance_if_needed(half)
+        while it.has_next():
+            yield it.next() - _MAX32
+        for v in self:
+            if v >= half:
+                break
+            yield v
+
+    def get_reverse_int_iterator(self):
+        """Descending iterator (getReverseIntIterator)."""
+        from .iterators import ReverseIntIterator
+
+        return ReverseIntIterator(self)
+
+    def get_int_rank_iterator(self):
+        """Rank-tracking peekable iterator (getIntRankIterator)."""
+        from .iterators import PeekableIntRankIterator
+
+        return PeekableIntRankIterator(self)
+
+    def get_batch_iterator(self):
+        """Buffer-filling iterator (getBatchIterator, BatchIterator.java:12)."""
+        from .iterators import RoaringBatchIterator
+
+        return RoaringBatchIterator(self)
 
     def batch_iterator(self, batch_size: int = 256) -> Iterator[np.ndarray]:
         """Buffer-filling iteration (BatchIterator.nextBatch contract,

@@ -29,8 +29,11 @@ The batch entry points take raw pointers and int64 CSR offsets (declared
 without ``ndpointer``, whose validation costs ~10 us an argument): a wrong
 dtype, a non-contiguous array or an offset past its buffer would corrupt
 memory, so the wrappers below convert dtypes and check offsets and row ids
-before every call. ctypes calls release the interpreter lock; the
-extension's calls hold it.
+before every call. Inputs need not be aligned: a mapped bitmap's words and
+values are views at any byte offset of their buffer, and the kernels read
+every input through one-byte-aligned types. Outputs are allocated here,
+and a caller's output or accumulator must be aligned. ctypes calls
+release the interpreter lock; the extension's calls hold it.
 """
 
 from __future__ import annotations
@@ -460,8 +463,8 @@ def or_values_into_words(words: np.ndarray, values: np.ndarray) -> np.ndarray:
         raise IndexError(f"accumulator has {words.size} words, need 1024")
     if not words.flags.writeable:
         raise ValueError("accumulator is read-only")
-    if words.dtype != np.uint64 or not words.flags.c_contiguous:
-        w = _w64(words)
+    if words.dtype != np.uint64 or not words.flags.c_contiguous or not words.flags.aligned:
+        w = np.require(words, np.uint64, ["C", "A"])
         lib().rb_words_from_values(v, v.size, w)
         words[:] = w
         return words
@@ -541,7 +544,9 @@ _SCATTER_OPS = {"or": 0, "xor": 1, "clear": 2}
 
 
 def _c64i(a) -> np.ndarray:
-    return np.ascontiguousarray(a, dtype=np.int64)
+    # offsets, row ids and interval ends are read as plain int64_t: aligned
+    a = np.ascontiguousarray(a, dtype=np.int64)
+    return a if a.flags.aligned else a.copy()
 
 
 def _p(a: np.ndarray) -> int:
@@ -557,8 +562,9 @@ def _check_offsets(offs: np.ndarray, size: int, what: str) -> None:
 
 
 def _check_rows(rows: np.ndarray, out64: np.ndarray, what: str) -> None:
-    if out64.dtype != np.uint64 or not out64.flags.c_contiguous or not out64.flags.writeable:
-        raise ValueError(f"{what} needs a writable C-contiguous uint64 target")
+    if (out64.dtype != np.uint64 or not out64.flags.c_contiguous
+            or not out64.flags.writeable or not out64.flags.aligned):
+        raise ValueError(f"{what} needs a writable, aligned, C-contiguous uint64 target")
     if out64.size % 1024:
         raise ValueError(f"{what}: the target is not a whole number of 1024-word rows")
     if rows.size and (rows.min() < 0 or rows.max() >= out64.size // 1024):

@@ -22,26 +22,26 @@ namespace {
 
 // Borrowed, validated views ------------------------------------------------
 
-static bool as_u16(PyObject* o, const uint16_t** p, int32_t* n) {
+static bool as_u16(PyObject* o, const in_u16** p, int32_t* n) {
   PyArrayObject* a = reinterpret_cast<PyArrayObject*>(o);
   if (!PyArray_Check(o) || PyArray_TYPE(a) != NPY_UINT16 ||
       !PyArray_IS_C_CONTIGUOUS(a) || PyArray_NDIM(a) != 1) {
     PyErr_SetString(PyExc_TypeError, "expected C-contiguous 1-D uint16 array");
     return false;
   }
-  *p = static_cast<const uint16_t*>(PyArray_DATA(a));
+  *p = static_cast<const in_u16*>(PyArray_DATA(a));
   *n = static_cast<int32_t>(PyArray_DIM(a, 0));
   return true;
 }
 
-static bool as_u64(PyObject* o, const uint64_t** p, int64_t* n) {
+static bool as_u64(PyObject* o, const in_u64** p, int64_t* n) {
   PyArrayObject* a = reinterpret_cast<PyArrayObject*>(o);
   if (!PyArray_Check(o) || PyArray_TYPE(a) != NPY_UINT64 ||
       !PyArray_IS_C_CONTIGUOUS(a) || PyArray_NDIM(a) != 1) {
     PyErr_SetString(PyExc_TypeError, "expected C-contiguous 1-D uint64 array");
     return false;
   }
-  *p = static_cast<const uint64_t*>(PyArray_DATA(a));
+  *p = static_cast<const in_u64*>(PyArray_DATA(a));
   *n = PyArray_DIM(a, 0);
   return true;
 }
@@ -52,7 +52,7 @@ static PyObject* new_u16(npy_intp n) {
 
 // Sorted-set algebra -------------------------------------------------------
 
-typedef int32_t (*setop_fn)(const uint16_t*, int32_t, const uint16_t*, int32_t,
+typedef int32_t (*setop_fn)(const in_u16*, int32_t, const in_u16*, int32_t,
                             uint16_t*);
 
 // output capacity regimes: intersect <= min(na, nb); union/xor <= na + nb;
@@ -100,7 +100,7 @@ static PyObject* advance_until(PyObject*, PyObject* args) {
   PyObject* ao;
   int pos, minv;
   if (!PyArg_ParseTuple(args, "Oii", &ao, &pos, &minv)) return nullptr;
-  const uint16_t* a;
+  const in_u16* a;
   int32_t na;
   if (!as_u16(ao, &a, &na)) return nullptr;
   return PyLong_FromLong(rb_advance_until(a, na, pos, (uint16_t)minv));
@@ -130,7 +130,7 @@ static PyObject* contains_u16(PyObject*, PyObject* args) {
   PyObject* ao;
   int x;
   if (!PyArg_ParseTuple(args, "Oi", &ao, &x)) return nullptr;
-  const uint16_t* a;
+  const in_u16* a;
   int32_t na;
   if (!as_u16(ao, &a, &na)) return nullptr;
   int32_t i = rb_advance_until(a, na, -1, (uint16_t)x);
@@ -142,7 +142,7 @@ static PyObject* word_bit(PyObject*, PyObject* args) {
   PyObject* wo;
   int x;
   if (!PyArg_ParseTuple(args, "Oi", &wo, &x)) return nullptr;
-  const uint64_t* w;
+  const in_u64* w;
   int64_t nw;
   if (!as_u64(wo, &w, &nw)) return nullptr;
   int64_t idx = (int64_t)((uint32_t)x >> 6);
@@ -177,7 +177,7 @@ static PyObject* run_contains(PyObject*, PyObject* args) {
 static PyObject* cardinality_of_words(PyObject*, PyObject* args) {
   PyObject* wo;
   if (!PyArg_ParseTuple(args, "O", &wo)) return nullptr;
-  const uint64_t* w;
+  const in_u64* w;
   int64_t n;
   if (!as_u64(wo, &w, &n)) return nullptr;
   return PyLong_FromLongLong(rb_popcount_words(w, n));
@@ -187,7 +187,7 @@ static PyObject* words_from_values(PyObject*, PyObject* args) {
   PyObject* vo;
   int n_words;
   if (!PyArg_ParseTuple(args, "Oi", &vo, &n_words)) return nullptr;
-  const uint16_t* v;
+  const in_u16* v;
   int32_t nv;
   if (!as_u16(vo, &v, &nv)) return nullptr;
   npy_intp n = n_words;
@@ -201,7 +201,7 @@ static PyObject* words_from_values(PyObject*, PyObject* args) {
 static PyObject* values_from_words(PyObject*, PyObject* args) {
   PyObject* wo;
   if (!PyArg_ParseTuple(args, "O", &wo)) return nullptr;
-  const uint64_t* w;
+  const in_u64* w;
   int64_t n;
   if (!as_u64(wo, &w, &n)) return nullptr;
   npy_intp card = rb_popcount_words(w, n);
@@ -215,7 +215,7 @@ static PyObject* values_from_words(PyObject*, PyObject* args) {
 static PyObject* num_runs_in_words(PyObject*, PyObject* args) {
   PyObject* wo;
   if (!PyArg_ParseTuple(args, "O", &wo)) return nullptr;
-  const uint64_t* w;
+  const in_u64* w;
   int64_t n;
   if (!as_u64(wo, &w, &n)) return nullptr;
   return PyLong_FromLong(rb_num_runs_words(w, (int32_t)n));
@@ -225,7 +225,7 @@ static PyObject* select_in_words(PyObject*, PyObject* args) {
   PyObject* wo;
   int j;
   if (!PyArg_ParseTuple(args, "Oi", &wo, &j)) return nullptr;
-  const uint64_t* w;
+  const in_u64* w;
   int64_t n;
   if (!as_u64(wo, &w, &n)) return nullptr;
   int32_t r = rb_select_words(w, (int32_t)n, j);
@@ -240,7 +240,7 @@ static PyObject* cardinality_in_range(PyObject*, PyObject* args) {
   PyObject* wo;
   int start, end;
   if (!PyArg_ParseTuple(args, "Oii", &wo, &start, &end)) return nullptr;
-  const uint64_t* w;
+  const in_u64* w;
   int64_t n;
   if (!as_u64(wo, &w, &n)) return nullptr;
   return PyLong_FromLongLong(rb_cardinality_in_range(w, start, end));
@@ -251,7 +251,7 @@ static PyObject* cardinality_in_range(PyObject*, PyObject* args) {
 static PyObject* is_strictly_increasing(PyObject*, PyObject* args) {
   PyObject* vo;
   if (!PyArg_ParseTuple(args, "O", &vo)) return nullptr;
-  const uint16_t* v;
+  const in_u16* v;
   int32_t n;
   if (!as_u16(vo, &v, &n)) return nullptr;
   for (int32_t i = 1; i < n; ++i)
@@ -264,7 +264,7 @@ static PyObject* runs_valid(PyObject*, PyObject* args) {
   // ends within the 2^16 universe (serialization.py's run checks)
   PyObject* po;
   if (!PyArg_ParseTuple(args, "O", &po)) return nullptr;
-  const uint16_t* p;
+  const in_u16* p;
   int32_t n2;
   if (!as_u16(po, &p, &n2)) return nullptr;
   if (n2 % 2) {

@@ -20,6 +20,17 @@
 #include <cstdint>
 #include <cstring>
 
+// Every input payload is read through these one-byte-aligned types. An
+// input may be a view into a serialized buffer (a mapped
+// ImmutableRoaringBitmap's containers): an array container's payload is
+// 2 * card bytes and the run marker any number of bytes, so the next
+// container's words or values may start at any byte offset. A plain
+// uint64_t* or uint16_t* to such memory is undefined behaviour, which -O3
+// may compile into aligned vector loads. Outputs are buffers the bindings
+// allocate (or check) aligned, and keep the natural types.
+typedef uint16_t in_u16 __attribute__((aligned(1)));
+typedef uint64_t in_u64 __attribute__((aligned(1)));
+
 extern "C" {
 
 // ---------------------------------------------------------------------------
@@ -28,7 +39,7 @@ extern "C" {
 
 // Exponential (galloping) search: smallest index i in [pos, n) with
 // a[i] >= min, else n. Mirrors Util.advanceUntil's exponential+binary probe.
-static int32_t gallop(const uint16_t* a, int32_t pos, int32_t n, uint16_t min) {
+static int32_t gallop(const in_u16* a, int32_t pos, int32_t n, uint16_t min) {
   int32_t lo = pos;
   if (lo >= n || a[lo] >= min) return lo;
   int32_t span = 1;
@@ -44,13 +55,13 @@ static int32_t gallop(const uint16_t* a, int32_t pos, int32_t n, uint16_t min) {
   return hi;
 }
 
-int32_t rb_advance_until(const uint16_t* a, int32_t n, int32_t pos, uint16_t min) {
+int32_t rb_advance_until(const in_u16* a, int32_t n, int32_t pos, uint16_t min) {
   return gallop(a, pos + 1, n, min);
 }
 
 // One-sided galloping intersection: |small| * 64 < |large|
 // (Util.java:890-932's THRESHOLD=64 dispatch to the galloping variant :934).
-static int32_t intersect_gallop(const uint16_t* s, int32_t ns, const uint16_t* l,
+static int32_t intersect_gallop(const in_u16* s, int32_t ns, const in_u16* l,
                                 int32_t nl, uint16_t* out) {
   int32_t k = 0, j = 0;
   for (int32_t i = 0; i < ns; ++i) {
@@ -64,7 +75,7 @@ static int32_t intersect_gallop(const uint16_t* s, int32_t ns, const uint16_t* l
   return k;
 }
 
-int32_t rb_intersect_u16(const uint16_t* a, int32_t na, const uint16_t* b,
+int32_t rb_intersect_u16(const in_u16* a, int32_t na, const in_u16* b,
                          int32_t nb, uint16_t* out) {
   if (na == 0 || nb == 0) return 0;
   if ((int64_t)na * 64 < nb) return intersect_gallop(a, na, b, nb, out);
@@ -79,12 +90,12 @@ int32_t rb_intersect_u16(const uint16_t* a, int32_t na, const uint16_t* b,
   return k;
 }
 
-int32_t rb_intersect_card_u16(const uint16_t* a, int32_t na, const uint16_t* b,
+int32_t rb_intersect_card_u16(const in_u16* a, int32_t na, const in_u16* b,
                               int32_t nb) {
   return rb_intersect_u16(a, na, b, nb, nullptr);
 }
 
-int32_t rb_union_u16(const uint16_t* a, int32_t na, const uint16_t* b,
+int32_t rb_union_u16(const in_u16* a, int32_t na, const in_u16* b,
                      int32_t nb, uint16_t* out) {
   int32_t i = 0, j = 0, k = 0;
   while (i < na && j < nb) {
@@ -98,7 +109,7 @@ int32_t rb_union_u16(const uint16_t* a, int32_t na, const uint16_t* b,
   return k;
 }
 
-int32_t rb_difference_u16(const uint16_t* a, int32_t na, const uint16_t* b,
+int32_t rb_difference_u16(const in_u16* a, int32_t na, const in_u16* b,
                           int32_t nb, uint16_t* out) {
   int32_t i = 0, j = 0, k = 0;
   while (i < na && j < nb) {
@@ -111,7 +122,7 @@ int32_t rb_difference_u16(const uint16_t* a, int32_t na, const uint16_t* b,
   return k;
 }
 
-int32_t rb_xor_u16(const uint16_t* a, int32_t na, const uint16_t* b, int32_t nb,
+int32_t rb_xor_u16(const in_u16* a, int32_t na, const in_u16* b, int32_t nb,
                    uint16_t* out) {
   int32_t i = 0, j = 0, k = 0;
   while (i < na && j < nb) {
@@ -126,7 +137,7 @@ int32_t rb_xor_u16(const uint16_t* a, int32_t na, const uint16_t* b, int32_t nb,
 }
 
 // membership of each query value in a sorted array -> byte mask
-void rb_contains_many_u16(const uint16_t* sorted, int32_t n, const uint16_t* q,
+void rb_contains_many_u16(const in_u16* sorted, int32_t n, const in_u16* q,
                           int32_t nq, uint8_t* out) {
   for (int32_t i = 0; i < nq; ++i) {
     int32_t j = gallop(sorted, 0, n, q[i]);
@@ -138,17 +149,17 @@ void rb_contains_many_u16(const uint16_t* sorted, int32_t n, const uint16_t* q,
 // uint64 word-bitset kernels (1024 words per container, but n is generic)
 // ---------------------------------------------------------------------------
 
-int64_t rb_popcount_words(const uint64_t* w, int64_t n) {
+int64_t rb_popcount_words(const in_u64* w, int64_t n) {
   int64_t c = 0;
   for (int64_t i = 0; i < n; ++i) c += __builtin_popcountll(w[i]);
   return c;
 }
 
-void rb_words_from_values(const uint16_t* v, int32_t n, uint64_t* words) {
+void rb_words_from_values(const in_u16* v, int32_t n, uint64_t* words) {
   for (int32_t i = 0; i < n; ++i) words[v[i] >> 6] |= 1ULL << (v[i] & 63);
 }
 
-int32_t rb_values_from_words(const uint64_t* words, int32_t n_words,
+int32_t rb_values_from_words(const in_u64* words, int32_t n_words,
                              uint16_t* out) {
   int32_t k = 0;
   for (int32_t w = 0; w < n_words; ++w) {
@@ -164,7 +175,7 @@ int32_t rb_values_from_words(const uint64_t* words, int32_t n_words,
 
 // number of runs: popcount(x & ~(x<<1 | carry)) with cross-word carry
 // (BitmapContainer.numberOfRuns' branchless per-word form).
-int32_t rb_num_runs_words(const uint64_t* words, int32_t n_words) {
+int32_t rb_num_runs_words(const in_u64* words, int32_t n_words) {
   int32_t runs = 0;
   uint64_t carry = 0;
   for (int32_t w = 0; w < n_words; ++w) {
@@ -176,7 +187,7 @@ int32_t rb_num_runs_words(const uint64_t* words, int32_t n_words) {
 }
 
 // position of the j-th (0-based) set bit, or -1
-int32_t rb_select_words(const uint64_t* words, int32_t n_words, int32_t j) {
+int32_t rb_select_words(const in_u64* words, int32_t n_words, int32_t j) {
   for (int32_t w = 0; w < n_words; ++w) {
     int32_t c = __builtin_popcountll(words[w]);
     if (j < c) {
@@ -190,7 +201,7 @@ int32_t rb_select_words(const uint64_t* words, int32_t n_words, int32_t j) {
 }
 
 // popcount of bits [start, end) over the word array
-int64_t rb_cardinality_in_range(const uint64_t* words, int32_t start,
+int64_t rb_cardinality_in_range(const in_u64* words, int32_t start,
                                 int32_t end) {
   if (start >= end) return 0;
   int32_t first = start >> 6, last = (end - 1) >> 6;
@@ -207,7 +218,7 @@ int64_t rb_cardinality_in_range(const uint64_t* words, int32_t start,
 // fold rows of an [n_rows, n_words] matrix: op 0=OR 1=AND 2=XOR; also returns
 // the popcount of the result (the lazy-cardinality "repair" fused in, cf.
 // Container.lazyIOR/repairAfterLazy Container.java:717/873).
-int64_t rb_wide_op_words(const uint64_t* rows, int64_t n_rows, int64_t n_words,
+int64_t rb_wide_op_words(const in_u64* rows, int64_t n_rows, int64_t n_words,
                          int32_t op, uint64_t* out) {
   if (n_rows == 0) {
     memset(out, 0, (size_t)n_words * 8);
@@ -215,7 +226,7 @@ int64_t rb_wide_op_words(const uint64_t* rows, int64_t n_rows, int64_t n_words,
   }
   memcpy(out, rows, (size_t)n_words * 8);
   for (int64_t r = 1; r < n_rows; ++r) {
-    const uint64_t* row = rows + r * n_words;
+    const in_u64* row = rows + r * n_words;
     switch (op) {
       case 0: for (int64_t i = 0; i < n_words; ++i) out[i] |= row[i]; break;
       case 1: for (int64_t i = 0; i < n_words; ++i) out[i] &= row[i]; break;
@@ -231,7 +242,7 @@ int64_t rb_wide_op_words(const uint64_t* rows, int64_t n_rows, int64_t n_words,
 
 // (starts, lengths) from sorted unique values; returns run count.
 // lengths follow the spec convention: run covers [start, start+length].
-int32_t rb_runs_from_values(const uint16_t* v, int32_t n, uint16_t* starts,
+int32_t rb_runs_from_values(const in_u16* v, int32_t n, uint16_t* starts,
                             uint16_t* lengths) {
   if (n == 0) return 0;
   int32_t r = 0;
@@ -250,7 +261,7 @@ int32_t rb_runs_from_values(const uint16_t* v, int32_t n, uint16_t* starts,
   return r + 1;
 }
 
-int32_t rb_num_runs_values(const uint16_t* v, int32_t n) {
+int32_t rb_num_runs_values(const in_u16* v, int32_t n) {
   if (n == 0) return 0;
   int32_t r = 1;
   for (int32_t i = 1; i < n; ++i) r += (v[i] != (uint16_t)(v[i - 1] + 1));
@@ -296,15 +307,15 @@ void rb_words_from_intervals(const int64_t* starts, const int64_t* ends,
 // ---------------------------------------------------------------------------
 
 // op codes shared with columnar/kernels.py: 0=and 1=or 2=xor 3=andnot
-void rb_batch_pairwise_u16(const uint16_t* avals, const int64_t* aoffs,
-                           const uint16_t* bvals, const int64_t* boffs,
+void rb_batch_pairwise_u16(const in_u16* avals, const int64_t* aoffs,
+                           const in_u16* bvals, const int64_t* boffs,
                            int64_t n_pairs, int32_t op,
                            const int64_t* out_offs, uint16_t* out,
                            int64_t* counts) {
 #pragma omp parallel for schedule(dynamic, 64)
   for (int64_t j = 0; j < n_pairs; ++j) {
-    const uint16_t* a = avals + aoffs[j];
-    const uint16_t* b = bvals + boffs[j];
+    const in_u16* a = avals + aoffs[j];
+    const in_u16* b = bvals + boffs[j];
     int32_t na = (int32_t)(aoffs[j + 1] - aoffs[j]);
     int32_t nb = (int32_t)(boffs[j + 1] - boffs[j]);
     uint16_t* o = out + out_offs[j];
@@ -328,9 +339,9 @@ void rb_batch_pairwise_u16(const uint16_t* avals, const int64_t* aoffs,
 
 // intervals of (A AND B) as (start, length) pairs; returns interval count,
 // accumulates result cardinality into *card. os==nullptr: card only.
-static int64_t run_and_intervals(const uint16_t* as, const uint16_t* al,
-                                 int32_t na, const uint16_t* bs,
-                                 const uint16_t* bl, int32_t nb, uint16_t* os,
+static int64_t run_and_intervals(const in_u16* as, const in_u16* al,
+                                 int32_t na, const in_u16* bs,
+                                 const in_u16* bl, int32_t nb, uint16_t* os,
                                  uint16_t* ol, int64_t* card) {
   int32_t i = 0, j = 0;
   int64_t k = 0, c = 0;
@@ -354,9 +365,9 @@ static int64_t run_and_intervals(const uint16_t* as, const uint16_t* al,
 }
 
 // intervals of (A ANDNOT B)
-static int64_t run_andnot_intervals(const uint16_t* as, const uint16_t* al,
-                                    int32_t na, const uint16_t* bs,
-                                    const uint16_t* bl, int32_t nb,
+static int64_t run_andnot_intervals(const in_u16* as, const in_u16* al,
+                                    int32_t na, const in_u16* bs,
+                                    const in_u16* bl, int32_t nb,
                                     uint16_t* os, uint16_t* ol, int64_t* card) {
   int32_t j = 0;
   int64_t k = 0, c = 0;
@@ -391,19 +402,19 @@ static int64_t run_andnot_intervals(const uint16_t* as, const uint16_t* al,
 // result INTERVALS at out_s/out_l + out_offs[j] (bounds: na+nb intervals —
 // payload-sized, never cardinality-sized, so run-shaped results stay
 // compressed end to end). op: 0=and 3=andnot. out_s==nullptr -> cards only.
-void rb_batch_run_pairwise(const uint16_t* as, const uint16_t* al,
-                           const int64_t* aoffs, const uint16_t* bs,
-                           const uint16_t* bl, const int64_t* boffs,
+void rb_batch_run_pairwise(const in_u16* as, const in_u16* al,
+                           const int64_t* aoffs, const in_u16* bs,
+                           const in_u16* bl, const int64_t* boffs,
                            int64_t n_pairs, int32_t op, const int64_t* out_offs,
                            uint16_t* out_s, uint16_t* out_l, int64_t* counts,
                            int64_t* cards) {
 #pragma omp parallel for schedule(dynamic, 64)
   for (int64_t j = 0; j < n_pairs; ++j) {
-    const uint16_t* a_s = as + aoffs[j];
-    const uint16_t* a_l = al + aoffs[j];
+    const in_u16* a_s = as + aoffs[j];
+    const in_u16* a_l = al + aoffs[j];
     int32_t na = (int32_t)(aoffs[j + 1] - aoffs[j]);
-    const uint16_t* b_s = bs + boffs[j];
-    const uint16_t* b_l = bl + boffs[j];
+    const in_u16* b_s = bs + boffs[j];
+    const in_u16* b_l = bl + boffs[j];
     int32_t nb = (int32_t)(boffs[j + 1] - boffs[j]);
     uint16_t* os = out_s ? out_s + out_offs[j] : nullptr;
     uint16_t* ol = out_l ? out_l + out_offs[j] : nullptr;
@@ -416,8 +427,8 @@ void rb_batch_run_pairwise(const uint16_t* as, const uint16_t* al,
 }
 
 // cardinality-only AND batch: no output buffer, no materialization
-void rb_batch_intersect_card_u16(const uint16_t* avals, const int64_t* aoffs,
-                                 const uint16_t* bvals, const int64_t* boffs,
+void rb_batch_intersect_card_u16(const in_u16* avals, const int64_t* aoffs,
+                                 const in_u16* bvals, const int64_t* boffs,
                                  int64_t n_pairs, int64_t* counts) {
 #pragma omp parallel for schedule(dynamic, 64)
   for (int64_t j = 0; j < n_pairs; ++j) {
@@ -429,7 +440,7 @@ void rb_batch_intersect_card_u16(const uint16_t* avals, const int64_t* aoffs,
 
 // per-row popcount of an [n_rows, n_words] matrix (batched result
 // cardinalities; rows are independent)
-void rb_popcount_rows(const uint64_t* words, int64_t n_rows, int64_t n_words,
+void rb_popcount_rows(const in_u64* words, int64_t n_rows, int64_t n_words,
                       int64_t* out) {
 #pragma omp parallel for schedule(static)
   for (int64_t r = 0; r < n_rows; ++r)
@@ -441,7 +452,7 @@ void rb_popcount_rows(const uint64_t* words, int64_t n_rows, int64_t n_words,
 // SERIAL over containers: unlike rb_pack_array_rows, row_ids may repeat
 // (fold accumulators), so the parallel-for would race.
 void rb_scatter_values_rows(const int64_t* row_ids, const int64_t* offsets,
-                            int64_t n_containers, const uint16_t* vals,
+                            int64_t n_containers, const in_u16* vals,
                             uint64_t* out, int32_t op) {
   for (int64_t j = 0; j < n_containers; ++j) {
     uint64_t* row = out + row_ids[j] * 1024;
@@ -503,7 +514,7 @@ void rb_fill_intervals_rows(const int64_t* row_ids, const int64_t* run_offs,
 // in one pass: container j (values vals[offsets[j]:offsets[j+1]]) lands in
 // row row_ids[j]. The SoA packing hot loop of parallel/store.pack_rows_host.
 void rb_pack_array_rows(const int64_t* row_ids, const int64_t* offsets,
-                        int64_t n_containers, const uint16_t* vals,
+                        int64_t n_containers, const in_u16* vals,
                         uint64_t* out) {
   // each container owns its output row exclusively, so the container loop
   // parallelizes race-free (the pack of a 10k-bitmap working set scatters

@@ -175,3 +175,22 @@ def slice_masked_popcounts(slices: torch.Tensor, found: torch.Tensor) -> torch.T
         out[i] = popcount_rows(slices[i] & found)
     return out
 
+
+
+def rank_rows(words: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Per-row rank: the set bits of row ``i`` at bit index <= ``positions[i]``
+    (int32 ``[N]``; positions in ``[0, 65536)``), the batched analogue of
+    ``BitmapContainer.rank`` and the counterpart of the JAX package's
+    ``ops/device.py:rank_rows``. Words below the position's word count
+    whole; the position's own word is masked to bits ``0..bit`` by
+    ``0xFFFFFFFF >> (31 - bit)``, shifted as an int64, where the shift is
+    logical, then taken as the int32 bits of the row's view."""
+    n_words = words.shape[-1]
+    pos = positions.to(device=words.device, dtype=torch.int64)
+    word_idx = (pos // 32)[:, None]
+    bit_idx = (pos % 32)[:, None]
+    iota = torch.arange(n_words, device=words.device, dtype=torch.int64)[None, :]
+    partial = 0xFFFFFFFF >> (31 - bit_idx)  # int64: a logical shift
+    partial = torch.where(partial >= 1 << 31, partial - (1 << 32), partial)
+    mask = torch.where(iota < word_idx, -1, torch.where(iota == word_idx, partial, 0))
+    return popcount_rows(words & mask.to(torch.int32))

@@ -333,6 +333,35 @@ class FastAggregation:
         return _from_word_accumulators(acc)
 
     @staticmethod
+    def priorityqueue_or(*bitmaps: RoaringBitmap) -> RoaringBitmap:
+        """Repeatedly OR the two smallest bitmaps (by serialized size) —
+        FastAggregation.priorityqueue_or (FastAggregation.java:675)."""
+        import heapq
+
+        bms = _flatten(bitmaps)
+        if not bms:
+            return RoaringBitmap()
+        if len(bms) == 1:
+            return bms[0].clone()
+        heap = [(bm.get_size_in_bytes(), i, bm) for i, bm in enumerate(bms)]
+        heapq.heapify(heap)
+        seq = len(bms)
+        while len(heap) > 1:
+            _, _, a = heapq.heappop(heap)
+            _, _, b = heapq.heappop(heap)
+            m = RoaringBitmap.or_(a, b)
+            heapq.heappush(heap, (m.get_size_in_bytes(), seq, m))
+            seq += 1
+        return heap[0][2]
+
+    @staticmethod
+    def workshy_and(*bitmaps: RoaringBitmap, mode: Optional[str] = None, device=None) -> RoaringBitmap:
+        """Key-intersection-first AND (FastAggregation.workShyAnd :356-396):
+        only containers whose key survives the key intersection are
+        touched. The same engine as :meth:`and_`."""
+        return _aggregate(_flatten(bitmaps), "and", mode, device)
+
+    @staticmethod
     def naive_and(*bitmaps: RoaringBitmap) -> RoaringBitmap:
         """Pairwise left fold (FastAggregation.naive_and)."""
         bms = _flatten(bitmaps)

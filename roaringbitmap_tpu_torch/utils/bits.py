@@ -80,7 +80,11 @@ def words_from_values(values: np.ndarray) -> np.ndarray:
 
 def or_values_into_words(words: np.ndarray, values: np.ndarray) -> np.ndarray:
     """OR uint16 values into an EXISTING word accumulator in place (the
-    lazy-OR fold's array-container scatter)."""
+    lazy-OR fold's array-container scatter). A read-only accumulator (a
+    mapped container's words) raises: ``ufunc.at`` itself would write
+    through the read-only flag."""
+    if not words.flags.writeable:
+        raise ValueError("accumulator is read-only")
     v = np.asarray(values, dtype=np.uint32)
     np.bitwise_or.at(words, v >> 6, _U64_ONE << (v & np.uint32(63)).astype(np.uint64))
     return words

@@ -239,6 +239,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "from roaringbitmap_tpu_torch.parallel import store, aggregation\n"
         "from roaringbitmap_tpu_torch.ops import kernels, _build\n"
         "from roaringbitmap_tpu_torch.models import bsi, bsi_buffer, range_bitmap\n"
+        "from roaringbitmap_tpu_torch.models import immutable, buffer, iterators, writer, bitset, fastrank\n"
+        "from roaringbitmap_tpu_torch import insights\n"
         "from roaringbitmap_tpu_torch import interop, serialization, columnar\n"
         "from roaringbitmap_tpu_torch.columnar import costmodel, device, engine\n"
         "bad = [m for m in set(sys.modules) - before\n"
