@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only host     # phases 1-2, 11 and 6: the native host tier against numpy
     python3 chip_smoke.py --only batch    # phases 1-3 and 12: batch similarity
     python3 chip_smoke.py --only mapped   # phases 1-2, 6, 7 and 13: memory-mapped bitmaps
+    python3 chip_smoke.py --only sixtyfour  # phases 1-2 and 14: the 64-bit family
 
 ``--only paths`` runs only the phases whose end-to-end times PERF.md limits
 against a parent commit; copied into a checkout of the parent, it times
@@ -198,11 +199,39 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    and ``compare_cardinality_many`` over 64 quantiles, each equal to the
    heap index's answer and timed beside phase 6's.
 
+14. (run after phase 13) the 64-bit family: (a) the 10,000 census bitmaps
+   lifted to 64 bits (bitmap i's values moved into high-32 bucket
+   i // 2500: 308,100 containers in 124 key groups on the stand-in), built
+   once as ``Roaring64Bitmap``s and once as ``Roaring64NavigableMap``s (set-up,
+   timed apart); ``FastAggregation64.or_`` / ``xor`` / ``or_cardinality`` and
+   ``or_navigable`` with ``mode="device"``, each against numpy and the
+   port's 32-bit ``FastAggregation`` over each quarter's buckets (with the
+   bucket added); ``benchmarks/aggregation64.py``'s 64 bitmaps, device
+   against the CPU fold's bytes; the cold OR's stages
+   (``_group_by_key64``, payload build, pinned staging, copy,
+   ``rb_expand_rows``, reduce, result copy, trie rebuild), cold (median of
+   5) and warm (median of 10) walls of ``FastAggregation64.or_`` and
+   ``or_navigable`` in turns, both profiled (device idle share), peak
+   device memory; (b) the BSI north star at 64 bits: 100,000,000 columns
+   at ``2^33 + arange``, values uniform in [0, 2^48) from the seed (48
+   slices, 1526 high-48 chunks), built through ``set_values`` (timed
+   apart); phase 6's nine queries scaled to these values and a GE near the
+   max (at least 2^47), ``compare`` and ``compare_cardinality`` each
+   against numpy, ``compare_cardinality_many`` over 64 quantiles against
+   ``np.searchsorted`` (one ``rb_oneil_counts`` launch); the first query,
+   the steady kernels on the resident pack beside their bounds, the
+   compare's stages, the steady ``compare`` median, batched ns per query,
+   peak device memory. The launch counts are zeroed before the phase and
+   read after its checked calls; the phase fails if ``rb_group_reduce``,
+   ``rb_oneil_compare`` or ``rb_oneil_counts`` read 0.
+
 The last three lines are a JSON object of the host tier's entry points
 (``{"host_tier": [...]}``, each one's native and numpy ms; not with
 ``--only kernels``), a JSON object describing every kernel (``launches``
-on its main path, ``launches_mapped`` on phase 13's) and the JSON
-result ``{"ok": true, "device": {...}}``. The port needs no JAX and nothing
+on its main path, ``launches_mapped`` on phase 13's, ``launches_64`` on
+phase 14's) and the JSON result ``{"ok": true, "device": {...}}``; with
+``--only sixtyfour`` the phase's launch counts (``{"launches_64": ...}``)
+and the JSON result. The port needs no JAX and nothing
 of the JAX package.
 """
 
@@ -3374,6 +3403,416 @@ def phase_mapped(base, index, vals, bsi_times, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the 64-bit family
+# ---------------------------------------------------------------------------
+
+R64_BUCKETS = 4  # bitmap i of the census set lifted into high-32 bucket i // 2500
+R64_COLD_RUNS, R64_WARM_RUNS = 5, 10
+AGG64_BITMAPS = 64  # benchmarks/aggregation64.py:18-34
+BSI64_ROWS = 100_000_000  # BASELINE.md config 4, at 64 bits
+BSI64_BASE = 1 << 33  # the first column id: every id lies above 2^32
+BSI64_VALUE_BITS = 48  # values uniform in [0, 2^48)
+S_BSI64, K_BSI64 = BSI64_VALUE_BITS, (BSI64_ROWS + 65535) // 65536  # [48, 1526, 2048] slices
+
+
+def _check64(tag, name, got, oracle):
+    arr = got.to_array()
+    if arr.shape != oracle.shape or not np.array_equal(arr, oracle.astype(np.uint64)):
+        fail(f"{name}: result ({arr.size} values) differs from the oracle ({oracle.size})")
+    say(f"{tag} {name}: {arr.size} values, equal to the oracle")
+
+
+def _lift(b: int, values) -> np.ndarray:
+    return (np.uint64(b) << np.uint64(32)) | np.asarray(values).astype(np.uint64)
+
+
+def _agg64_benchmark_shape():
+    """benchmarks/aggregation64.py's working set: 64 bitmaps over high-32
+    buckets 0, 3-6 and 9 << 8, as (Roaring64Bitmaps, NavigableMaps, values)."""
+    from roaringbitmap_tpu_torch import Roaring64Bitmap, Roaring64NavigableMap
+
+    rng = np.random.default_rng(SEED)
+    arts, navs, vals = [], [], []
+    for i in range(AGG64_BITMAPS):
+        v = np.concatenate([
+            rng.integers(0, 1 << 20, size=20_000, dtype=np.uint64),
+            (np.uint64(3 + (i % 4)) << np.uint64(32)) + rng.integers(0, 1 << 20, size=15_000, dtype=np.uint64),
+            (np.uint64(9) << np.uint64(40)) + rng.integers(0, 1 << 18, size=5_000, dtype=np.uint64),
+        ])
+        vals.append(v)
+        arts.append(Roaring64Bitmap(v))
+        navs.append(Roaring64NavigableMap(v))
+    return arts, navs, vals
+
+
+def phase_aggregation64(base, card: str):
+    """Phase 14 (a): the census working set lifted to 64 bits through
+    ``FastAggregation64`` and ``or_navigable`` on the card, and the 64-bit
+    benchmark's own shape. Returns the launch counts of the checked calls."""
+    from roaringbitmap_tpu_torch import (
+        FastAggregation,
+        FastAggregation64,
+        Roaring64Bitmap,
+        Roaring64NavigableMap,
+    )
+    from roaringbitmap_tpu_torch.ops import device as dev
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import aggregation, aggregation64, store
+
+    if aggregation.config.device != "cuda":
+        fail(f"aggregation.config.device is {aggregation.config.device!r}, expected 'cuda'")
+    t_phase = time.perf_counter()
+    store.PACK_CACHE.close()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    nb, per = len(base), N_BITMAPS // R64_BUCKETS
+    lifted = [[_lift(b, v) for v in base] for b in range(R64_BUCKETS)]
+    t0 = time.perf_counter()
+    arts = [Roaring64Bitmap(lifted[i // per][i % nb]) for i in range(N_BITMAPS)]
+    t1 = time.perf_counter()
+    navs = [Roaring64NavigableMap(lifted[i // per][i % nb]) for i in range(N_BITMAPS)]
+    t2 = time.perf_counter()
+    del lifted
+    n_cont = sum(a.get_high_to_bitmap_count() for a in arts)
+    n_cont32 = sum(b.get_container_count() for m in navs for b in m._buckets.values())
+    n_groups = len(aggregation64._group_by_key64(arts))
+    quarters = [range(b * per, (b + 1) * per) for b in range(R64_BUCKETS)]
+    keys32 = [len({k for i in q for k in navs[i]._buckets[b].high_low_container.keys})
+              for b, q in enumerate(quarters)]
+    if n_cont != n_cont32 or n_groups != sum(keys32):
+        fail(f"the lifted set has {n_cont} containers in {n_groups} groups; its 32-bit buckets "
+             f"{n_cont32} in {sum(keys32)}")
+    say(f"[sixtyfour] census set lifted to 64 bits ({N_BITMAPS} bitmaps, bitmap i in high-32 bucket "
+        f"i // {per}): {n_cont} containers in {n_groups} key groups, {n_cont * ROW_BYTES} bytes of "
+        f"rows; built as Roaring64Bitmap in {t1 - t0:.1f} s and as Roaring64NavigableMap in "
+        f"{t2 - t1:.1f} s (set-up)  [{card}]")
+
+    # --- oracles: numpy, and the port's 32-bit path over each quarter ---
+    want_or, want_xor = [], []
+    for b, q in enumerate(quarters):
+        mult = np.bincount([i % nb for i in q], minlength=nb)
+        in_q = [base[j] for j in np.flatnonzero(mult)]
+        odd = [base[j] for j in np.flatnonzero(mult % 2)]
+        o_or = np.unique(np.concatenate(in_q)).astype(np.uint32)
+        o_xor = _count_oracle(odd, len(odd))[1]
+        q32 = [navs[i]._buckets[b] for i in q]
+        _check64("[sixtyfour]", f"32-bit FastAggregation.or_ over quarter {b}",
+                 FastAggregation.or_(*q32, mode="device"), o_or)
+        _check64("[sixtyfour]", f"32-bit FastAggregation.xor over quarter {b}",
+                 FastAggregation.xor(*q32, mode="device"), o_xor)
+        want_or.append(_lift(b, o_or))
+        want_xor.append(_lift(b, o_xor))
+    want_or, want_xor = np.concatenate(want_or), np.concatenate(want_xor)
+    store.PACK_CACHE.close()
+    torch.cuda.empty_cache()
+
+    # --- the 64-bit path, counts zeroed just before and read just after ---
+    K.reset_launches()
+    layouts = dict(store.LAYOUT_COUNTS)
+    walls = {}
+    t0 = time.perf_counter()
+    r_or = FastAggregation64.or_(*arts, mode="device")
+    walls["or_"] = time.perf_counter() - t0
+    _check64("[sixtyfour]", f"FastAggregation64.or_ ({N_BITMAPS} bitmaps)", r_or, want_or)
+    t0 = time.perf_counter()
+    r_xor = FastAggregation64.xor(*arts, mode="device")
+    walls["xor"] = time.perf_counter() - t0
+    _check64("[sixtyfour]", f"FastAggregation64.xor ({N_BITMAPS} bitmaps)", r_xor, want_xor)
+    t0 = time.perf_counter()
+    card_or = FastAggregation64.or_cardinality(*arts, mode="device")
+    walls["or_cardinality"] = time.perf_counter() - t0
+    if card_or != want_or.size:
+        fail(f"FastAggregation64.or_cardinality = {card_or}, oracle {want_or.size}")
+    t0 = time.perf_counter()
+    r_nav = aggregation64.or_navigable(*navs, mode="device")
+    walls["or_navigable"] = time.perf_counter() - t0
+    _check64("[sixtyfour]", f"or_navigable ({N_BITMAPS} maps)", r_nav, want_or)
+    if r_nav.serialize() != r_or.serialize():
+        fail("or_navigable and FastAggregation64.or_ serialize differently")
+    census_launches = dict(K.LAUNCHES)
+    census_layouts = {k: v - layouts[k] for k, v in store.LAYOUT_COUNTS.items() if v != layouts[k]}
+    say(f"[sixtyfour] or_cardinality {card_or}, equal to the oracle; or_navigable's portable bytes "
+        f"equal FastAggregation64.or_'s; first calls (ms): "
+        + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in walls.items())
+        + f"; layouts {census_layouts}; launches {census_launches}  [{card}]")
+    or_bytes = r_or.serialize()
+    del r_or, r_xor, r_nav
+
+    # --- benchmarks/aggregation64.py's shape: correctness and one time ---
+    b_arts, b_navs, b_vals = _agg64_benchmark_shape()
+    b_union = np.unique(np.concatenate(b_vals))
+    b_walls = {}
+    for name, fn, oracle in (
+        ("FastAggregation64.or_", lambda m: FastAggregation64.or_(*b_arts, mode=m), b_union),
+        ("FastAggregation64.and_", lambda m: FastAggregation64.and_(*b_arts, mode=m), None),
+        ("or_navigable", lambda m: aggregation64.or_navigable(*b_navs, mode=m), b_union),
+    ):
+        t0 = time.perf_counter()
+        got = fn("device")
+        b_walls[name] = time.perf_counter() - t0
+        want = fn("cpu")
+        if got.serialize() != want.serialize():
+            fail(f"benchmark shape {name}: the device result differs from the CPU fold's bytes")
+        if oracle is not None:
+            _check64("[sixtyfour]", f"benchmark shape ({AGG64_BITMAPS} bitmaps) {name}", got, oracle)
+    fold = b_arts[0].clone()
+    for b_ in b_arts[1:]:
+        fold.ior(b_)
+    if fold.serialize() != FastAggregation64.or_(*b_arts, mode="cpu").serialize():
+        fail("benchmark shape: the pairwise fold differs from FastAggregation64.or_")
+    launches = dict(K.LAUNCHES)
+    say(f"[sixtyfour] benchmark shape ({AGG64_BITMAPS} bitmaps, "
+        f"{sum(a.get_high_to_bitmap_count() for a in b_arts)} containers): device equal to the CPU "
+        f"fold's bytes and the pairwise fold; device calls (ms): "
+        + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in b_walls.items()) + f"  [{card}]")
+    for name in ("rb_expand_rows", "rb_popcount_rows"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the 64-bit aggregation path")
+    if sum(launches[k] for k in ("rb_group_reduce[dense]", "rb_group_reduce[rowmap]",
+                                 "rb_group_reduce[csr]")) == 0:
+        fail("rb_group_reduce was not launched on the 64-bit aggregation path")
+    del b_arts, b_navs, b_vals
+
+    # --- timing: the cold OR's stages, then medians ---
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    groups = aggregation64._group_by_key64(arts)
+    t1 = time.perf_counter()
+    packed = store.pack_groups(groups, "cuda")
+    t2 = time.perf_counter()
+    staged = packed._payload.materialize(pinned=True)
+    t3 = time.perf_counter()
+    shipped = K.ship_payload(K.payload_parts(packed.n_rows, *staged), "cuda")
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    K.expand_shipped(packed.n_rows, shipped)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    del staged, shipped
+    flat = packed.device_words  # the same expansion, through the pack
+    torch.cuda.synchronize()
+    t6 = time.perf_counter()
+    run, layout = store.prepare_reduce(packed, "or")
+    red, cards = run()
+    torch.cuda.synchronize()
+    t7 = time.perf_counter()
+    words_host, cards_host = dev.to_host_u32(red), cards.cpu().numpy().astype(np.int64)
+    t8 = time.perf_counter()
+    out = Roaring64Bitmap()
+    for key, c in store.iter_group_containers(packed.group_keys, words_host, cards_host):
+        out._put(int(key).to_bytes(6, "big"), c)
+    t9 = time.perf_counter()
+    if out.serialize() != or_bytes:
+        fail("the staged 64-bit OR differs from FastAggregation64.or_")
+    say(f"[sixtyfour] cold FastAggregation64.or_ stages: _group_by_key64 {(t1 - t0) * 1e3:.1f} ms, "
+        f"payload build {(t2 - t1) * 1e3:.1f}, concatenate into pinned staging {(t3 - t2) * 1e3:.1f}, "
+        f"copy {(t4 - t3) * 1e3:.1f}, rb_expand_rows {(t5 - t4) * 1e3:.1f}, reduce ({layout}, row map) "
+        f"{(t7 - t6) * 1e3:.1f}, result to the host {(t8 - t7) * 1e3:.1f}, rebuild ({len(packed.group_keys)} "
+        f"containers into the trie) {(t9 - t8) * 1e3:.1f}; {packed.n_rows} rows, "
+        f"{packed._payload.nbytes} payload bytes  [{card}]")
+    del flat, red, cards, packed, groups, out
+    torch.cuda.empty_cache()
+    cold = {"FastAggregation64.or_": [], "or_navigable": []}
+    calls = {"FastAggregation64.or_": lambda: FastAggregation64.or_(*arts, mode="device"),
+             "or_navigable": lambda: aggregation64.or_navigable(*navs, mode="device")}
+    for _ in range(R64_COLD_RUNS):  # the two entry points in turns
+        for name, fn in calls.items():
+            store.PACK_CACHE.close()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            fn()
+            cold[name].append(time.perf_counter() - t0)
+    warm = {name: [] for name in calls}
+    for _ in range(R64_WARM_RUNS):
+        for name, fn in calls.items():
+            t0 = time.perf_counter()
+            fn()
+            warm[name].append(time.perf_counter() - t0)
+    for name in calls:
+        c_med, w_med = float(np.median(cold[name])), float(np.median(warm[name]))
+        say(f"[sixtyfour] {name} end to end: cold (caches emptied before each) median "
+            f"{c_med * 1e3:.2f} ms over {R64_COLD_RUNS} (min {min(cold[name]) * 1e3:.2f}, max "
+            f"{max(cold[name]) * 1e3:.2f}), {1 / c_med:.3f} aggregations/s; warm median "
+            f"{w_med * 1e3:.2f} ms over {R64_WARM_RUNS} (min {min(warm[name]) * 1e3:.2f}, max "
+            f"{max(warm[name]) * 1e3:.2f}), {1 / w_med:.3f} aggregations/s  [{card}]")
+
+    def cold_or():
+        store.PACK_CACHE.close()
+        return FastAggregation64.or_(*arts, mode="device")
+
+    _profiled("[sixtyfour]", "FastAggregation64.or_ cold", cold_or, card)
+    _profiled("[sixtyfour]", "FastAggregation64.or_ warm",
+              lambda: FastAggregation64.or_(*arts, mode="device"), card)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[sixtyfour] peak device memory {peak / 2**30:.2f} GiB ({peak} bytes); phase 14 (a) took "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    del arts, navs
+    store.PACK_CACHE.close()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bsi64(card: str):
+    """Phase 14 (b): the BSI north star at 64 bits through
+    ``Roaring64BitmapSliceIndex``. Returns the launch counts of the
+    checked queries."""
+    from roaringbitmap_tpu_torch import Operation, Roaring64Bitmap, Roaring64BitmapSliceIndex
+    from roaringbitmap_tpu_torch.models import bsi as tbsi
+    from roaringbitmap_tpu_torch.models import bsi64 as tbsi64
+    from roaringbitmap_tpu_torch.models.roaring64art import key_to_int
+    from roaringbitmap_tpu_torch.ops import device as dev
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import store
+
+    if (tbsi.config.device, tbsi64.config.mode) != ("cuda", "auto"):
+        fail(f"64-bit BSI config is {tbsi.config.device}/{tbsi64.config.mode}, expected cuda/auto")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    cols = np.uint64(BSI64_BASE) + np.arange(BSI64_ROWS, dtype=np.uint64)
+    vals = rng.integers(0, 1 << BSI64_VALUE_BITS, size=BSI64_ROWS, dtype=np.uint64)
+    t1 = time.perf_counter()
+    index = Roaring64BitmapSliceIndex()
+    index.set_values((cols, vals))
+    build_s = time.perf_counter() - t1
+    say(f"[bsi64] built {BSI64_ROWS} rows (column ids {BSI64_BASE} + arange, values uniform in "
+        f"[0, 2^{BSI64_VALUE_BITS}), seed {SEED:#x}; data {t1 - t0:.1f} s), {index.bit_count()} slices, "
+        f"{index._key_count()} high-48 chunks through set_values in {build_s:.1f} s  [{card}]")
+    if index.bit_count() != S_BSI64 or index._key_count() != K_BSI64:
+        fail("the 64-bit index does not have the north star's shape")
+    found_idx = np.sort(rng.choice(BSI64_ROWS, size=BSI64_ROWS // 20, replace=False))
+    found = Roaring64Bitmap(cols[found_idx])
+    # the ebm's last chunk past the last column and four chunks outside it
+    outside = np.uint64(BSI64_BASE + BSI64_ROWS) + np.arange(0, 300_000, 7, dtype=np.uint64)
+    found2 = Roaring64Bitmap(np.concatenate([cols[found_idx], outside]))
+    srt = np.sort(vals)
+    med = int(srt[BSI64_ROWS // 2])
+    present = int(vals[12_345])
+    lo, hi = med // 2, med + med // 2
+    top = int(srt[-1000])  # near the max
+    if top < 1 << (BSI64_VALUE_BITS - 1):
+        fail(f"the predicate near the max ({top}) is below 2^{BSI64_VALUE_BITS - 1}")
+    fv = vals[found_idx]
+    q_vals = [int(srt[int(p * (BSI64_ROWS - 1))]) for p in np.linspace(0.05, 0.95, BATCH_Q)]
+    want_many = BSI64_ROWS - np.searchsorted(srt, np.array(q_vals, dtype=np.uint64), side="left")
+    del srt
+    u = np.uint64
+    queries = [
+        ("GE median", Operation.GE, med, 0, None, lambda: cols[vals >= u(med)]),
+        ("RANGE middle half", Operation.RANGE, lo, hi, None, lambda: cols[(vals >= u(lo)) & (vals <= u(hi))]),
+        ("GE median, 5% found set", Operation.GE, med, 0, found, lambda: cols[found_idx[fv >= u(med)]]),
+        ("EQ a present value", Operation.EQ, present, 0, None, lambda: cols[vals == u(present)]),
+        ("NEQ a present value", Operation.NEQ, present, 0, None, lambda: cols[vals != u(present)]),
+        ("GT median", Operation.GT, med, 0, None, lambda: cols[vals > u(med)]),
+        ("LT median", Operation.LT, med, 0, None, lambda: cols[vals < u(med)]),
+        ("LE median", Operation.LE, med, 0, None, lambda: cols[vals <= u(med)]),
+        ("NEQ with a found set outside the ebm", Operation.NEQ, present, 0, found2,
+         lambda: np.concatenate([cols[found_idx[fv != u(present)]], outside])),
+        (f"GE near the max ({top} >= 2^{BSI64_VALUE_BITS - 1})", Operation.GE, top, 0, None,
+         lambda: cols[vals >= u(top)]),
+    ]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    # --- the 64-bit BSI path: every query below runs with the counts live ---
+    t0 = time.perf_counter()
+    first = index.compare(Operation.GE, med)
+    t_first = time.perf_counter() - t0
+    _check64("[bsi64]", "compare GE median (first query: pack + copy + kernel + rebuild)", first,
+             queries[0][5]())
+    del first
+    for name, op, a, b, fs, oracle in queries:
+        want = oracle()
+        _check64("[bsi64]", f"compare {name}", index.compare(op, a, b, fs), want)
+        cnt = index.compare_cardinality(op, a, b, fs)
+        if cnt != want.size:
+            fail(f"compare_cardinality {name} = {cnt}, oracle {want.size}")
+        del want
+    say(f"[bsi64] compare_cardinality of all {len(queries)} queries equal to the oracle")
+    many = index.compare_cardinality_many(Operation.GE, q_vals)
+    if not np.array_equal(many, want_many):
+        fail(f"compare_cardinality_many GE over {BATCH_Q} quantiles differs from np.searchsorted")
+    say(f"[bsi64] compare_cardinality_many GE over {BATCH_Q} quantile thresholds: equal to "
+        f"np.searchsorted")
+    launches = dict(K.LAUNCHES)
+    say(f"[bsi64] launches over the 64-bit BSI path: {launches}")
+    for name in ("rb_oneil_compare", "rb_oneil_compare[batched]"):
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the 64-bit BSI path")
+    if launches["rb_oneil_compare[batched]"] != 1 or launches["rb_oneil_compare[batched-deep]"]:
+        fail(f"compare_cardinality_many did not take one tiled launch: {launches}")
+    peak_queries = torch.cuda.max_memory_allocated()
+
+    # --- timing on the resident pack ---
+    keys, ebm_w, slices_w = index._pack_dense64()
+    bits = _bits_tensor([[_pred_bits(med, S_BSI64)]])
+    steady = cuda_ms(lambda: K.oneil_compare(slices_w, bits, ebm_w, ebm_w, "GE"))
+    b_one = bound_ms(_oneil_bytes(S_BSI64, K_BSI64, 1, True, False))
+    bits_q = _bits_tensor(_walks("GE", q_vals, S_BSI64))
+    steady_many = cuda_ms(lambda: K.oneil_compare(slices_w, bits_q, ebm_w, ebm_w, "GE", True))
+    clocks = smi_clocks()
+    fields = clocks.split(",")
+    mhz = _mhz(fields[1]) if len(fields) == 4 else 1980.0
+    b_many, by, b_bytes, b_ops = batched_bound(S_BSI64, K_BSI64, BATCH_Q, True, mhz)
+    say(f"[bsi64] steady kernels on the resident [{S_BSI64}, {K_BSI64}, 2048] pack: rb_oneil_compare GE "
+        f"{steady:.4f} ms (bound {b_one:.4f} ms, {b_one / steady:.1%}); rb_oneil_counts GE x{BATCH_Q} "
+        f"{steady_many:.4f} ms (byte bound {b_bytes:.4f}, operation bound {b_ops:.4f}: {by} bind, "
+        f"{b_many / steady_many:.1%} of the bound); clocks.sm, clocks.max.sm, power.draw, "
+        f"power.limit after: {clocks}  [{card}]")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _keys, out, cards = index._o_neil_device_walk(Operation.GE, med, None)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    words_host, cards_host = dev.to_host_u32(out), cards.cpu().numpy().astype(np.int64)
+    t2 = time.perf_counter()
+    key_ints = np.array([key_to_int(k) for k in _keys], dtype=np.int64)
+    rebuilt = Roaring64Bitmap()
+    held = rebuilt._containers
+    rebuilt._art.bulk_load([
+        (int(k).to_bytes(6, "big"), held.add(c))
+        for k, c in store.iter_group_containers(key_ints, words_host, cards_host)
+    ])
+    t3 = time.perf_counter()
+    say(f"[bsi64] compare GE stages: bits + launch + kernel {(t1 - t0) * 1e3:.3f} ms, result words "
+        f"and cards to the host ({words_host.nbytes} bytes, pageable) {(t2 - t1) * 1e3:.3f} ms, "
+        f"rebuild ({len(_keys)} containers into the trie) {(t3 - t2) * 1e3:.3f} ms  [{card}]")
+    del out, cards, words_host, cards_host, rebuilt
+    walls = []
+    for _ in range(E2E_RUNS):
+        t0 = time.perf_counter()
+        index.compare(Operation.GE, med)  # returns a host bitmap: the work is done
+        walls.append(time.perf_counter() - t0)
+    e2e = float(np.median(walls))
+    t0 = time.perf_counter()
+    index.compare_cardinality_many(Operation.GE, q_vals)
+    t_many = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _profiled("[bsi64]", "compare GE median", lambda: index.compare(Operation.GE, med), card, 5)
+    say(f"[bsi64] first query {t_first * 1e3:.1f} ms; compare GE end to end (resident pack to the "
+        f"host Roaring64Bitmap), {E2E_RUNS} runs: median {e2e * 1e3:.2f} ms (min {min(walls) * 1e3:.2f}, "
+        f"max {max(walls) * 1e3:.2f}), {1 / e2e:.2f} queries/s; compare_cardinality_many GE, "
+        f"{BATCH_Q} thresholds in one launch: {t_many * 1e3:.2f} ms, {t_many / BATCH_Q * 1e9:.0f} "
+        f"ns/query; peak device memory {peak / 2**30:.3f} GiB ({peak} bytes; {peak_queries} over "
+        f"the checked queries); phase 14 (b) took {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    del keys, ebm_w, slices_w, index
+    store.PACK_CACHE.close()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sixtyfour(base, card: str):
+    """Phase 14: the 64-bit family on the card; the launch counts of its
+    checked calls (the kernels line's ``launches_64``)."""
+    launches = phase_aggregation64(base, card)
+    for k, v in phase_bsi64(card).items():
+        launches[k] += v
+    say(f"[sixtyfour] launches over phase 14's path: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 3 (batch kernels) and phase 12: batch similarity
 # ---------------------------------------------------------------------------
 
@@ -3868,10 +4307,12 @@ def phase_batch(base, card: str, n_left: int = N_BITMAPS):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "paths", "columnar", "serving", "host", "batch", "mapped"],
+    ap.add_argument("--only", choices=["kernels", "paths", "columnar", "serving", "host", "batch", "mapped",
+                                       "sixtyfour"],
                     help="kernels: phases 1-3; paths: phases 1-2 and the timed paths 5, 8 and 6; "
                          "columnar: phases 1-2 and 9; serving: phases 1-2 and 10; host: phases 1-2, 11 "
-                         "and 6; batch: phases 1-3 and 12; mapped: phases 1-2, 6, 7 and 13")
+                         "and 6; batch: phases 1-3 and 12; mapped: phases 1-2, 6, 7 and 13; "
+                         "sixtyfour: phases 1-2 and 14")
     ap.add_argument("--window-pairs", type=int, default=WINDOW_PAIRS,
                     help=f"adjacent pairs in phase 9's window (default {WINDOW_PAIRS})")
     args = ap.parse_args()
@@ -3915,6 +4356,15 @@ def main():
         phase_mapped(base, index, vals, bsi_times, card)
         say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
         return
+    if args.only == "sixtyfour":
+        from roaringbitmap_tpu_torch.utils import datasets
+
+        base, _real = datasets.load_or_synthesize("census1881")
+        launches_64 = phase_sixtyfour(base, card)
+        say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
+        say(json.dumps({"launches_64": launches_64}))
+        say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return
     timings = phase_kernels(card)
     timings.update(phase_bsi_kernels(card))
     timings.update(phase_pair_rows(card))
@@ -3926,6 +4376,7 @@ def main():
     timings.update(phase_batch_kernels(card, base, bitmaps))
     launches = None  # not counted unless phases 4, 8, 9, 10, 12 and 6 run
     mapped_launches = None  # phase 13's path, counted when it runs
+    launches_64 = None  # phase 14's path, counted when it runs
     host = None
     if args.only == "batch":
         del bitmaps
@@ -3947,7 +4398,8 @@ def main():
         vals, bsi_launches, index, bsi_times = phase_bsi(card)
         phase_range_bitmap(vals)
         mapped_launches = phase_mapped(base, index, vals, bsi_times, card)
-        del index
+        del index, vals
+        launches_64 = phase_sixtyfour(base, card)
         # each kernel's count from the path that runs it: the aggregation
         # path for the reduce kernels, the query path for the threshold
         # kernel, the columnar path for the pair kernel, the lane's path
@@ -3982,6 +4434,7 @@ def main():
             "replaces": t["replaces"],
             "launches": None if launches is None else launches[name],
             "launches_mapped": None if mapped_launches is None else mapped_launches[name],
+            "launches_64": None if launches_64 is None else launches_64[name],
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

@@ -11,17 +11,22 @@ all-pairs overlap matrices), and the buffer package: memory-mapped
 ``ImmutableRoaringBitmap``s and ``ImmutableBitSliceIndex``es queried
 without a parse, ``MutableRoaringBitmap``, ``BufferFastAggregation`` /
 ``BufferParallelAggregation``, with the iterators, writers, ``RoaringBitSet``,
-``FastRankRoaringBitmap`` and ``insights``; with the
-device path in PyTorch and its kernels written by hand in CUDA
-(``csrc/``). It imports neither JAX nor the JAX package; that package stays
-the reference the port is tested against.
+``FastRankRoaringBitmap`` and ``insights``; and the 64-bit family:
+``Roaring64Bitmap`` over its adaptive radix tree (``Art``),
+``Roaring64NavigableMap``, ``FastAggregation64`` and
+``Roaring64BitmapSliceIndex``; with the device path in PyTorch and its
+kernels written by hand in CUDA (``csrc/``). It imports neither JAX nor
+the JAX package; that package stays the reference the port is tested
+against.
 
 Device entry points run on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``; a missing card raises instead of falling back.
 """
 
+from .models.art import Art
 from .models.bitset import RoaringBitSet
 from .models.bsi import Operation, RoaringBitmapSliceIndex
+from .models.bsi64 import Roaring64BitmapSliceIndex
 from .models.bsi_buffer import ImmutableBitSliceIndex, MutableBitSliceIndex
 from .models.buffer import BufferFastAggregation, BufferParallelAggregation, MutableRoaringBitmap
 from .models.container import (
@@ -42,8 +47,11 @@ from .models.iterators import (
 )
 from .models.range_bitmap import RangeBitmap
 from .models.roaring import RoaringBitmap
+from .models.roaring64 import Roaring64NavigableMap
+from .models.roaring64art import Roaring64Bitmap
 from .models.writer import RoaringBitmapWriter
 from .parallel.aggregation import FastAggregation, ParallelAggregation
+from .parallel.aggregation64 import FastAggregation64
 from .parallel.batch import (
     batched_cardinality,
     batched_intersects,
@@ -56,6 +64,8 @@ from .parallel.batch import (
 from .parallel.overlap import run_pipelined
 from .serialization import InvalidRoaringFormat
 from . import insights
+from . import query
+from .query import Q
 
 __all__ = [
     "ArrayContainer",
@@ -65,15 +75,20 @@ __all__ = [
     "container_range_of_ones",
     "RoaringBitmap",
     "MutableRoaringBitmap",
+    "Roaring64Bitmap",
+    "Roaring64NavigableMap",
+    "Art",
     "ImmutableRoaringBitmap",
     "RoaringBitSet",
     "FastRankRoaringBitmap",
     "RoaringBitmapWriter",
     "FastAggregation",
+    "FastAggregation64",
     "ParallelAggregation",
     "BufferFastAggregation",
     "BufferParallelAggregation",
     "RoaringBitmapSliceIndex",
+    "Roaring64BitmapSliceIndex",
     "MutableBitSliceIndex",
     "ImmutableBitSliceIndex",
     "Operation",
@@ -93,4 +108,6 @@ __all__ = [
     "pairwise_cardinality",
     "pairwise_jaccard",
     "prepare_batched_cardinality",
+    "query",
+    "Q",
 ]

@@ -177,6 +177,47 @@ def unpack_header(buf, offset: int = 0) -> Tuple[int, int, bool]:
     return min_v % (1 << 32), max_v % (1 << 32), bool(ro)
 
 
+def pack_slices(ebm_items, slice_items, device):
+    """The device pack of a bit-sliced index from ``(key, container)``
+    pairs — the ebm's, ascending, and one iterable per slice — whatever
+    the key type: ``((keys, ebm_w, slices_w), nbytes)`` with int32 ``[K,
+    2048]`` ebm words and the ``[S, K, 2048]`` slice tensor over the ebm's K
+    keys, built on the host and sent to ``device`` in one copy. A slice
+    container whose key the ebm lacks is left out (slice columns are
+    always ebm columns)."""
+    ebm_items = list(ebm_items)
+    keys = [k for k, _ in ebm_items]
+    kidx = {k: i for i, k in enumerate(keys)}
+    s_count = len(slice_items)
+    host = np.zeros((s_count + 1, len(keys), dev.DEVICE_WORDS), dtype=np.int32)
+    for j, (_k, c) in enumerate(ebm_items):
+        host[s_count, j] = store.container_words(c)
+    for i, items in enumerate(slice_items):
+        for k, c in items:
+            j = kidx.get(k)
+            if j is not None:
+                host[i, j] = store.container_words(c)
+    packed = torch.from_numpy(host).to(device)
+    return (keys, packed[s_count], packed[:s_count]), host.nbytes
+
+
+def found_words(keys, like: torch.Tensor, items) -> torch.Tensor:
+    """A found set's ``(key, container)`` pairs marshalled onto a pack's
+    key layout: int32 ``[K, 2048]`` on ``like``'s device."""
+    host = np.zeros(tuple(like.shape), dtype=np.int32)
+    kidx = {k: i for i, k in enumerate(keys)}
+    for k, c in items:
+        j = kidx.get(k)
+        if j is not None:
+            host[j] = store.container_words(c)
+    return torch.from_numpy(host).to(like.device)
+
+
+def _items(bm: RoaringBitmap):
+    hlc = bm.high_low_container
+    return zip(hlc.keys, hlc.containers)
+
+
 def _bits_high_first(value: int, s_count: int) -> List[int]:
     """The predicate's bits for the slice walk, highest slice first."""
     return [(value >> i) & 1 for i in range(s_count - 1, -1, -1)]
@@ -494,20 +535,9 @@ class RoaringBitmapSliceIndex:
         device = resolve_device(config.device)
 
         def build():
-            keys = list(self.ebm.high_low_container.keys)
-            kidx = {k: i for i, k in enumerate(keys)}
-            s_count = self.bit_count()
-            host = np.zeros((s_count + 1, len(keys), dev.DEVICE_WORDS), dtype=np.int32)
-            for j, c in enumerate(self.ebm.high_low_container.containers):
-                host[s_count, j] = store.container_words(c)
-            for i, s in enumerate(self.slices):
-                hlc = s.high_low_container
-                for k, c in zip(hlc.keys, hlc.containers):
-                    j = kidx.get(k)
-                    if j is not None:
-                        host[i, j] = store.container_words(c)
-            packed = torch.from_numpy(host).to(device)
-            return (keys, packed[s_count], packed[:s_count]), host.nbytes
+            return pack_slices(
+                _items(self.ebm), [_items(s) for s in self.slices], device
+            )
 
         return store.PACK_CACHE.get_or_build(
             self._pack_key(), build,
@@ -518,14 +548,7 @@ class RoaringBitmapSliceIndex:
     def _found_words(keys, like: torch.Tensor, found_set: RoaringBitmap) -> torch.Tensor:
         """found_set marshalled onto the packed key layout: int32
         ``[K, 2048]`` on ``like``'s device."""
-        host = np.zeros(tuple(like.shape), dtype=np.int32)
-        kidx = {k: i for i, k in enumerate(keys)}
-        hlc = found_set.high_low_container
-        for k, c in zip(hlc.keys, hlc.containers):
-            j = kidx.get(k)
-            if j is not None:
-                host[j] = store.container_words(c)
-        return torch.from_numpy(host).to(like.device)
+        return found_words(keys, like, _items(found_set))
 
     def _pack_with_fixed(self, found_set: Optional[RoaringBitmap]):
         """(keys, ebm_w, slices_w, fixed_w) — the pack plus the found-set

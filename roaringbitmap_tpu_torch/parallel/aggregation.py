@@ -362,6 +362,35 @@ class FastAggregation:
         return _aggregate(_flatten(bitmaps), "and", mode, device)
 
     @staticmethod
+    def andnot(
+        first: RoaringBitmap, *rest: RoaringBitmap, mode: Optional[str] = None
+    ) -> RoaringBitmap:
+        """N-way difference ``first \\ (rest_1 | rest_2 | ...)`` — the
+        reference's ``andNot`` extended the way ``or``/``and`` are. The
+        query tier's n-way kernel (``query/kernels.andnot_nway``): one word
+        fold per surviving key on the CPU, the subtrahends' grouped OR and
+        the mask on the device (``config.device``)."""
+        from ..query import kernels
+
+        bms = _flatten((first,) + rest)
+        if not bms:
+            return RoaringBitmap()
+        return kernels.andnot_nway(bms[0], *bms[1:], mode=mode)
+
+    @staticmethod
+    def andnot_cardinality(
+        first: RoaringBitmap, *rest: RoaringBitmap, mode: Optional[str] = None
+    ) -> int:
+        """``|first \\ (rest_1 | ...)|`` — the device path fetches only
+        per-group popcounts (FastAggregation.andNotCardinality analogue)."""
+        from ..query import kernels
+
+        bms = _flatten((first,) + rest)
+        if not bms:
+            return 0
+        return kernels.andnot_nway_cardinality(bms[0], *bms[1:], mode=mode)
+
+    @staticmethod
     def naive_and(*bitmaps: RoaringBitmap) -> RoaringBitmap:
         """Pairwise left fold (FastAggregation.naive_and)."""
         bms = _flatten(bitmaps)
@@ -439,6 +468,11 @@ class ParallelAggregation:
                     max_workers=cls._POOL_SIZE, thread_name_prefix="rb-agg"
                 )
             return cls._POOL
+
+    @staticmethod
+    def group_by_key(*bitmaps: RoaringBitmap) -> Dict[int, List[Container]]:
+        """ParallelAggregation.groupByKey (ParallelAggregation.java:136)."""
+        return store.group_by_key(_flatten(bitmaps))
 
     @staticmethod
     def or_(*bitmaps: RoaringBitmap, mode: Optional[str] = None, device=None) -> RoaringBitmap:

@@ -136,6 +136,36 @@ def test_parallel_aggregation_matches_jax_package(name, op):
     assert got.serialize() == want.serialize()
 
 
+@pytest.mark.parametrize("mode", ["cpu", "device"])
+@pytest.mark.parametrize("name", sorted(SETS))
+def test_fast_aggregation_andnot_matches_jax_package(name, mode):
+    """``FastAggregation.andnot`` / ``andnot_cardinality`` (the query
+    tier's n-way kernel) equal the JAX package's, mode for mode."""
+    jb, tb = _pair(SETS[name])
+    want = JFA.andnot(jb[0], *jb[1::4], mode=mode)
+    got = TFA.andnot(tb[0], *tb[1::4], mode=mode)
+    assert got.serialize() == want.serialize()
+    assert 0 < got.get_cardinality() < tb[0].get_cardinality()
+    assert TFA.andnot([tb[0]] + tb[1::4], mode=mode).serialize() == want.serialize()
+    card = TFA.andnot_cardinality(tb[0], *tb[1::4], mode=mode)
+    assert card == JFA.andnot_cardinality(jb[0], *jb[1::4], mode=mode) == want.get_cardinality()
+    assert TFA.andnot(tb[0], mode=mode).serialize() == tb[0].serialize()
+    assert TFA.andnot_cardinality(tb[0], mode=mode) == tb[0].get_cardinality()
+    assert TFA.andnot(TRB(), tb[1], mode=mode).is_empty()
+
+
+@pytest.mark.parametrize("name", sorted(SETS))
+def test_parallel_group_by_key_matches_jax_package(name):
+    jb, tb = _pair(SETS[name], run_every=2)
+    want = JPA.group_by_key(*jb)
+    got = TPA.group_by_key(tb)
+    assert sorted(got) == sorted(want)
+    for k, cs in want.items():
+        assert [type(c).__name__ for c in got[k]] == [type(c).__name__ for c in cs]
+        assert all(np.array_equal(a.to_array(), b.to_array()) for a, b in zip(got[k], cs))
+    assert TPA.group_by_key(TRB([1, 1 << 16]), TRB([2, 2 << 16])).keys() == {0, 1, 2}
+
+
 @pytest.mark.parametrize(
     "name, layout",
     [("padded", "padded"), ("bucketed", "bucketed"), ("segmented", "segmented-scan")],
@@ -243,6 +273,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "from roaringbitmap_tpu_torch import insights\n"
         "from roaringbitmap_tpu_torch import interop, serialization, columnar\n"
         "from roaringbitmap_tpu_torch.columnar import costmodel, device, engine\n"
+        "from roaringbitmap_tpu_torch.models import art, roaring64, roaring64art, bsi64\n"
+        "from roaringbitmap_tpu_torch.parallel import aggregation64\n"
+        "from roaringbitmap_tpu_torch import Q, query, FastAggregation64, Roaring64Bitmap\n"
         "bad = [m for m in set(sys.modules) - before\n"
         "       if m in ('jax', 'jaxlib', 'roaringbitmap_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'roaringbitmap_tpu.'))]\n"
