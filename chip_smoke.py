@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only batch    # phases 1-3 and 12: batch similarity
     python3 chip_smoke.py --only mapped   # phases 1-2, 6, 7 and 13: memory-mapped bitmaps
     python3 chip_smoke.py --only sixtyfour  # phases 1-2 and 14: the 64-bit family
+    python3 chip_smoke.py --only mesh     # phases 1-2, 3 (c) and 15: row widths, multi-device
 
 ``--only paths`` runs only the phases whose end-to-end times PERF.md limits
 against a parent commit; copied into a checkout of the parent, it times
@@ -61,7 +62,12 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    (1, 1) and (300, 77) at K = 1, 3 and 31, and on all-ones ``[1, 32768,
    2048]`` and ``[1, 65536, 2048]`` rows whose one pair holds 2^31 and
    2^32 bits — bitwise equality required, with kernel time (CUDA events),
-   bound and the plain version's time;
+   bound and the plain version's time; (c) the four kernels that take a
+   row width (``rb_group_reduce`` dense, ``rb_popcount_rows`` plain and
+   masked, ``rb_oneil_compare``, ``rb_oneil_counts``) at 1024 and 512
+   words on a rank's blocks of the main paths' shapes (``[31, 5000, W]``,
+   ``[32, 763, W]``; every op, Q = 64), bitwise against their plain
+   versions, the 1024-word rows timed beside their bounds;
 4. the main path through the port's entry points: 10,000 census-shaped
    bitmaps (built as ``bench.py`` builds them) through
    ``FastAggregation.or_``, ``ParallelAggregation.or_`` and
@@ -225,13 +231,39 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    read after its checked calls; the phase fails if ``rb_group_reduce``,
    ``rb_oneil_compare`` or ``rb_oneil_counts`` read 0.
 
+15. (run after phase 14) multi-device through ``parallel/sharding.py``:
+   (a) an NCCL world of 1 on the card over a local store, mesh (1, 1):
+   with the ``mesh`` knob of the aggregation, BSI and 64-bit BSI configs
+   set, ``FastAggregation.or_`` / ``and_`` / ``xor`` and the three
+   cardinalities over the census set (built anew), Q1 through the planner
+   (its OR steps must read ``device-or-sharded``), phase 6's index's
+   ``compare`` for GE, LT, EQ, NEQ and RANGE and with a found set,
+   ``compare_cardinality``, ``sum`` and ``compare_cardinality_many`` over
+   64 quantiles, and phase 14's 64-bit batched count, each equal to the
+   unsharded path and numpy; the five programs on full-size inputs made
+   on the card from the seed (``[31, 10000, 2048]``, ``[32, 1526,
+   2048]``, Q = 64) against the unsharded kernels; the launch counts
+   zeroed before those calls and read after (``launches_mesh``); each
+   route's wall, sharded and unsharded in turns (median of 3), and the
+   sharded warm OR's and ``compare``'s idle share; (b) a gloo world of
+   four processes of this script sharing ``cuda:0`` (``--mesh-rank``),
+   mesh (2, 2), so every kernel runs at 1024 words, the collectives'
+   partials copied to host memory for gloo: the five programs on the same
+   seeded inputs and ``FastAggregation.or_`` over the census set through
+   the mesh, every rank held to (a)'s answers; a rank that fails, or is
+   still running after 300 s, fails the phase. With ``--only mesh`` both
+   BSI indexes are cut to 10M rows.
+
 The last three lines are a JSON object of the host tier's entry points
 (``{"host_tier": [...]}``, each one's native and numpy ms; not with
 ``--only kernels``), a JSON object describing every kernel (``launches``
 on its main path, ``launches_mapped`` on phase 13's, ``launches_64`` on
-phase 14's) and the JSON result ``{"ok": true, "device": {...}}``; with
+phase 14's, ``launches_mesh`` on phase 15's; a ``name@1024`` row is the
+kernel at 1024 words, whose path is phase 15 (b), its counts summed over
+the ranks) and the JSON result ``{"ok": true, "device": {...}}``; with
 ``--only sixtyfour`` the phase's launch counts (``{"launches_64": ...}``)
-and the JSON result. The port needs no JAX and nothing
+and the JSON result; with ``--only mesh`` phase 15 (a)'s launch counts
+and the 1024-word rows, then the JSON result. The port needs no JAX and nothing
 of the JAX package.
 """
 
@@ -240,6 +272,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import re
 import subprocess
 import sys
@@ -357,14 +390,15 @@ def ops_bound_ms(word_ops: int, n_keys: int, mhz: float) -> float:
     return word_ops * n_keys * 2048 / (sms * LOGIC_LANES_PER_SM * mhz * 1e6) * 1e3
 
 
-def batched_bound(s_count: int, k: int, q_n: int, fixed_is_ebm: bool, mhz: float):
+def batched_bound(s_count: int, k: int, q_n: int, fixed_is_ebm: bool, mhz: float,
+                  row_words: int = 2048):
     """The batched count's bound, from what the function needs rather than
     what the walk does: (ms, "bytes" or "operations", byte bound, operation
     bound). Bytes: the slices, ebm and fixed read once and the [Q, K] cards
     written once. Operations: RANK_OPS_PER_COLUMN logic instructions a
-    column for each 32 slices, whatever Q is."""
-    b_bytes = bound_ms(_oneil_bytes(s_count, k, q_n, fixed_is_ebm, True))
-    b_ops = ops_bound_ms(RANK_OPS_PER_COLUMN * 32 * -(-s_count // 32), k, mhz)
+    column for each 32 slices, whatever Q is. Rows of ``row_words`` words."""
+    b_bytes = bound_ms(_oneil_bytes(s_count, k, q_n, fixed_is_ebm, True, row_words * 4))
+    b_ops = ops_bound_ms(RANK_OPS_PER_COLUMN * 32 * -(-s_count // 32), k * row_words / 2048, mhz)
     return max(b_bytes, b_ops), "operations" if b_ops > b_bytes else "bytes", b_bytes, b_ops
 
 
@@ -678,11 +712,11 @@ def _pred_bits(value: int, s_count: int):
     return [(value >> i) & 1 for i in range(s_count - 1, -1, -1)]
 
 
-def _oneil_bytes(s_count, k, q_n, fixed_is_ebm, count_only):
+def _oneil_bytes(s_count, k, q_n, fixed_is_ebm, count_only, row_bytes=ROW_BYTES):
     """Bytes ``rb_oneil_compare`` must move: the slices, the ebm and (when
     it is another tensor) fixed read once, the result words (unless
     count-only) and the [Q, K] cards written once."""
-    kw = k * ROW_BYTES
+    kw = k * row_bytes
     return s_count * kw + (1 if fixed_is_ebm else 2) * kw + (0 if count_only else kw) + q_n * k * 4
 
 
@@ -717,7 +751,8 @@ def _oneil_case(K, card, name, slices, bits, ebm, fixed, op, count_only):
         lambda: K.oneil_compare_plain(slices, bits, ebm, fixed, op, count_only), reps=3, warmup=1
     )
     nbytes = _oneil_bytes(
-        slices.shape[0], slices.shape[1], q_n, fixed.data_ptr() == ebm.data_ptr(), count_only
+        slices.shape[0], slices.shape[1], q_n, fixed.data_ptr() == ebm.data_ptr(), count_only,
+        slices.shape[2] * 4,
     )
     b = bound_ms(nbytes)
     say(
@@ -1202,11 +1237,11 @@ def _count_oracle(values, n):
     return u[c == n].astype(np.uint32), u[c % 2 == 1].astype(np.uint32)
 
 
-def _check(name, bm, oracle):
+def _check(name, bm, oracle, tag="[main]"):
     got = bm.to_array()
     if got.shape != oracle.shape or not np.array_equal(got, oracle):
         fail(f"{name}: result ({got.size} values) differs from the numpy oracle ({oracle.size})")
-    say(f"[main] {name}: {got.size} values, equal to the numpy oracle")
+    say(f"{tag} {name}: {got.size} values, equal to the numpy oracle")
 
 
 def _layout_delta(store, before):
@@ -3655,7 +3690,8 @@ def phase_aggregation64(base, card: str):
 def phase_bsi64(card: str):
     """Phase 14 (b): the BSI north star at 64 bits through
     ``Roaring64BitmapSliceIndex``. Returns the launch counts of the
-    checked queries."""
+    checked queries, and the index with phase 15's batched query: ``(index,
+    64 quantile thresholds, their GE counts from numpy)``."""
     from roaringbitmap_tpu_torch import Operation, Roaring64Bitmap, Roaring64BitmapSliceIndex
     from roaringbitmap_tpu_torch.models import bsi as tbsi
     from roaringbitmap_tpu_torch.models import bsi64 as tbsi64
@@ -3796,20 +3832,22 @@ def phase_bsi64(card: str):
         f"{BATCH_Q} thresholds in one launch: {t_many * 1e3:.2f} ms, {t_many / BATCH_Q * 1e9:.0f} "
         f"ns/query; peak device memory {peak / 2**30:.3f} GiB ({peak} bytes; {peak_queries} over "
         f"the checked queries); phase 14 (b) took {time.perf_counter() - t_phase:.1f} s  [{card}]")
-    del keys, ebm_w, slices_w, index
+    del keys, ebm_w, slices_w
     store.PACK_CACHE.close()
     torch.cuda.empty_cache()
-    return launches
+    return launches, (index, q_vals, want_many)
 
 
 def phase_sixtyfour(base, card: str):
     """Phase 14: the 64-bit family on the card; the launch counts of its
-    checked calls (the kernels line's ``launches_64``)."""
+    checked calls (the kernels line's ``launches_64``) and phase 14 (b)'s
+    index with its batched query, for phase 15."""
     launches = phase_aggregation64(base, card)
-    for k, v in phase_bsi64(card).items():
+    launches_b, index64 = phase_bsi64(card)
+    for k, v in launches_b.items():
         launches[k] += v
     say(f"[sixtyfour] launches over phase 14's path: {launches}")
-    return launches
+    return launches, index64
 
 
 # ---------------------------------------------------------------------------
@@ -4305,19 +4343,563 @@ def phase_batch(base, card: str, n_left: int = N_BITMAPS):
                       max_abs_err=max(err, s_err), shape=shape)
 
 
+# ---------------------------------------------------------------------------
+# phase 3 (c) and phase 15: row widths and the mesh
+# ---------------------------------------------------------------------------
+
+MESH_WIDTHS = (1024, 512)  # a rank's rows on a words axis of 2 and of 4
+MESH_RUNS = 3  # turns of the sharded and the unsharded route per median
+MESH_WORLD = 4  # gloo ranks sharing the card in phase 15 (b): mesh (2, 2)
+MESH_TIMEOUT_S = 300  # a rank of phase 15 (b) still running then fails the phase
+MESH_ONLY_ROWS = 10_000_000  # --only mesh: both BSI indexes cut to 10M rows
+MESH_KERNELS = (
+    "rb_group_reduce[dense]", "rb_popcount_rows", "rb_popcount_rows[masked]",
+    "rb_oneil_compare", "rb_oneil_compare[batched]",
+)
+
+
+def phase_width_kernels(card: str):
+    """Phase 3 (c): the four kernels that take a row width (``rb_group_reduce``
+    dense, ``rb_popcount_rows`` plain and masked, ``rb_oneil_compare`` and
+    ``rb_oneil_counts``) at the widths a mesh's words axis gives a rank, on
+    a rank's blocks of the main paths' shapes (a 2-wide containers axis:
+    ``[31, 5000, W]`` and ``[32, 763, W]``), bitwise against their plain
+    versions; the W = 1024 rows of the kernels line, timed beside their
+    bounds."""
+    from roaringbitmap_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    rng = np.random.default_rng(SEED + 15)
+    mhz_max = max_sm_mhz()
+    m, k, s_count = M_MAIN // 2, K_BSI // 2, S_BSI
+    pred = 0x9E3779B9
+    out = {}
+
+    def row(name, shape, err, ms, plain, b, **kw):
+        out[f"{name}@1024"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                                   shape=list(shape), **kw)
+
+    for w in MESH_WIDTHS:
+        rb = w * 4
+        plan = K.SegmentPlan.dense(G_MAIN, m)
+        for op in ("or", "and", "xor"):
+            words = _rand_words(gen, G_MAIN * m * w, op, density=0.0044).view(G_MAIN * m, w)
+            got = K.group_reduce(words, plan, op)
+            err = _compare(f"rb_group_reduce[dense] {op} W={w}", got, K.group_reduce_plain(words, plan, op))
+            line = f"[kernel] rb_group_reduce[dense] {op} [{G_MAIN}, {m}, {w}]: equal"
+            if op == "or" and w == 1024:
+                ms = cuda_ms(lambda: K.group_reduce(words, plan, op))
+                plain = cuda_ms(lambda: K.group_reduce_plain(words, plan, op), reps=3, warmup=1)
+                b = bound_ms(G_MAIN * m * rb + G_MAIN * rb)
+                row("rb_group_reduce[dense]", (G_MAIN, m, w), err, ms, plain, b,
+                    replaces="roaringbitmap_tpu/ops/pallas_kernels.py:397")
+                line += f"; {ms:.4f} ms, bound {b:.4f} ms ({b / ms:.1%} of bound), plain {plain:.3f} ms"
+            say(f"{line}  [{card}]")
+        got = K.popcount_rows(words)
+        _compare(f"rb_popcount_rows [{G_MAIN * m}, {w}]", got, K.popcount_rows_plain(words))
+        red = K.group_reduce(words, plan, "xor")  # the path's shape: [G, W] reduced rows
+        got = K.popcount_rows(red)
+        err = _compare(f"rb_popcount_rows [{G_MAIN}, {w}]", got, K.popcount_rows_plain(red))
+        line = f"[kernel] rb_popcount_rows [{G_MAIN * m}, {w}] and [{G_MAIN}, {w}]: equal"
+        if w == 1024:
+            ms = cuda_ms(lambda: K.popcount_rows(red))
+            plain = cuda_ms(lambda: K.popcount_rows_plain(red), reps=3, warmup=1)
+            b = bound_ms(G_MAIN * rb + G_MAIN * 4)
+            row("rb_popcount_rows", (G_MAIN, w), err, ms, plain, b,
+                replaces="roaringbitmap_tpu/ops/device.py:103")
+            line += f"; [{G_MAIN}, {w}] {ms:.4f} ms, bound {b:.4f} ms ({b / ms:.1%} of bound), plain {plain:.3f} ms"
+        say(f"{line}  [{card}]")
+        del words, red
+
+        ebm = torch.full((k, w), -1, dtype=torch.int32, device="cuda")
+        slices = _near_slices(gen, pred, s_count, ebm, 5)
+        found = _rand_dense(gen, (k, w)) & _rand_dense(gen, (k, w)) & ebm
+        got = K.popcount_rows(slices, mask=found)
+        err = _compare(f"rb_popcount_rows[masked] W={w}", got, K.popcount_rows_plain(slices, mask=found))
+        line = f"[kernel] rb_popcount_rows[masked] [{s_count}, {k}, {w}] & [{k}, {w}]: equal"
+        if w == 1024:
+            ms = cuda_ms(lambda: K.popcount_rows(slices, mask=found))
+            plain = cuda_ms(lambda: K.popcount_rows_plain(slices, mask=found), reps=3, warmup=1)
+            b = bound_ms(s_count * k * rb + k * rb + s_count * k * 4)
+            row("rb_popcount_rows[masked]", (s_count, k, w), err, ms, plain, b,
+                replaces="roaringbitmap_tpu/models/bsi.py:1111")
+            line += f"; {ms:.4f} ms, bound {b:.4f} ms ({b / ms:.1%} of bound), plain {plain:.3f} ms"
+        say(f"{line}  [{card}]")
+        lo, hi = pred - (1 << 16), pred + (1 << 16)
+        for op in ONEIL_OPS:
+            walks = [[_pred_bits(lo, s_count), _pred_bits(hi, s_count)]] if op == "RANGE" else [
+                [_pred_bits(pred, s_count)]]
+            r = _oneil_case(K, card, f"rb_oneil_compare {op} with a found set [{s_count}, {k}, {w}]",
+                            slices, _bits_tensor(walks), ebm, found, op, False)
+            if op == "GE" and w == 1024:
+                row("rb_oneil_compare", (s_count, k, w), r["max_abs_err"], r["ms"], r["plain_ms"],
+                    r["bound_ms"], replaces="roaringbitmap_tpu/ops/pallas_kernels.py:699")
+        qs = _thresholds(rng, pred, BATCH_Q)
+        for op in ONEIL_OPS:
+            bits = _bits_tensor(_walks(op, qs, s_count))
+            before = K.LAUNCHES["rb_oneil_compare[batched]"]
+            got = K.oneil_compare(slices, bits, ebm, found, op, True)[1]
+            torch.cuda.synchronize()
+            if K.LAUNCHES["rb_oneil_compare[batched]"] != before + 1:
+                fail(f"tiled walk {op} W={w}: launches {K.LAUNCHES}")
+            want = K.oneil_compare_plain(slices, bits, ebm, found, op, True)[1]
+            err = _compare(f"rb_oneil_compare[batched] {op} Q={BATCH_Q} W={w}", got, want)
+            hits = int(want.long().sum())
+            if not 0 < hits < BATCH_Q * int(K.popcount_rows(found).long().sum()):
+                fail(f"tiled walk {op} W={w}: the plain answer has {hits} bits")
+        plan_t = K.oneil_tile_plan(s_count, BATCH_Q, "GE", w)
+        line = (f"[kernel] rb_oneil_compare[batched] Q={BATCH_Q} [{s_count}, {k}, {w}]: all 7 ops equal "
+                f"with a found set ({plan_t.tile_words}-word tiles, {w // plan_t.tile_words} a chunk)")
+        if w == 1024:
+            bits = _bits_tensor(_walks("GE", qs, s_count))
+            ms = cuda_ms(lambda: K.oneil_compare(slices, bits, ebm, ebm, "GE", True))
+            plain = cuda_ms(lambda: K.oneil_compare_plain(slices, bits, ebm, ebm, "GE", True), reps=3, warmup=1)
+            b, by, b_bytes, b_ops = batched_bound(s_count, k, BATCH_Q, True, mhz_max, w)
+            row("rb_oneil_compare[batched]", (s_count, k, w), err, ms, plain, b, bound_by=by,
+                replaces="roaringbitmap_tpu/models/bsi.py:974")
+            line += (f"; GE without a found set {ms:.4f} ms, byte bound {b_bytes:.4f} ms, operation "
+                     f"bound {b_ops:.4f} ms: {by} bind, {b / ms:.1%} of the bound; plain {plain:.3f} ms")
+        say(f"{line}  [{card}]")
+        del slices, found, ebm
+        torch.cuda.empty_cache()
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_inputs():
+    """Phase 15's program inputs, made on the card from the seed alike in
+    every process: the census-shaped block ``[31, 10000, 2048]`` (sparse
+    bits: a group's OR keeps about half of them), the north star's ``[32, 1526,
+    2048]`` slices near a predicate with its ebm and a found set, and 64
+    thresholds."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    # every bit set with probability 2^-14, by ANDs of random words (a
+    # scatter of single bits would let duplicate indices land in another
+    # order in each process): a group's OR over 10,000 rows keeps ~46%
+    block = torch.empty((G_MAIN, M_MAIN, 2048), dtype=torch.int32, device="cuda")
+    for g in range(G_MAIN):
+        w = _rand_dense(gen, (M_MAIN, 2048))
+        for _ in range(13):
+            w &= _rand_dense(gen, (M_MAIN, 2048))
+        block[g] = w
+    ebm = torch.full((K_BSI, 2048), -1, dtype=torch.int32, device="cuda")
+    ebm[K_BSI - 1, (BSI_ROWS - (K_BSI - 1) * 65536) // 32:] = 0
+    pred = 0x9E3779B9
+    slices = _near_slices(gen, pred, S_BSI, ebm, 5)
+    found = _rand_dense(gen, ebm.shape) & _rand_dense(gen, ebm.shape) & ebm
+    qs = _thresholds(np.random.default_rng(SEED + 16), pred, BATCH_Q)
+    return block, slices, ebm, found, pred, qs
+
+
+def _mesh_programs(sharding, mesh, inputs):
+    """The five programs on this rank's blocks of ``inputs`` (consumed:
+    the full tensors are dropped once cut), each result gathered on every
+    rank. Returns (results as numpy, each program's wall in ms)."""
+    block, slices, ebm, found, pred, qs = inputs
+    inputs.clear()
+    rows, chunked = ("containers", "words"), (None, "containers", "words")
+    res, walls = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    from roaringbitmap_tpu_torch.ops.device import to_host_u32 as u32
+
+    local = sharding.shard_rows(mesh, block, chunked)
+    red, cards = timed("grouped_reduce or", lambda: sharding.distributed_grouped_reduce(mesh, "or")(local))
+    res["grouped_or"] = u32(sharding.gather_shards(mesh, red, (None, "words")))
+    res["grouped_or_cards"] = cards.cpu().numpy()
+    del local
+    local = sharding.shard_rows(mesh, block.view(-1, 2048), rows)
+    del block
+    total, card = timed("wide_or_cardinality", lambda: sharding.distributed_wide_or_cardinality(mesh)(local))
+    res["wide_or"] = u32(sharding.gather_shards(mesh, total, ("words",)))
+    res["wide_card"] = np.array([int(card)])
+    del local
+    torch.cuda.empty_cache()
+    ls = sharding.shard_rows(mesh, slices, chunked)
+    le, lf = sharding.shard_rows(mesh, ebm, rows), sharding.shard_rows(mesh, found, rows)
+    del slices, ebm, found
+    for op, bits in (("GE", _pred_bits(pred, S_BSI)),
+                     ("RANGE", [_pred_bits(pred - (1 << 16), S_BSI), _pred_bits(pred + (1 << 16), S_BSI)])):
+        out, c = timed(f"bsi_compare {op}", lambda: sharding.distributed_bsi_compare(mesh, op)(ls, bits, le, lf))
+        res[f"compare_{op}"] = u32(sharding.gather_shards(mesh, out, rows))
+        res[f"compare_{op}_cards"] = sharding.gather_shards(mesh, c, ("containers",)).cpu().numpy()
+    counts = timed("bsi_sum", lambda: sharding.distributed_bsi_sum(mesh)(ls, lf))
+    res["sum"] = sharding.gather_shards(mesh, counts, (None, "containers")).cpu().numpy()
+    bits = [_pred_bits(q, S_BSI) for q in qs]
+    cards = timed(f"bsi_counts_many GE Q={BATCH_Q}",
+                  lambda: sharding.distributed_bsi_counts_many(mesh, "GE")(ls, bits, le, le))
+    res["counts_many"] = sharding.gather_shards(mesh, cards, (None, "containers")).cpu().numpy()
+    del ls, le, lf
+    torch.cuda.empty_cache()
+    return res, walls
+
+
+def mesh_rank_main(rank: int, world: int, port: int, ref_dir: str) -> None:
+    """One rank of phase 15 (b): a gloo world of ``world`` processes on
+    ``cuda:0``, mesh (2, 2), so every kernel runs at W = 1024. The five
+    programs on the seeded inputs and ``FastAggregation.or_`` through
+    ``aggregation.config.mesh`` over the census set, each held to phase 15
+    (a)'s answer in ``ref_dir``. Prints one JSON line; exits non-zero on a
+    difference."""
+    import torch.distributed as dist
+    from pathlib import Path
+
+    from roaringbitmap_tpu_torch import FastAggregation
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import aggregation, sharding
+
+    torch.cuda.set_device(0)
+    sharding.initialize_multihost(
+        f"tcp://127.0.0.1:{port}", world, rank, backend="gloo", timeout=MESH_TIMEOUT_S
+    )
+    mesh = sharding.make_mesh(world, words_axis=2)
+    ref = np.load(Path(ref_dir) / "programs.npz")
+    inputs = list(_mesh_inputs())
+    K.reset_launches()
+    got, walls = _mesh_programs(sharding, mesh, inputs)
+    differ = [name for name in ref.files if not np.array_equal(got[name], ref[name])]
+    _, bitmaps, _ = build_working_set()
+    aggregation.config.mesh = mesh
+    t0 = time.perf_counter()
+    r = FastAggregation.or_(*bitmaps)
+    torch.cuda.synchronize()
+    walls["FastAggregation.or_ (cold)"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    r = FastAggregation.or_(*bitmaps)
+    walls["FastAggregation.or_ (warm)"] = (time.perf_counter() - t0) * 1e3
+    aggregation.config.mesh = None
+    or_equal = r.serialize() == (Path(ref_dir) / "or.bin").read_bytes()
+    print(json.dumps({
+        "rank": rank, "mesh": mesh.mesh.tolist(), "coordinate": list(mesh.get_coordinate()),
+        "backend": str(dist.get_backend()), "differ": differ, "or_equal": or_equal,
+        "launches": dict(K.LAUNCHES), "walls_ms": walls,
+    }), flush=True)
+    dist.destroy_process_group()
+    sys.exit(0 if not differ and or_equal else 1)
+
+
+def _bsi_indexes_for_mesh(card: str):
+    """``--only mesh``: the 32- and 64-bit north-star indexes built as
+    phases 6 and 14 build them, cut to MESH_ONLY_ROWS rows."""
+    from roaringbitmap_tpu_torch import Roaring64BitmapSliceIndex, RoaringBitmapSliceIndex
+
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    vals = rng.integers(0, 1 << 32, size=MESH_ONLY_ROWS, dtype=np.uint64).astype(np.int64)
+    index = RoaringBitmapSliceIndex()
+    index.set_values((np.arange(MESH_ONLY_ROWS, dtype=np.uint32), vals))
+    rng = np.random.default_rng(SEED)
+    cols = np.uint64(BSI64_BASE) + np.arange(MESH_ONLY_ROWS, dtype=np.uint64)
+    vals64 = rng.integers(0, 1 << BSI64_VALUE_BITS, size=MESH_ONLY_ROWS, dtype=np.uint64)
+    index64 = Roaring64BitmapSliceIndex()
+    index64.set_values((cols, vals64))
+    srt = np.sort(vals64)
+    q64 = [int(srt[int(p * (MESH_ONLY_ROWS - 1))]) for p in np.linspace(0.05, 0.95, BATCH_Q)]
+    want64 = MESH_ONLY_ROWS - np.searchsorted(srt, np.array(q64, dtype=np.uint64), side="left")
+    say(f"[mesh] --only mesh: the 32- and 64-bit indexes cut to {MESH_ONLY_ROWS} rows "
+        f"({index.ebm.get_container_count()} chunks), built in {time.perf_counter() - t0:.1f} s  [{card}]")
+    return index, vals, (index64, q64, want64)
+
+
+def _counts_ge(vals: np.ndarray, qs) -> np.ndarray:
+    """How many of ``vals`` are >= each of the ascending thresholds
+    ``qs``: one pass over the values."""
+    qs = np.asarray(qs, dtype=np.int64)
+    below = np.bincount(np.searchsorted(qs, vals, side="right"), minlength=len(qs) + 1)
+    return vals.size - np.cumsum(below)[:-1]
+
+
+def _turns(label: str, sharded, unsharded, card: str) -> None:
+    """``MESH_RUNS`` walls of each route, taking turns; the medians."""
+    walls = {"sharded": [], "unsharded": []}
+    for _ in range(MESH_RUNS):
+        for name, fn in (("sharded", sharded), ("unsharded", unsharded)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    s, u = (float(np.median(walls[k])) for k in ("sharded", "unsharded"))
+    say(f"[mesh] (a) {label}: sharded {s:.2f} ms, unsharded {u:.2f} ms, median of {MESH_RUNS} in turns "
+        f"(sharded {', '.join(f'{x:.2f}' for x in walls['sharded'])}; unsharded "
+        f"{', '.join(f'{x:.2f}' for x in walls['unsharded'])})  [{card}]")
+
+
+def phase_mesh(base, index, vals, index64, card: str):
+    """Phase 15: multi-device through ``parallel/sharding.py``. (a) an NCCL
+    world of 1 on the card: the aggregation, planner, BSI and 64-bit BSI
+    mesh routes at full size against the unsharded path and numpy, the
+    five programs on full-size seeded inputs against the unsharded kernels,
+    the routes timed in turns; (b) a gloo world of MESH_WORLD processes
+    sharing the card, mesh (2, 2), every rank held to (a)'s answers.
+    Returns (a)'s launch counts and (b)'s, summed over the ranks."""
+    import tempfile
+    import torch.distributed as dist
+    from pathlib import Path
+
+    from roaringbitmap_tpu_torch import FastAggregation, Operation, RoaringBitmap
+    from roaringbitmap_tpu_torch import query as tq
+    from roaringbitmap_tpu_torch.models import bsi as tbsi
+    from roaringbitmap_tpu_torch.models import bsi64 as tbsi64
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.ops.device import to_host_u32
+    from roaringbitmap_tpu_torch.parallel import aggregation, sharding, store
+
+    t_phase = time.perf_counter()
+    _, bitmaps, _real = build_working_set()  # anew: phase 8's mutation stays out
+    nb = len(base)
+    oracle_or = np.unique(np.concatenate(base[: min(nb, N_BITMAPS)]))
+    sub = bitmaps[:-1]
+    mult = np.bincount(np.arange(len(sub)) % nb, minlength=nb)
+    odd = [base[i] for i in np.flatnonzero(mult % 2)]
+    oracle_xor = _count_oracle(odd, len(odd))[1]
+    mult_all = np.bincount(np.arange(len(bitmaps)) % nb, minlength=nb)
+    oracle_and = _count_oracle([base[i] for i in range(nb) if mult_all[i]], int((mult_all > 0).sum()))[0]
+    A, B, C = ([b for i, b in enumerate(bitmaps) if lo <= i % nb < hi] for lo, hi in Q1_THIRDS)
+    uA, uB, uC = (np.unique(np.concatenate(base[lo:hi])) for lo, hi in Q1_THIRDS)
+    v, c = np.unique(np.concatenate([base[i % nb] for i in range(Q1_HEAD)]), return_counts=True)
+    want_q1 = np.union1d(np.setdiff1d(np.intersect1d(uA, uB), uC), v[c >= 2])
+    Q = tq.Q
+    q1 = ((Q.or_(*A) & Q.or_(*B)) - Q.or_(*C)) | Q.threshold(2, *bitmaps[:Q1_HEAD])
+
+    n_rows = vals.size
+    rng = np.random.default_rng(SEED + 15)
+    found_cols = np.sort(rng.choice(n_rows, size=n_rows // 20, replace=False))
+    found = RoaringBitmap(found_cols.astype(np.uint32))
+    med, present = int(np.median(vals)), int(vals[12_345])
+    lo, hi = med // 2, med + med // 2
+    fv = vals[found_cols]
+    q_vals = np.quantile(vals, np.linspace(0.05, 0.95, BATCH_Q)).astype(np.int64)
+    bsi_queries = [
+        ("GE median", Operation.GE, med, 0, None, np.flatnonzero(vals >= med)),
+        ("LT median", Operation.LT, med, 0, None, np.flatnonzero(vals < med)),
+        ("EQ a present value", Operation.EQ, present, 0, None, np.flatnonzero(vals == present)),
+        ("NEQ a present value", Operation.NEQ, present, 0, None, np.flatnonzero(vals != present)),
+        ("RANGE middle half", Operation.RANGE, lo, hi, None, np.flatnonzero((vals >= lo) & (vals <= hi))),
+        ("GE median, 5% found set", Operation.GE, med, 0, found, found_cols[fv >= med]),
+    ]
+    want_many = _counts_ge(vals, q_vals)
+    index64_, q64, want64 = index64
+
+    # the unsharded answers first, outside the counted run
+    plain = {
+        "or": FastAggregation.or_(*bitmaps), "and": FastAggregation.and_(*bitmaps),
+        "xor": FastAggregation.xor(*sub), "q1": tq.execute(q1, cache=None),
+        "bsi": [index.compare(op, a, b, fs) for _, op, a, b, fs, _ in bsi_queries],
+        "sum": index.sum(found), "many": index.compare_cardinality_many(Operation.GE, q_vals),
+        "many64": index64_.compare_cardinality_many(Operation.GE, q64),
+    }
+    inputs = list(_mesh_inputs())
+    block, slices, ebm, fnd, pred, qs = inputs
+    kernel_ref = {
+        "grouped_or": K.group_reduce(block, K.SegmentPlan.dense(G_MAIN, M_MAIN), "or"),
+        "wide_or": K.wide_reduce_cardinality(block.view(-1, 2048))[0],
+        "compare_GE": K.oneil_compare(slices, _bits_tensor([[_pred_bits(pred, S_BSI)]]), ebm, fnd, "GE")[0],
+        "sum": K.popcount_rows(slices, mask=fnd).view(S_BSI, K_BSI),
+        "counts_many": K.oneil_compare(
+            slices, _bits_tensor([[_pred_bits(q, S_BSI)] for q in qs]), ebm, ebm, "GE", True)[1],
+    }
+    del block, slices, ebm, fnd
+
+    world = sharding.initialize_multihost(backend="nccl")
+    mesh = sharding.make_mesh()
+    say(f"[mesh] (a) world of {world} over a local store, backend {dist.get_backend()}, mesh "
+        f"{mesh.mesh.tolist()} {mesh.mesh_dim_names} on {sharding.mesh_device(mesh)}  [{card}]")
+    store.PACK_CACHE.close()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    # --- phase 15's path: every mesh-routed call below runs with the counts live ---
+    aggregation.config.mesh = tbsi.config.mesh = tbsi64.config.mesh = mesh
+    try:
+        got = {
+            "or": FastAggregation.or_(*bitmaps), "and": FastAggregation.and_(*bitmaps),
+            "xor": FastAggregation.xor(*sub),
+            "or_card": FastAggregation.or_cardinality(*bitmaps),
+            "and_card": FastAggregation.and_cardinality(*bitmaps),
+            "xor_card": FastAggregation.xor_cardinality(*sub),
+        }
+        engines = {st.engine for st in tq.plan(q1).steps}
+        got["q1"] = tq.execute(q1, cache=None)
+        got["bsi"] = [index.compare(op, a, b, fs) for _, op, a, b, fs, _ in bsi_queries]
+        got["bsi_card"] = [index.compare_cardinality(op, a, b, fs) for _, op, a, b, fs, _ in bsi_queries]
+        got["sum"] = index.sum(found)
+        got["many"] = index.compare_cardinality_many(Operation.GE, q_vals)
+        got["many64"] = index64_.compare_cardinality_many(Operation.GE, q64)
+        programs, walls_a = _mesh_programs(sharding, mesh, inputs)
+        torch.cuda.synchronize()
+    finally:
+        aggregation.config.mesh = tbsi.config.mesh = tbsi64.config.mesh = None
+    launches = dict(K.LAUNCHES)
+    say(f"[mesh] (a) launches over phase 15's path: {launches}")
+    for name in MESH_KERNELS:
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on phase 15's path")
+
+    for name, oracle in (("or", oracle_or), ("and", oracle_and), ("xor", oracle_xor)):
+        if got[name] != plain[name]:
+            fail(f"sharded FastAggregation {name} differs from the unsharded path")
+        _check(f"(a) sharded FastAggregation.{name} (equal to the unsharded path)", got[name], oracle, "[mesh]")
+        if got[f"{name}_card"] != oracle.size:
+            fail(f"sharded {name}_cardinality = {got[f'{name}_card']}, oracle {oracle.size}")
+    say(f"[mesh] (a) the three cardinalities equal the oracles: {got['or_card']}, {got['and_card']}, "
+        f"{got['xor_card']}  [{card}]")
+    if "device-or-sharded" not in engines:
+        fail(f"Q1's plan under the mesh has engines {sorted(engines)}, not device-or-sharded")
+    if got["q1"] != plain["q1"]:
+        fail("Q1 through the sharded engines differs from the unsharded plan")
+    _check(f"(a) Q1 through the planner, engines {sorted(engines)}", got["q1"], want_q1, "[mesh]")
+    for (name, _op, _a, _b, _fs, oracle), g, p, cnt in zip(bsi_queries, got["bsi"], plain["bsi"], got["bsi_card"]):
+        if g != p:
+            fail(f"sharded BSI compare {name} differs from the unsharded path")
+        _check_values(f"(a) sharded compare {name} (equal to the unsharded path)", g, oracle, "[mesh]")
+        if cnt != oracle.size:
+            fail(f"sharded compare_cardinality {name} = {cnt}, oracle {oracle.size}")
+    if got["sum"] != plain["sum"] or got["sum"] != (int(fv.sum()), found_cols.size):
+        fail(f"sharded sum {got['sum']}, unsharded {plain['sum']}, oracle {(int(fv.sum()), found_cols.size)}")
+    if not (np.array_equal(got["many"], plain["many"]) and np.array_equal(got["many"], want_many)):
+        fail("sharded compare_cardinality_many differs from the unsharded path or the oracle")
+    if not (np.array_equal(got["many64"], plain["many64"]) and np.array_equal(got["many64"], want64)):
+        fail("sharded 64-bit compare_cardinality_many differs from the unsharded path or the oracle")
+    say(f"[mesh] (a) BSI compare_cardinality, sum {got['sum'][0]} and both batched counts over "
+        f"{BATCH_Q} thresholds: equal to the unsharded path and the oracles  [{card}]")
+    for name, want in kernel_ref.items():
+        if not np.array_equal(programs[name], to_host_u32(want)):
+            fail(f"program {name} on the world of 1 differs from the unsharded kernel")
+    say(f"[mesh] (a) the five programs on full-size seeded inputs ([31, 10000, 2048]; [32, 1526, 2048], "
+        f"Q = {BATCH_Q}): equal to the unsharded kernels where one computes the same; walls "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in walls_a.items()) + f"  [{card}]")
+    del kernel_ref
+
+    aggregation.config.mesh = tbsi.config.mesh = tbsi64.config.mesh = mesh
+    routes = [
+        ("FastAggregation.or_ (warm, resident pack)", lambda: FastAggregation.or_(*bitmaps)),
+        ("Q1 through the planner (cache=None)", lambda: tq.execute(q1, cache=None)),
+        ("BSI compare GE median", lambda: index.compare(Operation.GE, med)),
+        ("BSI sum(found)", lambda: index.sum(found)),
+        (f"BSI compare_cardinality_many GE Q={BATCH_Q}",
+         lambda: index.compare_cardinality_many(Operation.GE, q_vals)),
+        (f"64-bit compare_cardinality_many GE Q={BATCH_Q}",
+         lambda: index64_.compare_cardinality_many(Operation.GE, q64)),
+    ]
+    cfgs = (aggregation.config, tbsi.config, tbsi64.config)
+
+    def unsharded(fn):
+        def run():
+            for c in cfgs:
+                c.mesh = None
+            try:
+                fn()
+            finally:
+                for c in cfgs:
+                    c.mesh = mesh
+        return run
+
+    try:
+        for label, fn in routes:
+            _turns(label, fn, unsharded(fn), card)
+        _profiled("[mesh]", "(a) sharded FastAggregation.or_ (warm)", routes[0][1], card, 3)
+        _profiled("[mesh]", "(a) sharded BSI compare GE median", routes[2][1], card, 3)
+    finally:
+        for c in cfgs:
+            c.mesh = None
+    # the programs cached for this mesh die with its process group
+    for program in (sharding.distributed_wide_or_cardinality, sharding.distributed_grouped_reduce,
+                    sharding.distributed_bsi_compare, sharding.distributed_bsi_sum,
+                    sharding.distributed_bsi_counts_many):
+        program.cache_clear()
+    dist.destroy_process_group()
+
+    # (b): the gloo world sharing the card, held to (a)'s answers
+    del got, plain
+    store.PACK_CACHE.close()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as ref_dir:
+        np.savez(Path(ref_dir) / "programs.npz", **programs)
+        (Path(ref_dir) / "or.bin").write_bytes(FastAggregation.or_(*bitmaps).serialize())
+        store.PACK_CACHE.close()
+        torch.cuda.empty_cache()
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [
+            subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+                 "--mesh-world", str(MESH_WORLD),
+                 "--mesh-port", str(port), "--mesh-ref", ref_dir],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for r in range(MESH_WORLD)
+        ]
+        outs = [""] * MESH_WORLD
+        try:
+            for r, p in enumerate(procs):
+                left = MESH_TIMEOUT_S - (time.perf_counter() - t0)
+                outs[r], _ = p.communicate(timeout=max(left, 1))
+        except subprocess.TimeoutExpired:
+            fail(f"phase 15 (b): a rank of the gloo world was still running after {MESH_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    wall_b = time.perf_counter() - t0
+    reports = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        if p.returncode != 0 or not lines:
+            fail(f"phase 15 (b): rank {r} exited {p.returncode}:\n{out[-3000:]}")
+        reports.append(json.loads(lines[-1]))
+    launches_b = {k: sum(rep["launches"][k] for rep in reports) for k in K.LAUNCHES}
+    for name in MESH_KERNELS:
+        if launches_b[name] == 0:
+            fail(f"kernel {name} was not launched on phase 15 (b)'s path")
+    walls = reports[0]["walls_ms"]
+    say(f"[mesh] (b) gloo world of {MESH_WORLD} processes sharing cuda:0, mesh {reports[0]['mesh']} "
+        f"(containers, words), backend {reports[0]['backend']}: every rank's kernels ran at W = 1024 "
+        f"on the card; gloo carries the collectives through host memory here, so each partial is "
+        f"copied to the CPU for its collective and back; the five programs and the sharded "
+        f"FastAggregation.or_ on every rank equal (a)'s answers; rank 0's walls "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in walls.items())
+        + f"; launches summed over the ranks {launches_b}; (b) took {wall_b:.1f} s  [{card}]")
+    say(f"[mesh] phase 15 took {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return launches, launches_b
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels", "paths", "columnar", "serving", "host", "batch", "mapped",
-                                       "sixtyfour"],
+                                       "sixtyfour", "mesh"],
                     help="kernels: phases 1-3; paths: phases 1-2 and the timed paths 5, 8 and 6; "
                          "columnar: phases 1-2 and 9; serving: phases 1-2 and 10; host: phases 1-2, 11 "
                          "and 6; batch: phases 1-3 and 12; mapped: phases 1-2, 6, 7 and 13; "
-                         "sixtyfour: phases 1-2 and 14")
+                         "sixtyfour: phases 1-2 and 14; mesh: phases 1-2, 3 (c) and 15")
     ap.add_argument("--window-pairs", type=int, default=WINDOW_PAIRS,
                     help=f"adjacent pairs in phase 9's window (default {WINDOW_PAIRS})")
+    # one rank of phase 15 (b), started by the phase itself
+    ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-ref", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    if args.mesh_rank is not None:
+        mesh_rank_main(args.mesh_rank, args.mesh_world, args.mesh_port, args.mesh_ref)
+        return
     t_start = time.perf_counter()
     card, kind, count = phase_card()
     phase_build()
@@ -4356,17 +4938,31 @@ def main():
         phase_mapped(base, index, vals, bsi_times, card)
         say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
         return
+    if args.only == "mesh":
+        from roaringbitmap_tpu_torch.utils import datasets
+
+        base, _real = datasets.load_or_synthesize("census1881")
+        widths = phase_width_kernels(card)
+        index, vals, index64 = _bsi_indexes_for_mesh(card)
+        launches_mesh, launches_b = phase_mesh(base, index, vals, index64, card)
+        rows = [{"name": name, "launches": launches_b[name.split("@")[0]], "launches_mesh":
+                 launches_b[name.split("@")[0]], **t} for name, t in widths.items()]
+        say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
+        say(json.dumps({"launches_mesh": launches_mesh, "width_rows": rows}))
+        say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return
     if args.only == "sixtyfour":
         from roaringbitmap_tpu_torch.utils import datasets
 
         base, _real = datasets.load_or_synthesize("census1881")
-        launches_64 = phase_sixtyfour(base, card)
+        launches_64, _index64 = phase_sixtyfour(base, card)
         say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
         say(json.dumps({"launches_64": launches_64}))
         say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return
     timings = phase_kernels(card)
     timings.update(phase_bsi_kernels(card))
+    timings.update(phase_width_kernels(card))
     timings.update(phase_pair_rows(card))
     t0 = time.perf_counter()
     base, bitmaps, real = build_working_set()
@@ -4377,6 +4973,7 @@ def main():
     launches = None  # not counted unless phases 4, 8, 9, 10, 12 and 6 run
     mapped_launches = None  # phase 13's path, counted when it runs
     launches_64 = None  # phase 14's path, counted when it runs
+    mesh_launches = None  # phase 15's paths, (a) and (b), counted when it runs
     host = None
     if args.only == "batch":
         del bitmaps
@@ -4398,14 +4995,20 @@ def main():
         vals, bsi_launches, index, bsi_times = phase_bsi(card)
         phase_range_bitmap(vals)
         mapped_launches = phase_mapped(base, index, vals, bsi_times, card)
-        del index, vals
-        launches_64 = phase_sixtyfour(base, card)
+        launches_64, index64 = phase_sixtyfour(base, card)
+        mesh_launches = phase_mesh(base, index, vals, index64, card)
+        del index, vals, index64
         # each kernel's count from the path that runs it: the aggregation
         # path for the reduce kernels, the query path for the threshold
         # kernel, the columnar path for the pair kernel, the lane's path
         # (run_pipelined) for the expansion, the BSI path for the O'Neil
         # walk and the masked popcount; the wide reduce is on none
         launches = dict(agg_launches)
+        # the W = 1024 rows' path is phase 15 (b), where every kernel runs
+        # at that width
+        for name in timings:
+            if name.endswith("@1024"):
+                launches[name] = mesh_launches[1][name.split("@")[0]]
         launches["rb_threshold"] = query_launches["rb_threshold"]
         launches["rb_pair_rows"] = columnar_launches["rb_pair_rows"]
         launches["rb_expand_rows"] = serving_launches["rb_expand_rows"]
@@ -4433,8 +5036,11 @@ def main():
                 else "expand.cu" if name == "rb_expand_rows" else "reduce.cu"),
             "replaces": t["replaces"],
             "launches": None if launches is None else launches[name],
-            "launches_mapped": None if mapped_launches is None else mapped_launches[name],
-            "launches_64": None if launches_64 is None else launches_64[name],
+            "launches_mapped": None if mapped_launches is None else mapped_launches.get(name, 0),
+            "launches_64": None if launches_64 is None else launches_64.get(name, 0),
+            "launches_mesh": None if mesh_launches is None else (
+                mesh_launches[1][name.split("@")[0]] if name.endswith("@1024")
+                else mesh_launches[0][name]),
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

@@ -14,8 +14,11 @@ without a parse, ``MutableRoaringBitmap``, ``BufferFastAggregation`` /
 ``FastRankRoaringBitmap`` and ``insights``; and the 64-bit family:
 ``Roaring64Bitmap`` over its adaptive radix tree (``Art``),
 ``Roaring64NavigableMap``, ``FastAggregation64`` and
-``Roaring64BitmapSliceIndex``; with the device path in PyTorch and its
-kernels written by hand in CUDA (``csrc/``). It imports neither JAX nor
+``Roaring64BitmapSliceIndex``; and multi-device sharding over a
+``torch.distributed`` mesh (``parallel/sharding.py``, reached through the
+``mesh`` knob of the aggregation, BSI and 64-bit BSI configs); with the
+device path in PyTorch and its kernels written by hand in CUDA
+(``csrc/``). It imports neither JAX nor
 the JAX package; that package stays the reference the port is tested
 against.
 
@@ -62,6 +65,7 @@ from .parallel.batch import (
     prepare_batched_cardinality,
 )
 from .parallel.overlap import run_pipelined
+from .parallel import sharding
 from .serialization import InvalidRoaringFormat
 from . import insights
 from . import query
@@ -110,4 +114,5 @@ __all__ = [
     "prepare_batched_cardinality",
     "query",
     "Q",
+    "sharding",
 ]

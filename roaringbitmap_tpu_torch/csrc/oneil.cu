@@ -74,6 +74,13 @@
 //      T tiles). Integer addition is exact and order-free, so the result is
 //      the same on every run; the wrapper zero-fills cards.
 //
+// Row width. A key chunk is 2048 words on a single card; a mesh that splits
+// the word axis over a "words" dimension hands each rank rows of W = 2048 /
+// nw words (1024, 512 or 256), a runtime argument of both entry points. The
+// per-query kernel then runs W / 4 threads a CTA (thread t still owns column
+// t), and the tiled walk W / T CTAs a key chunk (T <= W, from the wrapper's
+// plan). At W = 2048 both launch exactly as before.
+//
 // The interface is plain C for ctypes: pointers and the stream arrive as
 // void*, the entry points set the device, launch on the caller's stream
 // without synchronising, allocate nothing, and return cudaGetLastError().
@@ -85,10 +92,15 @@
 
 namespace {
 
-constexpr int kWords = 2048;       // 32-bit words per container row
-constexpr int kVecs = kWords / 4;  // uint4 columns per row
-constexpr int kThreads = kVecs;    // thread t owns column t
+constexpr int kWords = 2048;       // 32-bit words of a full container row
+constexpr int kVecs = kWords / 4;  // uint4 columns of a full row
+constexpr int kThreads = kVecs;    // thread t owns column t (of a full row)
 constexpr int kWarps = kThreads / 32;
+
+// true for the widths a row may have: 2048, 1024, 512 and 256 words
+inline bool row_width_ok(int row_words) {
+  return row_words == 2048 || row_words == 1024 || row_words == 512 || row_words == 256;
+}
 constexpr int kInFlight = 8;       // slice loads issued before the walk uses them
 
 enum Op { kEq = 0, kNeq = 1, kGt = 2, kLt = 3, kLe = 4, kGe = 5, kRange = 6 };
@@ -123,6 +135,7 @@ __device__ __forceinline__ void step_all(Walk& w1, Walk& w2, const uint4 s,
   }
 }
 
+// blockDim.x = vecs = row_words / 4 uint4 columns a row
 template <int OP>
 __global__ void __launch_bounds__(kThreads)
 oneil_kernel(const uint4* __restrict__ slices, int n_slices, long long n_keys,
@@ -136,12 +149,13 @@ oneil_kernel(const uint4* __restrict__ slices, int n_slices, long long n_keys,
   const int q = static_cast<int>(b % n_queries);
   const long long k = b / n_queries;
   const int t = threadIdx.x;
+  const int vecs = blockDim.x;
 
   const int* qbits = bits + static_cast<long long>(q) * W * n_slices;
-  for (int i = t; i < W * n_slices; i += kThreads) masks[i] = qbits[i] ? 0xFFFFFFFFu : 0u;
+  for (int i = t; i < W * n_slices; i += vecs) masks[i] = qbits[i] ? 0xFFFFFFFFu : 0u;
   __syncthreads();
 
-  const uint4 e = ebm[k * kVecs + t];
+  const uint4 e = ebm[k * vecs + t];
   Walk w1, w2;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
@@ -154,8 +168,8 @@ oneil_kernel(const uint4* __restrict__ slices, int n_slices, long long n_keys,
 
   // walk position j reads slice n_slices - 1 - j (highest bit first), as
   // the predicate bits are ordered
-  const long long stride = n_keys * kVecs;
-  const uint4* col = slices + k * kVecs + t + static_cast<long long>(n_slices - 1) * stride;
+  const long long stride = n_keys * vecs;
+  const uint4* col = slices + k * vecs + t + static_cast<long long>(n_slices - 1) * stride;
   int j = 0;
   for (; j + kInFlight <= n_slices; j += kInFlight) {
     uint4 v[kInFlight];
@@ -168,7 +182,7 @@ oneil_kernel(const uint4* __restrict__ slices, int n_slices, long long n_keys,
     step_all<OP>(w1, w2, col[-static_cast<long long>(j) * stride], masks, n_slices, j);
   }
 
-  const uint4 f4 = fixed[k * kVecs + t];
+  const uint4 f4 = fixed[k * vecs + t];
   const uint32_t f[4] = {f4.x, f4.y, f4.z, f4.w};
   uint32_t o[4];
 #pragma unroll
@@ -182,7 +196,7 @@ oneil_kernel(const uint4* __restrict__ slices, int n_slices, long long n_keys,
     else if (OP == kGe) o[c] = (w1.gt[c] | eq) & f[c];
     else o[c] = (w1.gt[c] | eq) & (w2.lt[c] | w2.eq[c]) & f[c];
   }
-  if (out != nullptr) out[k * kVecs + t] = make_uint4(o[0], o[1], o[2], o[3]);
+  if (out != nullptr) out[k * vecs + t] = make_uint4(o[0], o[1], o[2], o[3]);
 
   int c = __popc(o[0]) + __popc(o[1]) + __popc(o[2]) + __popc(o[3]);
 #pragma unroll
@@ -192,7 +206,7 @@ oneil_kernel(const uint4* __restrict__ slices, int n_slices, long long n_keys,
   if (lane == 0) warp_sums[warp] = c;
   __syncthreads();
   if (warp == 0) {
-    c = lane < kWarps ? warp_sums[lane] : 0;
+    c = lane < (vecs >> 5) ? warp_sums[lane] : 0;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xFFFFFFFFu, c, off);
     if (lane == 0) cards[static_cast<long long>(q) * n_keys + k] = c;
@@ -200,11 +214,11 @@ oneil_kernel(const uint4* __restrict__ slices, int n_slices, long long n_keys,
 }
 
 template <int OP>
-void launch(const void* slices, int n_slices, long long n_keys, const void* bits,
+void launch(const void* slices, int n_slices, long long n_keys, int row_words, const void* bits,
             int n_queries, const void* ebm, const void* fixed, void* out, void* cards,
             long long n_blocks, cudaStream_t stream) {
   const size_t smem = sizeof(uint32_t) * (OP == kRange ? 2 : 1) * static_cast<size_t>(n_slices);
-  oneil_kernel<OP><<<static_cast<unsigned>(n_blocks), kThreads, smem, stream>>>(
+  oneil_kernel<OP><<<static_cast<unsigned>(n_blocks), row_words / 4, smem, stream>>>(
       static_cast<const uint4*>(slices), n_slices, n_keys, static_cast<const int*>(bits),
       n_queries, static_cast<const uint4*>(ebm), static_cast<const uint4*>(fixed),
       static_cast<uint4*>(out), static_cast<int*>(cards));
@@ -270,11 +284,12 @@ __device__ __forceinline__ void load_words(uint32_t (&w)[kVec], const uint32_t* 
 // p % 32 of word p / 32 is walk position p, i.e. slice S-1-p), then the
 // current group's masks [kGroupWalks][S4] (S4 = S rounded up to 4; entry i
 // of row g * W + w is all ones where bit w of query g at slice i is set).
-// blockIdx.x = k * (2048 / T) + tile. bits, cards: this launch's queries.
+// blockIdx.x = k * (row_words / T) + tile. bits, cards: this launch's
+// queries.
 template <int OP>
 __global__ void __launch_bounds__(kMaxTileThreads, 2)
 oneil_tiled_kernel(const uint32_t* __restrict__ slices, int n_slices, long long n_keys,
-                   const int* __restrict__ bits, int n_queries,
+                   int row_words, const int* __restrict__ bits, int n_queries,
                    const uint32_t* __restrict__ ebm, const uint32_t* __restrict__ fixed,
                    int* __restrict__ cards, int tile_words) {
   constexpr int W = OP == kRange ? 2 : 1;
@@ -290,7 +305,7 @@ oneil_tiled_kernel(const uint32_t* __restrict__ slices, int n_slices, long long 
   const int lane = t & 31;
   const int warp = t >> 5;
   const int n_warps = blockDim.x >> 5;
-  const int tiles = kWords / tile_words;
+  const int tiles = row_words / tile_words;
   const long long k = blockIdx.x / tiles;
   const int t0 = (blockIdx.x % tiles) * tile_words;
   const int nw = (n_slices + 31) >> 5;
@@ -311,8 +326,8 @@ oneil_tiled_kernel(const uint32_t* __restrict__ slices, int n_slices, long long 
     const uint32_t row = static_cast<uint32_t>(tile_words) * 4u;
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                  :: "r"(bar), "r"(row * static_cast<uint32_t>(n_slices + 2)) : "memory");
-    const long long col = k * kWords + t0;
-    const long long stride = n_keys * kWords;
+    const long long col = k * row_words + t0;
+    const long long stride = n_keys * row_words;
     for (int i = 0; i < n_slices; ++i) {
       bulk_load(smem + static_cast<size_t>(i) * tile_words, slices + i * stride + col, row, bar);
     }
@@ -411,15 +426,15 @@ oneil_tiled_kernel(const uint32_t* __restrict__ slices, int n_slices, long long 
 }
 
 template <int OP>
-cudaError_t launch_tiled(const void* slices, int n_slices, long long n_keys, const void* bits,
-                         int n_queries, const void* ebm, const void* fixed, void* cards,
-                         int tile_words, size_t smem, cudaStream_t stream) {
+cudaError_t launch_tiled(const void* slices, int n_slices, long long n_keys, int row_words,
+                         const void* bits, int n_queries, const void* ebm, const void* fixed,
+                         void* cards, int tile_words, size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       oneil_tiled_kernel<OP>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const long long n_blocks = n_keys * (kWords / tile_words);
+  const long long n_blocks = n_keys * (row_words / tile_words);
   oneil_tiled_kernel<OP><<<static_cast<unsigned>(n_blocks), tile_words / kVec, smem, stream>>>(
-      static_cast<const uint32_t*>(slices), n_slices, n_keys, static_cast<const int*>(bits),
+      static_cast<const uint32_t*>(slices), n_slices, n_keys, row_words, static_cast<const int*>(bits),
       n_queries, static_cast<const uint32_t*>(ebm), static_cast<const uint32_t*>(fixed),
       static_cast<int*>(cards), tile_words);
   return cudaGetLastError();
@@ -429,16 +444,18 @@ cudaError_t launch_tiled(const void* slices, int n_slices, long long n_keys, con
 
 extern "C" {
 
-// slices: n_slices x n_keys x 2048 words; bits: int32 n_queries x W x
-// n_slices (W = 2 for RANGE, lo walk first; position j is slice
-// n_slices - 1 - j); ebm, fixed: n_keys x 2048 words; out: n_keys x 2048
-// words, or null for count-only (n_queries must be 1 otherwise); cards:
-// int32 n_queries x n_keys. op: 0 EQ, 1 NEQ, 2 GT, 3 LT, 4 LE, 5 GE, 6 RANGE.
+// slices: n_slices x n_keys x row_words words (row_words 2048, 1024, 512
+// or 256); bits: int32 n_queries x W x n_slices (W = 2 for RANGE, lo walk
+// first; position j is slice n_slices - 1 - j); ebm, fixed: n_keys x
+// row_words words; out: n_keys x row_words words, or null for count-only
+// (n_queries must be 1 otherwise); cards: int32 n_queries x n_keys. op: 0
+// EQ, 1 NEQ, 2 GT, 3 LT, 4 LE, 5 GE, 6 RANGE.
 int rb_oneil_compare(int device, int op, const void* slices, int n_slices, long long n_keys,
-                     const void* bits, int n_queries, const void* ebm, const void* fixed,
-                     void* out, void* cards, void* stream) {
+                     int row_words, const void* bits, int n_queries, const void* ebm,
+                     const void* fixed, void* out, void* cards, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!row_width_ok(row_words)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_keys <= 0 || n_queries <= 0) return 0;
   if (n_slices < 0 || (out != nullptr && n_queries != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -451,38 +468,40 @@ int rb_oneil_compare(int device, int op, const void* slices, int n_slices, long 
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (op) {
-    case kEq: launch<kEq>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, out, cards, n_blocks, s); break;
-    case kNeq: launch<kNeq>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, out, cards, n_blocks, s); break;
-    case kGt: launch<kGt>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, out, cards, n_blocks, s); break;
-    case kLt: launch<kLt>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, out, cards, n_blocks, s); break;
-    case kLe: launch<kLe>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, out, cards, n_blocks, s); break;
-    case kGe: launch<kGe>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, out, cards, n_blocks, s); break;
-    case kRange: launch<kRange>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, out, cards, n_blocks, s); break;
+    case kEq: launch<kEq>(slices, n_slices, n_keys, row_words, bits, n_queries, ebm, fixed, out, cards, n_blocks, s); break;
+    case kNeq: launch<kNeq>(slices, n_slices, n_keys, row_words, bits, n_queries, ebm, fixed, out, cards, n_blocks, s); break;
+    case kGt: launch<kGt>(slices, n_slices, n_keys, row_words, bits, n_queries, ebm, fixed, out, cards, n_blocks, s); break;
+    case kLt: launch<kLt>(slices, n_slices, n_keys, row_words, bits, n_queries, ebm, fixed, out, cards, n_blocks, s); break;
+    case kLe: launch<kLe>(slices, n_slices, n_keys, row_words, bits, n_queries, ebm, fixed, out, cards, n_blocks, s); break;
+    case kGe: launch<kGe>(slices, n_slices, n_keys, row_words, bits, n_queries, ebm, fixed, out, cards, n_blocks, s); break;
+    case kRange: launch<kRange>(slices, n_slices, n_keys, row_words, bits, n_queries, ebm, fixed, out, cards, n_blocks, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tiled count-only walk: slices, bits, ebm and fixed as for
+// The tiled count-only walk: slices, row_words, bits, ebm and fixed as for
 // rb_oneil_compare (bits and cards holding this launch's n_queries);
 // cards: int32 n_queries x n_keys, zero-filled by the caller, to which the
-// per-tile counts are added. tile_words: 128, 256, 512 or 1024; smem: the
+// per-tile counts are added. tile_words: 128, 256, 512 or 1024, at most
+// row_words; smem: the
 // dynamic shared memory of a CTA, at least 4 * ((S + 2) * T + the packed
 // bits [n_queries][W][ceil(S / 32)] rounded up to 4 words + kGroupWalks *
 // S rounded up to 4). Both come from the wrapper's plan
 // (ops/kernels.py:oneil_tile_plan), the one place the tile is sized; the
 // launch fails when smem exceeds what a block may use.
 int rb_oneil_counts(int device, int op, const void* slices, int n_slices, long long n_keys,
-                    const void* bits, int n_queries, const void* ebm, const void* fixed,
-                    void* cards, int tile_words, long long smem, void* stream) {
+                    int row_words, const void* bits, int n_queries, const void* ebm,
+                    const void* fixed, void* cards, int tile_words, long long smem, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_keys <= 0 || n_queries <= 0) return 0;
-  if (n_slices < 1 || smem <= 0 || smem > 0x7FFFFFFFLL ||
-      (tile_words != 128 && tile_words != 256 && tile_words != 512 && tile_words != kMaxTileWords)) {
+  if (n_slices < 1 || smem <= 0 || smem > 0x7FFFFFFFLL || !row_width_ok(row_words) ||
+      (tile_words != 128 && tile_words != 256 && tile_words != 512 && tile_words != kMaxTileWords) ||
+      tile_words > row_words) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (n_keys * (kWords / tile_words) > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_keys * (row_words / tile_words) > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   // the bulk copies need 16-byte aligned rows
   for (const void* p : {slices, ebm, fixed}) {
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return static_cast<int>(cudaErrorMisalignedAddress);
@@ -490,13 +509,13 @@ int rb_oneil_counts(int device, int op, const void* slices, int n_slices, long l
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t sm = static_cast<size_t>(smem);
   switch (op) {
-    case kEq: err = launch_tiled<kEq>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
-    case kNeq: err = launch_tiled<kNeq>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
-    case kGt: err = launch_tiled<kGt>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
-    case kLt: err = launch_tiled<kLt>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
-    case kLe: err = launch_tiled<kLe>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
-    case kGe: err = launch_tiled<kGe>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
-    case kRange: err = launch_tiled<kRange>(slices, n_slices, n_keys, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
+    case kEq: err = launch_tiled<kEq>(slices, n_slices, n_keys, row_words, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
+    case kNeq: err = launch_tiled<kNeq>(slices, n_slices, n_keys, row_words, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
+    case kGt: err = launch_tiled<kGt>(slices, n_slices, n_keys, row_words, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
+    case kLt: err = launch_tiled<kLt>(slices, n_slices, n_keys, row_words, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
+    case kLe: err = launch_tiled<kLe>(slices, n_slices, n_keys, row_words, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
+    case kGe: err = launch_tiled<kGe>(slices, n_slices, n_keys, row_words, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
+    case kRange: err = launch_tiled<kRange>(slices, n_slices, n_keys, row_words, bits, n_queries, ebm, fixed, cards, tile_words, sm, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);

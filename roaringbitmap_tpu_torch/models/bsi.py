@@ -26,9 +26,13 @@ probing for a card; it runs on ``config.device`` (default ``"cuda"``), and
 "cpu"`` runs the same device path on CPU tensors with the kernels' plain
 versions.
 
-Left out here, relative to the JAX package: the sharded (mesh) compare, sum
-and batched counts, which wait for ``parallel/sharding``; and the shared
-pack cache, which waits for the store's ``PackCache``.
+With ``config.mesh`` set (``parallel/sharding.make_mesh()``), the device
+compare, count, sum and batched counts run sharded over the mesh: the key
+chunk axis is padded with empty chunks to a multiple of the
+``containers`` size and cut over it, the word axis over ``words``
+(:func:`_pad_chunk_axis`, ``sharding.shard_rows``), and each rank runs the
+same kernels on its block. Every rank of the mesh calls the query with the
+same index and gets the whole answer back.
 
 Serialization: the reference's ByteBuffer layout (RoaringBitmapSliceIndex
 .serialize(ByteBuffer) :240-255): int32 minValue, int32 maxValue, byte
@@ -78,6 +82,9 @@ class config:
     # (the 100M-row north star is ~49k cells)
     min_device_cells: int = 4096
     device: str = "cuda"  # where the device path runs: 'cuda' | 'cpu'
+    # a DeviceMesh (parallel/sharding.make_mesh()): when set, the device
+    # compare / count / sum / batched counts run sharded over it
+    mesh = None
 
 
 def min_max_verdict(op, start_or_value, end, mn, mx):
@@ -568,7 +575,14 @@ class RoaringBitmapSliceIndex:
         if s_count == 0 or k == 0:
             return 0
         found_w = self._found_words(keys, ebm_w, found_set)
-        per_chunk = kernels.popcount_rows(slices_w, mask=found_w).view(s_count, k)
+        if config.mesh is not None:
+            from ..parallel import sharding
+
+            mesh = config.mesh
+            counts = sharding.distributed_bsi_sum(mesh)(*_mesh_shards(mesh, slices_w, found_w))
+            per_chunk = sharding.gather_shards(mesh, counts, (None, "containers"))
+        else:
+            per_chunk = kernels.popcount_rows(slices_w, mask=found_w).view(s_count, k)
         per_slice = per_chunk.cpu().numpy().astype(np.int64).sum(axis=1)
         return sum(int(c) << i for i, c in enumerate(per_slice.tolist()))
 
@@ -618,8 +632,9 @@ class RoaringBitmapSliceIndex:
         """Count-only compare for a whole batch of predicates: ``values`` is
         a [Q] array of thresholds (plus ``ends`` for RANGE), the result a
         [Q] int64 count array. On the device path every predicate the
-        min/max verdict leaves open rides ONE count-only launch."""
-        return _counts_many(self, operation, values, ends, found_set, mode)
+        min/max verdict leaves open rides ONE count-only launch (on each
+        rank of ``config.mesh`` when set)."""
+        return _counts_many(self, operation, values, ends, found_set, mode, mesh=config.mesh)
 
     @staticmethod
     def _neq_outside_ebm(found_set: RoaringBitmap, keys) -> int:
@@ -634,15 +649,21 @@ class RoaringBitmapSliceIndex:
     def _o_neil_device_walk(
         self, op, predicate, found_set, end: int = 0, count_only: bool = False
     ):
-        """One ``rb_oneil_compare`` launch; returns (keys, out, cards,
-        fixed_bm) with nothing fetched to the host: int32 ``[K, 2048]``
-        result words (None when ``count_only``) and ``[K]`` popcounts."""
+        """One ``rb_oneil_compare`` launch (on each rank of ``config.mesh``
+        when set); returns (keys, out, cards, fixed_bm) with nothing
+        fetched to the host: int32 ``[K, 2048]`` result words (None when
+        ``count_only``) and ``[K]`` popcounts."""
         keys, ebm_w, slices_w, fixed_w = self._pack_with_fixed(found_set)
         fixed_bm = self.ebm if found_set is None else found_set
         s_count = self.bit_count()
         walks = [_bits_high_first(predicate, s_count)]
         if op == Operation.RANGE:
             walks.append(_bits_high_first(end, s_count))
+        if config.mesh is not None:
+            out, cards = _mesh_compare(
+                config.mesh, slices_w, walks, ebm_w, fixed_w, op.value, count_only
+            )
+            return keys, out, cards, fixed_bm
         bits = torch.tensor([walks], dtype=torch.int32).to(slices_w.device)
         out, cards = kernels.oneil_compare(
             slices_w, bits, ebm_w, fixed_w, op.value, count_only=count_only
@@ -837,11 +858,76 @@ def _keys_subset(bm: RoaringBitmap, keys: set) -> RoaringBitmap:
     return out
 
 
-def _counts_many(owner, operation, values, ends, found_set, mode) -> np.ndarray:
+def _pad_chunk_axis(mesh, *tensors) -> List[torch.Tensor]:
+    """Pad the key-chunk axis (the second-to-last of ``[S, K, W]``, the
+    first of ``[K, W]``) with empty chunks up to a multiple of the mesh's
+    ``containers`` size: zero ebm, fixed and found words make a padded
+    chunk count nothing for every op, NEQ included. Tensors already a
+    multiple come back as they are."""
+    from ..parallel import sharding
+
+    n_c = sharding.axis_size(mesh, "containers")
+    out = []
+    for t in tensors:
+        k_axis = t.dim() - 2
+        pad = (-t.shape[k_axis]) % n_c
+        if pad:
+            shape = list(t.shape)
+            shape[k_axis] = pad
+            t = torch.cat([t, t.new_zeros(shape)], dim=k_axis)
+        out.append(t)
+    return out
+
+
+def _mesh_shards(mesh, *tensors) -> List[torch.Tensor]:
+    """This rank's blocks of pack tensors (``[S, K, W]`` or ``[K, W]``):
+    the chunk axis padded (:func:`_pad_chunk_axis`) and cut over
+    ``containers``, the word axis over ``words``."""
+    from ..parallel import sharding
+
+    return [
+        sharding.shard_rows(mesh, t, (None,) * (t.dim() - 2) + ("containers", "words"))
+        for t in _pad_chunk_axis(mesh, *tensors)
+    ]
+
+
+def _mesh_compare(mesh, slices_w, walks, ebm_w, fixed_w, op_name: str, count_only: bool):
+    """One O'Neil compare over the mesh (``sharding.distributed_bsi_compare``)
+    on each rank's block of the pack: ``(out [K, W] or None when
+    count_only, cards [K])`` gathered on every rank, the padding dropped."""
+    from ..parallel import sharding
+
+    k = ebm_w.shape[0]
+    s3, e2, f2 = _mesh_shards(mesh, slices_w, ebm_w, fixed_w)
+    out, cards = sharding.distributed_bsi_compare(mesh, op_name)(
+        s3, torch.tensor(walks, dtype=torch.int32), e2, f2
+    )
+    cards = sharding.gather_shards(mesh, cards, ("containers",))[:k]
+    if count_only:
+        return None, cards
+    return sharding.gather_shards(mesh, out, ("containers", "words"))[:k], cards
+
+
+def _mesh_batched_counts(mesh, slices_w, bits, ebm_w, fixed_w, op_name: str):
+    """The batched counts over the mesh, shared by both BSI designs: the
+    count-only walk of every query on each rank's block of the pack
+    (``sharding.distributed_bsi_counts_many``, one ``rb_oneil_counts``
+    launch for the batch), the ``[Q, K]`` counts gathered and the padding
+    dropped."""
+    from ..parallel import sharding
+
+    k = ebm_w.shape[0]
+    s3, e2, f2 = _mesh_shards(mesh, slices_w, ebm_w, fixed_w)
+    cards = sharding.distributed_bsi_counts_many(mesh, op_name)(s3, bits, e2, f2)
+    return sharding.gather_shards(mesh, cards, (None, "containers"))[:, :k]
+
+
+def _counts_many(owner, operation, values, ends, found_set, mode, mesh=None) -> np.ndarray:
     """The engine behind compare_cardinality_many: per-predicate min/max
     verdicts resolve on the host, the remainder rides one count-only
     ``rb_oneil_compare`` launch over the pack (or, off the device path, one
-    ``compare_cardinality`` each).
+    ``compare_cardinality`` each); with ``mesh``, one such launch on each
+    rank's block of the pack (:func:`_mesh_batched_counts`).
 
     ``owner`` is the index: bit_count/ebm/min_value/max_value,
     compare_cardinality, _use_device, _pack_with_fixed and
@@ -901,9 +987,12 @@ def _counts_many(owner, operation, values, ends, found_set, mode) -> np.ndarray:
         walks = [[_bits_high_first(vals[qi], s_count)] for qi in pend]
     w = 2 if operation == Operation.RANGE else 1
     bits = torch.tensor(walks, dtype=torch.int32).reshape(len(pend), w, s_count)
-    _, cards = kernels.oneil_compare(
-        slices_w, bits.to(slices_w.device), ebm_w, fixed_w, operation.value, count_only=True
-    )
+    if mesh is not None:
+        cards = _mesh_batched_counts(mesh, slices_w, bits, ebm_w, fixed_w, operation.value)
+    else:
+        _, cards = kernels.oneil_compare(
+            slices_w, bits.to(slices_w.device), ebm_w, fixed_w, operation.value, count_only=True
+        )
     totals = cards.cpu().numpy().astype(np.int64).sum(axis=1)
     if operation == Operation.NEQ and found_set is not None:
         totals += owner._neq_outside_ebm(found_set, keys)

@@ -21,8 +21,10 @@ re-keys it.
 chunk count >= config.min_device_cells``), never by probing for a card;
 it runs on ``bsi.config.device`` (default ``"cuda"``, shared with the
 32-bit index), and ``"cuda"`` without a card raises ``TierUnavailable``.
-Left out here, relative to the JAX package: the sharded (mesh) batched
-count, which waits for the multi-device slice.
+With ``config.mesh`` set, ``compare_cardinality_many`` runs sharded over
+that mesh through the 32-bit index's mesh walk (``bsi._mesh_batched_counts``:
+the same physical pack); single-predicate 64-bit queries stay unsharded,
+as in the JAX package.
 
 Also carries the reference's ranking helpers: ``top_k``
 (Roaring64BitmapSliceIndex.java:572 slice-descent), ``transpose`` (:596) and
@@ -53,6 +55,9 @@ class config:
 
     mode: str = "auto"  # 'auto' | 'cpu' | 'device'
     min_device_cells = 4096  # slices x key-chunks below which CPU wins
+    # a DeviceMesh (parallel/sharding.make_mesh()): when set, batched
+    # compare_cardinality_many runs sharded over it
+    mesh = None
 
 
 class Roaring64BitmapSliceIndex:
@@ -331,8 +336,10 @@ class Roaring64BitmapSliceIndex:
         Python ints up to 2^64 - 1): on the device path every predicate
         the min/max verdict leaves open rides one count-only launch over
         the ``[S, K, 2048]`` high-48-chunk pack (the 32-bit engine,
-        bsi._counts_many)."""
-        return bsi._counts_many(self, operation, values, ends, found_set, mode)
+        bsi._counts_many), on each rank of ``config.mesh`` when set."""
+        return bsi._counts_many(
+            self, operation, values, ends, found_set, mode, mesh=config.mesh
+        )
 
     def _pack_with_fixed(self, found_set: Optional[Roaring64Bitmap]):
         """(keys, ebm_w, slices_w, fixed_w) over high-48 chunk keys — the

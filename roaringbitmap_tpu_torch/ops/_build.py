@@ -152,13 +152,13 @@ def load() -> ctypes.CDLL:
             path, _ = build()
             lib = ctypes.CDLL(str(path))
             vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.rb_group_reduce.argtypes = [i, i, vp, ll, vp, ll, vp, vp, vp]
+            lib.rb_group_reduce.argtypes = [i, i, vp, ll, i, vp, ll, vp, vp, vp]
             lib.rb_group_reduce.restype = i
-            lib.rb_popcount_rows.argtypes = [i, vp, ll, vp, ll, vp, vp]
+            lib.rb_popcount_rows.argtypes = [i, vp, ll, i, vp, ll, vp, vp]
             lib.rb_popcount_rows.restype = i
-            lib.rb_oneil_compare.argtypes = [i, i, vp, i, ll, vp, i, vp, vp, vp, vp, vp]
+            lib.rb_oneil_compare.argtypes = [i, i, vp, i, ll, i, vp, i, vp, vp, vp, vp, vp]
             lib.rb_oneil_compare.restype = i
-            lib.rb_oneil_counts.argtypes = [i, i, vp, i, ll, vp, i, vp, vp, vp, i, ll, vp]
+            lib.rb_oneil_counts.argtypes = [i, i, vp, i, ll, i, vp, i, vp, vp, vp, i, ll, vp]
             lib.rb_oneil_counts.restype = i
             lib.rb_threshold.argtypes = [i, vp, ll, ll, i, ctypes.c_uint, vp, vp, vp]
             lib.rb_threshold.restype = i

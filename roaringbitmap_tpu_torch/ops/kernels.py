@@ -177,14 +177,25 @@ class SegmentPlan:
         return t
 
 
-def _check_words(words: torch.Tensor) -> torch.Tensor:
+# Row widths the reduce, popcount and O'Neil kernels take: a full container
+# row, or the 2048 / nw words of it one rank holds when a mesh splits the
+# word axis nw ways (parallel/sharding.py). Every other kernel takes full
+# rows only.
+ROW_WIDTHS = (2048, 1024, 512, 256)
+
+
+def _check_words(words: torch.Tensor, widths=(dev.DEVICE_WORDS,)) -> torch.Tensor:
+    """``words`` as contiguous int32 rows ``[-1, W]``, W its last dimension,
+    which must be one of ``widths``."""
     if words.dtype != torch.int32:
         raise TypeError(f"word rows must be torch.int32, got {words.dtype}")
-    if words.shape[-1] != dev.DEVICE_WORDS:
-        raise ValueError(f"word rows must be {dev.DEVICE_WORDS} wide, got {tuple(words.shape)}")
+    w = words.shape[-1] if words.dim() else 0
+    if w not in widths:
+        want = widths[0] if len(widths) == 1 else f"one of {widths}"
+        raise ValueError(f"word rows must be {want} wide, got {tuple(words.shape)}")
     if not words.is_contiguous():
         raise ValueError("word rows must be contiguous")
-    return words.view(-1, dev.DEVICE_WORDS)
+    return words.view(-1, w)
 
 
 def group_reduce_plain(
@@ -193,16 +204,16 @@ def group_reduce_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`group_reduce`: a halving fold with
     ``|``, ``&`` or ``^`` on int32."""
-    flat = _check_words(words)
-    g = plan.n_groups
+    flat = _check_words(words, ROW_WIDTHS)
+    g, w = plan.n_groups, flat.shape[1]
     if row_map is None:
         lens = np.diff(plan.offsets)
         if g and np.all(lens == lens[0]) and int(plan.offsets[0]) == 0:
             m = int(lens[0])
-            return dev.grouped_reduce(flat[: g * m].view(g, m, dev.DEVICE_WORDS), op)
+            return dev.grouped_reduce(flat[: g * m].view(g, m, w), op)
         return dev.segmented_reduce(flat, plan.offsets, op)
     n = flat.shape[0]
-    out = torch.empty((g, dev.DEVICE_WORDS), dtype=torch.int32, device=flat.device)
+    out = torch.empty((g, w), dtype=torch.int32, device=flat.device)
     for i in range(g):
         src = row_map[int(plan.offsets[i]) : int(plan.offsets[i + 1])]
         out[i] = dev.fold_rows(flat.index_select(0, src[src < n]), op)
@@ -213,17 +224,18 @@ def group_reduce(
     words: torch.Tensor, plan: SegmentPlan, op: str = "or",
     row_map: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Per-segment bitwise reduce -> int32 ``[G, 2048]``.
+    """Per-segment bitwise reduce -> int32 ``[G, W]``.
 
-    ``words``: int32 ``[N, 2048]`` rows (a ``[G, M, 2048]`` block is taken
-    as its ``G*M`` rows). Output row g folds the logical rows
+    ``words``: int32 ``[N, W]`` rows, W 2048 or a width in ``ROW_WIDTHS``
+    (a ``[G, M, W]`` block is taken as its ``G*M`` rows). Output row g
+    folds the logical rows
     ``plan.offsets[g]:plan.offsets[g+1]``; logical row r is words row r, or
     with ``row_map`` (int64, one entry per logical row) words row
     ``row_map[r]``, where a value ``>= N`` is an identity pad. An empty
     segment yields the op identity (0, or -1 for and)."""
     if op not in _OP_CODE:
         raise ValueError(f"op must be one of {sorted(_OP_CODE)}, got {op!r}")
-    flat = _check_words(words)
+    flat = _check_words(words, ROW_WIDTHS)
     if row_map is not None:
         if row_map.dtype != torch.int64 or row_map.device != flat.device:
             raise TypeError("row_map must be int64 on the words' device")
@@ -236,7 +248,7 @@ def group_reduce(
     if flat.device.type != "cuda":
         raise ValueError(f"unsupported device {flat.device}")
     out = torch.full(
-        (plan.n_groups, dev.DEVICE_WORDS), dev._INIT[op], dtype=torch.int32,
+        (plan.n_groups, flat.shape[1]), dev._INIT[op], dtype=torch.int32,
         device=flat.device,
     )
     n_chunks = len(plan.chunks)
@@ -247,7 +259,7 @@ def group_reduce(
     lib = _build.load()
     chunks = plan.chunks_on(flat.device)
     rc = lib.rb_group_reduce(
-        flat.device.index or 0, _OP_CODE[op], flat.data_ptr(), flat.shape[0],
+        flat.device.index or 0, _OP_CODE[op], flat.data_ptr(), flat.shape[0], flat.shape[1],
         chunks.data_ptr(), n_chunks,
         None if row_map is None else row_map.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(flat.device).cuda_stream,
@@ -261,7 +273,7 @@ def group_reduce(
 def _check_mask(flat: torch.Tensor, mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     if mask is None:
         return None
-    m = _check_words(mask)
+    m = _check_words(mask, (flat.shape[1],))
     if m.device != flat.device:
         raise ValueError("mask must lie on the words' device")
     if m.shape[0] == 0 or flat.shape[0] % m.shape[0]:
@@ -273,20 +285,20 @@ def _check_mask(flat: torch.Tensor, mask: Optional[torch.Tensor]) -> Optional[to
 
 def popcount_rows_plain(words: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`popcount_rows`."""
-    flat = _check_words(words)
+    flat = _check_words(words, ROW_WIDTHS)
     m = _check_mask(flat, mask)
     if m is None:
         return dev.popcount_rows(flat)
     k = m.shape[0]
-    return dev.slice_masked_popcounts(flat.view(-1, k, dev.DEVICE_WORDS), m).view(-1)
+    return dev.slice_masked_popcounts(flat.view(-1, k, flat.shape[1]), m).view(-1)
 
 
 def popcount_rows(words: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-row cardinality ``[R, 2048] -> int32 [R]``. With ``mask``
-    (int32 ``[K, 2048]``, K dividing R) row r is counted as
-    ``words[r] & mask[r % K]``: an ``[S, K, 2048]`` block against one
-    ``[K, 2048]`` mask gives the ``[S, K]`` masked popcounts flat."""
-    flat = _check_words(words)
+    """Per-row cardinality ``[R, W] -> int32 [R]``, W 2048 or a width in
+    ``ROW_WIDTHS``. With ``mask`` (int32 ``[K, W]``, K dividing R) row r is
+    counted as ``words[r] & mask[r % K]``: an ``[S, K, W]`` block against
+    one ``[K, W]`` mask gives the ``[S, K]`` masked popcounts flat."""
+    flat = _check_words(words, ROW_WIDTHS)
     m = _check_mask(flat, mask)
     if flat.device.type == "cpu":
         return popcount_rows_plain(flat, m)
@@ -300,7 +312,7 @@ def popcount_rows(words: torch.Tensor, mask: Optional[torch.Tensor] = None) -> t
 
     lib = _build.load()
     rc = lib.rb_popcount_rows(
-        flat.device.index or 0, flat.data_ptr(), r,
+        flat.device.index or 0, flat.data_ptr(), r, flat.shape[1],
         None if m is None else m.data_ptr(), 0 if m is None else m.shape[0],
         out.data_ptr(), torch.cuda.current_stream(flat.device).cuda_stream,
     )
@@ -311,20 +323,21 @@ def popcount_rows(words: torch.Tensor, mask: Optional[torch.Tensor] = None) -> t
 
 def wide_reduce_cardinality_plain(words: torch.Tensor, op: str = "or"):
     """Plain PyTorch version of :func:`wide_reduce_cardinality`."""
-    flat = _check_words(words)
+    flat = _check_words(words, ROW_WIDTHS)
     red = dev.fold_rows(flat, op)
     return red, dev.popcount_rows(red.view(1, -1))[0]
 
 
 def wide_reduce_cardinality(words: torch.Tensor, op: str = "or"):
-    """Flat reduce ``[N, 2048] -> ([2048] words, int32 card)`` by or, and or
-    xor: ``rb_group_reduce`` over one segment (its chunks combine into the
-    one output row with bitwise atomics), then ``rb_popcount_rows``. The
-    counterpart of ``pallas_kernels.py:wide_reduce_cardinality_pallas``;
-    N = 0 gives the op identity."""
+    """Flat reduce ``[N, W] -> ([W] words, int32 card)`` by or, and or
+    xor (W 2048 or a width in ``ROW_WIDTHS``): ``rb_group_reduce`` over one
+    segment (its chunks combine into the one output row with bitwise
+    atomics), then ``rb_popcount_rows``. The counterpart of
+    ``pallas_kernels.py:wide_reduce_cardinality_pallas``; N = 0 gives the
+    op identity."""
     if op not in _OP_CODE:
         raise ValueError(f"op must be one of {sorted(_OP_CODE)}, got {op!r}")
-    flat = _check_words(words)
+    flat = _check_words(words, ROW_WIDTHS)
     if flat.device.type == "cpu":
         return wide_reduce_cardinality_plain(flat, op)
     red = group_reduce(flat, SegmentPlan.dense(1, flat.shape[0]), op)
@@ -342,12 +355,13 @@ def _check_oneil(slices, bits, ebm, fixed, op):
     if op not in _ONEIL_CODE:
         raise ValueError(f"op must be one of {dev.ONEIL_OPS}, got {op!r}")
     if slices.dim() != 3:
-        raise ValueError(f"slices must be [S, K, 2048], got {tuple(slices.shape)}")
-    for t in (slices, ebm, fixed):
-        _check_words(t)
-    s_count, k = slices.shape[0], slices.shape[1]
-    if tuple(ebm.shape) != (k, dev.DEVICE_WORDS) or tuple(fixed.shape) != (k, dev.DEVICE_WORDS):
-        raise ValueError(f"ebm and fixed must be [{k}, 2048]")
+        raise ValueError(f"slices must be [S, K, W], got {tuple(slices.shape)}")
+    _check_words(slices, ROW_WIDTHS)
+    s_count, k, w_row = slices.shape
+    for t in (ebm, fixed):
+        _check_words(t, (w_row,))
+    if tuple(ebm.shape) != (k, w_row) or tuple(fixed.shape) != (k, w_row):
+        raise ValueError(f"ebm and fixed must be [{k}, {w_row}]")
     w = 2 if op == "RANGE" else 1
     if bits.dtype != torch.int32 or bits.dim() != 3 or tuple(bits.shape[1:]) != (w, s_count):
         raise ValueError(f"bits must be int32 [Q, {w}, {s_count}], got {bits.dtype} {tuple(bits.shape)}")
@@ -397,8 +411,8 @@ TILE_BITS_BYTES = 2048
 
 class TilePlan(NamedTuple):
     """How ``rb_oneil_counts`` runs a batch: tiles of ``tile_words`` words
-    (``tile_words / TILE_VEC`` threads a CTA, ``2048 / tile_words`` CTAs a
-    key chunk), launches of at most ``query_chunk`` queries, each with
+    (``tile_words / TILE_VEC`` threads a CTA, ``W / tile_words`` CTAs a
+    key chunk of W words), launches of at most ``query_chunk`` queries, each with
     ``smem_bytes`` of dynamic shared memory (slice, ebm and fixed rows, a
     full launch's packed bits, and a query group's masks)."""
 
@@ -432,20 +446,26 @@ def tile_ctas_per_sm(n_slices: int, tile_words: int) -> int:
     )
 
 
-def oneil_tile_plan(n_slices: int, n_queries: int, op: str) -> Optional[TilePlan]:
+def oneil_tile_plan(
+    n_slices: int, n_queries: int, op: str, row_words: int = dev.DEVICE_WORDS
+) -> Optional[TilePlan]:
     """The tiled walk's plan for ``n_queries`` count-only predicates over
-    ``n_slices`` slices, or None where even a 128-word tile does not fit in
-    a block's shared memory (S > ``MAX_TILED_SLICES``): such a batch runs
-    on the per-query kernel. The tile is the one that keeps the most warps
+    ``n_slices`` slices of ``row_words``-word rows, or None where even a
+    128-word tile does not fit in a block's shared memory (S >
+    ``MAX_TILED_SLICES``): such a batch runs on the per-query kernel. The
+    tile, at most ``row_words``, is the one that keeps the most warps
     resident on an SM, the larger on a tie; at S = 32 three CTAs of 512
     words share an SM, one staging while the others walk. The fit counts
     the most packed bits a launch stages, so it depends on S alone."""
     if op not in _ONEIL_CODE:
         raise ValueError(f"op must be one of {dev.ONEIL_OPS}, got {op!r}")
+    if row_words not in ROW_WIDTHS:
+        raise ValueError(f"row_words must be one of {ROW_WIDTHS}, got {row_words}")
     words = (2 if op == "RANGE" else 1) * ((n_slices + 31) // 32)
     chunk = max(1, min(n_queries, TILE_BITS_BYTES // (4 * words)))
-    warps = {t: tile_ctas_per_sm(n_slices, t) * t // TILE_VEC // 32 for t in TILE_WORDS}
-    best = max(TILE_WORDS, key=lambda t: (warps[t], t))
+    tiles = [t for t in TILE_WORDS if t <= row_words]
+    warps = {t: tile_ctas_per_sm(n_slices, t) * t // TILE_VEC // 32 for t in tiles}
+    best = max(tiles, key=lambda t: (warps[t], t))
     if not warps[best]:
         return None
     smem = 4 * ((n_slices + 2) * best + _round4(chunk * words) + TILE_GROUP_WALKS * _round4(n_slices))
@@ -466,7 +486,7 @@ def _launch_per_query(slices, bits, ebm, fixed, op, out, cards) -> None:
     lib = _build.load()
     rc = lib.rb_oneil_compare(
         slices.device.index or 0, _ONEIL_CODE[op], slices.data_ptr(), slices.shape[0],
-        slices.shape[1], bits.data_ptr(), bits.shape[0], ebm.data_ptr(), fixed.data_ptr(),
+        slices.shape[1], slices.shape[2], bits.data_ptr(), bits.shape[0], ebm.data_ptr(), fixed.data_ptr(),
         None if out is None else out.data_ptr(), cards.data_ptr(), _stream(slices),
     )
     _build.check(lib, rc, "rb_oneil_compare")
@@ -481,7 +501,7 @@ def _launch_tiled(slices, bits, ebm, fixed, op, cards, plan: TilePlan) -> None:
     for q0 in range(0, q_n, plan.query_chunk):
         rc = lib.rb_oneil_counts(
             slices.device.index or 0, _ONEIL_CODE[op], slices.data_ptr(), slices.shape[0], k,
-            bits.data_ptr() + q0 * row, min(plan.query_chunk, q_n - q0), ebm.data_ptr(),
+            slices.shape[2], bits.data_ptr() + q0 * row, min(plan.query_chunk, q_n - q0), ebm.data_ptr(),
             fixed.data_ptr(), cards.data_ptr() + q0 * k * 4, plan.tile_words, plan.smem_bytes,
             _stream(slices),
         )
@@ -492,12 +512,13 @@ def _launch_tiled(slices, bits, ebm, fixed, op, cards, plan: TilePlan) -> None:
 def oneil_compare(slices, bits, ebm, fixed, op: str, count_only: bool = False):
     """Fused O'Neil compare of Q predicates over a bit-sliced index.
 
-    ``slices``: int32 ``[S, K, 2048]``; ``bits``: int32 ``[Q, W, S]`` on
-    the same device, W = 2 for RANGE (the low bound's GE walk first, then
-    the high bound's LE walk) else 1, position j holding the predicate bit
-    of slice ``S - 1 - j``; ``ebm`` and ``fixed``: int32 ``[K, 2048]``
-    existence and found-set words; ``op``: one of ``ops/device.ONEIL_OPS``.
-    Returns ``(out, cards)``: int32 ``[K, 2048]`` result words (None when
+    ``slices``: int32 ``[S, K, R]``, R 2048 or a width in ``ROW_WIDTHS``;
+    ``bits``: int32 ``[Q, W, S]`` on the same device, W = 2 for RANGE (the
+    low bound's GE walk first, then the high bound's LE walk) else 1,
+    position j holding the predicate bit of slice ``S - 1 - j``; ``ebm``
+    and ``fixed``: int32 ``[K, R]`` existence and found-set words; ``op``:
+    one of ``ops/device.ONEIL_OPS``. Returns ``(out, cards)``: int32
+    ``[K, R]`` result words (None when
     ``count_only``; otherwise Q must be 1) and int32 ``[Q, K]`` per-chunk
     popcounts.
 
@@ -516,7 +537,7 @@ def oneil_compare(slices, bits, ebm, fixed, op: str, count_only: bool = False):
     if slices.device.type != "cuda":
         raise ValueError(f"unsupported device {slices.device}")
     out = None if count_only else torch.empty_like(ebm)
-    plan = oneil_tile_plan(slices.shape[0], q_n, op) if q_n > 1 else None
+    plan = oneil_tile_plan(slices.shape[0], q_n, op, slices.shape[2]) if q_n > 1 else None
     if plan is not None:
         cards = torch.zeros((q_n, k), dtype=torch.int32, device=slices.device)
         if k:

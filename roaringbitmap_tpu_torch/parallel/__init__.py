@@ -1,3 +1,3 @@
-from . import aggregation, store
+from . import aggregation, batch, sharding, store
 
-__all__ = ["aggregation", "store"]
+__all__ = ["aggregation", "batch", "sharding", "store"]

@@ -27,6 +27,13 @@ without a card raises — there is no silent CPU fallback. ``device="cpu"``
 runs the same device-path code on CPU tensors with the kernels' plain
 versions.
 
+With ``config.mesh`` set (``sharding.make_mesh()``), the device path runs
+the mesh-sharded grouped reduce (:func:`_sharded_reduce`): the padded
+block is cut over the mesh's ``containers`` and ``words`` axes and each
+rank folds its block on the card. Every rank of the mesh calls the engine
+with the same bitmaps and gets the whole result back: the collective
+counterpart of the JAX package's single-controller route.
+
 `workShyAnd`'s key trick (intersect keys first, only then touch containers,
 FastAggregation.java:356-396) is kept: AND packs only the key-intersection
 groups, which also makes every group exactly B rows — a dense,
@@ -60,6 +67,9 @@ class config:
     mode: str = "auto"  # 'auto' | 'cpu' | 'device'
     min_device_containers: int = 64
     device: str = "cuda"  # where the device path runs: 'cuda' | 'cpu'
+    # a DeviceMesh (sharding.make_mesh()): when set, the device path runs
+    # the mesh-sharded reduce, a collective call on every rank of the mesh
+    mesh = None
 
 
 def _use_device(n_containers: int, mode: Optional[str]) -> bool:
@@ -155,10 +165,46 @@ def _device_pack(bitmaps: Sequence[RoaringBitmap], keys_filter, device):
 def _device_aggregate(
     bitmaps: Sequence[RoaringBitmap], keys_filter, op: str, device
 ) -> RoaringBitmap:
-    """Device path: the resident pack (built on a miss), reduce, unpack."""
+    """Device path: the resident pack (built on a miss), reduce (on the
+    mesh when ``config.mesh`` is set), unpack."""
     packed = _device_pack(bitmaps, keys_filter, device)
-    words, cards = store.reduce_packed(packed, op=op)
+    if config.mesh is not None:
+        words, cards = _sharded_reduce(packed, op)
+    else:
+        words, cards = store.reduce_packed(packed, op=op)
     return store.unpack_to_bitmap(packed.group_keys, words, cards)
+
+
+def _sharded_reduce(packed: "store.PackedGroups", op: str, cards_only: bool = False):
+    """Mesh-sharded grouped reduce (or/and/xor) over ``config.mesh``: each
+    group's rows padded to a multiple of the ``containers`` size with the
+    op identity (``PackedGroups.padded_device``, resident beside the pack),
+    this rank's ``[G, M/nc, 2048/nw]`` block cut from it, and
+    ``sharding.distributed_grouped_reduce`` run on it; the ``[G, 2048/nw]``
+    words gathered over ``words``. A distribution too skewed for the dense
+    pad takes the unsharded reduce (``store.reduce_packed``'s layout): a
+    layout choice, which every rank makes alike. Returns host ``(words [G, 2048] uint32, cards [G]
+    int64)``, words None with ``cards_only``."""
+    from ..ops import device as dev
+    from . import sharding
+
+    mesh = config.mesh
+    padded = None
+    if packed.n_groups:
+        padded = packed.padded_device(
+            dev._INIT[op], row_multiple=sharding.axis_size(mesh, "containers")
+        )
+    if padded is None:
+        if cards_only:
+            return None, store.reduce_packed_cardinality(packed, op=op)
+        return store.reduce_packed(packed, op=op)
+    local = sharding.shard_rows(mesh, padded, (None, "containers", "words"))
+    red, cards = sharding.distributed_grouped_reduce(mesh, op)(local)
+    cards = cards.cpu().numpy().astype(np.int64)
+    if cards_only:
+        return None, cards
+    words = sharding.gather_shards(mesh, red, (None, "words"))
+    return dev.to_host_u32(words), cards
 
 
 def _dispatch_prelude(bitmaps: Sequence[RoaringBitmap], op: str):
@@ -239,6 +285,8 @@ def _aggregate_cardinality(bitmaps: List[RoaringBitmap], op: str, mode, device) 
         return 0
     if _use_device(n, mode):
         packed = _device_pack(bitmaps, keys, device)
+        if config.mesh is not None:  # the same mesh reduce as _device_aggregate
+            return int(_sharded_reduce(packed, op, cards_only=True)[1].sum())
         return int(store.reduce_packed_cardinality(packed, op=op).sum())
     return _cpu_aggregate(bitmaps, keys, n, op).get_cardinality()
 

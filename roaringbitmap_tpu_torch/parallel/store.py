@@ -304,7 +304,8 @@ class PackedGroups:
         # and the other streams that have read them since
         self._written: Optional[tuple] = None  # guarded-by: self._lock
         self._readers: set = set()  # guarded-by: self._lock
-        self._padded_cache: Dict[int, Optional[torch.Tensor]] = {}
+        # by fill, or (fill, row_multiple) for the mesh route's padding
+        self._padded_cache: Dict[object, Optional[torch.Tensor]] = {}
         self._bucket_cache: Dict[Tuple[int, int], list] = {}
         self._plan_cache: Dict[int, List[np.ndarray]] = {}
         self._reduce_touches: Dict[int, int] = {}
@@ -474,29 +475,18 @@ class PackedGroups:
                 self._wrote(d)
         self._drop(flat=False)
 
-    def padded_device(self, fill: int) -> Optional[torch.Tensor]:
+    def padded_device(self, fill: int, row_multiple: int = 1) -> Optional[torch.Tensor]:
         """Dense-padded int32 [G, M, W] rows on the device, built once per
-        ``fill`` from the flat rows (pad cells hold ``fill``), or None when
-        the distribution is too skewed to pad (``dense_pad_plan``'s
-        guard)."""
-        key = int(fill)
+        ``fill`` and ``row_multiple`` (M rounded up to a multiple of it, the
+        mesh route's ``containers`` size) by :func:`pad_groups_dense`, or
+        None when the distribution is too skewed to pad."""
+        key = int(fill) if row_multiple == 1 else (int(fill), int(row_multiple))
         cache = self._padded_cache
         if key in cache:
             return cache[key]
         with self._lock:
             epoch = self._layout_epoch
-        plan = dense_pad_plan(self.group_offsets)
-        arr = None
-        if plan is not None:
-            m, slots = plan
-            g = self.n_groups
-            flat = self.device_words
-            arr = torch.full(
-                (g * m, dev.DEVICE_WORDS), int(fill), dtype=torch.int32,
-                device=self.device,
-            )
-            arr.index_copy_(0, torch.from_numpy(slots).to(self.device), flat)
-            arr = arr.view(g, m, dev.DEVICE_WORDS)
+        arr = pad_groups_dense(self, fill, row_multiple)
         nbytes = 0 if arr is None else arr.numel() * 4
         return self._publish(cache, key, arr, "padded_groups", nbytes, epoch)
 
@@ -637,15 +627,19 @@ def bucket_plan(counts: np.ndarray, n_buckets: int) -> List[np.ndarray]:
     return cuts
 
 
-def dense_pad_plan(group_offsets: np.ndarray) -> Optional[Tuple[int, np.ndarray]]:
+def dense_pad_plan(
+    group_offsets: np.ndarray, row_multiple: int = 1
+) -> Optional[Tuple[int, np.ndarray]]:
     """``(m, slots)`` for the dense [G, M, W] layout — ``slots[i]`` is the
     g*m-grid position of packed row i (row r of group gi at local position
-    p lands at gi*m + p), M the largest group. None when the distribution
-    is too skewed to pad (the guard: padded cells > max(2*rows, 1024))."""
+    p lands at gi*m + p), M the largest group rounded up to
+    ``row_multiple``. None when the distribution is too skewed to pad (the
+    guard: padded cells > max(2*rows, 1024))."""
     counts = np.diff(group_offsets)
     g = len(counts)
     n = int(group_offsets[-1])
     m = int(counts.max()) if g else 0
+    m += (-m) % row_multiple
     if g * m > max(2 * n, 1024):
         return None
     if n:
@@ -655,6 +649,26 @@ def dense_pad_plan(group_offsets: np.ndarray) -> Optional[Tuple[int, np.ndarray]
     else:
         slots = np.empty(0, dtype=np.int64)
     return m, slots
+
+
+def pad_groups_dense(
+    packed: PackedGroups, fill: int, row_multiple: int = 1
+) -> Optional[torch.Tensor]:
+    """Dense int32 [G, M, W] padding of a packed group set on its device
+    (the layout and skew guard of :func:`dense_pad_plan`; pad cells hold
+    ``fill``): one gather of the flat rows, no per-group loop. None when
+    the distribution is too skewed to pad."""
+    plan = dense_pad_plan(packed.group_offsets, row_multiple)
+    if plan is None:
+        return None
+    m, slots = plan
+    g = packed.n_groups
+    arr = torch.full(
+        (g * m, dev.DEVICE_WORDS), int(fill), dtype=torch.int32, device=packed.device
+    )
+    if packed.n_rows:
+        arr.index_copy_(0, torch.from_numpy(slots).to(packed.device), packed.device_words)
+    return arr.view(g, m, dev.DEVICE_WORDS)
 
 
 def _reduce_and_count(words, plan, op, row_map=None):

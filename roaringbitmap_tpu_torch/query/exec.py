@@ -65,6 +65,7 @@ def _memo_plan(expr: Expr, mode: Optional[str]) -> Plan:
         # not be served a plan built for the old one
         aggregation.config.mode,
         aggregation.config.min_device_containers,
+        aggregation.config.mesh is None,
         tuple(l.fingerprint() for l in expr.leaves),
     )
     with _PLAN_MEMO_LOCK:
@@ -166,9 +167,11 @@ def _device_step_leaves(p: Plan):
     """Yield ``(leaves, op)`` for the plan's device-routed all-leaf steps —
     device-* n-ary and/or/xor only: the andnot and threshold kernels key
     their packs differently (kind-prefixed ``get_or_build`` keys), so
-    staging an aggregation pack for either would be waste."""
+    staging an aggregation pack for either would be waste. The
+    ``-sharded`` steps are collective calls over the mesh, which the lane
+    does not stage for, as in the JAX package."""
     for step in p.steps:
-        if not step.engine.startswith("device-"):
+        if not step.engine.startswith("device-") or step.engine.endswith("-sharded"):
             continue
         leaves = [getattr(o, "bitmap", None) for o in step.operands]
         if len(leaves) >= 2 and all(b is not None for b in leaves):

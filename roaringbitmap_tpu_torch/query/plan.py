@@ -43,7 +43,8 @@ Pipeline (all host-side, microseconds against container-op costs):
    ``workshy-and``/``naive-*``/``horizontal-*`` CPU folds,
    ``device-*`` batched reductions when
    ``parallel.aggregation._use_device`` says the working set earns a
-   dispatch, ``andnot-batch`` (grouped OR of the subtrahends + one
+   dispatch (``-sharded`` when ``aggregation.config.mesh`` is set),
+   ``andnot-batch`` (grouped OR of the subtrahends + one
    ``first & ~union`` mask, kernels.py), and
    ``threshold-bitsliced`` (the bit-sliced adder, kernels.py).
 
@@ -449,11 +450,12 @@ def _choose_engine(node: Expr, est_rows: int, mode: Optional[str]) -> str:
 
     n = len(node.children)
     device = aggregation._use_device(est_rows, mode)
+    sharded = "-sharded" if (device and aggregation.config.mesh is not None) else ""
     if node.op in ("and", "or", "xor"):
         if n == 2 and not device:
             return "pairwise"
         if device:
-            return f"device-{node.op}"
+            return f"device-{node.op}{sharded}"
         if node.op == "and":
             return "workshy-and"
         return ("horizontal-" if n >= 8 else "naive-") + node.op

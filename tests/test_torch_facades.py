@@ -11,6 +11,12 @@ cases mirror the JAX package's ``tests/test_iterators_engines.py``,
 ``tests/test_facades.py``.
 """
 
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -23,7 +29,6 @@ from roaringbitmap_tpu import ParallelAggregation as JPA
 from roaringbitmap_tpu import RoaringBitmap as JRB
 from roaringbitmap_tpu import RoaringBitmapWriter as JWriter
 from roaringbitmap_tpu import insights as jinsights
-from roaringbitmap_tpu import native as jnative
 from roaringbitmap_tpu.models import bitset as jbitset
 from roaringbitmap_tpu.models.fastrank import FastRankRoaringBitmap as JFast
 from roaringbitmap_tpu.ops import device as jdev
@@ -43,7 +48,6 @@ from roaringbitmap_tpu_torch import (
     RoaringBitmapWriter,
     RoaringBitSet,
     insights,
-    native,
 )
 from roaringbitmap_tpu_torch.models import bitset
 from roaringbitmap_tpu_torch.models import writer as twriter
@@ -51,6 +55,7 @@ from roaringbitmap_tpu_torch.ops import device as tdev
 from roaringbitmap_tpu_torch.parallel import aggregation, store
 from roaringbitmap_tpu_torch.utils import bits
 
+REPO = Path(__file__).resolve().parents[1]
 SEED = 0xFEEF1F0
 
 
@@ -439,16 +444,41 @@ def test_insights_analyse_and_recommend_match_jax(name):
         assert np.isnan(stats.array_stats.average_cardinality())
 
 
+_SERVING_TIER_CHECK = """
+import json
+from roaringbitmap_tpu import insights as jinsights, native as jnative
+from roaringbitmap_tpu_torch import insights, native
+native.load()
+jnative.available()
+tiers = [insights.native_backend(), jinsights.native_backend()]
+native.set_tier("numpy")
+try:
+    tiers.append(insights.native_backend())
+finally:
+    native.set_tier("native")
+tiers.append(insights.native_backend())
+print(json.dumps(tiers))
+"""
+
+
 def test_native_backend_names_the_serving_tier():
-    native.load()
-    jnative.available()
-    assert insights.native_backend() == jinsights.native_backend() == "ext"
-    try:
-        native.set_tier("numpy")
-        assert insights.native_backend() == "numpy"
-    finally:
-        native.set_tier("native")
-    assert insights.native_backend() == "ext"
+    """The port's tier is "ext", "numpy" under ``set_tier("numpy")`` and
+    "ext" again, and the JAX package's ``native_backend()`` agrees. Both
+    tiers are process-wide state, and the JAX package's lazy loaders latch
+    a disabled attempt for good (a test that loads it under
+    ``ROARINGBITMAP_TPU_NO_NATIVE`` leaves its extension unloaded, so it
+    reads "ctypes"), so the claim is checked in a fresh interpreter, where
+    no earlier test of the same worker can have moved either."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("ROARINGBITMAP_TPU_NO_NATIVE", "ROARINGBITMAP_TPU_NO_EXT")}
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(REPO), env.get("PYTHONPATH")]))
+    out = subprocess.run(
+        [sys.executable, "-c", _SERVING_TIER_CHECK], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=240,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == ["ext", "ext", "numpy", "ext"]
 
 
 # ---------------------------------------------------------------------------

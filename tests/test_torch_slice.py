@@ -274,7 +274,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "from roaringbitmap_tpu_torch import interop, serialization, columnar\n"
         "from roaringbitmap_tpu_torch.columnar import costmodel, device, engine\n"
         "from roaringbitmap_tpu_torch.models import art, roaring64, roaring64art, bsi64\n"
-        "from roaringbitmap_tpu_torch.parallel import aggregation64\n"
+        "from roaringbitmap_tpu_torch.parallel import aggregation64, sharding\n"
         "from roaringbitmap_tpu_torch import Q, query, FastAggregation64, Roaring64Bitmap\n"
         "bad = [m for m in set(sys.modules) - before\n"
         "       if m in ('jax', 'jaxlib', 'roaringbitmap_tpu')\n"
