@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only mapped   # phases 1-2, 6, 7 and 13: memory-mapped bitmaps
     python3 chip_smoke.py --only sixtyfour  # phases 1-2 and 14: the 64-bit family
     python3 chip_smoke.py --only mesh     # phases 1-2, 3 (c) and 15: row widths, multi-device
+    python3 chip_smoke.py --only observe  # phases 1-2 and 16: instrumentation and faults
 
 ``--only paths`` runs only the phases whose end-to-end times PERF.md limits
 against a parent commit; copied into a checkout of the parent, it times
@@ -254,16 +255,46 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    still running after 300 s, fails the phase. With ``--only mesh`` both
    BSI indexes are cut to 10M rows.
 
+16. (run after phase 5, on the census working set before phase 8 mutates
+   it) the instrumentation and the fault model on the main path at full
+   size: (a) the cold and warm ``FastAggregation.or_`` and Q1 with the
+   timeline off (the reference bytes), then ``on``, then ``fenced``: the
+   bytes equal to the off run and to numpy, every ``agg.dispatch``
+   decision ``device`` and resolved in the outcome ledger with its wall,
+   the recorder holding the pack, expansion, reduce, ladder and query
+   spans, its Chrome trace parsed; the launch counts zeroed before the on
+   and fenced runs and read after (``launches_observe``), equal to the
+   deltas of ``rb_tpu_kernel_dispatch_total{engine="cuda"}``, with every
+   kernel of the path launched; ``rb_tpu_compile_total`` unchanged over
+   the window; (b) the warm OR with the timeline off / on / fenced in
+   turns (median of 10) and the cold OR off against on (median of 5); (c)
+   a ``tracing.trace`` window over three warm ORs with the timeline on:
+   the ``trace=True`` span ``agg.device`` and an ``annotate`` range
+   present, ``group_reduce_kernel`` and ``popcount_rows_kernel`` with
+   device time, the idle share (CUDA events around the kernel wrappers
+   where the profiler shows no device time); (d) faults on the card: a
+   transient ``store.ship`` fault retried and counted recovered with the
+   bytes exact, a ``simulated_oom`` at ``store.expand`` raising with no
+   answer, and a real ``torch.cuda.OutOfMemoryError`` classified
+   ``"resource"``.
+
+Every profiler window (``_profiled``) is a ``tracing.trace`` window; where
+it shows no device events twice, the kernels are timed with CUDA events
+around each kernel wrapper and the line says so.
+
 The last three lines are a JSON object of the host tier's entry points
 (``{"host_tier": [...]}``, each one's native and numpy ms; not with
 ``--only kernels``), a JSON object describing every kernel (``launches``
 on its main path, ``launches_mapped`` on phase 13's, ``launches_64`` on
-phase 14's, ``launches_mesh`` on phase 15's; a ``name@1024`` row is the
+phase 14's, ``launches_mesh`` on phase 15's, ``launches_observe`` on
+phase 16's; a ``name@1024`` row is the
 kernel at 1024 words, whose path is phase 15 (b), its counts summed over
 the ranks) and the JSON result ``{"ok": true, "device": {...}}``; with
 ``--only sixtyfour`` the phase's launch counts (``{"launches_64": ...}``)
 and the JSON result; with ``--only mesh`` phase 15 (a)'s launch counts
-and the 1024-word rows, then the JSON result. The port needs no JAX and nothing
+and the 1024-word rows, then the JSON result; with ``--only observe``
+phase 16's launch counts (``{"launches_observe": ...}``) and the JSON
+result. The port needs no JAX and nothing
 of the JAX package.
 """
 
@@ -1351,23 +1382,28 @@ def phase_main(rng, base, bitmaps, real, build_s):
 
 
 def _profiled(tag: str, label: str, fn, card: str, calls: int = 1) -> None:
-    """``calls`` back-to-back calls of ``fn`` under torch.profiler: wall
-    time, device busy and idle share, and the largest device-side entries
-    (all per call)."""
+    """``calls`` back-to-back calls of ``fn`` in a ``tracing.trace`` window
+    (``torch.profiler``, its Chrome trace written to a temporary
+    directory): wall time, device busy and idle share, and the largest
+    device-side entries (all per call). Where the profiler shows no device
+    events, the kernels are timed with CUDA events instead
+    (:func:`_event_busy`) and the line says so."""
+    import tempfile
+
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from roaringbitmap_tpu_torch import tracing
 
     # a short profiling session sometimes returns no device events at all;
     # the calls are then profiled once more and the line says so
     for session in (1, 2):
-        with profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True
-        ) as prof:
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / calls
+        with tempfile.TemporaryDirectory(prefix="rb_trace_") as logdir:
+            with tracing.trace(logdir) as prof:
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / calls
         # device-side events only (kernels, copies): a CPU op's own entry
         # repeats the device time of the kernels it launched
         by_name = sorted(
@@ -1387,8 +1423,61 @@ def _profiled(tag: str, label: str, fn, card: str, calls: int = 1) -> None:
             f"{dev_us / 1e3:.3f} ms ({dev_us / 1e6 / wall:.2%}), idle share "
             f"{1 - dev_us / 1e6 / wall:.2%}; top: {top}  [{card}]"
         )
-    else:
-        say(f"{tag} profiled {label}: device time not measured (the profiler showed none)")
+        return
+    wall, busy_ms, by = _event_busy(fn, calls)
+    top = "; ".join(f"{k} {v:.3f} ms" for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
+    say(
+        f"{tag} profiled {label}: the profiler showed no device events; CUDA events around each "
+        f"kernel wrapper instead ({calls} call(s), per call; kernels only, copies not counted): wall "
+        f"{wall * 1e3:.1f} ms, kernels busy {busy_ms:.3f} ms ({busy_ms / 1e3 / wall:.2%}), idle share "
+        f"{1 - busy_ms / 1e3 / wall:.2%}; {top}  [{card}]"
+    )
+
+
+# the kernel wrappers of ops/kernels.py that the device paths call through
+# the module (looked up at call time), timed one by one by _event_busy
+_EVENT_TIMED = (
+    "group_reduce", "popcount_rows", "expand_shipped", "threshold_rows", "oneil_compare",
+    "pair_rows_reduce", "pair_rows_cardinality", "pairwise_and_card",
+)
+
+
+def _event_busy(fn, calls: int):
+    """``calls`` calls of ``fn`` with a CUDA event pair recorded on the
+    current stream around every kernel wrapper call: (wall s per call,
+    kernels' device ms per call, {wrapper: ms per call}). A pair also
+    spans the stream's wait for the launch, so this reads a little high."""
+    from roaringbitmap_tpu_torch.ops import kernels as K
+
+    marks = []
+    saved = {name: getattr(K, name) for name in _EVENT_TIMED}
+
+    def timed(name, f):
+        def run(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = f(*args, **kwargs)
+            end.record()
+            marks.append((name, start, end))
+            return out
+        return run
+
+    for name, f in saved.items():
+        setattr(K, name, timed(name, f))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / calls
+    finally:
+        for name, f in saved.items():
+            setattr(K, name, f)
+    by = {}
+    for name, start, end in marks:
+        by[name] = by.get(name, 0.0) + start.elapsed_time(end) / calls
+    return wall, sum(by.values()), by
 
 
 def phase_timing(bitmaps, card: str):
@@ -1533,20 +1622,14 @@ def _cache_delta(store, before):
     return {k: after[k] - before[k] for k in ("hits", "misses", "delta_rows")}
 
 
-def phase_query(base, bitmaps, real, card: str):
-    """Q1-Q3 through ``query.execute`` and the n-way andnot on the card
-    (``aggregation.config.device`` as shipped), every answer against a
-    numpy oracle over the base bitmaps and their copy counts."""
+def _q1_setup(base, bitmaps, real):
+    """Q1 over the census working set: the expression, its numpy oracle,
+    the sets (A, B, C, head) it reads, and the oracle's parts (the unions
+    of A, B and C, (A&B)\\C, threshold_2(head))."""
     from roaringbitmap_tpu_torch import query as tq
-    from roaringbitmap_tpu_torch.ops import kernels as K
-    from roaringbitmap_tpu_torch.parallel import aggregation, store
 
-    if (aggregation.config.device, aggregation.config.mode) != ("cuda", "auto"):
-        fail(f"aggregation config is {aggregation.config.device}/{aggregation.config.mode}, expected cuda/auto")
-    t_phase = time.perf_counter()
     nb = len(base)
-    sets = [[b for i, b in enumerate(bitmaps) if lo <= i % nb < hi] for lo, hi in Q1_THIRDS]
-    A, B, C = sets
+    A, B, C = ([b for i, b in enumerate(bitmaps) if lo <= i % nb < hi] for lo, hi in Q1_THIRDS)
     head = bitmaps[:Q1_HEAD]
     uA, uB, uC = (np.unique(np.concatenate(base[lo:hi])) for lo, hi in Q1_THIRDS)
     abc = np.setdiff1d(np.intersect1d(uA, uB), uC)
@@ -1558,9 +1641,25 @@ def phase_query(base, bitmaps, real, card: str):
         f"threshold_2(head) {sizes[1]}, Q1 {sizes[2]} values")
     if not real and sizes != Q1_SIZES:
         fail(f"the stand-in's Q1 oracle sizes are {sizes}, expected {Q1_SIZES}")
-
     Q = tq.Q
     q1 = ((Q.or_(*A) & Q.or_(*B)) - Q.or_(*C)) | Q.threshold(2, *head)
+    return q1, want_q1, (A, B, C, head), (uA, uB, uC, abc, t2)
+
+
+def phase_query(base, bitmaps, real, card: str):
+    """Q1-Q3 through ``query.execute`` and the n-way andnot on the card
+    (``aggregation.config.device`` as shipped), every answer against a
+    numpy oracle over the base bitmaps and their copy counts."""
+    from roaringbitmap_tpu_torch import query as tq
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import aggregation, store
+
+    if (aggregation.config.device, aggregation.config.mode) != ("cuda", "auto"):
+        fail(f"aggregation config is {aggregation.config.device}/{aggregation.config.mode}, expected cuda/auto")
+    t_phase = time.perf_counter()
+    q1, want_q1, (A, B, C, head), (uA, uB, uC, abc, t2) = _q1_setup(base, bitmaps, real)
+    nb = len(base)
+    Q = tq.Q
     plan = tq.plan(q1)
     lines = plan.explain().splitlines()
     # the step lines without the leaf lines, each operand list cut to its
@@ -4879,14 +4978,269 @@ def phase_mesh(base, index, vals, index64, card: str):
 
 
 
+
+# ---------------------------------------------------------------------------
+# phase 16: the observability and fault model on the main path
+# ---------------------------------------------------------------------------
+
+OBSERVE_RUNS = 10  # warm wide ORs per timeline mode, the modes in turns
+OBSERVE_COLD_RUNS = 10  # cold wide ORs per mode (off, on), in turns
+# the kernels of the census wide OR and Q1: phase 16 fails if one of them
+# has no launch under the instrumentation
+OBSERVE_KERNELS = ("rb_popcount_rows", "rb_expand_rows", "rb_threshold")
+
+
+def _trace_busy(chrome: dict, calls: int):
+    """Device busy µs per call in a ``tracing.trace`` window's Chrome
+    trace: the union of its kernel, copy and memset intervals (the
+    ``gpu_user_annotation`` ranges that ``record_function`` projects onto
+    the device are not work, and are left out), and each kernel's µs per
+    call by name."""
+    spans, kernels = [], {}
+    for e in chrome["traceEvents"]:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        spans.append((e["ts"], e["ts"] + e["dur"]))
+        if e["cat"] == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0.0) + e["dur"] / calls
+    busy, end = 0.0, None
+    for t0, t1 in sorted(spans):
+        if end is None or t0 > end:
+            busy += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy += t1 - end
+            end = t1
+    return busy / calls, kernels
+
+
+def phase_observe(base, bitmaps, real, card: str):
+    """Phase 16: the census wide OR and Q1 with the timeline off, on and
+    fenced (bytes, decisions, outcomes, counters, the Chrome trace), the
+    timeline's overhead in turns, a ``tracing.trace`` window with its idle
+    share, and faults on the card. Returns the launch counts of (a)."""
+    import tempfile
+
+    from roaringbitmap_tpu_torch import FastAggregation, insights, observe, tracing
+    from roaringbitmap_tpu_torch import query as tq
+    from roaringbitmap_tpu_torch import robust
+    from roaringbitmap_tpu_torch.observe import compilewatch, decisions, outcomes
+    from roaringbitmap_tpu_torch.observe import timeline as tl
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import store
+    from roaringbitmap_tpu_torch.robust import errors, faults
+
+    t_phase = time.perf_counter()
+    oracle_or = np.unique(np.concatenate(base[:min(len(base), len(bitmaps))]))
+    q1, want_q1, _sets, _parts = _q1_setup(base, bitmaps, real)
+
+    def or_():
+        return FastAggregation.or_(*bitmaps)
+
+    def q1_():
+        return tq.execute(q1, cache=None)
+
+    # the timeline off: the reference bytes
+    tl.configure(mode="off")
+    store.PACK_CACHE.close()
+    ref_or = or_()
+    _check("(a) FastAggregation.or_, timeline off", ref_or, oracle_or, "[observe]")
+    ref_q1 = q1_()
+    _check_values("(a) Q1, timeline off", ref_q1, want_q1, "[observe]")
+    ref = (ref_or.serialize(), ref_q1.serialize())
+    torch.cuda.synchronize()
+
+    def cuda_dispatch():
+        snap = observe.snapshot()[observe.KERNEL_DISPATCH_TOTAL]["samples"]
+        return {s["labels"]["kind"]: s["value"] for s in snap if s["labels"]["engine"] == "cuda"}
+
+    # --- phase 16's path: the on and fenced runs below, counts live ---
+    builds = compilewatch.compile_counts()
+    K.reset_launches()
+    dispatch0 = cuda_dispatch()
+    for mode in ("on", "fenced"):
+        tl.configure(mode=mode)
+        tl.RECORDER.clear()
+        decisions.LOG.clear()
+        outcomes.reset()
+        store.PACK_CACHE.close()
+        t0 = time.perf_counter()
+        got = {"cold OR": or_(), "warm OR": or_(), "Q1": q1_()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for label, r in got.items():
+            want = ref[1] if label == "Q1" else ref[0]
+            if r.serialize() != want:
+                fail(f"(a) {label} with the timeline {mode} differs from the timeline-off bytes")
+        _check(f"(a) FastAggregation.or_ warm, timeline {mode} (bytes equal to off)", got["warm OR"],
+               oracle_or, "[observe]")
+        _check_values(f"(a) Q1, timeline {mode} (bytes equal to off)", got["Q1"], want_q1, "[observe]")
+        dispatch = [e for e in decisions.decisions() if e["site"] == "agg.dispatch"]
+        joined = [e for e in outcomes.tail() if e["site"] == "agg.dispatch"]
+        if not dispatch or {e["decision"] for e in dispatch} != {"device"}:
+            fail(f"(a) timeline {mode}: agg.dispatch decisions {[e['decision'] for e in dispatch]}, "
+                 "expected device")
+        if len(joined) != len(dispatch) or any(e["engine"] != "device" or not e["measured_s"] > 0
+                                               for e in joined):
+            fail(f"(a) timeline {mode}: {len(joined)} agg.dispatch outcomes for {len(dispatch)} "
+                 f"decisions, or one not resolved on the device with a wall: {joined[:2]}")
+        events = tl.RECORDER.events()
+        names = {e.name for e in events}
+        need = {"agg.device", "ladder.attempt", "pack.ship", "pack.device_expand",
+                "store.reduce.padded", "query.step", "decision.agg.dispatch"}
+        if not need <= names:
+            fail(f"(a) timeline {mode}: the recorder lacks {sorted(need - names)}")
+        with tempfile.TemporaryDirectory(prefix="rb_timeline_") as d:
+            path = os.path.join(d, "timeline.json")
+            tl.write_chrome_trace(path)
+            trace = json.loads(open(path).read())
+        n_spans = sum(e["ph"] == "X" for e in trace["traceEvents"])
+        walls = {e["name"]: e["dur"] / 1e3 for e in trace["traceEvents"]
+                 if e["ph"] == "X" and e["name"] in ("agg.device", "query.execute")}
+        say(f"[observe] (a) timeline {mode}: cold OR, warm OR, Q1 in {wall * 1e3:.1f} ms; "
+            f"{len(dispatch)} agg.dispatch decisions, each resolved on the device (walls "
+            + ", ".join(f"{e['measured_s'] * 1e3:.2f}" for e in joined) + " ms); "
+            f"{len(events)} recorder events; the Chrome trace parses ({len(trace['traceEvents'])} "
+            f"events, {n_spans} spans; last agg.device / query.execute "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in walls.items()) + f")  [{card}]")
+    tl.configure(mode="off")
+    tl.RECORDER.clear()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    dispatch1 = cuda_dispatch()
+    delta = {k: dispatch1.get(k, 0) - dispatch0.get(k, 0) for k in launches}
+    say(f"[observe] (a) launches over phase 16's path: {launches}; rb_tpu_kernel_dispatch_total"
+        f"{{engine=cuda}} deltas {delta}  [{card}]")
+    if delta != launches:
+        fail("(a) the registry's dispatch deltas differ from LAUNCHES")
+    if not (launches["rb_group_reduce[dense]"] + launches["rb_group_reduce[rowmap]"]):
+        fail("(a) rb_group_reduce was not launched on phase 16's path")
+    for name in OBSERVE_KERNELS:
+        if not launches[name]:
+            fail(f"(a) kernel {name} was not launched on phase 16's path")
+    if compilewatch.compile_counts() != builds:
+        fail(f"(a) rb_tpu_compile_total moved over the warm window: {builds} -> "
+             f"{compilewatch.compile_counts()}")
+    say(f"[observe] (a) rb_tpu_compile_total unchanged over the window: {builds}; "
+        f"insights.pack_cache_counters() hits {insights.pack_cache_counters()['hits']}")
+
+    # (b) overhead: warm OR, the modes in turns; cold OR off against on
+    FastAggregation.or_(*bitmaps)  # resident, padded block built
+    warm = {m: [] for m in ("off", "on", "fenced")}
+    for _ in range(OBSERVE_RUNS):
+        for m in warm:
+            tl.configure(mode=m)
+            t0 = time.perf_counter()
+            or_()
+            warm[m].append(time.perf_counter() - t0)
+            tl.RECORDER.clear()
+    cold = {m: [] for m in ("off", "on")}
+    for _ in range(OBSERVE_COLD_RUNS):
+        for m in cold:
+            tl.configure(mode=m)
+            store.PACK_CACHE.close()
+            t0 = time.perf_counter()
+            or_()
+            cold[m].append(time.perf_counter() - t0)
+            tl.RECORDER.clear()
+    tl.configure(mode="off")
+    for label, runs in (("warm", warm), ("cold", cold)):
+        meds = {m: float(np.median(w)) * 1e3 for m, w in runs.items()}
+        say(f"[observe] (b) FastAggregation.or_ {label}, {len(runs['off'])} runs a mode in turns, "
+            f"median (min-max) ms: "
+            + "; ".join(f"{m} {meds[m]:.3f} ({min(w) * 1e3:.3f}-{max(w) * 1e3:.3f})" for m, w in runs.items())
+            + "; on/off " + f"{meds['on'] / meds['off']:.4f}"
+            + (f", fenced/off {meds['fenced'] / meds['off']:.4f}" if "fenced" in meds else "")
+            + f"  [{card}]")
+
+    # (c) a tracing.trace window over the warm OR, timeline on (trace=True spans)
+    calls = 3
+    or_()
+    tl.configure(mode="on")
+    with tempfile.TemporaryDirectory(prefix="rb_trace_") as logdir:
+        with tracing.trace(logdir) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                with tracing.annotate("phase16.warm_or"):
+                    or_()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / calls
+        chrome = json.loads(open(os.path.join(logdir, tracing.TRACE_FILE)).read())
+    tl.configure(mode="off")
+    tl.RECORDER.clear()
+    ranges = {e.key for e in prof.key_averages()}
+    if not {"agg.device", "phase16.warm_or"} <= ranges:
+        fail(f"(c) the trace=True span names are missing from the profiler window: "
+             f"{sorted(k for k in ranges if '.' in k)[:20]}")
+    busy_us, kernels = _trace_busy(chrome, calls)
+    kern = {name: sum(v for k, v in kernels.items() if name in k)
+            for name in ("group_reduce_kernel", "popcount_rows_kernel")}
+    if all(kern.values()):
+        top = "; ".join(f"{k[:50]} {v / 1e3:.4f} ms" for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:4])
+        say(f"[observe] (c) tracing.trace over {calls} warm ORs (per call): wall {wall * 1e3:.3f} ms, "
+            f"device busy {busy_us / 1e3:.4f} ms (kernels, copies and memsets of the Chrome trace, "
+            f"overlaps merged), idle share {1 - busy_us / 1e6 / wall:.2%}; group_reduce_kernel "
+            f"{kern['group_reduce_kernel'] / 1e3:.4f} ms, popcount_rows_kernel "
+            f"{kern['popcount_rows_kernel'] / 1e3:.4f} ms; kernels: {top}; the Chrome trace holds "
+            f"{len(chrome['traceEvents'])} events; ranges agg.device and phase16.warm_or present  [{card}]")
+    else:
+        wall_e, busy_ms, by = _event_busy(or_, calls)
+        say(f"[observe] (c) tracing.trace over {calls} warm ORs showed no device time for "
+            f"{[k for k, v in kern.items() if not v]} (kernels {sorted(kernels)[:6]}); CUDA events "
+            f"around the kernel wrappers instead (per call): wall {wall_e * 1e3:.3f} ms, kernels busy "
+            f"{busy_ms:.4f} ms, idle share {1 - busy_ms / 1e3 / wall_e:.2%}; {by}  [{card}]")
+        if not by.get("group_reduce") or not by.get("popcount_rows"):
+            fail("(c) neither the profiler nor CUDA events saw the reduce and popcount kernels")
+
+    # (d) faults on the card
+    retry0 = insights.robust_counters()["retry"].get("store.ship/recovered", 0)
+    store.PACK_CACHE.close()
+    with faults.inject("store.ship", robust.TransientDeviceError, every=1, times=1) as inj:
+        r = or_()
+    if inj.fired != 1 or r.serialize() != ref[0]:
+        fail(f"(d) transient store.ship fault: fired {inj.fired}, bytes equal {r.serialize() == ref[0]}")
+    if insights.robust_counters()["retry"].get("store.ship/recovered", 0) != retry0 + 1:
+        fail("(d) the transient store.ship fault was not counted recovered")
+    say(f"[observe] (d) a transient store.ship fault on the card: retried, counted recovered, the OR "
+        f"equal to the reference bytes  [{card}]")
+    store.PACK_CACHE.close()
+    answer = None
+    with faults.inject("store.expand", robust.simulated_oom, every=1) as inj:
+        try:
+            answer = or_()
+        except torch.cuda.OutOfMemoryError as e:
+            if errors.classify(e) != errors.RESOURCE:
+                fail(f"(d) simulated OOM classified {errors.classify(e)}")
+    if answer is not None or not inj.fired:
+        fail("(d) simulated_oom at store.expand returned an answer instead of raising")
+    say(f"[observe] (d) simulated_oom at store.expand raised torch.cuda.OutOfMemoryError "
+        f"(classified resource, fired {inj.fired}), no answer returned  [{card}]")
+    store.PACK_CACHE.close()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    try:
+        torch.empty(total * 2, dtype=torch.uint8, device="cuda")
+        fail("(d) an allocation of twice the card's memory did not raise")
+    except torch.cuda.OutOfMemoryError as e:
+        cat = errors.classify(e)
+        if cat != errors.RESOURCE:
+            fail(f"(d) a real torch.cuda.OutOfMemoryError classified {cat}")
+    torch.cuda.empty_cache()
+    say(f"[observe] (d) a real torch.cuda.OutOfMemoryError ({2 * total} bytes asked) classified "
+        f"resource  [{card}]")
+    robust.LADDER.reset()
+    say(f"[observe] phase 16 took {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return launches
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels", "paths", "columnar", "serving", "host", "batch", "mapped",
-                                       "sixtyfour", "mesh"],
+                                       "sixtyfour", "mesh", "observe"],
                     help="kernels: phases 1-3; paths: phases 1-2 and the timed paths 5, 8 and 6; "
                          "columnar: phases 1-2 and 9; serving: phases 1-2 and 10; host: phases 1-2, 11 "
                          "and 6; batch: phases 1-3 and 12; mapped: phases 1-2, 6, 7 and 13; "
-                         "sixtyfour: phases 1-2 and 14; mesh: phases 1-2, 3 (c) and 15")
+                         "sixtyfour: phases 1-2 and 14; mesh: phases 1-2, 3 (c) and 15; "
+                         "observe: phases 1-2 and 16")
     ap.add_argument("--window-pairs", type=int, default=WINDOW_PAIRS,
                     help=f"adjacent pairs in phase 9's window (default {WINDOW_PAIRS})")
     # one rank of phase 15 (b), started by the phase itself
@@ -4951,6 +5305,13 @@ def main():
         say(json.dumps({"launches_mesh": launches_mesh, "width_rows": rows}))
         say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return
+    if args.only == "observe":
+        base, bitmaps, real = build_working_set()
+        launches_observe = phase_observe(base, bitmaps, real, card)
+        say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
+        say(json.dumps({"launches_observe": launches_observe}))
+        say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return
     if args.only == "sixtyfour":
         from roaringbitmap_tpu_torch.utils import datasets
 
@@ -4974,6 +5335,7 @@ def main():
     mapped_launches = None  # phase 13's path, counted when it runs
     launches_64 = None  # phase 14's path, counted when it runs
     mesh_launches = None  # phase 15's paths, (a) and (b), counted when it runs
+    observe_launches = None  # phase 16's path, counted when it runs
     host = None
     if args.only == "batch":
         del bitmaps
@@ -4982,6 +5344,7 @@ def main():
     if args.only is None:
         agg_launches = phase_main(np.random.default_rng(SEED), base, bitmaps, real, build_s)
         phase_timing(bitmaps, card)
+        observe_launches = phase_observe(base, bitmaps, real, card)
         query_launches = phase_query(base, bitmaps, real, card)
         columnar_launches = phase_columnar(base, bitmaps, card, args.window_pairs)
         serving_launches = phase_serving(base, bitmaps, card)
@@ -5041,6 +5404,8 @@ def main():
             "launches_mesh": None if mesh_launches is None else (
                 mesh_launches[1][name.split("@")[0]] if name.endswith("@1024")
                 else mesh_launches[0][name]),
+            "launches_observe": None if observe_launches is None else (
+                0 if name.endswith("@1024") else observe_launches.get(name, 0)),
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

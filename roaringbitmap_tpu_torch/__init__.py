@@ -16,7 +16,11 @@ without a parse, ``MutableRoaringBitmap``, ``BufferFastAggregation`` /
 ``Roaring64NavigableMap``, ``FastAggregation64`` and
 ``Roaring64BitmapSliceIndex``; and multi-device sharding over a
 ``torch.distributed`` mesh (``parallel/sharding.py``, reached through the
-``mesh`` knob of the aggregation, BSI and 64-bit BSI configs); with the
+``mesh`` knob of the aggregation, BSI and 64-bit BSI configs); and the
+instrumentation: the metrics registry, flight-recorder timeline, trace
+ids, decision log and outcome ledger (``observe``), fault injection and
+the tier ladder with retries, breakers and deadlines (``robust``), and
+``torch.profiler`` windows and host-phase timers (``tracing``); with the
 device path in PyTorch and its kernels written by hand in CUDA
 (``csrc/``). It imports neither JAX nor
 the JAX package; that package stays the reference the port is tested
@@ -67,6 +71,9 @@ from .parallel.batch import (
 from .parallel.overlap import run_pipelined
 from .parallel import sharding
 from .serialization import InvalidRoaringFormat
+from . import observe
+from . import robust
+from . import tracing
 from . import insights
 from . import query
 from .query import Q
@@ -104,6 +111,8 @@ __all__ = [
     "RoaringBatchIterator",
     "BatchIntIterator",
     "insights",
+    "observe",
+    "tracing",
     "run_pipelined",
     "batched_cardinality",
     "batched_intersects",

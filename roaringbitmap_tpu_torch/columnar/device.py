@@ -30,8 +30,10 @@ bucket of the batch needs them: a pair whose classes the host serves (an
 and/andnot pair without a bitmap container) ships and keeps nothing. Left
 out here: the rows are not padded to a power-of-two count (that bounded
 XLA retraces); index streams are exact and checked against their block on
-the host. There is no fault point and no ladder: a failure of this tier
-raises.
+the host. There is no ladder: a failure of this tier raises. The
+``columnar.device`` fault site and ``rows_resident*`` come with the
+columnar engine's observability (ROADMAP Queue A item 3b); the kernel
+launch under it counts in ``rb_tpu_kernel_dispatch_total`` already.
 """
 
 from __future__ import annotations

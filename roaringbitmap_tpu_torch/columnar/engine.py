@@ -14,12 +14,15 @@ value-identical to the per-container engine (``==`` compares values, not
 forms). Pass-through containers keep their form: transferred unclone'd
 under member-op semantics (``reuse_left``), cloned otherwise.
 
-Left out here, relative to the JAX package: the decision log, the outcome
-join and the timeline spans (``route`` returns a plain ``str`` and
-``outcome()`` is a null context), and the degradation ladder — a failure
-of the device tier or of the native host tier raises. The batch and route
-counters are plain dicts (``BATCH_COUNTS``, ``ROUTE_COUNTS``), read like
-``ops/kernels.LAUNCHES``.
+Left out here, relative to the JAX package, until the next slice of the
+port (ROADMAP Queue A item 3b) wires this engine into ``observe``: the
+``columnar.cutoff`` decision log, ``Verdict``, the outcome join and the
+per-class spans (``route`` returns a plain ``str`` and ``outcome()`` is a
+null context), and the ``columnar.kernel`` fault site. There is no
+device-to-CPU degradation — a failure of the device tier or of the native
+host tier raises. The batch and route counters are plain dicts
+(``BATCH_COUNTS``, ``ROUTE_COUNTS``); ``ops/kernels.LAUNCHES`` is a
+registry view since the registry came to the port.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from ..models.container import (
     _wrap_u16,
 )
 from ..models.roaring import RoaringBitmap
-from ..robust.deadline import deadline_expired
+from ..robust.ladder import deadline_expired
 from ..utils import bits
 from . import costmodel as _costmodel
 from . import kernels

@@ -53,6 +53,7 @@ from typing import Callable, Dict
 
 import numpy as np
 
+from ..observe import compilewatch as _compilewatch
 from ..robust.errors import TierUnavailable
 
 _DIR = Path(__file__).resolve().parent
@@ -138,35 +139,42 @@ def build(force: bool = False) -> Dict[str, Path]:
     cmds = build_commands()
     todo = {k: v for k, v in cmds.items() if force or not v[1].is_file()}
     if todo:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-
-        def run(item):
-            name, (cmd, out) = item
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-            full = [*cmd, "-o", str(tmp)]
-            t0 = time.perf_counter()
-            try:
-                p = subprocess.run(full, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                   text=True, timeout=600)
-                if p.returncode != 0 or not tmp.is_file():
-                    raise TierUnavailable(
-                        f"g++ failed ({p.returncode}) building the {name} binding: "
-                        f"{' '.join(full)}\n{p.stdout}"
-                    )
-                os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-            except (OSError, subprocess.SubprocessError) as e:
-                raise TierUnavailable(f"g++ could not run ({e}): {' '.join(full)}") from e
-            finally:
-                tmp.unlink(missing_ok=True)
-            return name, time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=len(todo)) as pool:
-            times = dict(pool.map(run, todo.items()))
-        times["wall"] = time.perf_counter() - t0
-        BUILD_SECONDS.clear()
-        BUILD_SECONDS.update(times)
+        _compile(todo)
     return {k: v[1] for k, v in cmds.items()}
+
+
+@_compilewatch.tracked("rb_host")
+def _compile(todo: Dict[str, tuple]) -> None:
+    """Run ``g++`` for each library of ``todo``, all at once: one count of
+    ``rb_tpu_compile_total{fn="rb_host"}`` a call."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    def run(item):
+        name, (cmd, out) = item
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        full = [*cmd, "-o", str(tmp)]
+        t0 = time.perf_counter()
+        try:
+            p = subprocess.run(full, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                               text=True, timeout=600)
+            if p.returncode != 0 or not tmp.is_file():
+                raise TierUnavailable(
+                    f"g++ failed ({p.returncode}) building the {name} binding: "
+                    f"{' '.join(full)}\n{p.stdout}"
+                )
+            os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+        except (OSError, subprocess.SubprocessError) as e:
+            raise TierUnavailable(f"g++ could not run ({e}): {' '.join(full)}") from e
+        finally:
+            tmp.unlink(missing_ok=True)
+        return name, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+        times = dict(pool.map(run, todo.items()))
+    times["wall"] = time.perf_counter() - t0
+    BUILD_SECONDS.clear()
+    BUILD_SECONDS.update(times)
 
 
 def _import_ext(path: Path):

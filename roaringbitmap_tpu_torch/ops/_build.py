@@ -5,7 +5,9 @@ own ``nvcc`` for ``sm_90a``, all of them started together, and the objects
 are linked into one shared library under the package's ``_build/``
 directory (git-ignored), named by a hash of the sources and the flags so an
 edited source rebuilds, and loaded with ``ctypes``. Nothing is fetched and
-nothing is built when the module is imported.
+nothing is built when the module is imported. Every build that runs the
+compilers counts one into ``rb_tpu_compile_total{fn="rb_kernels"}``
+(``observe/compilewatch.py``).
 
 A missing ``nvcc`` or a failed compile raises
 :class:`~..robust.errors.TierUnavailable` with the compiler's output: the
@@ -29,6 +31,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
+from ..observe import compilewatch as _compilewatch
 from ..robust.errors import TierUnavailable
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
@@ -99,6 +102,13 @@ def build(verbose: bool = False) -> Tuple[Path, str]:
     out = library_path()
     if out.is_file() and not verbose:
         return out, ""
+    return _compile(out, verbose)
+
+
+@_compilewatch.tracked("rb_kernels")
+def _compile(out: Path, verbose: bool) -> Tuple[Path, str]:
+    """Run the compilers and link: one count of ``rb_tpu_compile_total
+    {fn="rb_kernels"}`` a call."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
     nvcc = nvcc_path()

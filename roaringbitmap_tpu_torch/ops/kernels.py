@@ -66,6 +66,11 @@ Each wrapper takes its kernel's plain PyTorch version (``ops/device.py``)
 only because the tensor it was given lies on the CPU; for a CUDA tensor it
 launches the kernel or raises. ``LAUNCHES`` counts kernel launches — one per
 launch, nowhere else — so a run can show that it went through the kernels.
+It is a view (``observe.CounterMap``) of the registry counter
+``rb_tpu_kernel_dispatch_total{kind, engine}``: ``engine="cuda"`` counts
+the launches, ``engine="plain"`` the plain versions' calls. The reduce,
+popcount, expansion and threshold wrappers hold the ``ops.dispatch`` fault
+site (``robust/faults.py``) before they dispatch.
 
 :func:`concat_rows` and :func:`word_test_rows` (the XLA ``concat_rows``
 and ``ops/device.py:word_test_rows`` of the columnar device tier) stay
@@ -79,6 +84,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import observe as _observe
+from ..robust import faults as _faults
 from . import device as dev
 
 # launch counts by kernel (and the reduce's three modes, the masked
@@ -86,22 +93,32 @@ from . import device as dev
 # batch too deep for it); "wide_reduce_cardinality" counts
 # calls of that composite on the card, whose reduce and popcount launches
 # also count under their own keys
-LAUNCHES = {
-    "rb_group_reduce[dense]": 0,
-    "rb_group_reduce[csr]": 0,
-    "rb_group_reduce[rowmap]": 0,
-    "rb_popcount_rows": 0,
-    "rb_popcount_rows[masked]": 0,
-    "rb_oneil_compare": 0,
-    "rb_oneil_compare[batched]": 0,
-    "rb_oneil_compare[batched-deep]": 0,
-    "wide_reduce_cardinality": 0,
-    "rb_threshold": 0,
-    "rb_pair_rows": 0,
-    "rb_pair_rows[counts]": 0,
-    "rb_expand_rows": 0,
-    "rb_pairwise_and_card": 0,
-}
+KERNELS = (
+    "rb_group_reduce[dense]",
+    "rb_group_reduce[csr]",
+    "rb_group_reduce[rowmap]",
+    "rb_popcount_rows",
+    "rb_popcount_rows[masked]",
+    "rb_oneil_compare",
+    "rb_oneil_compare[batched]",
+    "rb_oneil_compare[batched-deep]",
+    "wide_reduce_cardinality",
+    "rb_threshold",
+    "rb_pair_rows",
+    "rb_pair_rows[counts]",
+    "rb_expand_rows",
+    "rb_pairwise_and_card",
+)
+# every kernel call by (kind = the kernel's name above, engine = "cuda" for
+# a launch, "plain" for its plain version on CPU tensors): the JAX
+# package's rb_tpu_kernel_dispatch_total, with its label names
+_DISPATCH_TOTAL = _observe.counter(
+    _observe.KERNEL_DISPATCH_TOTAL,
+    "Kernel calls by (kind, engine): cuda launches and plain-version calls",
+    ("kind", "engine"),
+)
+# the launches alone, as a mapping keyed by kernel name
+LAUNCHES = _observe.CounterMap(_DISPATCH_TOTAL, scalar=True, fixed={"engine": "cuda"})
 
 # rows per chunk (one CTA each): small enough that a 10,000-row group
 # spreads over ~80 CTAs, large enough that the per-chunk atomic combine
@@ -112,8 +129,20 @@ _OP_CODE = {"or": 0, "and": 1, "xor": 2}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
+    """Zero every kernel's launch count (the keys stay)."""
+    for k in KERNELS:
         LAUNCHES[k] = 0
+
+
+reset_launches()
+
+
+def _launched(kind: str) -> None:
+    _DISPATCH_TOTAL.inc(1, (kind, "cuda"))
+
+
+def _plain(kind: str) -> None:
+    _DISPATCH_TOTAL.inc(1, (kind, "plain"))
 
 
 def plan_chunks(seg_offsets: np.ndarray, chunk_rows: int = CHUNK_ROWS) -> np.ndarray:
@@ -243,7 +272,9 @@ def group_reduce(
             raise ValueError("row_map must be contiguous with one entry per logical row")
     elif plan.n_rows > flat.shape[0]:
         raise ValueError(f"plan covers {plan.n_rows} rows, words hold {flat.shape[0]}")
+    _faults.fault_point("ops.dispatch")
     if flat.device.type == "cpu":
+        _plain("rb_group_reduce[rowmap]" if row_map is not None else f"rb_group_reduce[{plan.mode}]")
         return group_reduce_plain(flat, plan, op, row_map)
     if flat.device.type != "cuda":
         raise ValueError(f"unsupported device {flat.device}")
@@ -265,8 +296,8 @@ def group_reduce(
         torch.cuda.current_stream(flat.device).cuda_stream,
     )
     _build.check(lib, rc, "rb_group_reduce")
-    LAUNCHES["rb_group_reduce[rowmap]" if row_map is not None
-             else f"rb_group_reduce[{plan.mode}]"] += 1
+    _launched("rb_group_reduce[rowmap]" if row_map is not None
+              else f"rb_group_reduce[{plan.mode}]")
     return out
 
 
@@ -300,7 +331,9 @@ def popcount_rows(words: torch.Tensor, mask: Optional[torch.Tensor] = None) -> t
     one ``[K, W]`` mask gives the ``[S, K]`` masked popcounts flat."""
     flat = _check_words(words, ROW_WIDTHS)
     m = _check_mask(flat, mask)
+    _faults.fault_point("ops.dispatch")
     if flat.device.type == "cpu":
+        _plain("rb_popcount_rows" if m is None else "rb_popcount_rows[masked]")
         return popcount_rows_plain(flat, m)
     if flat.device.type != "cuda":
         raise ValueError(f"unsupported device {flat.device}")
@@ -317,7 +350,7 @@ def popcount_rows(words: torch.Tensor, mask: Optional[torch.Tensor] = None) -> t
         out.data_ptr(), torch.cuda.current_stream(flat.device).cuda_stream,
     )
     _build.check(lib, rc, "rb_popcount_rows")
-    LAUNCHES["rb_popcount_rows" if m is None else "rb_popcount_rows[masked]"] += 1
+    _launched("rb_popcount_rows" if m is None else "rb_popcount_rows[masked]")
     return out
 
 
@@ -339,10 +372,11 @@ def wide_reduce_cardinality(words: torch.Tensor, op: str = "or"):
         raise ValueError(f"op must be one of {sorted(_OP_CODE)}, got {op!r}")
     flat = _check_words(words, ROW_WIDTHS)
     if flat.device.type == "cpu":
+        _plain("wide_reduce_cardinality")
         return wide_reduce_cardinality_plain(flat, op)
     red = group_reduce(flat, SegmentPlan.dense(1, flat.shape[0]), op)
     card = popcount_rows(red)
-    LAUNCHES["wide_reduce_cardinality"] += 1
+    _launched("wide_reduce_cardinality")
     return red[0], card[0]
 
 
@@ -506,7 +540,7 @@ def _launch_tiled(slices, bits, ebm, fixed, op, cards, plan: TilePlan) -> None:
             _stream(slices),
         )
         _build.check(lib, rc, "rb_oneil_counts")
-        LAUNCHES["rb_oneil_compare[batched]"] += 1
+        _launched("rb_oneil_compare[batched]")
 
 
 def oneil_compare(slices, bits, ebm, fixed, op: str, count_only: bool = False):
@@ -533,6 +567,7 @@ def oneil_compare(slices, bits, ebm, fixed, op: str, count_only: bool = False):
     if not count_only and q_n != 1:
         raise ValueError("result words are returned for one query only; pass count_only=True")
     if slices.device.type == "cpu":
+        _plain("rb_oneil_compare[batched]" if q_n > 1 else "rb_oneil_compare")
         return oneil_compare_plain(slices, bits, ebm, fixed, op, count_only)
     if slices.device.type != "cuda":
         raise ValueError(f"unsupported device {slices.device}")
@@ -547,7 +582,7 @@ def oneil_compare(slices, bits, ebm, fixed, op: str, count_only: bool = False):
     if q_n == 0 or k == 0:
         return out, cards
     _launch_per_query(slices, bits, ebm, fixed, op, out, cards)
-    LAUNCHES["rb_oneil_compare[batched-deep]" if q_n > 1 else "rb_oneil_compare"] += 1
+    _launched("rb_oneil_compare[batched-deep]" if q_n > 1 else "rb_oneil_compare")
     return out, cards
 
 
@@ -559,13 +594,14 @@ def oneil_counts_per_query(slices, bits, ebm, fixed, op: str) -> torch.Tensor:
     card."""
     _check_oneil(slices, bits, ebm, fixed, op)
     if slices.device.type == "cpu":
+        _plain("rb_oneil_compare[batched-deep]")
         return oneil_compare_plain(slices, bits, ebm, fixed, op, True)[1]
     if slices.device.type != "cuda":
         raise ValueError(f"unsupported device {slices.device}")
     cards = torch.empty((bits.shape[0], slices.shape[1]), dtype=torch.int32, device=slices.device)
     if cards.numel():
         _launch_per_query(slices, bits, ebm, fixed, op, None, cards)
-        LAUNCHES["rb_oneil_compare[batched-deep]"] += 1
+        _launched("rb_oneil_compare[batched-deep]")
     return cards
 
 
@@ -756,10 +792,21 @@ def expand_rows(
         run_rows, run_counts, run_starts, run_lengths,
     )
     if device.type == "cpu":
+        _faults.fault_point("ops.dispatch")
+        _plain("rb_expand_rows")
         return expand_rows_plain(n_rows, *parts, device)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     return expand_shipped(n_rows, ship_payload(parts, device))
+
+
+def expand_parts(n_rows: int, parts) -> torch.Tensor:
+    """Expand checked payload parts where they lie (:func:`payload_parts`,
+    moved by :func:`ship_payload`): one ``rb_expand_rows`` launch for parts
+    on the card, the plain version for parts on the CPU."""
+    if parts[0].device.type == "cuda":
+        return expand_shipped(n_rows, parts)
+    return expand_rows(n_rows, *parts, parts[0].device)
 
 
 def expand_shipped(n_rows: int, shipped) -> torch.Tensor:
@@ -771,6 +818,7 @@ def expand_shipped(n_rows: int, shipped) -> torch.Tensor:
      run_rows, run_counts, run_starts, run_lengths) = shipped
     if arr_rows.device.type != "cuda":
         raise ValueError(f"expand_shipped takes a payload on a CUDA device, not {arr_rows.device}")
+    _faults.fault_point("ops.dispatch")
     out = torch.empty((int(n_rows), dev.DEVICE_WORDS), dtype=torch.int32, device=arr_rows.device)
     if out.shape[0] == 0:
         return out
@@ -788,7 +836,7 @@ def expand_shipped(n_rows: int, shipped) -> torch.Tensor:
         run_lengths.data_ptr(), out.data_ptr(), _stream(out),
     )
     _build.check(lib, rc, "rb_expand_rows")
-    LAUNCHES["rb_expand_rows"] += 1
+    _launched("rb_expand_rows")
     return out
 
 
@@ -866,7 +914,9 @@ def threshold_rows(words3: torch.Tensor, k: int, n_slices: int):
     package does; this function computes the compare as written for any
     k. On the card: one ``rb_threshold`` launch."""
     _check_threshold(words3, k, n_slices)
+    _faults.fault_point("ops.dispatch")
     if words3.device.type == "cpu":
+        _plain("rb_threshold")
         return threshold_rows_plain(words3, k, n_slices)
     if words3.device.type != "cuda":
         raise ValueError(f"unsupported device {words3.device}")
@@ -883,7 +933,7 @@ def threshold_rows(words3: torch.Tensor, k: int, n_slices: int):
         int(k) & 0xFFFFFFFF, out.data_ptr(), cards.data_ptr(), _stream(words3),
     )
     _build.check(lib, rc, "rb_threshold")
-    LAUNCHES["rb_threshold"] += 1
+    _launched("rb_threshold")
     return out, cards
 
 
@@ -953,6 +1003,7 @@ def pair_rows_reduce(rows_a, ia, rows_b, ib, op: str):
     ``rb_pair_rows`` launch."""
     _check_pair(rows_a, ia, rows_b, ib, op)
     if rows_a.device.type == "cpu":
+        _plain("rb_pair_rows")
         return pair_rows_reduce_plain(rows_a, ia, rows_b, ib, op)
     n = ia.numel()
     out = torch.empty((n, dev.DEVICE_WORDS), dtype=torch.int32, device=rows_a.device)
@@ -972,6 +1023,7 @@ def pair_rows_cardinality(rows_a, ia, rows_b, ib, op: str):
     no rows."""
     _check_pair(rows_a, ia, rows_b, ib, op)
     if rows_a.device.type == "cpu":
+        _plain("rb_pair_rows[counts]")
         return pair_rows_cardinality_plain(rows_a, ia, rows_b, ib, op)
     return _launch_pair_rows(rows_a, ia, rows_b, ib, op, None)
 
@@ -997,7 +1049,7 @@ def _launch_pair_rows(rows_a, ia, rows_b, ib, op: str, out) -> torch.Tensor:
         None if out is None else out.data_ptr(), cards.data_ptr(), _stream(rows_a),
     )
     _build.check(lib, rc, "rb_pair_rows")
-    LAUNCHES["rb_pair_rows" if out is not None else "rb_pair_rows[counts]"] += 1
+    _launched("rb_pair_rows" if out is not None else "rb_pair_rows[counts]")
     return cards
 
 
@@ -1071,6 +1123,7 @@ def pairwise_and_card(
     exact past 2^32 a pair."""
     _check_pairwise(left, right)
     if left.device.type == "cpu":
+        _plain("rb_pairwise_and_card")
         return pairwise_and_card_plain(left, right, tile_bytes)
     if left.device.type != "cuda":
         raise ValueError(f"unsupported device {left.device}")
@@ -1091,7 +1144,7 @@ def pairwise_and_card(
         out.data_ptr(), _stream(left),
     )
     _build.check(lib, rc, "rb_pairwise_and_card")
-    LAUNCHES["rb_pairwise_and_card"] += 1
+    _launched("rb_pairwise_and_card")
     return out
 
 

@@ -27,6 +27,15 @@ without a card raises — there is no silent CPU fallback. ``device="cpu"``
 runs the same device-path code on CPU tensors with the kernels' plain
 versions.
 
+Every call runs under a trace scope (``observe.context``), records its
+start tier as the ``agg.dispatch`` decision (resolved with the tier that
+ran and its wall) and runs through ``robust.ladder.LADDER.run("agg",
+...)``, as in the JAX package. The device tier is alone in its list, so a
+device failure raises; the CPU path is the JAX package's CPU chain —
+the columnar fold (OR/XOR above the fold gate), the per-container walk,
+then the pure-Python fold — so the decision names the same starting tier
+as the JAX package's for the same inputs.
+
 With ``config.mesh`` set (``sharding.make_mesh()``), the device path runs
 the mesh-sharded grouped reduce (:func:`_sharded_reduce`): the padded
 block is cut over the mesh's ``containers`` and ``words`` axes and each
@@ -56,6 +65,10 @@ from ..models.container import (
     best_container_of_words,
 )
 from ..models.roaring import RoaringBitmap
+from ..observe import context as _context
+from ..observe import decisions as _decisions
+from ..observe import timeline as _timeline
+from ..robust import ladder as _ladder
 from ..utils import bits
 from . import store
 
@@ -140,20 +153,66 @@ def _percontainer_aggregate(
     return out
 
 
-def _cpu_aggregate(
-    bitmaps: Sequence[RoaringBitmap], keys, n: int, op: str,
-    pool: Optional[ThreadPoolExecutor] = None,
-) -> RoaringBitmap:
-    """The CPU path: the columnar batched fold for OR/XOR working sets of
-    at least the fold gate's rows, the per-key word-fold walk otherwise
-    (AND always: the JAX package keeps it there, having measured its
-    columnar AND fold slower)."""
+def _pure_python_fold(bitmaps: Sequence[RoaringBitmap], op: str) -> RoaringBitmap:
+    """The bottom CPU rung: the reference's naive sequential folds with
+    the columnar router pinned off."""
     from .. import columnar
 
-    groups = store.group_by_key(bitmaps, keys_filter=keys)
+    with columnar.disabled():
+        if op == "or":
+            return FastAggregation.naive_or(*bitmaps)
+        if op == "xor":
+            return FastAggregation.naive_xor(*bitmaps)
+        return FastAggregation.naive_and(*bitmaps)
+
+
+def _cpu_tiers(
+    bitmaps: Sequence[RoaringBitmap], keys, n: int, op: str,
+    pool: Optional[ThreadPoolExecutor] = None,
+):
+    """The CPU rungs of the aggregation ladder, as the JAX package chains
+    them (its ``aggregation.py:_cpu_tiers``): the columnar batched fold for
+    OR/XOR working sets of at least the fold gate's rows (AND starts
+    per-container: the JAX package measured its columnar AND fold slower),
+    the per-key word-fold walk, and the pure-Python fold. The key-major
+    transpose builds once, lazily, for whichever rung runs."""
+    from .. import columnar
+
+    box: Dict[str, Dict[int, List[Container]]] = {}
+
+    def _groups():
+        if "g" not in box:
+            box["g"] = store.group_by_key(bitmaps, keys_filter=keys)
+        return box["g"]
+
+    tiers = []
     if op != "and" and columnar.enabled_for_fold(n):
-        return columnar.fold(groups, op)
-    return _percontainer_aggregate(groups, op, pool=pool)
+
+        def _columnar_tier():
+            with _timeline.tspan("agg.cpu", "agg", op=op, rows=n):
+                return columnar.fold(_groups(), op)
+
+        tiers.append(("columnar-cpu", _columnar_tier))
+
+    def _percontainer_tier():
+        with _timeline.tspan("agg.cpu", "agg", op=op, rows=n):
+            return _percontainer_aggregate(_groups(), op, pool=pool)
+
+    tiers.append(("per-container", _percontainer_tier))
+    tiers.append(("pure-python", lambda: _pure_python_fold(bitmaps, op)))
+    return tiers
+
+
+def _run_tiers(bitmaps, op: str, mode, n: int, tiers, **attrs):
+    """Record the ``agg.dispatch`` decision (its start tier, with the JAX
+    package's attributes plus ``attrs``) and run ``tiers`` through the
+    ladder, which resolves the decision with the tier that ran and its
+    wall."""
+    seq = _decisions.record_decision(
+        "agg.dispatch", tiers[0][0], outcome=True, op=op, rows=n,
+        operands=len(bitmaps), mode=mode or config.mode, **attrs,
+    )
+    return _ladder.LADDER.run("agg", tiers, outcome_seq=seq, outcome_site="agg.dispatch")
 
 
 def _device_pack(bitmaps: Sequence[RoaringBitmap], keys_filter, device):
@@ -167,12 +226,13 @@ def _device_aggregate(
 ) -> RoaringBitmap:
     """Device path: the resident pack (built on a miss), reduce (on the
     mesh when ``config.mesh`` is set), unpack."""
-    packed = _device_pack(bitmaps, keys_filter, device)
-    if config.mesh is not None:
-        words, cards = _sharded_reduce(packed, op)
-    else:
-        words, cards = store.reduce_packed(packed, op=op)
-    return store.unpack_to_bitmap(packed.group_keys, words, cards)
+    with _timeline.tspan("agg.device", "agg", trace=True, op=op, n=len(bitmaps)):
+        packed = _device_pack(bitmaps, keys_filter, device)
+        if config.mesh is not None:
+            words, cards = _sharded_reduce(packed, op)
+        else:
+            words, cards = store.reduce_packed(packed, op=op)
+        return store.unpack_to_bitmap(packed.group_keys, words, cards)
 
 
 def _sharded_reduce(packed: "store.PackedGroups", op: str, cards_only: bool = False):
@@ -256,19 +316,26 @@ def _aggregate(
     device=None,
     pool: Optional[ThreadPoolExecutor] = None,
 ) -> RoaringBitmap:
-    """N-way aggregation: the device path or the CPU word fold, as
-    ``_use_device`` decides. A failure on the chosen path raises."""
+    """N-way aggregation: the device tier alone, or the CPU chain, as
+    ``_use_device`` decides, through the ladder. A failure of the device
+    tier raises."""
     bitmaps = [b for b in bitmaps]
     if not bitmaps:
         return RoaringBitmap()
     if len(bitmaps) == 1:
         return bitmaps[0].clone()
-    keys, n = _dispatch_prelude(bitmaps, op)
-    if keys is not None and not keys:
-        return RoaringBitmap()
-    if _use_device(n, mode):
-        return _device_aggregate(bitmaps, keys, op, device)
-    return _cpu_aggregate(bitmaps, keys, n, op, pool=pool)
+    with _context.trace_scope():
+        keys, n = _dispatch_prelude(bitmaps, op)
+        if keys is not None and not keys:
+            return RoaringBitmap()
+        if _use_device(n, mode):
+            tiers = [("device", lambda: _device_aggregate(bitmaps, keys, op, device))]
+        else:
+            tiers = _cpu_tiers(bitmaps, keys, n, op, pool=pool)
+        from .. import columnar
+
+        # the measured fold gate the CPU-tier choice consulted
+        return _run_tiers(bitmaps, op, mode, n, tiers, fold_gate=columnar.MODEL.fold_gate_rows())
 
 
 def _aggregate_cardinality(bitmaps: List[RoaringBitmap], op: str, mode, device) -> int:
@@ -280,15 +347,25 @@ def _aggregate_cardinality(bitmaps: List[RoaringBitmap], op: str, mode, device) 
         return 0
     if len(bitmaps) == 1:
         return bitmaps[0].get_cardinality()
-    keys, n = _dispatch_prelude(bitmaps, op)
-    if keys is not None and not keys:
-        return 0
-    if _use_device(n, mode):
-        packed = _device_pack(bitmaps, keys, device)
-        if config.mesh is not None:  # the same mesh reduce as _device_aggregate
-            return int(_sharded_reduce(packed, op, cards_only=True)[1].sum())
-        return int(store.reduce_packed_cardinality(packed, op=op).sum())
-    return _cpu_aggregate(bitmaps, keys, n, op).get_cardinality()
+    with _context.trace_scope():
+        keys, n = _dispatch_prelude(bitmaps, op)
+        if keys is not None and not keys:
+            return 0
+        if _use_device(n, mode):
+
+            def _device_tier() -> int:
+                packed = _device_pack(bitmaps, keys, device)
+                if config.mesh is not None:  # the same mesh reduce as _device_aggregate
+                    return int(_sharded_reduce(packed, op, cards_only=True)[1].sum())
+                return int(store.reduce_packed_cardinality(packed, op=op).sum())
+
+            tiers = [("device", _device_tier)]
+        else:
+            tiers = [
+                (name, (lambda fn=fn: fn().get_cardinality()))
+                for name, fn in _cpu_tiers(bitmaps, keys, n, op)
+            ]
+        return _run_tiers(bitmaps, op, mode, n, tiers, cardinality_only=True)
 
 
 def _flatten(bitmaps) -> List[RoaringBitmap]:

@@ -22,9 +22,10 @@ missing card raises). On CPU tensors the kernels' plain versions run.
 Both ``impl`` labels of the matrices reach the same kernel here:
 ``rb_pairwise_and_card`` is exact in int64, and ``"mxu"`` keeps the JAX
 package's 2^31 guard so the two packages accept and refuse the same
-inputs. Left out relative to the JAX package: the ``tracing.op_timer``
-spans and the registry behind ``PAIRWISE_COUNTS`` (the port has no
-``observe`` yet; the counts are a plain dict).
+inputs. Left out relative to the JAX package, until ROADMAP Queue A item
+3b: the ``tracing.op_timer`` spans and the registry counter
+``rb_tpu_batch_pairwise_total`` behind ``PAIRWISE_COUNTS`` (a plain dict
+here; ``insights.dispatch_counters()["pairwise"]`` reads it).
 """
 
 from __future__ import annotations

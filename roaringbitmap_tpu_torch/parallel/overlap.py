@@ -44,6 +44,13 @@ No fallback: the JAX package degrades a non-fatal staging failure to a
 synchronous pack at ``wait``; here every staging error re-raises at
 ``wait`` / ``join`` / ``drain`` (and at a ``prefetch`` that reaps it).
 
+The lane adopts the submitting query's trace id (``observe.context``)
+for its staging, so the pack and expansion it runs — with the
+``store.ship`` and ``store.expand`` fault sites — are attributed to the
+query that will consume them; the consumer's wait is the
+``overlap_wait`` pack stage, and ``rb_tpu_store_overlap_ratio{lane}``
+carries the overlap ratio.
+
 Lock order: the lane lock is a leaf over the staging bookkeeping only —
 the staged job runs outside it (it takes the pack-cache lock), so lane ->
 pack cache never nests.
@@ -59,18 +66,33 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import observe as _observe
 from ..device import resolve_device
+from ..observe import context as _context
+from ..observe import timeline as _timeline
 from . import store
+
+_OVERLAP_RATIO = _observe.gauge(
+    _observe.STORE_OVERLAP_RATIO,
+    "Fraction of staged marshal wall hidden behind compute by the overlap "
+    "shipping lane (cumulative)",
+    ("lane",),
+)
 
 _DEPTH = 1  # stagings in flight: double-buffered
 
 
 class _Staging:
-    __slots__ = ("future", "duration_s")
+    __slots__ = ("future", "duration_s", "trace", "flow")
 
     def __init__(self, future: Future):
         self.future = future
         self.duration_s = 0.0  # staged marshal wall, set by the lane thread
+        # the submitting query's trace id (contextvars do not cross into
+        # the lane thread: it adopts this one) and the flow id linking the
+        # prefetch, the staging and the consumer's wait on the timeline
+        self.trace = None
+        self.flow = 0
 
 
 class ShipLane:
@@ -116,8 +138,11 @@ class ShipLane:
     def _executor(self) -> ThreadPoolExecutor:
         with self._lock:
             if self._pool is None:
+                # named at thread start, so the lane thread is named in a
+                # Chrome trace from its first event
                 self._pool = ThreadPoolExecutor(
-                    max_workers=1, thread_name_prefix="rb-ship-lane"
+                    max_workers=1, thread_name_prefix="rb-ship-lane",
+                    initializer=_timeline.register_thread,
                 )
             return self._pool
 
@@ -135,22 +160,27 @@ class ShipLane:
         return (marker, tuple(bm.fingerprint() for bm in bitmaps))
 
     def _stage(self, bitmaps: List, keys_filter: Optional[set], device, st: _Staging):
-        """Runs on the lane thread: the real pack and device expansion;
-        the staging duration is the wall up to the rows being complete."""
+        """Runs on the lane thread: the real pack and device expansion
+        (the ``store.ship`` and ``store.expand`` fault sites live) under
+        the submitting query's trace id; the staging duration is the wall
+        up to the rows being complete."""
         t0 = time.monotonic()
         try:
-            if device.type != "cuda":
-                packed = store.packed_for(bitmaps, keys_filter, device)
-                _ = packed.device_words
-                return packed
-            stream = self._stream(device)
-            with torch.cuda.stream(stream):
-                packed = store.packed_for(bitmaps, keys_filter, device)
-                _ = packed.device_words  # expanded, or resident and delta-patched
-                event = torch.cuda.Event()
-                event.record(stream)
-            event.synchronize()
-            return packed
+            with _context.adopt(st.trace):
+                _timeline.flow_point("overlap.handoff", "t", st.flow)
+                with _timeline.tspan("overlap.stage", "overlap", n=len(bitmaps)):
+                    if device.type != "cuda":
+                        packed = store.packed_for(bitmaps, keys_filter, device)
+                        _ = packed.device_words
+                        return packed
+                    stream = self._stream(device)
+                    with torch.cuda.stream(stream):
+                        packed = store.packed_for(bitmaps, keys_filter, device)
+                        _ = packed.device_words  # expanded, or resident and delta-patched
+                        event = torch.cuda.Event()
+                        event.record(stream)
+                    event.synchronize()
+                    return packed
         finally:
             st.duration_s = time.monotonic() - t0
 
@@ -197,7 +227,12 @@ class ShipLane:
             if len(self._pending) >= _DEPTH:  # lost a concurrent race
                 return None
             st = _Staging(Future())
+            st.trace = _context.current_trace()
+            st.flow = _timeline.flow_id(st.trace, key)
             self._pending[key] = st
+        # flow start at the submitter: the handoff arrow runs from here to
+        # the lane's staging span and on to the consumer's overlap_wait
+        _timeline.flow_point("overlap.handoff", "s", st.flow)
 
         def _run():
             try:
@@ -234,7 +269,11 @@ class ShipLane:
         if st is None:
             return None
         t0 = time.monotonic()
-        packed = st.future.result()
+        with _timeline.stage(
+            store._PACK_STAGE_SECONDS, "overlap_wait", "pack.overlap_wait", cat="pack",
+        ):
+            packed = st.future.result()
+            _timeline.flow_point("overlap.handoff", "f", st.flow)
         waited = time.monotonic() - t0
         if packed.device.type == "cuda":
             consumer = torch.cuda.current_stream(packed.device)
@@ -243,6 +282,8 @@ class ShipLane:
         with self._lock:
             self._staged_s += st.duration_s
             self._hidden_s += max(0.0, st.duration_s - waited)
+            ratio = self._hidden_s / self._staged_s if self._staged_s else 0.0
+        _OVERLAP_RATIO.set(round(ratio, 4), ("ship",))
         return packed
 
     def drain(self) -> None:
@@ -291,16 +332,24 @@ def run_pipelined(
 
     Equivalent to ``[FastAggregation.<op>(*bitmaps, mode=mode,
     device=device), ...]`` — same engines, same bits; only the staging
-    overlaps."""
+    overlaps.
+
+    Every job gets its own pre-assigned trace id, and job i+1's prefetch
+    runs under job i+1's id though job i's iteration drives it: the staged
+    work is the consumer job's marshal."""
     from . import aggregation
 
     jobs = [(list(bms), op) for bms, op in jobs]
+    tids = [_context.new_trace_id() for _ in jobs]
     out = []
     for i, (bms, op) in enumerate(jobs):
-        # join our own staging by op marker; the dispatch prelude (AND key
-        # intersection) is left to _aggregate, which pays it once per job
-        LANE.join(bms, op)
+        with _context.trace_scope(tids[i]):
+            # join our own staging by op marker; the dispatch prelude (AND
+            # key intersection) is left to _aggregate, which pays it once
+            LANE.join(bms, op)
         if i + 1 < len(jobs):
-            aggregation.prefetch(jobs[i + 1][0], jobs[i + 1][1], mode=mode, device=device)
-        out.append(aggregation._aggregate(bms, op, mode, device))
+            with _context.trace_scope(tids[i + 1]):
+                aggregation.prefetch(jobs[i + 1][0], jobs[i + 1][1], mode=mode, device=device)
+        with _context.trace_scope(tids[i]):
+            out.append(aggregation._aggregate(bms, op, mode, device))
     return out

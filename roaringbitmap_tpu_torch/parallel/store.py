@@ -22,10 +22,23 @@ by a delta repack: only the rows of the dirty containers are re-expanded
 and written into the resident rows (``PackedGroups.apply_delta``, one
 ``index_copy_``); structural changes repack in full.
 
+Instrumentation, as in the JAX package: the pack and delta stages time
+into latency histograms and the flight recorder (``observe.timeline``);
+the layouts, transfer bytes, resident bytes and the pack cache's hits,
+misses, delta rows and evicted bytes are registry metrics
+(``LAYOUT_COUNTS`` and ``TRANSFER_BYTES`` are mapping views of them); the
+reduces and the unpack run under ``tracing.op_timer``; the cache records
+its admissions, spills and evictions in the decision log. The copy of a
+payload or of delta rows to the device holds the ``store.ship`` and
+``store.hbm`` fault sites, the expansion the ``store.expand`` site, each
+under ``robust.ladder.retry``: a transient failure is retried on the
+card, and any other failure raises — there is no host re-expansion. The
+``pack_cache.budget`` site spills cold entries and serves the working set
+uncached, a caching choice that stays on the device.
+
 Left out here, relative to the JAX package: pinning, the demotion probe,
-the eviction-regret ring, the residency reconciliation, per-route
-bookkeeping, fault sites and the timeline stages. There is no fallback: a
-device call that fails raises.
+the eviction-regret ring and the residency reconciliation (ROADMAP Queue
+A items 3b, 5 and 6).
 """
 
 from __future__ import annotations
@@ -39,6 +52,8 @@ import numpy as np
 import torch
 
 from .. import native
+from .. import observe as _observe
+from .. import tracing
 from ..device import resolve_device
 from ..models.container import (
     ArrayContainer,
@@ -49,11 +64,82 @@ from ..models.container import (
 from ..models.roaring import RoaringBitmap
 from ..ops import device as dev
 from ..ops import kernels
+from ..observe import decisions as _decisions
+from ..observe import timeline as _timeline
+from ..robust import errors as _rerrors
+from ..robust import faults as _faults
+from ..robust import ladder as _ladder
 from ..utils import bits
 
-# layout choices made by prepare_reduce, by name (the JAX package's
-# LAYOUT_COUNTS): a run can show which layout served it
-LAYOUT_COUNTS = {"padded": 0, "bucketed": 0, "segmented-scan": 0}
+# marshal stage attribution: every pack / delta-repack stage lands in a
+# log-bucketed latency histogram (p50/p99 in every export) and, when
+# RB_TPU_TIMELINE is active, in the flight recorder
+_PACK_STAGE_SECONDS = _observe.latency_histogram(
+    _observe.STORE_PACK_STAGE_SECONDS,
+    "Wall time of marshal pack stages (key_plan | group_tables | "
+    "payload_build | host_words | fingerprints | provenance | "
+    "dense_pad_plan | device_expand | ship | overlap_wait | padded_build | "
+    "bucket_build)",
+    ("stage",),
+)
+_DELTA_STAGE_SECONDS = _observe.latency_histogram(
+    _observe.STORE_DELTA_STAGE_SECONDS,
+    "Wall time of incremental delta-repack stages (dirty_scan | "
+    "host_rows | scatter | republish)",
+    ("stage",),
+)
+LAYOUTS = ("padded", "bucketed", "segmented-scan")
+_LAYOUT_TOTAL = _observe.counter(
+    _observe.STORE_LAYOUT_TOTAL,
+    "prepare_reduce layout choices (padded | bucketed | segmented-scan)",
+    ("layout",),
+)
+# layout choices made by prepare_reduce, by name: a run can show which
+# layout served it
+LAYOUT_COUNTS = _observe.CounterMap(_LAYOUT_TOTAL, scalar=True)
+for _layout in LAYOUTS:
+    LAYOUT_COUNTS[_layout] = 0
+# host-to-device transfer bytes by route (payload_expand: the compact
+# payload shipped for expansion; pack_delta: delta rows; the
+# *_built_on_device routes: layouts gathered on the card, no host bytes)
+_TRANSFER_TOTAL = _observe.counter(
+    _observe.STORE_TRANSFER_BYTES_TOTAL,
+    "Host->device transfer bytes by route (device-built blocks tracked "
+    "under their own route so the ledger stays truthful)",
+    ("route",),
+)
+TRANSFER_BYTES = _observe.CounterMap(_TRANSFER_TOTAL, scalar=True)
+# bytes of device-resident working-set tensors held by PackedGroups
+_RESIDENT_BYTES = _observe.gauge(
+    _observe.STORE_RESIDENT_BYTES,
+    "Device-resident cached working-set bytes by layout kind",
+    ("kind",),
+)
+_PACK_HITS = _observe.counter(
+    _observe.PACK_CACHE_HITS_TOTAL,
+    "Pack-cache lookups served resident (incl. delta-refreshed entries)",
+    ("kind",),
+)
+_PACK_MISSES = _observe.counter(
+    _observe.PACK_CACHE_MISSES_TOTAL,
+    "Pack-cache lookups that paid a full host pack",
+    ("kind",),
+)
+_PACK_DELTA_ROWS = _observe.counter(
+    _observe.PACK_CACHE_DELTA_ROWS_TOTAL,
+    "Rows re-packed and shipped by incremental delta repacks",
+    ("kind",),
+)
+_PACK_EVICTED_BYTES = _observe.counter(
+    _observe.PACK_CACHE_EVICTED_BYTES_TOTAL,
+    "Bytes released by byte-budget LRU eviction",
+    ("kind",),
+)
+_PACK_RESIDENT = _observe.gauge(
+    _observe.PACK_CACHE_RESIDENT_BYTES,
+    "Bytes currently resident in the pack cache by entry kind",
+    ("kind",),
+)
 # default ragged-batch bucket count for the prepare_reduce cost model
 DEFAULT_BUCKETS = 3
 # bytes of one expanded container row on the device
@@ -246,11 +332,42 @@ class RowPayload:
         rows on ``device`` (``ops/kernels.expand_rows``). On a CUDA device
         the payload is staged in pinned host memory and copied without
         blocking on the current stream (PyTorch's pinned allocator keeps
-        each buffer until the copies that read it have completed)."""
+        each buffer until the copies that read it have completed). The
+        copy is the ``store.ship`` fault site, the expansion the
+        ``store.expand`` site (:func:`_guarded`)."""
         device = torch.device(device)
-        if device.type != "cuda":
-            return kernels.expand_rows(self.n_rows, *self.materialize(), device)
-        return kernels.expand_rows(self.n_rows, *self.materialize(pinned=True), device)
+        with _timeline.stage(
+            _PACK_STAGE_SECONDS, "ship", "pack.ship", cat="pack", bytes=self.nbytes,
+        ):
+            parts = kernels.payload_parts(
+                self.n_rows, *self.materialize(pinned=device.type == "cuda")
+            )
+            shipped = _guarded("store.ship", lambda: kernels.ship_payload(parts, device))
+        _TRANSFER_TOTAL.inc(self.nbytes, ("payload_expand",))
+        with _timeline.stage(
+            _PACK_STAGE_SECONDS, "device_expand", "pack.device_expand", cat="pack",
+            rows=self.n_rows,
+        ):
+            return _guarded("store.expand", lambda: kernels.expand_parts(self.n_rows, shipped))
+
+
+def _guarded(site: str, fn: Callable[[], object]):
+    """One device step through the fault model: the ``site`` fault point
+    (``store.ship`` for a copy, ``store.expand`` for the expansion) and
+    ``store.hbm`` (device memory) fire before ``fn``; a transient failure
+    is retried with jittered backoff (``robust.ladder.retry``; every
+    attempt builds its output anew, so a retry is idempotent), anything
+    else raises. The timeline's ``fenced`` mode synchronises the result's
+    stream inside the attempt."""
+
+    def _attempt():
+        _faults.fault_point(site)
+        _faults.fault_point("store.hbm")
+        out = fn()
+        _timeline.fence(out[0] if isinstance(out, tuple) else out)
+        return out
+
+    return _ladder.retry(site, _attempt)
 
 
 def ship_rows(containers: Sequence[Container], device=None) -> torch.Tensor:
@@ -358,6 +475,7 @@ class PackedGroups:
                 if self._device_words is None:
                     self._wrote(d)
                     self._device_words = d
+                    _RESIDENT_BYTES.inc(self.words_nbytes, ("flat_rows",))
                 d = self._device_words
         return self._read_order(d)
 
@@ -420,6 +538,8 @@ class PackedGroups:
             cache[key] = value
             if nbytes:
                 self._resident_held[kind] = self._resident_held.get(kind, 0) + nbytes
+        if nbytes:
+            _RESIDENT_BYTES.inc(nbytes, (kind,))
         self._notify_resident(nbytes)
         return value
 
@@ -432,15 +552,22 @@ class PackedGroups:
         """Drop the derived layouts (and with ``flat`` the flat rows too),
         settling their share of the resident bytes."""
         with self._lock:
-            freed = sum(self._resident_held.values())
+            held = dict(self._resident_held)
             self._resident_held.clear()
             self._padded_cache = {}
             self._bucket_cache = {}
+            flat_bytes = 0
             if flat:
+                if self._device_words is not None:
+                    flat_bytes = self.words_nbytes
                 self._device_words = None
                 self._written = None
                 self._readers = set()
-        self._notify_resident(-freed)
+        for kind, nbytes in held.items():
+            _RESIDENT_BYTES.dec(nbytes, (kind,))
+        if flat_bytes:
+            _RESIDENT_BYTES.dec(flat_bytes, ("flat_rows",))
+        self._notify_resident(-sum(held.values()))
 
     def close(self) -> None:
         """Release the device tensors now. A no-op while the working set is
@@ -461,19 +588,32 @@ class PackedGroups:
         structural change takes the full repack in :class:`PackCache`."""
         rows = np.asarray(rows, dtype=np.int64)
         new_words = np.ascontiguousarray(new_words, dtype=np.int32)
-        with self._lock:
+        with _timeline.stage(
+            _DELTA_STAGE_SECONDS, "scatter", "delta.scatter", cat="delta",
+            rows=len(rows), bytes=int(new_words.nbytes),
+        ), self._lock:
             self._layout_epoch += 1
             for r, row in zip(rows.tolist(), new_words):
                 self._row_overrides[int(r)] = row.copy()
             d = self._device_words
             if d is not None and len(rows):
                 self._write_order(d)
-                d.index_copy_(
-                    0, torch.from_numpy(rows).to(d.device),
-                    torch.from_numpy(new_words).to(d.device),
-                )
+
+                def ship():
+                    # the rows written in place: a retry writes them again
+                    d.index_copy_(
+                        0, torch.from_numpy(rows).to(d.device),
+                        torch.from_numpy(new_words).to(d.device),
+                    )
+                    return d
+
+                _guarded("store.ship", ship)
                 self._wrote(d)
-        self._drop(flat=False)
+                _TRANSFER_TOTAL.inc(int(new_words.nbytes), ("pack_delta",))
+        with _timeline.stage(
+            _DELTA_STAGE_SECONDS, "republish", "delta.republish", cat="delta"
+        ):
+            self._drop(flat=False)
 
     def padded_device(self, fill: int, row_multiple: int = 1) -> Optional[torch.Tensor]:
         """Dense-padded int32 [G, M, W] rows on the device, built once per
@@ -486,8 +626,14 @@ class PackedGroups:
             return cache[key]
         with self._lock:
             epoch = self._layout_epoch
-        arr = pad_groups_dense(self, fill, row_multiple)
+        with _timeline.stage(
+            _PACK_STAGE_SECONDS, "padded_build", "pack.padded_build", cat="pack",
+            groups=self.n_groups, on_device=1,
+        ):
+            arr = _guarded("store.ship", lambda: pad_groups_dense(self, fill, row_multiple))
         nbytes = 0 if arr is None else arr.numel() * 4
+        if nbytes:
+            _TRANSFER_TOTAL.inc(nbytes, ("padded_groups_built_on_device",))
         return self._publish(cache, key, arr, "padded_groups", nbytes, epoch)
 
     def plan_buckets(self, n_buckets: int = 3) -> List[np.ndarray]:
@@ -511,6 +657,19 @@ class PackedGroups:
             return cache[key]
         with self._lock:
             epoch = self._layout_epoch
+        with _timeline.stage(
+            _PACK_STAGE_SECONDS, "bucket_build", "pack.bucket_build", cat="pack",
+            buckets=int(n_buckets), groups=self.n_groups,
+        ):
+            out = _guarded("store.ship", lambda: self._build_buckets(fill, n_buckets))
+        nbytes = sum(a.numel() * 4 for _, a in out)
+        if nbytes:
+            _TRANSFER_TOTAL.inc(nbytes, ("padded_buckets_built_on_device",))
+        return self._publish(cache, key, out, "padded_buckets", nbytes, epoch)
+
+    def _build_buckets(self, fill: int, n_buckets: int) -> list:
+        """One gather a bucket from the flat rows into a block prefilled
+        with ``fill``: ``[(orig_group_idx, int32 [g_b, m_b, W]), ...]``."""
         counts = np.diff(self.group_offsets)
         flat = self.device_words
         out = []
@@ -535,8 +694,7 @@ class PackedGroups:
                 flat.index_select(0, torch.from_numpy(src).to(self.device)),
             )
             out.append((idx, block.view(g_b, m_b, dev.DEVICE_WORDS)))
-        nbytes = sum(a.numel() * 4 for _, a in out)
-        return self._publish(cache, key, out, "padded_buckets", nbytes, epoch)
+        return out
 
 
 def container_words(c: Container) -> np.ndarray:
@@ -551,14 +709,18 @@ def group_by_key(
 ) -> Dict[int, List[Container]]:
     """Transpose bitmaps into key-major groups
     (ParallelAggregation.groupByKey, ParallelAggregation.java:136-153)."""
-    groups: Dict[int, List[Container]] = {}
-    for bm in bitmaps:
-        hlc = bm.high_low_container
-        for k, c in zip(hlc.keys, hlc.containers):
-            if keys_filter is not None and k not in keys_filter:
-                continue
-            groups.setdefault(k, []).append(c)
-    return groups
+    with _timeline.stage(
+        _PACK_STAGE_SECONDS, "key_plan", "pack.key_plan", cat="pack",
+        bitmaps=len(bitmaps),
+    ):
+        groups: Dict[int, List[Container]] = {}
+        for bm in bitmaps:
+            hlc = bm.high_low_container
+            for k, c in zip(hlc.keys, hlc.containers):
+                if keys_filter is not None and k not in keys_filter:
+                    continue
+                groups.setdefault(k, []).append(c)
+        return groups
 
 
 def intersect_keys(bitmaps: Sequence[RoaringBitmap]) -> set:
@@ -579,13 +741,21 @@ def pack_groups(groups: Dict[int, List[Container]], device=None) -> PackedGroups
     whose rows expand on ``device`` (default ``"cuda"``) at first touch.
     Raises when ``device`` is a CUDA device and there is no card."""
     device = resolve_device(device)
-    group_keys = np.array(sorted(groups), dtype=np.int64)
-    counts = np.array([len(groups[int(k)]) for k in group_keys], dtype=np.int64)
-    offsets = np.concatenate(([0], np.cumsum(counts)))
+    with _timeline.stage(
+        _PACK_STAGE_SECONDS, "group_tables", "pack.group_tables", cat="pack",
+        groups=len(groups),
+    ):
+        group_keys = np.array(sorted(groups), dtype=np.int64)
+        counts = np.array([len(groups[int(k)]) for k in group_keys], dtype=np.int64)
+        offsets = np.concatenate(([0], np.cumsum(counts)))
     payload = RowPayload()
-    for k in group_keys:
-        for c in groups[int(k)]:
-            payload.append(c)
+    with _timeline.stage(
+        _PACK_STAGE_SECONDS, "payload_build", "pack.payload_build", cat="pack",
+        rows=int(offsets[-1]),
+    ):
+        for k in group_keys:
+            for c in groups[int(k)]:
+                payload.append(c)
     return PackedGroups(group_keys, offsets, payload, device)
 
 
@@ -718,21 +888,25 @@ def prepare_reduce(packed: PackedGroups, op: str = "or"):
                 def run_fused():
                     calls[0] += 1
                     if calls[0] == 1 and fill not in packed._padded_cache:
-                        flat = packed.device_words
-                        row_map = torch.from_numpy(src_map).to(flat.device)
-                        return _reduce_and_count(flat, dense_plan, op, row_map)
-                    return _reduce_and_count(packed.padded_device(fill), dense_plan, op)
+                        with tracing.op_timer("store.reduce.padded_fused"):
+                            flat = packed.device_words
+                            row_map = torch.from_numpy(src_map).to(flat.device)
+                            return _reduce_and_count(flat, dense_plan, op, row_map)
+                    arr = packed.padded_device(fill)
+                    with tracing.op_timer("store.reduce.padded"):
+                        return _reduce_and_count(arr, dense_plan, op)
 
-                LAYOUT_COUNTS["padded"] += 1
+                _LAYOUT_TOTAL.inc(1, ("padded",))
                 return run_fused, "padded"
         dev_arr = packed.padded_device(fill)
         if dev_arr is not None:
             plan = kernels.SegmentPlan.dense(dev_arr.shape[0], dev_arr.shape[1])
 
             def run():
-                return _reduce_and_count(dev_arr, plan, op)
+                with tracing.op_timer("store.reduce.padded"):
+                    return _reduce_and_count(dev_arr, plan, op)
 
-            LAYOUT_COUNTS["padded"] += 1
+            _LAYOUT_TOTAL.inc(1, ("padded",))
             return run, "padded"
     if g and n:
         bucket_rows = sum(
@@ -746,9 +920,10 @@ def prepare_reduce(packed: PackedGroups, op: str = "or"):
     words = packed.device_words
 
     def run():
-        return _reduce_and_count(words, plan, op)
+        with tracing.op_timer("store.reduce.segmented-scan"):
+            return _reduce_and_count(words, plan, op)
 
-    LAYOUT_COUNTS["segmented-scan"] += 1
+    _LAYOUT_TOTAL.inc(1, ("segmented-scan",))
     return run, "segmented-scan"
 
 
@@ -757,7 +932,7 @@ def prepare_reduce_bucketed(packed: PackedGroups, op: str = "or", n_buckets: int
     count bucket, results put back in ascending key order. Same (run,
     layout) contract; layout = "bucketed"."""
     buckets = packed.padded_buckets_device(dev._INIT[op], n_buckets)
-    LAYOUT_COUNTS["bucketed"] += 1
+    _LAYOUT_TOTAL.inc(1, ("bucketed",))
     if not buckets:  # empty working set: same contract as reduce_packed
 
         def run_empty():
@@ -772,11 +947,12 @@ def prepare_reduce_bucketed(packed: PackedGroups, op: str = "or", n_buckets: int
     plans = [kernels.SegmentPlan.dense(a.shape[0], a.shape[1]) for _, a in buckets]
 
     def run():
-        reds = [
-            kernels.group_reduce(a, p, op) for (_, a), p in zip(buckets, plans)
-        ]
-        red = torch.cat(reds, dim=0)[inv]
-        return red, kernels.popcount_rows(red)
+        with tracing.op_timer("store.reduce.bucketed"):
+            reds = [
+                kernels.group_reduce(a, p, op) for (_, a), p in zip(buckets, plans)
+            ]
+            red = torch.cat(reds, dim=0)[inv]
+            return red, kernels.popcount_rows(red)
 
     return run, "bucketed"
 
@@ -809,10 +985,11 @@ def unpack_to_bitmap(
 ) -> RoaringBitmap:
     """Stream device results back into a RoaringBitmap via the append path
     (RoaringArray.append, RoaringArray.java:111), re-compressing each chunk."""
-    out = RoaringBitmap()
-    for key, c in iter_group_containers(group_keys, words_u32, cards):
-        out.high_low_container.append(key, c)
-    return out
+    with tracing.op_timer("store.unpack_to_bitmap"):
+        out = RoaringBitmap()
+        for key, c in iter_group_containers(group_keys, words_u32, cards):
+            out.high_low_container.append(key, c)
+        return out
 
 
 def iter_group_containers(group_keys: np.ndarray, words_u32: np.ndarray, cards: np.ndarray):
@@ -843,14 +1020,18 @@ def pack_groups_with_provenance(
     matches pack_groups exactly — rows sorted by group key, and within a
     group in bitmap order (the group_by_key append order)."""
     packed = pack_groups(group_by_key(bitmaps, keys_filter=keys_filter), device)
-    pos = {int(k): int(off) for k, off in zip(packed.group_keys, packed.group_offsets[:-1])}
-    row_map: Dict[Tuple[int, int], int] = {}
-    for bi, bm in enumerate(bitmaps):
-        for k in bm.high_low_container.keys:
-            if keys_filter is not None and k not in keys_filter:
-                continue
-            row_map[(bi, k)] = pos[k]
-            pos[k] += 1
+    with _timeline.stage(
+        _PACK_STAGE_SECONDS, "provenance", "pack.provenance", cat="pack",
+        rows=packed.n_rows,
+    ):
+        pos = {int(k): int(off) for k, off in zip(packed.group_keys, packed.group_offsets[:-1])}
+        row_map: Dict[Tuple[int, int], int] = {}
+        for bi, bm in enumerate(bitmaps):
+            for k in bm.high_low_container.keys:
+                if keys_filter is not None and k not in keys_filter:
+                    continue
+                row_map[(bi, k)] = pos[k]
+                pos[k] += 1
     return packed, row_map
 
 
@@ -1001,11 +1182,14 @@ class PackCache:
         return self.max_bytes is not None and self.max_bytes <= 0
 
     def _count(self, kind: str, hit: bool) -> None:
-        # caller holds self._lock
+        # caller holds self._lock; the registry counters are the same
+        # numbers, labeled by kind
         if hit:
             self.hits += 1
+            _PACK_HITS.inc(1, (kind,))
         else:
             self.misses += 1
+            _PACK_MISSES.inc(1, (kind,))
         self._kinds.setdefault(kind, [0, 0])[0 if hit else 1] += 1
 
     def get_packed(
@@ -1020,7 +1204,11 @@ class PackCache:
         bitmaps = list(bitmaps)
         device = resolve_device(device)
         marker = "all" if keys_filter is None else "and"
-        fps, idents = _walk_fingerprints(bitmaps)
+        with _timeline.stage(
+            _PACK_STAGE_SECONDS, "fingerprints", "pack.fingerprints",
+            cat="pack", operands=len(bitmaps),
+        ):
+            fps, idents = _walk_fingerprints(bitmaps)
         if self._disabled():  # always a fresh uncached pack
             with self._lock:
                 self._count("agg", False)
@@ -1032,6 +1220,7 @@ class PackCache:
             if e is not None:
                 self._entries.move_to_end(key)
                 self._count("agg", True)
+                _timeline.instant("pack_cache.hit", "cache", kind="agg", bytes=e.nbytes)
                 return e.value
             old_key = self._ident.get(ident)
             e = None if old_key is None else self._entries.get(old_key)
@@ -1045,9 +1234,15 @@ class PackCache:
                     self._ident[ident] = key
                     self._count("agg", True)
                     self.delta_rows += len(rows)
+                    _timeline.instant(
+                        "pack_cache.delta_hit", "cache", kind="agg", rows=len(rows)
+                    )
+                    if rows:
+                        _PACK_DELTA_ROWS.inc(len(rows), ("agg",))
                     return e.value
         # full repack outside the lock (a racing thread packing the same
         # key is benign — first store wins)
+        _timeline.instant("pack_cache.miss", "cache", kind="agg")
         packed, row_map = pack_groups_with_provenance(bitmaps, keys_filter, device)
         with self._lock:
             self._count("agg", False)
@@ -1074,7 +1269,9 @@ class PackCache:
             if e is not None:
                 self._entries.move_to_end(key)
                 self._count(kind, True)
+                _timeline.instant("pack_cache.hit", "cache", kind=kind, bytes=e.nbytes)
                 return e.value
+        _timeline.instant("pack_cache.miss", "cache", kind=kind)
         value, nbytes = build()
         with self._lock:
             self._count(kind, False)
@@ -1144,6 +1341,27 @@ class PackCache:
         with self._lock:
             if self.max_bytes is None:
                 self.max_bytes = default_budget(_value_device(entry.value))
+        try:
+            # budget-pressure fault site: pressure at admission spills cold
+            # entries and serves this working set uncached, on the device
+            # as before — a caching choice, not a move to the CPU
+            _faults.fault_point("pack_cache.budget")
+        except Exception as e:
+            if _rerrors.classify(e) == _rerrors.FATAL:
+                raise
+            with self._lock:
+                self._evict_to(self.max_bytes // 2)
+            _ladder.LADDER.note_degrade("pack_cache.budget", "resident", "uncached", e)
+            _timeline.instant(
+                "pack_cache.pressure", "cache", kind=entry.kind, bytes=entry.nbytes,
+            )
+            _decisions.record_decision(
+                "pack_cache.admit", "spill-and-serve-uncached",
+                kind=entry.kind, bytes=entry.nbytes,
+                target_bytes=self.max_bytes // 2,
+            )
+            return entry  # consumer-owned: never marked cache-held
+        with self._lock:
             existing = self._entries.get(entry.key)
             if existing is not None:
                 # a racing builder stored first; keep theirs, drop ours
@@ -1161,6 +1379,11 @@ class PackCache:
                 pg._resident_cb = self._resident_cb(entry)
             self._entries[entry.key] = entry
             self._bytes += entry.nbytes
+            _PACK_RESIDENT.inc(entry.nbytes, (entry.kind,))
+            _decisions.record_decision(
+                "pack_cache.admit", "resident", kind=entry.kind,
+                bytes=entry.nbytes, cache_bytes=self._bytes,
+            )
             self._evict_over_budget()
             return entry
 
@@ -1184,6 +1407,7 @@ class PackCache:
                     return  # raced with eviction: no longer resident
                 entry.nbytes += delta
                 self._bytes += delta
+                _PACK_RESIDENT.inc(delta, (entry.kind,))
                 if delta > 0:
                     self._evict_over_budget()
 
@@ -1198,9 +1422,11 @@ class PackCache:
         self._release(e)
 
     def _release(self, e: _PackEntry) -> None:
-        # caller holds self._lock; detaches the residency callback FIRST
-        # (e.nbytes already includes the derived layouts, so close()
-        # reporting them again would double-subtract), then really closes
+        # caller holds self._lock; settles the resident gauge, detaches the
+        # residency callback FIRST (e.nbytes already includes the derived
+        # layouts, so close() reporting them again would double-subtract),
+        # then really closes
+        _PACK_RESIDENT.dec(e.nbytes, (e.kind,))
         for pg in self._packed_parts(e.value):
             pg._resident_cb = None
             pg._cache_held = False
@@ -1221,6 +1447,12 @@ class PackCache:
             e = self._entries.pop(key)
             self._bytes -= e.nbytes
             self.evictions += 1
+            _PACK_EVICTED_BYTES.inc(e.nbytes, (e.kind,))
+            _timeline.instant("pack_cache.evict", "cache", kind=e.kind, bytes=e.nbytes)
+            _decisions.record_decision(
+                "pack_cache.evict", "lru", kind=e.kind, bytes=e.nbytes,
+                target_bytes=target,
+            )
             if e.kind == "agg":
                 ident = self._agg_ident(e)
                 if self._ident.get(ident) == key:
@@ -1247,7 +1479,35 @@ class PackCache:
             if bitmaps[bi].high_low_container.wholesale_since(old_fp[1]):
                 return None
             changed.append((bi, old_fp))
-        packed_keys = {int(k) for k in packed.group_keys}
+        with _timeline.stage(
+            _DELTA_STAGE_SECONDS, "dirty_scan", "delta.dirty_scan", cat="delta",
+            bitmaps=len(changed),
+        ):
+            dirty_rows = self._dirty_rows(e, bitmaps, keys_filter, changed)
+        if dirty_rows is None:
+            return None
+        if not dirty_rows:
+            return ()
+        rows = sorted(dirty_rows)
+        with _timeline.stage(
+            _DELTA_STAGE_SECONDS, "host_rows", "delta.host_rows", cat="delta", rows=len(rows),
+        ):
+            containers = [
+                bitmaps[bi].high_low_container.get_container(k)
+                for bi, k in (dirty_rows[r] for r in rows)
+            ]
+            host_rows = RowPayload.from_containers(containers).expand_host().view(np.int32)
+        packed.apply_delta(np.asarray(rows, dtype=np.int64), host_rows)
+        return rows
+
+
+    @staticmethod
+    def _dirty_rows(e, bitmaps, keys_filter, changed) -> Optional[Dict[int, Tuple[int, int]]]:
+        """``{packed_row: (bitmap_index, key)}`` of the rows the changed
+        bitmaps dirtied, or None when only a full repack is sound (a
+        container added or removed, the AND intersection moved, or an
+        unattributed mutation)."""
+        packed_keys = {int(k) for k in e.value.group_keys}
         dirty_rows: Dict[int, Tuple[int, int]] = {}
         for bi, old_fp in changed:
             hlc = bitmaps[bi].high_low_container
@@ -1271,16 +1531,7 @@ class PackCache:
                         return None  # container added or removed
                     if present_now:
                         dirty_rows[e.row_map[(bi, k)]] = (bi, k)
-        if not dirty_rows:
-            return ()
-        rows = sorted(dirty_rows)
-        containers = [
-            bitmaps[bi].high_low_container.get_container(k)
-            for bi, k in (dirty_rows[r] for r in rows)
-        ]
-        host_rows = RowPayload.from_containers(containers).expand_host().view(np.int32)
-        packed.apply_delta(np.asarray(rows, dtype=np.int64), host_rows)
-        return rows
+        return dirty_rows
 
 
 # The process-wide cache every routed consumer shares (aggregation engines,

@@ -12,7 +12,9 @@ hooks in the hot mutation paths.
 
 LRU by entry count plus an optional byte budget (entries weighed by
 ``get_size_in_bytes()``). Thread-safe: one lock around the OrderedDict.
-Hits, misses and evictions are per-instance ints (``stats()``).
+Hits, misses and evictions are per-instance ints (``stats()``); every
+hit, miss, store and eviction also lands in the registry counter
+``rb_tpu_query_cache_total{event}``.
 
 Counterpart of ``roaringbitmap_tpu/query/cache.py``.
 """
@@ -23,7 +25,14 @@ import threading
 from collections import OrderedDict
 from typing import Optional, Tuple
 
+from .. import observe as _observe
 from ..models.roaring import RoaringBitmap
+
+_CACHE_TOTAL = _observe.counter(
+    _observe.QUERY_CACHE_TOTAL,
+    "Query result-cache events (hit | miss | store | evict)",
+    ("event",),
+)
 
 
 class ResultCache:
@@ -46,9 +55,11 @@ class ResultCache:
             entry = self._entries.get(key)
             if entry is None:
                 self.misses += 1
+                _CACHE_TOTAL.inc(1, ("miss",))
                 return None
             self._entries.move_to_end(key)
             self.hits += 1
+            _CACHE_TOTAL.inc(1, ("hit",))
             return entry[0]
 
     def put(self, key: tuple, value: RoaringBitmap) -> None:
@@ -59,6 +70,7 @@ class ResultCache:
                 self._bytes -= old[1]
             self._entries[key] = (value, nbytes)
             self._bytes += nbytes
+            _CACHE_TOTAL.inc(1, ("store",))
             while len(self._entries) > self.max_entries or (
                 self.max_bytes is not None
                 and self._bytes > self.max_bytes
@@ -67,6 +79,7 @@ class ResultCache:
                 _k, (_v, nb) = self._entries.popitem(last=False)
                 self._bytes -= nb
                 self.evictions += 1
+                _CACHE_TOTAL.inc(1, ("evict",))
 
     def clear(self) -> None:
         with self._lock:

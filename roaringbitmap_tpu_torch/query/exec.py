@@ -33,22 +33,45 @@ built anew. Device steps run on ``aggregation.config.device``.
 :func:`execute_pipelined` runs back-to-back queries with the overlap
 shipping lane staging the next query's leaf packs while the current one
 runs.
+
+Instrumentation, as in the JAX package: every query runs under a trace
+scope; planning and execution time into ``rb_tpu_query_latency_seconds
+{phase}`` and the flight recorder; each step is a ``query.step`` span
+that resolves the step's ``query.plan`` decision with its wall and result
+cardinality; a device step runs through the ``query.exec`` ladder site —
+the device tier alone, with the ``query.exec`` fault point, so a device
+failure raises — and ``rb_tpu_deadline_total{site="query.exec",outcome}``
+counts the deadline outcomes.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Union
 
+from .. import observe as _observe
+from .. import tracing
 from ..models.roaring import RoaringBitmap
-from ..robust.deadline import deadline_expired, deadline_scope
+from ..observe import context as _context
+from ..observe import outcomes as _outcomes
+from ..observe import timeline as _timeline
+from ..robust import faults as _faults
+from ..robust import ladder as _ladder
 from . import inflight as _inflight
 from . import kernels
 from .cache import DEFAULT_CACHE, ResultCache, cache_key, leaf_fps_current
 from .expr import Expr
 from .plan import Plan, PlanStep
 from .plan import plan as build_plan
+
+# end-to-end query latency quantiles: p50/p99 per phase in every export
+_QUERY_LATENCY = _observe.latency_histogram(
+    _observe.QUERY_LATENCY_SECONDS,
+    "End-to-end query latencies by phase (plan | execute)",
+    ("phase",),
+)
 
 _PLAN_MEMO_MAX = 128
 _PLAN_MEMO_LOCK = threading.Lock()
@@ -73,7 +96,8 @@ def _memo_plan(expr: Expr, mode: Optional[str]) -> Plan:
         if p is not None:
             _PLAN_MEMO.move_to_end(key)
             return p
-    p = build_plan(expr, mode=mode)
+    with _timeline.stage(_QUERY_LATENCY, "plan", "query.plan", cat="query"):
+        p = build_plan(expr, mode=mode)
     with _PLAN_MEMO_LOCK:
         _PLAN_MEMO[key] = p
         while len(_PLAN_MEMO) > _PLAN_MEMO_MAX:
@@ -94,9 +118,21 @@ def execute(
     ``deadline_s`` arms a per-query wall-clock budget: once it has run
     out, every remaining step is routed to its CPU tier before it runs.
     The result stays bit-exact (the tiers agree by construction); only
-    the remaining steps' engine changes."""
+    the remaining steps' engine changes.
+    ``rb_tpu_deadline_total{site="query.exec",outcome}`` counts the
+    outcomes (met | degraded)."""
+    # the whole plan + execute runs under one trace id (reused when a
+    # pipelined entry point pre-assigned it)
+    with _context.trace_scope():
+        return _execute_traced(query, cache, mode, deadline_s)
+
+
+def _execute_traced(query, cache, mode, deadline_s) -> RoaringBitmap:
     p = query if isinstance(query, Plan) else _memo_plan(query, mode)
-    with deadline_scope(deadline_s):
+    degraded = False
+    with tracing.op_timer("query.execute"), _timeline.stage(
+        _QUERY_LATENCY, "execute", "query.execute", cat="query", steps=len(p.steps),
+    ), _ladder.deadline_scope(deadline_s):
         leaf_fps = {l.uid: l.fingerprint() for l in p.root.leaves}
         results: Dict[int, RoaringBitmap] = {l.uid: l.bitmap for l in p.root.leaves}
         for step in p.steps:
@@ -106,6 +142,7 @@ def execute(
                 hit = cache.get(key)
                 if hit is not None:
                     results[step.node.uid] = hit
+                    _timeline.instant("query.cache_hit", "query", op=step.node.op)
                     continue
                 # an identical node computing in ANOTHER query right now is
                 # joined, not recomputed; a None join (stale / owner failed /
@@ -117,14 +154,33 @@ def execute(
                     joined = _inflight.TABLE.join(pending)
                     if joined is not None:
                         results[step.node.uid] = joined
+                        _timeline.instant("query.inflight_join", "query", op=step.node.op)
                         continue
             inputs = [results[o.uid] for o in step.operands]
+            force_cpu = _ladder.deadline_expired()
+            if force_cpu and not degraded:
+                degraded = True
+                _timeline.instant("query.deadline_degrade", "query", engine=step.engine)
+            seq = step.decision_seq
+            t0 = time.perf_counter() if seq is not None else 0.0
             try:
-                val = _run_step(step, inputs, force_cpu=deadline_expired())
+                with _timeline.tspan(
+                    "query.step", "query", engine=step.engine, op=step.node.op,
+                    decision=seq,
+                ):
+                    val = _run_step(step, inputs, force_cpu=force_cpu)
             except BaseException:
                 if entry is not None:  # joiners recompute on their own
                     _inflight.TABLE.abort(key, entry)
                 raise
+            if seq is not None:
+                # resolve the planner decision ONCE: the measured step wall
+                # and the result's cardinality against the estimate
+                step.decision_seq = None
+                _outcomes.resolve(
+                    seq, "query.plan", time.perf_counter() - t0,
+                    engine=step.engine, actual=max(1, val.get_cardinality()),
+                )
             if cache is not None:
                 # validated publication: a leaf mutated mid-computation
                 # makes this value match neither the key's snapshot nor the
@@ -136,6 +192,8 @@ def execute(
                 if valid:
                     cache.put(key, val)
             results[step.node.uid] = val
+        if deadline_s is not None:
+            _ladder.note_deadline("query.exec", "degraded" if degraded else "met")
         return results[p.root.uid].clone()
 
 
@@ -150,16 +208,23 @@ def execute_pipelined(
     device-routed leaf working sets stage on the lane, so steady
     multi-query traffic does not idle the device on the marshal. Results
     are identical to ``[execute(q, ...) for q in queries]`` — staging only
-    warms the resident pack cache the engines read anyway."""
+    warms the resident pack cache the engines read anyway.
+
+    Every query gets its own pre-assigned trace id; query i+1's prefetch
+    runs under query i+1's id though query i's iteration drives it."""
     plans = [q if isinstance(q, Plan) else _memo_plan(q, mode) for q in queries]
+    tids = [_context.new_trace_id() for _ in plans]
     out = []
     for i, p in enumerate(plans):
         # join our own stagings FIRST (prefetched while query i-1 ran):
         # popping them frees the lane window for the next prefetch
-        _join_plan(p)
+        with _context.trace_scope(tids[i]):
+            _join_plan(p)
         if i + 1 < len(plans):
-            _prefetch_plan(plans[i + 1], mode)
-        out.append(execute(p, cache=cache, mode=mode, deadline_s=deadline_s))
+            with _context.trace_scope(tids[i + 1]):
+                _prefetch_plan(plans[i + 1], mode)
+        with _context.trace_scope(tids[i]):
+            out.append(execute(p, cache=cache, mode=mode, deadline_s=deadline_s))
     return out
 
 
@@ -214,7 +279,15 @@ def _run_step(
         return fn(inputs[0], inputs[1])
     if eng.startswith("device-"):
         fn = {"and": FA.and_, "or": FA.or_, "xor": FA.xor}[op]
-        return fn(*inputs, mode="cpu" if force_cpu else "device")
+        if force_cpu:  # deadline run out: the CPU tier, chosen before the step
+            return fn(*inputs, mode="cpu")
+
+        def _device_step():
+            _faults.fault_point("query.exec")
+            return fn(*inputs, mode="device")
+
+        # the device tier alone: a device failure raises
+        return _ladder.LADDER.run("query.exec", [("device", _device_step)])
     if eng == "workshy-and":
         return FA.and_(*inputs, mode="cpu")
     if eng == "naive-or":

@@ -81,7 +81,7 @@ import torch
 
 from ..cost import fusion as _fusion_cost
 from ..models.roaring import RoaringBitmap
-from ..robust.deadline import deadline_expired, deadline_scope
+from ..robust.ladder import deadline_expired, deadline_scope
 from . import exec as _exec
 from . import inflight as _inflight
 from .cache import DEFAULT_CACHE, ResultCache, cache_key, leaf_fps_current

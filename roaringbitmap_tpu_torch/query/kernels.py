@@ -27,7 +27,9 @@ Both device paths keep their packs in the resident pack cache
 (``store.PACK_CACHE``) under the operands' fingerprints and the device
 (``aggregation.config.device``), so a repeated call over unchanged bitmaps
 pays no host pack. Once a query's deadline has run out
-(``robust/deadline``), the CPU path serves. A failed launch raises.
+(``robust/ladder``), the CPU path serves. Each device path runs through
+the ``query.exec`` ladder site as its list's one tier, with the
+``query.exec`` fault point, so a failed launch raises.
 """
 
 from __future__ import annotations
@@ -41,8 +43,11 @@ from ..device import resolve_device
 from ..models.container import BitmapContainer, best_container_of_words
 from ..models.roaring import RoaringBitmap
 from ..ops import device as dev
+from .. import tracing
 from ..ops import kernels
-from ..robust.deadline import deadline_expired
+from ..robust import faults as _faults
+from ..robust import ladder as _ladder
+from ..robust.ladder import deadline_expired
 from ..utils import bits
 
 
@@ -132,7 +137,12 @@ def andnot_nway(
         return first.clone()
     ckeys, crows = _covered(first, rest)
     if _andnot_on_device(first, crows, mode):
-        return _device_andnot(first, rest, ckeys)
+
+        def _device_tier() -> RoaringBitmap:
+            _faults.fault_point("query.exec")
+            return _device_andnot(first, rest, ckeys)
+
+        return _ladder.LADDER.run("query.exec", [("device", _device_tier)])
     out = RoaringBitmap()
     for k, c, acc in _cpu_folds(first, _rest_groups(first, rest)):
         if acc is None:
@@ -153,10 +163,15 @@ def andnot_nway_cardinality(
         return first.get_cardinality()
     ckeys, crows = _covered(first, rest)
     if _andnot_on_device(first, crows, mode):
-        _, cards, passthrough, _keys = _device_andnot_parts(first, rest, ckeys)
-        return int(cards.cpu().numpy().astype(np.int64).sum()) + sum(
-            c.cardinality for _, c in passthrough
-        )
+
+        def _device_tier() -> int:
+            _faults.fault_point("query.exec")
+            _, cards, passthrough, _keys = _device_andnot_parts(first, rest, ckeys)
+            return int(cards.cpu().numpy().astype(np.int64).sum()) + sum(
+                c.cardinality for _, c in passthrough
+            )
+
+        return _ladder.LADDER.run("query.exec", [("device", _device_tier)])
     return sum(
         c.cardinality if acc is None else bits.cardinality_of_words(acc)
         for _k, c, acc in _cpu_folds(first, _rest_groups(first, rest))
@@ -194,11 +209,12 @@ def _device_andnot_stage(first: RoaringBitmap, rest, covered_keys: set):
         first_rows = store.ship_rows([c for _, c in covered], device)
         return (packed, first_rows), packed.words_nbytes + first_rows.numel() * 4
 
-    packed, first_rows = store.PACK_CACHE.get_or_build(
-        key, build, refs=store.static_fp_refs(operands)
-    )
-    run, _layout = store.prepare_reduce(packed, op="or")
-    union, _ = run()
+    with tracing.op_timer("query.andnot.device"):
+        packed, first_rows = store.PACK_CACHE.get_or_build(
+            key, build, refs=store.static_fp_refs(operands)
+        )
+        run, _layout = store.prepare_reduce(packed, op="or")
+        union, _ = run()
     return first_rows, union, passthrough, np.asarray(sorted(covered_keys), dtype=np.int64)
 
 
@@ -288,7 +304,12 @@ def threshold(
     if not keys_ok:
         return out
     if aggregation._use_device(n_rows, mode) and not deadline_expired():
-        dev_out = _device_threshold(bms, k, keys_ok)
+
+        def _device_tier():
+            _faults.fault_point("query.exec")
+            return _device_threshold(bms, k, keys_ok)
+
+        dev_out = _ladder.LADDER.run("query.exec", [("device", _device_tier)])
         if dev_out is not None:  # None: too skewed to pad, the CPU fold serves
             return dev_out
     groups = store.group_by_key(bms, keys_filter=keys_ok)
@@ -356,7 +377,8 @@ def _device_threshold(bms, k: int, keys_ok: set) -> Optional[RoaringBitmap]:
     packed, words3, n_slices = block
     if (k >> n_slices) != 0:
         return RoaringBitmap()
-    red, cards = kernels.threshold_rows(words3, k, n_slices)
-    return store.unpack_to_bitmap(
-        packed.group_keys, dev.to_host_u32(red), cards.cpu().numpy().astype(np.int64)
-    )
+    with tracing.op_timer("query.threshold.device"):
+        red, cards = kernels.threshold_rows(words3, k, n_slices)
+        return store.unpack_to_bitmap(
+            packed.group_keys, dev.to_host_u32(red), cards.cpu().numpy().astype(np.int64)
+        )

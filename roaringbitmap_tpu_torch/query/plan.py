@@ -58,9 +58,17 @@ import math
 import threading
 from typing import Dict, List, Optional, Tuple
 
+from .. import observe as _observe
+from ..observe import decisions as _decisions
 from .expr import Expr, Leaf, Q
 
 _MAX32 = 1 << 32
+
+_PLAN_TOTAL = _observe.counter(
+    _observe.QUERY_PLAN_TOTAL,
+    "Planned query steps by chosen engine",
+    ("engine",),
+)
 
 
 class CardinalityModel:
@@ -97,14 +105,21 @@ class CardinalityModel:
             return est
         return max(0, min(_MAX32, int(est * c)))
 
-    def refit_from_outcomes(self, samples: List[dict], min_samples: int = 4) -> dict:
-        """Refit the per-op corrections from ``query.plan`` outcome
-        samples, given explicitly (the JAX package's default, its live
-        outcome ledger, has no counterpart here yet). A sample must carry
+    def refit_from_outcomes(
+        self, samples: Optional[List[dict]] = None, min_samples: int = 4
+    ) -> dict:
+        """Refit the per-op corrections from joined ``query.plan``
+        outcomes (default: the live outcome ledger, ``observe.outcomes``:
+        every executed plan step resolves its decision with the measured
+        result cardinality). A sample must carry
         the op, a positive estimate, and a positive measured cardinality;
         ratios outside ``[2^-20, 2^20]`` are poisoned (a sample cannot
         legitimately miss by a million-fold — that is corrupt telemetry,
         not bias) and are rejected, counted in the report."""
+        if samples is None:
+            from ..observe import outcomes as _outcomes
+
+            samples = _outcomes.tail()
         ratios: Dict[str, List[float]] = {}
         rejected = 0
         for s in samples:
@@ -149,7 +164,12 @@ class CardinalityModel:
                     self.corrections[op] = new
             if moved:
                 self.provenance = "refit-from-traffic"
-        return {"moved": moved, "rejected": rejected, "provenance": self.provenance}
+        report = {"moved": moved, "rejected": rejected, "provenance": self.provenance}
+        _decisions.record_decision(
+            "costmodel.refit", "query-cardinality",
+            moved=len(moved), rejected=rejected, provenance=self.provenance,
+        )
+        return report
 
     SCHEMA = "rb_tpu_planner_cardmodel/1"
 
@@ -373,15 +393,21 @@ class PlanStep:
     """One executable node: ``engine`` applied to ``operands`` (child nodes
     in chosen evaluation order)."""
 
-    __slots__ = ("index", "node", "engine", "operands", "est_card", "est_rows")
+    __slots__ = ("index", "node", "engine", "operands", "est_card", "est_rows",
+                 "decision_seq")
 
-    def __init__(self, index, node, engine, operands, est_card, est_rows):
+    def __init__(self, index, node, engine, operands, est_card, est_rows,
+                 decision_seq=None):
         self.index = index
         self.node = node
         self.engine = engine
         self.operands = operands
         self.est_card = est_card
         self.est_rows = est_rows
+        # the step's query.plan decision serial, until the executor
+        # resolves it with the measured step (once: a memoized plan's
+        # later runs carry None)
+        self.decision_seq = decision_seq
 
 
 class Plan:
@@ -473,7 +499,18 @@ def plan(expr: Expr, mode: Optional[str] = None) -> Plan:
 
     ``mode`` forwards to the engine dispatcher: ``'cpu'``/``'device'``
     force the regime, ``None`` lets ``_use_device`` decide per node.
+
+    Each node's engine choice counts into ``rb_tpu_query_plan_total
+    {engine}`` and is recorded as a ``query.plan`` decision with the
+    estimates that drove it, for the executor to resolve.
     """
+    from .. import tracing
+
+    with tracing.op_timer("query.plan"):
+        return _plan(expr, mode)
+
+
+def _plan(expr: Expr, mode: Optional[str]) -> Plan:
     cards: Dict[int, int] = {}
     root = rewrite(expr, _cards=cards)
     labels: Dict[int, str] = {}
@@ -499,8 +536,15 @@ def plan(expr: Expr, mode: Optional[str] = None) -> Plan:
             continue
         operands = _order_operands(node, est)
         engine = _choose_engine(node, rows, mode)
+        _PLAN_TOTAL.inc(1, (engine,))
         labels[node.uid] = f"s{len(steps)}"
-        steps.append(PlanStep(len(steps), node, engine, operands, card, rows))
+        seq = _decisions.record_decision(
+            "query.plan", engine, outcome=True, op=node.op,
+            est_card=int(card), est_rows=int(rows),
+            operands=len(node.children), mode=mode,
+        )
+        steps.append(PlanStep(len(steps), node, engine, operands, card, rows,
+                              decision_seq=seq))
     leaf_cards = {l.uid: _leaf_card(l, cards) for l in root.leaves}
     return Plan(root, steps, labels, leaf_cards)
 

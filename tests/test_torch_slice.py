@@ -276,6 +276,10 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "from roaringbitmap_tpu_torch.models import art, roaring64, roaring64art, bsi64\n"
         "from roaringbitmap_tpu_torch.parallel import aggregation64, sharding\n"
         "from roaringbitmap_tpu_torch import Q, query, FastAggregation64, Roaring64Bitmap\n"
+        "from roaringbitmap_tpu_torch import observe, tracing\n"
+        "from roaringbitmap_tpu_torch.observe import timeline, spans, export, decisions, outcomes\n"
+        "from roaringbitmap_tpu_torch.observe import compilewatch, context, artifacts, compat\n"
+        "from roaringbitmap_tpu_torch.robust import errors, faults, ladder\n"
         "bad = [m for m in set(sys.modules) - before\n"
         "       if m in ('jax', 'jaxlib', 'roaringbitmap_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'roaringbitmap_tpu.'))]\n"
