@@ -11,7 +11,7 @@
     python3 chip_smoke.py --only mapped   # phases 1-2, 6, 7 and 13: memory-mapped bitmaps
     python3 chip_smoke.py --only sixtyfour  # phases 1-2 and 14: the 64-bit family
     python3 chip_smoke.py --only mesh     # phases 1-2, 3 (c) and 15: row widths, multi-device
-    python3 chip_smoke.py --only observe  # phases 1-2 and 16: instrumentation and faults
+    python3 chip_smoke.py --only observe  # phases 1-2, 16 and 17: instrumentation, faults, health
 
 ``--only paths`` runs only the phases whose end-to-end times PERF.md limits
 against a parent commit; copied into a checkout of the parent, it times
@@ -278,6 +278,34 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    answer, and a real ``torch.cuda.OutOfMemoryError`` classified
    ``"resource"``.
 
+17. (run after phase 16, on the same census working set) the rest of
+   observe at full size, every launch counted (``launches_observatory``):
+   (a) a cold wide OR with the 2.52 GB pack kept resident, then
+   ``store.hbm_reconciliation()``: ledger drift 0, device drift (the
+   resident entries' bytes minus ``torch.cuda.memory_allocated``) at or
+   below 0, the gauge equal to the entries' bytes; ``PACK_CACHE.close()``
+   takes the gauge to 0 and frees at least those bytes on the card; the
+   JAX rule's reading beside the port's; (b) the health sentinel armed
+   inline (interval 0) over warm ORs and Q1: the bytes equal, ticks
+   counted, every rule green with the pack resident; the warm OR off
+   against armed in turns (median of 10) and one ``tick()`` alone (median
+   of 20); (c) ``store.ship`` faults open the device breaker, the sentinel
+   on an injected clock goes red on ``breaker-stuck-open`` and writes one
+   flight bundle into a temporary sink, verified by
+   ``read_manifest(verify=True)``, its sections the ported set and its
+   ``observatory.json`` holding the reconciliation's device keys; (d)
+   ``lockstats.install()`` over the warm OR, Q1, ``ParallelAggregation``
+   and a window of 8 fused queries: bytes equal, the six locks installed
+   and timed; (e) the routed facade over the first 2,000 run-optimized
+   census pairs against the device tier, with ``columnar.cutoff``
+   decisions recorded and joined, ``rows_resident`` equal to the
+   ``colrows`` entries and bytes, a transient ``columnar.device`` fault
+   retried on the card with the result equal, a ``columnar.kernel`` fault
+   raised and classified transient; (f) the structure ledger's census of
+   the 10,000 bitmaps equal to a host count by container type; (g) a
+   census facet count and a 320 x 10,000 all-pairs matrix under their
+   ``batch.*`` spans, ``rb_tpu_batch_pairwise_total`` moving.
+
 Every profiler window (``_profiled``) is a ``tracing.trace`` window; where
 it shows no device events twice, the kernels are timed with CUDA events
 around each kernel wrapper and the line says so.
@@ -287,14 +315,14 @@ The last three lines are a JSON object of the host tier's entry points
 ``--only kernels``), a JSON object describing every kernel (``launches``
 on its main path, ``launches_mapped`` on phase 13's, ``launches_64`` on
 phase 14's, ``launches_mesh`` on phase 15's, ``launches_observe`` on
-phase 16's; a ``name@1024`` row is the
+phase 16's, ``launches_observatory`` on phase 17's; a ``name@1024`` row is the
 kernel at 1024 words, whose path is phase 15 (b), its counts summed over
 the ranks) and the JSON result ``{"ok": true, "device": {...}}``; with
 ``--only sixtyfour`` the phase's launch counts (``{"launches_64": ...}``)
 and the JSON result; with ``--only mesh`` phase 15 (a)'s launch counts
 and the 1024-word rows, then the JSON result; with ``--only observe``
-phase 16's launch counts (``{"launches_observe": ...}``) and the JSON
-result. The port needs no JAX and nothing
+phase 16's and 17's launch counts (``{"launches_observe": ...,
+"launches_observatory": ...}``) and the JSON result. The port needs no JAX and nothing
 of the JAX package.
 """
 
@@ -302,6 +330,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import json
 import os
 import re
@@ -355,7 +384,7 @@ WINDOW_PAIRS = 2_000
 FACADE_PAIRS = 199
 SYNTH_NS = (64, 4096)  # bitmap-heavy pairs: 4096 is the routing window's edge
 COLUMNAR_RUNS = 3  # runs per median of the window's timings
-FACADE_RUNS = 5  # runs per median of the facade's, the tiers taking turns
+FACADE_RUNS = 5  # runs behind each pair's median in the facade's timings, the tiers taking turns
 # the routed facade may be at most this much slower than the per-container
 # walk it replaces (PERF.md section 2's limit for the facade's ns per pair)
 FACADE_LIMIT = 1.35
@@ -1934,19 +1963,32 @@ def _percontainer(op, x, y):
         return getattr(RoaringBitmap, FACADE[op])(x, y)
 
 
-def _pairs_ns(fns, pairs, runs: int = FACADE_RUNS) -> dict:
-    """Median over ``runs`` runs of the ns per pair of each of ``fns``
-    (name -> function) over the pairs, the functions taking turns within
-    each run so that a drift of the host's speed reaches all alike (each
-    call returns a host bitmap: its work is done)."""
-    walls = {name: [] for name in fns}
-    for _ in range(runs):
+def _pairs_ns(fns, pairs, runs: int = FACADE_RUNS, detail: dict = None) -> dict:
+    """The ns per pair of each of ``fns`` (name -> function) over the
+    pairs: every call timed alone, each pair's median over ``runs`` runs,
+    the mean over the pairs. The functions take turns within each run, so
+    that a drift of the host's speed reaches all alike, and a stall of the
+    host (another process, a garbage collection) lands in one run of a
+    pair and not in its median (each call returns a host bitmap: its work
+    is done). ``detail``, when given, receives each function's run walls
+    (ms) and the garbage collections by generation that ran inside its
+    timed loops."""
+    calls = {name: np.empty((runs, len(pairs))) for name in fns}
+    gcs = {name: [0, 0, 0] for name in fns}
+    for r in range(runs):
         for name, fn in fns.items():
-            t0 = time.perf_counter()
-            for x, y in pairs:
+            row = calls[name][r]
+            before = [g["collections"] for g in gc.get_stats()]
+            for i, (x, y) in enumerate(pairs):
+                t0 = time.perf_counter()
                 fn(x, y)
-            walls[name].append(time.perf_counter() - t0)
-    return {name: float(np.median(w)) / len(pairs) * 1e9 for name, w in walls.items()}
+                row[i] = time.perf_counter() - t0
+            for i, g in enumerate(gc.get_stats()):
+                gcs[name][i] += g["collections"] - before[i]
+    if detail is not None:
+        for name, t in calls.items():
+            detail[name] = {"walls_ms": [round(float(w) * 1e3, 1) for w in t.sum(axis=1)], "gc": gcs[name]}
+    return {name: float(np.median(t, axis=0).mean()) * 1e9 for name, t in calls.items()}
 
 
 def _unpack_race(E, pairs, card: str) -> None:
@@ -2162,12 +2204,14 @@ def phase_columnar(base, bitmaps, card: str, n_pairs: int = WINDOW_PAIRS):
     slow = []
     for op in PAIR_OPS:
         routes0 = dict(E.ROUTE_COUNTS)
-        ns = _pairs_ns({name: mk(op) for name, mk in tiers.items()}, head)
+        detail = {}
+        ns = _pairs_ns({name: mk(op) for name, mk in tiers.items()}, head, detail=detail)
         verdicts = {k: v - routes0[k] for k, v in E.ROUTE_COUNTS.items() if v != routes0[k]}
         ratio = ns["routed"] / ns["per-container"]
-        say(f"[columnar] facade {op} over {len(head)} pairs, ns per pair (median of {FACADE_RUNS}, "
-            f"tiers in turn): " + ", ".join(f"{k} {v:.0f}" for k, v in ns.items())
-            + f"; routed / per-container {ratio:.3f}; verdicts {verdicts}  [{card}]")
+        say(f"[columnar] facade {op} over {len(head)} pairs, ns per pair (each pair's median of "
+            f"{FACADE_RUNS} runs, tiers in turn): " + ", ".join(f"{k} {v:.0f}" for k, v in ns.items())
+            + f"; routed / per-container {ratio:.3f}; verdicts {verdicts}; walls (ms) and garbage "
+            f"collections by generation per tier {detail}  [{card}]")
         if ratio > FACADE_LIMIT:
             slow.append(f"{op} {ratio:.3f}")
     if slow:
@@ -5232,6 +5276,347 @@ def phase_observe(base, bitmaps, real, card: str):
     say(f"[observe] phase 16 took {time.perf_counter() - t_phase:.1f} s  [{card}]")
     return launches
 
+
+OBSERVATORY_RUNS = 10  # warm wide ORs per sentinel mode (off, armed), in turns
+OBSERVATORY_TICKS = 20  # lone sentinel ticks per median
+OBSERVATORY_PAIRS = 2_000  # phase 9's window: run-optimized adjacent census pairs
+OBSERVATORY_FUSED = 8  # queries in (d)'s fused window
+OBSERVATORY_LEFTS = 320  # (g)'s all-pairs lefts against the 10,000 bitmaps
+# the kernels of phase 17's path: it fails if one of them has no launch
+OBSERVATORY_KERNELS = ("rb_expand_rows", "rb_popcount_rows", "rb_threshold", "rb_pair_rows",
+                       "rb_pair_rows[counts]", "rb_pairwise_and_card")
+# the locks the port wraps (the JAX package's seven less its tracing lock)
+FRAMEWORK_LOCKS = ("agg.pool", "native.loader", "observe.registry", "query.cache",
+                   "query.exec.plan_memo", "query.expr.intern")
+
+
+def phase_observatory(base, bitmaps, real, card: str):
+    """Phase 17: the rest of observe on the card at full size — (a) the
+    pack cache reconciled against the card's allocator, (b) the health
+    sentinel inline on the dispatch, (c) a red episode's flight bundle, (d)
+    lock-wait stats, (e) the columnar device tier with its decisions,
+    outcomes and fault sites, (f) the structure ledger's census, (g) the
+    batch spans. Returns the launch counts of the phase's path."""
+    import tempfile
+
+    from roaringbitmap_tpu_torch import FastAggregation, ParallelAggregation, RoaringBitmap
+    from roaringbitmap_tpu_torch import columnar, insights, native, observe, tracing
+    from roaringbitmap_tpu_torch import query as tq
+    from roaringbitmap_tpu_torch.columnar import device as cdev
+    from roaringbitmap_tpu_torch.columnar import engine as E
+    from roaringbitmap_tpu_torch.observe import (
+        artifacts, bundle, decisions, health, lockstats, outcomes, sentinel, structure,
+    )
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import batch, store
+    from roaringbitmap_tpu_torch.robust import errors, faults, ladder
+
+    t_phase = time.perf_counter()
+    oracle_or = np.unique(np.concatenate(base[:min(len(base), len(bitmaps))]))
+    q1, want_q1, _sets, _parts = _q1_setup(base, bitmaps, real)
+
+    def or_():
+        return FastAggregation.or_(*bitmaps)
+
+    def q1_():
+        return tq.execute(q1, cache=None)
+
+    sentinel.configure(inline=False)
+    sentinel.SENTINEL.reset()
+    outcomes.reset()
+    ladder.LADDER.reset()
+    K.reset_launches()  # --- phase 17's path, counts live from here ---
+
+    # (a) the reconciliation with a 2.52 GB pack resident
+    store.PACK_CACHE.close()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_or = or_()
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    _check("(a) FastAggregation.or_ cold, the pack kept resident", ref_or, oracle_or, "[observatory]")
+    recon = store.hbm_reconciliation()
+    entries = [e for e in store.PACK_CACHE._entries.values()]
+    entry_bytes = sum(e.nbytes for e in entries)
+    jax_probe = max(abs(recon["ledger_drift_bytes"]), abs(recon.get("device_drift_bytes", 0)))
+    jax_level = health.LEVEL_NAMES[next(r for r in health.DEFAULT_RULES
+                                        if r.name == "hbm-accounting-drift").band(jax_probe)]
+    say(f"[observatory] (a) cold OR {cold_ms:.1f} ms; hbm_reconciliation: gauge {recon['gauge_bytes']} "
+        f"bytes, ledger {recon['ledger_bytes']}, entries {recon['entries']} ({entry_bytes} bytes), "
+        f"ledger drift {recon['ledger_drift_bytes']}; device: resident {recon.get('device_resident_bytes')}, "
+        f"torch.cuda.memory_allocated {recon.get('device_bytes_in_use')}, drift "
+        f"{recon.get('device_drift_bytes')} bytes, pending {recon.get('device_pending_bytes')}; the JAX rule's max |drift| would read {jax_probe} "
+        f"bytes ({jax_level}), the port's sign rule reads "
+        f"{max(0, recon.get('device_drift_bytes', 0), abs(recon['ledger_drift_bytes']))}  [{card}]")
+    if recon["ledger_drift_bytes"] != 0:
+        fail(f"(a) ledger drift {recon['ledger_drift_bytes']} bytes, expected 0")
+    if "device_drift_bytes" not in recon:
+        fail("(a) the reconciliation has no device keys with a pack resident on the card")
+    if recon["device_drift_bytes"] > 0:
+        fail(f"(a) device drift {recon['device_drift_bytes']} bytes > 0: the gauge claims freed memory")
+    if recon["gauge_bytes"] != entry_bytes or recon["entry_sum_bytes"] != entry_bytes:
+        fail(f"(a) the gauge {recon['gauge_bytes']} differs from the resident entries' {entry_bytes} bytes")
+    mem0 = torch.cuda.memory_allocated()
+    store.PACK_CACHE.close()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    after = store.hbm_reconciliation()
+    say(f"[observatory] (a) PACK_CACHE.close(): gauge {after['gauge_bytes']} bytes; "
+        f"torch.cuda.memory_allocated {mem0} -> {mem1} (freed {mem0 - mem1}, the entries held "
+        f"{entry_bytes})  [{card}]")
+    if after["gauge_bytes"] != 0 or after["ledger_drift_bytes"] != 0:
+        fail(f"(a) after close(): gauge {after['gauge_bytes']}, ledger drift {after['ledger_drift_bytes']}")
+    if mem0 - mem1 < entry_bytes:
+        fail(f"(a) close() freed {mem0 - mem1} bytes on the card, less than the {entry_bytes} released")
+
+    # (b) the sentinel inline on the main path, the pack resident
+    ref_or = or_()
+    ref = (ref_or.serialize(), q1_().serialize())
+    sentinel.SENTINEL.reset()
+    ticks0 = sentinel.SENTINEL._tick_no
+    sentinel.configure(inline=True, inline_interval_s=0.0)
+    try:
+        got = [or_().serialize() for _ in range(3)] + [q1_().serialize()]
+    finally:
+        sentinel.configure(inline=False, inline_interval_s=sentinel.DEFAULT_INTERVAL_S)
+    ticked = sentinel.SENTINEL._tick_no - ticks0
+    if got != [ref[0]] * 3 + [ref[1]]:
+        fail("(b) the warm OR or Q1 with the sentinel armed differs from the sentinel-off bytes")
+    if ticked < 4:
+        fail(f"(b) the armed sentinel ticked {ticked} times over 4 dispatches or more")
+    states = sentinel.SENTINEL.rule_states()
+    level, name = sentinel.SENTINEL.status()
+    not_green = {r: st["level_name"] for r, st in states.items() if st["level"] != health.OK}
+    say(f"[observatory] (b) the sentinel armed inline (interval 0): 3 warm ORs and Q1 equal to the "
+        f"sentinel-off bytes, {ticked} ticks, status {name}, every one of {len(states)} rules "
+        f"{'ok' if not not_green else not_green}; hbm-accounting-drift value "
+        f"{states['hbm-accounting-drift']['value']}  [{card}]")
+    if level != health.OK or not_green:
+        fail(f"(b) the sentinel is {name} with the pack resident: {not_green}")
+    runs = {"off": [], "armed": []}
+    for _ in range(OBSERVATORY_RUNS):
+        for mode in runs:
+            sentinel.configure(inline=mode == "armed", inline_interval_s=0.0)
+            t0 = time.perf_counter()
+            or_()
+            runs[mode].append(time.perf_counter() - t0)
+    sentinel.configure(inline=False, inline_interval_s=sentinel.DEFAULT_INTERVAL_S)
+    tick_s = []
+    for _ in range(OBSERVATORY_TICKS):
+        t0 = time.perf_counter()
+        sentinel.SENTINEL.tick()
+        tick_s.append(time.perf_counter() - t0)
+    meds = {m: float(np.median(w)) * 1e3 for m, w in runs.items()}
+    say(f"[observatory] (b) health supervision overhead: warm FastAggregation.or_, {OBSERVATORY_RUNS} "
+        f"runs a mode in turns, median (min-max) ms: "
+        + "; ".join(f"{m} {meds[m]:.3f} ({min(w) * 1e3:.3f}-{max(w) * 1e3:.3f})" for m, w in runs.items())
+        + f"; armed/off {meds['armed'] / meds['off']:.4f}; one SENTINEL.tick() alone, median of "
+        f"{OBSERVATORY_TICKS}: {float(np.median(tick_s)) * 1e3:.3f} ms (min {min(tick_s) * 1e3:.3f}, "
+        f"max {max(tick_s) * 1e3:.3f})  [{card}]")
+    if sentinel.SENTINEL.status()[0] != health.OK:
+        fail(f"(b) the sentinel left green over the timed ticks: {sentinel.SENTINEL.rule_states()}")
+
+    # (c) a red episode: a breaker held open by store.ship faults
+    with tempfile.TemporaryDirectory(prefix="rb_bundle_") as sink:
+        prev_sink = artifacts.artifact_dir()
+        artifacts.configure(dir=sink)
+        ladder.LADDER.configure(trip_after=1)
+        ladder.LADDER.reset()  # breakers take the policy when created
+        try:
+            subset = bitmaps[: len(bitmaps) // 2]  # not resident: its ship fails
+            with faults.inject("store.ship", every=1) as inj:
+                try:
+                    FastAggregation.or_(*subset)
+                    fail("(c) the OR under store.ship faults returned an answer")
+                except errors.TransientDeviceError:
+                    pass
+            if ladder.LADDER.states().get("agg/device") != "open":
+                fail(f"(c) the device breaker did not open: {ladder.LADDER.states()}")
+            ages = ladder.LADDER.open_ages(now=time.monotonic() + 400.0)
+            reds = []
+            for k in range(3):  # on an injected clock 400 s past the trip
+                snap = health.snapshot(prev_sums=dict(sentinel.SENTINEL._prev_sums), now=1e6 + k)
+                snap.breaker_open_ages = ages
+                reds.append(sentinel.SENTINEL.tick(now=1e6 + k, snap=snap))
+            bundles = [a for r in reds for a in r["actuated"] if a["kind"] == "bundle"]
+            names = sorted(os.listdir(sink))
+            if reds[0]["status_name"] != "red" or reds[0]["rules"]["breaker-stuck-open"]["level"] != health.CRITICAL:
+                fail(f"(c) breaker-stuck-open did not go red: {reds[0]['rules']['breaker-stuck-open']}")
+            if len(bundles) != 1 or "error" in bundles[0] or len(names) != 1:
+                fail(f"(c) expected one bundle over the red episode, got {bundles} ({names})")
+            manifest = bundle.read_manifest(bundles[0]["path"], verify=True)
+            sections = sorted(manifest["files"])
+            want_sections = ["decisions.json", "health.json", "metrics.jsonl", "observatory.json",
+                             "outcomes.json", "timeline.jsonl"]
+            if sections != want_sections:
+                fail(f"(c) the bundle's sections are {sections}, expected {want_sections}")
+            obs = json.loads(open(os.path.join(bundles[0]["path"], "observatory.json")).read())
+            hbm = obs.get("hbm", {})
+            if "device_drift_bytes" not in hbm or hbm.get("ledger_drift_bytes") != 0:
+                fail(f"(c) the bundle's observatory.json lacks the device reconciliation: {hbm}")
+            if hbm["device_drift_bytes"] > 0 or reds[0]["rules"]["hbm-accounting-drift"]["level"]:
+                fail(f"(c) the red episode's reconciliation claims more than the card holds: {hbm}")
+            size = sum(m["bytes"] for m in manifest["files"].values())
+            say(f"[observatory] (c) {inj.fired} store.ship faults opened agg/device; "
+                f"breaker-stuck-open red on the injected clock (age {min(ages.values()):.1f} s); one "
+                f"bundle ({names[0]}, {size} bytes) verified: sections {sections}; its "
+                f"observatory.json holds hbm with device keys (device drift "
+                f"{hbm['device_drift_bytes']} bytes, the failed working set's unbuilt rows pending "
+                f"{hbm['device_pending_bytes']} bytes, ledger drift {hbm['ledger_drift_bytes']})  [{card}]")
+        finally:
+            artifacts.configure(dir=prev_sink)
+            ladder.LADDER.configure(trip_after=3)
+            ladder.LADDER.reset()
+            sentinel.SENTINEL.reset()
+            faults.clear()
+
+    # (d) lock-wait stats over the warm OR, Q1 and a fused window
+    Q = tq.Q
+
+    def window():
+        return [Q.or_(*bitmaps[i * 40:(i + 1) * 40]) & Q.or_(*bitmaps[(i + 1) * 40:(i + 2) * 40])
+                for i in range(OBSERVATORY_FUSED)]
+
+    want_fused = [tq.execute(q, cache=None).serialize() for q in window()]
+    tq.DEFAULT_CACHE.clear()
+    lockstats.install()
+    try:
+        got = (or_().serialize(), q1_().serialize(),
+               ParallelAggregation.or_(*bitmaps[:100]).serialize())
+        # built under the proxies (the expression intern table's lock) and
+        # run through the default result cache (its lock)
+        got_fused = [r.serialize() for r in tq.execute_fused(window())]
+        with native._LOCK:  # taken by the first load only: acquired here through its proxy
+            pass
+        installed = lockstats.installed()
+        stats = lockstats.wait_stats()
+    finally:
+        lockstats.uninstall()
+    if got[:2] != ref or got_fused != want_fused:
+        fail("(d) a result with the lock proxies installed differs from the uninstalled bytes")
+    if got[2] != FastAggregation.or_(*bitmaps[:100]).serialize():
+        fail("(d) ParallelAggregation.or_ differs from FastAggregation.or_")
+    if installed != sorted(FRAMEWORK_LOCKS) or not set(FRAMEWORK_LOCKS) <= set(stats):
+        fail(f"(d) installed {installed}, waits recorded for {sorted(stats)}")
+    say(f"[observatory] (d) lockstats over the warm OR, Q1, ParallelAggregation.or_ and "
+        f"{OBSERVATORY_FUSED} fused queries: bytes equal uninstalled; waits (count, p99 us): "
+        + ", ".join(f"{k} {v['count']} {v['p99'] * 1e6:.2f}" for k, v in sorted(stats.items())
+                    if k in FRAMEWORK_LOCKS) + f"  [{card}]")
+
+    # (e) the columnar device tier with decisions and outcomes on
+    t0 = time.perf_counter()
+    clones = [b.clone() for b in bitmaps[:OBSERVATORY_PAIRS + 1]]
+    for c in clones:
+        c.run_optimize()
+    pairs = list(zip(clones[:-1], clones[1:]))
+    columnar.MODEL.reset()
+    model = columnar.ensure_calibrated()
+    store.PACK_CACHE.close()  # the calibration's own synthetic rows go
+    outcomes.reset()
+    decisions.LOG.clear()
+    E.reset_counts()
+    routed = {}
+    for op in PAIR_OPS:
+        fn = getattr(RoaringBitmap, FACADE[op])
+        want = columnar.pairwise_multi(op, pairs, tier="device")
+        got = [fn(x, y) for x, y in pairs]
+        if got != want:
+            fail(f"(e) the routed facade's {op} differs from the device tier's over {len(pairs)} pairs")
+        routed[op] = sum(r.get_cardinality() for r in got)
+    cut = [e for e in decisions.decisions() if e["site"] == "columnar.cutoff"]
+    joined = [e for e in outcomes.tail() if e["site"] == "columnar.cutoff"]
+    samples = outcomes.samples("columnar.cutoff")
+    if not cut or not joined or not samples:
+        fail(f"(e) columnar.cutoff: {len(cut)} decisions, {len(joined)} joins, {len(samples)} samples")
+    for c in clones:
+        cdev.rows_for(c)
+    colrows = [e for e in store.PACK_CACHE._entries.values() if e.kind == "colrows"]
+    col_bytes = sum(e.nbytes for e in colrows)
+    resident = sum(cdev.rows_resident(c) for c in clones)
+    rows_bytes = sum(c.get_container_count() for c in clones) * ROW_BYTES
+    if resident != len(clones) or len(colrows) != len(clones) or col_bytes != rows_bytes:
+        fail(f"(e) rows_resident {resident} of {len(clones)}, {len(colrows)} colrows entries, "
+             f"{col_bytes} bytes against {rows_bytes}")
+    want_or = columnar.pairwise_multi("or", pairs, tier="cpu")
+    retried0 = insights.robust_counters()["retry"].get("columnar.device/recovered", 0)
+    with faults.inject("columnar.device", every=1, times=1) as inj:
+        got = columnar.pairwise_multi("or", pairs, tier="device")
+    if inj.fired != 1 or got != want_or:
+        fail(f"(e) a transient columnar.device fault: fired {inj.fired}, result equal {got == want_or}")
+    if insights.robust_counters()["retry"].get("columnar.device/recovered", 0) != retried0 + 1:
+        fail("(e) the transient columnar.device fault was not counted recovered")
+    try:
+        with faults.inject("columnar.kernel", every=1, times=1):
+            columnar.pairwise("and", *pairs[0], tier="cpu")
+        fail("(e) a columnar.kernel fault returned an answer")
+    except errors.TransientDeviceError as e:
+        if errors.classify(e) != errors.TRANSIENT:
+            fail(f"(e) the columnar.kernel fault classified {errors.classify(e)}")
+    say(f"[observatory] (e) the routed facade (and_/or_/xor/andnot) over {len(pairs)} run-optimized "
+        f"census pairs equal to the device tier ({routed}); model {'calibrated' if model.calibrated else 'gate'}; "
+        f"columnar.cutoff: {len(cut)} decisions, {len(joined)} joined, {len(samples)} refit samples; "
+        f"verdicts {dict(E.ROUTE_COUNTS)}; drift cells {outcomes.drift()}; rows_resident for all "
+        f"{resident} operands = {len(colrows)} colrows entries, {col_bytes} bytes; a transient "
+        f"columnar.device fault retried on the card (result equal); a columnar.kernel fault raised "
+        f"TransientDeviceError, classified transient; {time.perf_counter() - t0:.1f} s  [{card}]")
+    del clones, pairs, want, got, want_or
+    store.PACK_CACHE.close()
+
+    # (f) the structure ledger's census of the working set
+    t0 = time.perf_counter()
+    structure.LEDGER.reset()
+    structure.LEDGER.watch("census", bitmaps)
+    st = structure.LEDGER.refresh()
+    refresh_s = time.perf_counter() - t0
+    host = {"array": 0, "bitmap": 0, "run": 0}
+    for bm in bitmaps:
+        for c in bm.high_low_container.containers:
+            host[c.TYPE] += 1
+    again = structure.LEDGER.refresh()
+    say(f"[observatory] (f) structure census of {len(bitmaps)} bitmaps: {st['containers']} "
+        f"({sum(st['containers'].values())} containers; host count {host}); actual "
+        f"{st['actual_bytes']} bytes, optimal {st['optimal_bytes']}, drift ratio {st['drift_ratio']}, "
+        f"fragmentation p99 {st['fragmentation_p99']}; refresh {refresh_s:.2f} s, a clean refresh "
+        f"re-measured {again['dirty_refreshed']}  [{card}]")
+    if st["containers"] != host or again["dirty_refreshed"] != 0:
+        fail(f"(f) the ledger's census {st['containers']} differs from the host count {host}")
+    structure.LEDGER.reset()
+
+    # (g) the batch spans: a census facet count and a 320 x 10,000 matrix
+    spans0 = {k: v["count"] for k, v in tracing.timings().items()}
+    pw0 = dict(batch.PAIRWISE_COUNTS)
+    filt = FastAggregation.or_(*bitmaps[:67])
+    facet = batch.batched_cardinality(filt, bitmaps)
+    facet_want = np.array([RoaringBitmap.and_cardinality(b, filt) for b in bitmaps[:FACET_SAMPLE]])
+    if not np.array_equal(facet[:FACET_SAMPLE], facet_want):
+        fail("(g) the facet count differs from and_cardinality")
+    matrix = batch.pairwise_and_cardinality(bitmaps[:OBSERVATORY_LEFTS], bitmaps)
+    check = [(i, j) for i in range(0, OBSERVATORY_LEFTS, 53) for j in range(0, len(bitmaps), 997)]
+    if any(matrix[i, j] != RoaringBitmap.and_cardinality(bitmaps[i], bitmaps[j]) for i, j in check):
+        fail("(g) the all-pairs matrix differs from and_cardinality")
+    spans = {k: v["count"] - spans0.get(k, 0) for k, v in tracing.timings().items()
+             if k.startswith("batch.") and v["count"] != spans0.get(k, 0)}
+    pw = {k: batch.PAIRWISE_COUNTS[k] - pw0.get(k, 0) for k in batch.PAIRWISE_COUNTS}
+    say(f"[observatory] (g) a facet count over {len(bitmaps)} bitmaps and a {OBSERVATORY_LEFTS} x "
+        f"{len(bitmaps)} all-pairs matrix: spans {spans}; rb_tpu_batch_pairwise_total moved {pw}  [{card}]")
+    if spans.get("batch.one_vs_many.and") != 1 or sum(v for k, v in spans.items()
+                                                       if k.startswith("batch.pairwise.")) != 1:
+        fail(f"(g) the batch spans are {spans}")
+    if sum(pw.values()) != 1:
+        fail(f"(g) rb_tpu_batch_pairwise_total moved {pw}")
+
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    say(f"[observatory] launches over phase 17's path: {launches}  [{card}]")
+    for name in OBSERVATORY_KERNELS:
+        if not launches.get(name):
+            fail(f"kernel {name} was not launched on phase 17's path")
+    outcomes.reset()
+    decisions.LOG.clear()
+    store.PACK_CACHE.close()
+    say(f"[observatory] phase 17 took {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return launches
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels", "paths", "columnar", "serving", "host", "batch", "mapped",
@@ -5240,7 +5625,7 @@ def main():
                          "columnar: phases 1-2 and 9; serving: phases 1-2 and 10; host: phases 1-2, 11 "
                          "and 6; batch: phases 1-3 and 12; mapped: phases 1-2, 6, 7 and 13; "
                          "sixtyfour: phases 1-2 and 14; mesh: phases 1-2, 3 (c) and 15; "
-                         "observe: phases 1-2 and 16")
+                         "observe: phases 1-2, 16 and 17")
     ap.add_argument("--window-pairs", type=int, default=WINDOW_PAIRS,
                     help=f"adjacent pairs in phase 9's window (default {WINDOW_PAIRS})")
     # one rank of phase 15 (b), started by the phase itself
@@ -5308,8 +5693,10 @@ def main():
     if args.only == "observe":
         base, bitmaps, real = build_working_set()
         launches_observe = phase_observe(base, bitmaps, real, card)
+        launches_observatory = phase_observatory(base, bitmaps, real, card)
         say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
-        say(json.dumps({"launches_observe": launches_observe}))
+        say(json.dumps({"launches_observe": launches_observe,
+                        "launches_observatory": launches_observatory}))
         say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return
     if args.only == "sixtyfour":
@@ -5336,6 +5723,7 @@ def main():
     launches_64 = None  # phase 14's path, counted when it runs
     mesh_launches = None  # phase 15's paths, (a) and (b), counted when it runs
     observe_launches = None  # phase 16's path, counted when it runs
+    observatory_launches = None  # phase 17's path, counted when it runs
     host = None
     if args.only == "batch":
         del bitmaps
@@ -5345,6 +5733,7 @@ def main():
         agg_launches = phase_main(np.random.default_rng(SEED), base, bitmaps, real, build_s)
         phase_timing(bitmaps, card)
         observe_launches = phase_observe(base, bitmaps, real, card)
+        observatory_launches = phase_observatory(base, bitmaps, real, card)
         query_launches = phase_query(base, bitmaps, real, card)
         columnar_launches = phase_columnar(base, bitmaps, card, args.window_pairs)
         serving_launches = phase_serving(base, bitmaps, card)
@@ -5406,6 +5795,8 @@ def main():
                 else mesh_launches[0][name]),
             "launches_observe": None if observe_launches is None else (
                 0 if name.endswith("@1024") else observe_launches.get(name, 0)),
+            "launches_observatory": None if observatory_launches is None else (
+                0 if name.endswith("@1024") else observatory_launches.get(name, 0)),
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

@@ -25,11 +25,16 @@ The facade (``models/roaring.py``), the CPU folds
 (``query/kernels.py``) route here through ``route()`` /
 ``enabled_for_fold()``; the per-container walk stays below the cutoff and
 as the differential reference. ``engine.BATCH_COUNTS`` and
-``engine.ROUTE_COUNTS`` count batched pairs by class and verdicts by tier.
+``engine.ROUTE_COUNTS`` count batched pairs by class and verdicts by tier
+(views of ``rb_tpu_columnar_batch_total`` / ``rb_tpu_columnar_route_total``);
+every recorded verdict is a ``columnar.cutoff`` decision whose measured
+outcome (``outcome(verdict)``) the ledger joins, and
+``refit_from_outcomes`` refits the cost model from those joins.
 """
 
-from .costmodel import MODEL, calibrate, ensure_calibrated
+from .costmodel import MODEL, calibrate, ensure_calibrated, refit_from_outcomes
 from .engine import (
+    Verdict,
     and_cardinality_pair,
     config,
     disabled,
@@ -69,4 +74,6 @@ __all__ = [
     "calibrate",
     "ensure_calibrated",
     "outcome",
+    "refit_from_outcomes",
+    "Verdict",
 ]

@@ -22,8 +22,10 @@ write after measuring). **Uncalibrated, the model is the hand-tuned gate**
 of the JAX package: the count window plus the dense-shape hint, never the
 device.
 
-Left out here: ``refit_from_outcomes`` (the refit from live joined
-samples), which needs the outcome ledger of ``observe/``.
+**Refit**: :func:`refit_from_outcomes` refits a calibrated model's cells
+from the outcome ledger's joined ``columnar.cutoff`` samples (the JAX
+package's ``costmodel.refit_from_outcomes``), and persists through
+``RB_TPU_COLUMNAR_CAL`` like a calibration.
 """
 
 from __future__ import annotations
@@ -382,6 +384,135 @@ def _calibrate_fold() -> Optional[int]:
     if not wins:
         return None
     return int(max(16, min(512, min(wins))))
+
+
+# ---------------------------------------------------------------------------
+# online refit from the decision-outcome join
+# ---------------------------------------------------------------------------
+
+# a sample whose measured cost sits this many times off its cell median is
+# poisoned telemetry (a GC pause inside the measured window, a clock jump),
+# not signal — refit must not learn from it
+_REFIT_OUTLIER_FACTOR = 20.0
+
+
+def refit_from_outcomes(
+    samples: Optional[List[dict]] = None,
+    min_samples: int = 4,
+    persist: Optional[str] = None,
+) -> dict:
+    """Refit overhead+slope coefficients from live joined samples — the
+    decision-outcome ledger's ``columnar.cutoff`` joins, each
+    carrying the features the model fits on: op group, engine that ran,
+    sampled shape, matched-pair bound ``n``, and the measured µs.
+
+    Per (op-group, engine, shape) cell with at least ``min_samples``
+    clean samples spanning >=2 distinct counts, a least-squares
+    ``overhead + n·slope`` fit replaces the cell's coefficients (clamped
+    non-negative, like ``calibrate()``); cells without enough traffic
+    keep their calibrated values. Poisoned samples — non-finite or
+    non-positive measurements, unknown engines/shapes, and measurements
+    more than ``20x`` off their cell median — are rejected and counted.
+    The model's provenance flips to ``"refit-from-traffic"`` when at
+    least one cell moved, is recorded into every subsequent routing
+    decision, and persists through the ``RB_TPU_COLUMNAR_CAL`` lifecycle
+    exactly like a calibration (``persist=`` overrides the env path).
+
+    Returns a report: per-cell before/after coefficients, sample counts,
+    and the rejection tally. Refitting an UNCALIBRATED model is refused
+    (report ``{"refused": ...}``) — the default gate has no coefficient
+    table to move, and fabricating one from sparse traffic would replace
+    a measured baseline with noise."""
+    if not MODEL.calibrated:
+        report = {"refused": "model is uncalibrated (default gate)",
+                  "moved": {}, "rejected": 0}
+        _decisions_record("costmodel.refit", "refused", rejected=0, moved=0)
+        return report
+    if samples is None:
+        from ..observe import outcomes as _outcomes
+
+        samples = _outcomes.samples("columnar.cutoff")
+    # validate + bucket into cells
+    cells: Dict[Tuple[str, str, str], List[Tuple[int, float]]] = {}
+    rejected = 0
+    for s in samples:
+        try:
+            engine = s["engine"]
+            shape = s["shape"]
+            n = int(s["n"])
+            us = float(s["measured_us"])
+            group = op_group(str(s.get("op", "and")))
+        except (KeyError, TypeError, ValueError):
+            rejected += 1
+            continue
+        if (
+            engine not in ENGINES or shape not in SHAPES or n < 1
+            or not np.isfinite(us) or us <= 0
+        ):
+            rejected += 1
+            continue
+        cells.setdefault((group, engine, shape), []).append((n, us))
+    moved: Dict[str, dict] = {}
+    with MODEL._lock:
+        for (group, engine, shape), pts in sorted(cells.items()):
+            med = float(np.median([us for _, us in pts]))
+            clean = [
+                (n, us) for n, us in pts
+                if med / _REFIT_OUTLIER_FACTOR <= us <= med * _REFIT_OUTLIER_FACTOR
+            ]
+            rejected += len(pts) - len(clean)
+            if len(clean) < min_samples:
+                continue
+            ns = np.array([n for n, _ in clean], dtype=np.float64)
+            us = np.array([u for _, u in clean], dtype=np.float64)
+            if np.unique(ns).size < 2:
+                # one count cannot separate overhead from slope; move only
+                # the level: keep the calibrated slope, refit the overhead
+                # as the residual median (still a coefficient moving
+                # toward measured truth)
+                old = MODEL.coeffs.get(group, {}).get(engine, {}).get(shape)
+                if old is None:
+                    continue
+                overhead = max(0.0, float(np.median(us - ns * old[1])))
+                new = [round(overhead, 2), old[1]]
+            else:
+                slope, overhead = np.polyfit(ns, us, 1)
+                slope = max(0.0, float(slope))
+                overhead = max(0.0, float(overhead))
+                new = [round(overhead, 2), round(slope, 3)]
+            old = MODEL.coeffs.setdefault(group, {}).setdefault(
+                engine, {}
+            ).get(shape)
+            if new == old:
+                continue
+            MODEL.coeffs[group][engine][shape] = new
+            moved["/".join((group, engine, shape))] = {
+                "from": old, "to": new, "samples": len(clean),
+            }
+        if moved:
+            MODEL.provenance = "refit-from-traffic"
+    report = {"moved": moved, "rejected": rejected,
+              "provenance": MODEL.provenance, "samples": len(samples)}
+    _decisions_record(
+        "costmodel.refit", MODEL.provenance if moved else "no-change",
+        moved=len(moved), rejected=rejected,
+    )
+    if moved:
+        path = persist if persist is not None else os.environ.get(
+            "RB_TPU_COLUMNAR_CAL"
+        )
+        if path:
+            try:
+                MODEL.save(path)
+            except OSError:
+                pass  # a read-only file system: the refit still applies in this run
+    return report
+
+
+def _decisions_record(site, decision, **inputs):
+    from ..observe import decisions as _decisions
+
+    _decisions.record_decision(site, decision, **inputs)
 
 
 _ENSURED = False  # first-use latch: route() calls this per routed op

@@ -30,10 +30,13 @@ bucket of the batch needs them: a pair whose classes the host serves (an
 and/andnot pair without a bitmap container) ships and keeps nothing. Left
 out here: the rows are not padded to a power-of-two count (that bounded
 XLA retraces); index streams are exact and checked against their block on
-the host. There is no ladder: a failure of this tier raises. The
-``columnar.device`` fault site and ``rows_resident*`` come with the
-columnar engine's observability (ROADMAP Queue A item 3b); the kernel
-launch under it counts in ``rb_tpu_kernel_dispatch_total`` already.
+the host. The tier holds the ``columnar.device`` fault site at its entry;
+the engine runs it under ``robust.ladder.retry``, so a transient failure
+is retried on the card and anything else raises — there is no
+device-to-CPU degrade. Each device bucket times into the engine's
+per-class histogram (``device_pair``, ``device_gather``), and
+``rows_resident`` / ``rows_resident_hlc`` answer the router's residency
+probe from the pack cache without building anything.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ..device import resolve_device
 from ..models.container import Container
 from ..ops import device as dev
 from ..ops import kernels as K
+from ..robust import faults as _faults
 from . import engine as _engine
 from .partition import ARRAY, BITMAP, classify, gather_values
 
@@ -83,6 +87,29 @@ def rows_for(bm, device=None) -> torch.Tensor:
     return store.PACK_CACHE.get_or_build(key, build, refs=store.static_fp_refs([bm]))
 
 
+def rows_resident_hlc(hlc) -> bool:
+    """Are this container array's flat rows already resident on the tier's
+    device? One lookup under the cache lock; never builds (the router's
+    decision provenance)."""
+    from ..parallel import store
+
+    return _colrows_key(hlc, _device()) in store.PACK_CACHE
+
+
+def rows_resident_pair(a_hlc, b_hlc) -> tuple:
+    """``(rows_resident_hlc(a_hlc), rows_resident_hlc(b_hlc))`` with the
+    device resolved once (the router probes both sides of every verdict)."""
+    from ..parallel import store
+
+    device = _device()
+    cache = store.PACK_CACHE
+    return _colrows_key(a_hlc, device) in cache, _colrows_key(b_hlc, device) in cache
+
+
+def rows_resident(bm) -> bool:
+    return rows_resident_hlc(bm.high_low_container)
+
+
 def index_stream(idx: np.ndarray, n_rows: int, device: torch.device) -> torch.Tensor:
     """Row indices into a block of ``n_rows`` rows as int32 on ``device``,
     each checked against the block on the host."""
@@ -111,13 +138,14 @@ def _fill_dense_device(op: str, side_a, side_b, idx: np.ndarray, results, pendin
     ``(rows, row index of each matched pair)``."""
     if idx.size == 0:
         return
-    (rows_a, ia), (rows_b, ib) = side_a(), side_b()
-    words, cards = K.pair_rows_reduce(
-        rows_a, index_stream(ia[idx], rows_a.shape[0], rows_a.device),
-        rows_b, index_stream(ib[idx], rows_b.shape[0], rows_b.device), op,
-    )
-    words64 = dev.to_host_u32(words).view(np.uint64)
-    _engine._format_rows_results(words64, cards.cpu().numpy(), idx, results)
+    with _engine._kernel_stage(op, "device_pair", int(idx.size)):
+        (rows_a, ia), (rows_b, ib) = side_a(), side_b()
+        words, cards = K.pair_rows_reduce(
+            rows_a, index_stream(ia[idx], rows_a.shape[0], rows_a.device),
+            rows_b, index_stream(ib[idx], rows_b.shape[0], rows_b.device), op,
+        )
+        words64 = dev.to_host_u32(words).view(np.uint64)
+        _engine._format_rows_results(words64, cards.cpu().numpy(), idx, results)
     pending.append(("device_pair", int(idx.size)))
 
 
@@ -131,16 +159,17 @@ def _fill_gather_device(
     if idx.size == 0:
         return
     pending.append(("device_gather", int(idx.size)))
-    vals, offs = gather_values(probe_cs, idx)
-    if vals.size == 0:
-        return
-    rows_dense, dense_take = side_dense()
-    row_ids = np.repeat(dense_take[idx], np.diff(offs))
-    mask = K.word_test_rows(
-        rows_dense, index_stream(row_ids, rows_dense.shape[0], rows_dense.device),
-        torch.from_numpy(vals.astype(np.int32)).to(rows_dense.device),
-    )
-    _engine._build_gather_results(op, vals, offs, mask.cpu().numpy(), idx, results)
+    with _engine._kernel_stage(op, "device_gather", int(idx.size)):
+        vals, offs = gather_values(probe_cs, idx)
+        if vals.size == 0:
+            return
+        rows_dense, dense_take = side_dense()
+        row_ids = np.repeat(dense_take[idx], np.diff(offs))
+        mask = K.word_test_rows(
+            rows_dense, index_stream(row_ids, rows_dense.shape[0], rows_dense.device),
+            torch.from_numpy(vals.astype(np.int32)).to(rows_dense.device),
+        )
+        _engine._build_gather_results(op, vals, offs, mask.cpu().numpy(), idx, results)
 
 
 def matched_results_device_multi(op: str, jobs, acs_all, bcs_all) -> List[Optional[Container]]:
@@ -187,6 +216,7 @@ def matched_results_device(
     results: List[Optional[Container]] = [None] * n
     if n == 0:
         return results
+    _faults.fault_point("columnar.device")
     side_a, side_b = _once(side_a), _once(side_b)
     codes_a = classify(acs)
     codes_b = classify(bcs)

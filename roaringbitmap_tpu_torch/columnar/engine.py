@@ -14,19 +14,27 @@ value-identical to the per-container engine (``==`` compares values, not
 forms). Pass-through containers keep their form: transferred unclone'd
 under member-op semantics (``reuse_left``), cloned otherwise.
 
-Left out here, relative to the JAX package, until the next slice of the
-port (ROADMAP Queue A item 3b) wires this engine into ``observe``: the
-``columnar.cutoff`` decision log, ``Verdict``, the outcome join and the
-per-class spans (``route`` returns a plain ``str`` and ``outcome()`` is a
-null context), and the ``columnar.kernel`` fault site. There is no
-device-to-CPU degradation — a failure of the device tier or of the native
-host tier raises. The batch and route counters are plain dicts
-(``BATCH_COUNTS``, ``ROUTE_COUNTS``); ``ops/kernels.LAUNCHES`` is a
-registry view since the registry came to the port.
+Observability, as in the JAX package: ``route`` records every verdict
+above the count gate as a ``columnar.cutoff`` decision with the cost
+model's inputs and the operands' residency, and returns a :class:`Verdict`
+carrying the decision serial; ``outcome(verdict)`` joins the measured
+execution to it (the outcome ledger prices the verdict and feeds the
+per-cell drift gauge and ``costmodel.refit_from_outcomes``). Below the
+gate a 1-in-64 sampled record keeps the zone visible. Every class batch
+times into ``rb_tpu_columnar_class_seconds{op,class}`` and the flight
+recorder; ``BATCH_COUNTS`` and ``ROUTE_COUNTS`` are mapping views of
+``rb_tpu_columnar_batch_total`` and ``rb_tpu_columnar_route_total``.
+
+Faults: the native batch kernels hold the ``columnar.kernel`` site, which
+raises, classified (the port has no native-to-numpy degrade); the device
+tier holds ``columnar.device``, where a transient failure is retried on
+the card through ``robust.ladder.retry`` and anything else raises. There
+is no device-to-CPU degradation.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 from contextlib import contextmanager, nullcontext
@@ -34,6 +42,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import observe as _observe
 from ..models.container import (
     ARRAY_MAX_SIZE,
     ArrayContainer,
@@ -44,6 +53,10 @@ from ..models.container import (
     _wrap_u16,
 )
 from ..models.roaring import RoaringBitmap
+from ..observe import decisions as _decisions
+from ..observe import outcomes as _outcomes
+from ..observe import timeline as _timeline
+from ..robust import ladder as _ladder
 from ..robust.ladder import deadline_expired
 from ..utils import bits
 from . import costmodel as _costmodel
@@ -83,22 +96,74 @@ class config:
     chunk_rows: int = 4096
 
 
+_COLUMNAR_TOTAL = _observe.counter(
+    _observe.COLUMNAR_BATCH_TOTAL,
+    "Columnar batched container-pairs by op and (array|bitmap|run)^2 class",
+    ("op", "class"),
+)
+_ROUTE_TOTAL = _observe.counter(
+    _observe.COLUMNAR_ROUTE_TOTAL,
+    "Columnar cutoff-model verdicts by chosen engine tier",
+    ("tier",),
+)
+# per-class kernel latency: one series per (op, execution class); the
+# flight recorder shows each batch as a named span when a timeline mode
+# is active
+_CLASS_SECONDS = _observe.latency_histogram(
+    _observe.COLUMNAR_CLASS_SECONDS,
+    "Wall time of columnar per-class batch kernels by op and execution "
+    "class (aa | runs | gather | interval | dense | clear | fold | "
+    "fold_words)",
+    ("op", "class"),
+)
 # container pairs (rows, for the folds) by "op/class"; the device tier's
 # buckets count under "op/device_pair" and "op/device_gather"
-BATCH_COUNTS: Dict[str, int] = {}
+BATCH_COUNTS = _observe.CounterMap(_COLUMNAR_TOTAL, sep="/")
 # cost-model verdicts of the routed facades by tier
-ROUTE_COUNTS: Dict[str, int] = {"per-container": 0, "columnar-cpu": 0, "columnar-device": 0}
+ROUTE_COUNTS = _observe.CounterMap(_ROUTE_TOTAL, scalar=True)
 
 
 def reset_counts() -> None:
+    """Zero the batch counts and the route verdicts (the tiers' keys
+    stay)."""
     BATCH_COUNTS.clear()
-    for k in ROUTE_COUNTS:
-        ROUTE_COUNTS[k] = 0
+    for tier in _costmodel.ENGINES:
+        ROUTE_COUNTS[tier] = 0
+
+
+reset_counts()
 
 
 def _count(op: str, klass: str, n: int) -> None:
-    key = f"{op}/{klass}"
-    BATCH_COUNTS[key] = BATCH_COUNTS.get(key, 0) + int(n)
+    _COLUMNAR_TOTAL.inc(int(n), (op, klass))
+
+
+def _kernel_stage(op: str, klass: str, n_pairs: int) -> "_timeline.stage":
+    return _timeline.stage(
+        _CLASS_SECONDS, (op, klass), "columnar." + klass, cat="columnar",
+        op=op, pairs=n_pairs,
+    )
+
+
+def _timed_fill(klass: str, idx_pos: int, op_pos: Optional[int] = 0):
+    """Wrap a ``_fill_*`` class executor so each non-empty batch records a
+    per-class kernel span and latency sample. ``idx_pos`` / ``op_pos``
+    locate the pair-index array and the op name in the positional args
+    (``op_pos`` None = the executor is andnot-only)."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args):
+            idx = args[idx_pos]
+            if idx.size == 0:
+                return
+            op = args[op_pos] if op_pos is not None else "andnot"
+            with _kernel_stage(op, klass, int(idx.size)):
+                return fn(*args)
+
+        return wrapper
+
+    return deco
 
 
 # per-thread disable depth: disabled() must not flip process-global state
@@ -149,28 +214,59 @@ def _shape_hint(hlc) -> str:
 # route() verdict -> pairwise tier argument
 _TIER_ARG = {"columnar-cpu": "cpu", "columnar-device": "device"}
 
+# 1-in-64 sampling of below-gate verdicts: the sub-gate branch sits at the
+# per-container floor and must not pay a record per call, but never
+# recording it would starve the cost model of that zone's data
+_BELOW_GATE = _decisions.SampledSite(64)
+
+
+class Verdict(str):
+    """A :func:`route` verdict that compares, hashes and renders exactly as
+    its tier string but also carries the decision serial (``.seq``) for
+    the outcome join."""
+
+    seq: Optional[int] = None
+
+
+_NULL_OUTCOME = nullcontext()
+
 
 def outcome(tier):
-    """The scope the facades run a routed verdict's engine in. The JAX
-    package joins the measured outcome to the decision here; the port has
-    no outcome ledger yet, so this is a null context."""
-    return nullcontext()
+    """The measured-outcome scope of one routed verdict: the facades run
+    the chosen engine in it, and the join prices the verdict against what
+    actually happened::
+
+        tier = route(a, b, op="and")
+        with outcome(tier):
+            <run whichever engine tier names>
+
+    A verdict without a serial (below the gate, ``record=False``,
+    outcomes off) returns a shared null context."""
+    seq = getattr(tier, "seq", None)
+    if seq is None:
+        return _NULL_OUTCOME
+    return _outcomes.measure(seq, "columnar.cutoff", engine=str(tier))
 
 
 def route(
-    a_hlc, b_hlc, record: bool = True, allow_device: bool = True, op: str = "and"
+    a_hlc, b_hlc, record: bool = True, allow_device: bool = True,
+    op: str = "and", join: bool = True,
 ) -> str:
     """Three-way engine verdict for one pairwise ``op``:
     ``per-container`` / ``columnar-cpu`` / ``columnar-device``, from the
-    operands' container counts and the sampled class-mix shape
-    (``costmodel.choose`` prices steady-state costs against the op-group
-    coefficient table; uncalibrated it is the count window plus the
-    shape hint, never the device). The JAX package also probes the
-    operands' residency here, for its decision log only; the port has no
-    decision log, so it does not. ``allow_device=False`` clamps the
+    operands' container counts, the sampled class-mix shape and per-side
+    residency (``costmodel.choose`` prices steady-state costs against the
+    op-group coefficient table; uncalibrated it is the count window plus
+    the shape hint, never the device). ``allow_device=False`` clamps the
     verdict to the CPU engines (the cardinality facades: their count-only
-    kernels have no device tier). ``record`` counts the verdict in
-    ``ROUTE_COUNTS``."""
+    kernels have no device tier).
+
+    ``record`` logs the verdict as a ``columnar.cutoff`` decision (with
+    the residency probes of both sides when the device tier is priced),
+    counts it in ``ROUTE_COUNTS``, and — with ``join`` and the outcome
+    ledger on — returns a :class:`Verdict` whose serial
+    :func:`outcome` joins. Below the count gate one verdict in 64 is
+    recorded, as a sample."""
     if not _routing_on():
         return "per-container"
     na, nb = a_hlc.size, b_hlc.size
@@ -183,6 +279,11 @@ def route(
         # outside the measured window the per-container walk serves in
         # both model modes: a two-point calibration must not extrapolate
         # 100x past its data
+        if record and _BELOW_GATE.tick():
+            _decisions.record_decision(
+                "columnar.cutoff", "per-container", reason="outside-gate",
+                sampled=_BELOW_GATE.every, na=na, nb=nb,
+            )
         return "per-container"
     if allow_device and deadline_expired():
         # an expired query budget starts no device work, calibration's
@@ -190,26 +291,57 @@ def route(
         allow_device = False
     model = _costmodel.MODEL if not allow_device else _costmodel.ensure_calibrated()
     shape = max(_shape_hint(a_hlc), _shape_hint(b_hlc), key=_costmodel.SHAPES.index)
-    tier, _inputs = model.choose(na, nb, shape, False, None if allow_device else False, op=op)
+    # the device probe once a verdict: choose() prices the device tier
+    # only where it is eligible, and only then are the sides probed
+    eligible = bool(allow_device and model.calibrated and model.device_eligible())
+    resident = (False, False)
+    if record and eligible:
+        from . import device as _device_tier
+
+        # per-side probes, decision provenance only: the verdict compares
+        # steady-state costs (see costmodel.choose)
+        resident = _device_tier.rows_resident_pair(a_hlc, b_hlc)
+    tier, inputs = model.choose(na, nb, shape, resident, eligible, op=op)
     if record:
-        ROUTE_COUNTS[tier] += 1
+        _ROUTE_TOTAL.inc(1, (tier,))
+        # above the gate every recorded verdict registers for a measured
+        # join, per-container ones included (the refit needs samples of
+        # every engine); join=False records provenance only
+        seq = _decisions.record_decision(
+            "columnar.cutoff", tier, outcome=join and _outcomes.enabled(),
+            **inputs,
+        )
+        if join and seq is not None and _outcomes.enabled():
+            v = Verdict(tier)
+            v.seq = seq
+            return v
     return tier
 
 
 def enabled_for(a_hlc, b_hlc) -> bool:
     """Does this pair leave the per-container walk? The cardinality
     facades' gate (and_cardinality / intersects): their batched kernels are
-    CPU-only, so the verdict excludes the device tier."""
-    return route(a_hlc, b_hlc, allow_device=False) != "per-container"
+    CPU-only, so the verdict excludes the device tier. ``join=False``: the
+    count-only kernels run outside any scope that could resolve the
+    outcome, so the verdict records provenance without a pending join."""
+    return route(a_hlc, b_hlc, allow_device=False, join=False) != "per-container"
 
 
 def enabled_for_fold(n_rows: int) -> bool:
     """Route an N-way fold through the columnar batch engine? The gate is
     the calibrated fold cutoff when there is one, the config default
-    otherwise."""
+    otherwise. One verdict per fold (milliseconds of work), so both
+    outcomes record."""
     if not _routing_on():
         return False
-    return n_rows >= _costmodel.MODEL.fold_gate_rows()
+    gate = _costmodel.MODEL.fold_gate_rows()
+    verdict = n_rows >= gate
+    _decisions.record_decision(
+        "columnar.cutoff", "columnar-fold" if verdict else "per-container-fold",
+        rows=n_rows, min_fold_rows=gate,
+        model="calibrated" if _costmodel.MODEL.fold_rows_min else "default",
+    )
+    return verdict
 
 
 _FOLD_LABELS = {"or": "fold_or", "xor": "fold_xor", "and": "fold_and"}
@@ -233,6 +365,7 @@ def _record(op: str, codes_a: np.ndarray, codes_b: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+@_timed_fill("aa", 3)
 def _fill_aa(op: str, acs, bcs, idx: np.ndarray, results: List[Optional[Container]]) -> None:
     """array x array: the CSR batch kernel, then batched format selection
     (or/xor unions can overflow 4096 into a bitmap)."""
@@ -287,6 +420,7 @@ def _build_gather_results(
             results[i] = _wrap_u16(kept[s : s + n].copy())
 
 
+@_timed_fill("gather", 3)
 def _fill_gather(op: str, probe_cs, dense_cs, idx: np.ndarray, results, dense_is_run: bool) -> None:
     """array x dense (and/andnot): membership gather."""
     if idx.size == 0:
@@ -295,6 +429,7 @@ def _fill_gather(op: str, probe_cs, dense_cs, idx: np.ndarray, results, dense_is
     _build_gather_results(op, vals, offs, mask, idx, results)
 
 
+@_timed_fill("runs", 3)
 def _fill_runs_native(op: str, acs, bcs, idx: np.ndarray, results) -> None:
     """All bitmap-free classes (aa/ar/ra/rr) of and/andnot through ONE
     native call: payloads unify as CSR run lists (arrays are length-0
@@ -346,6 +481,7 @@ def _fill_runs_native(op: str, acs, bcs, idx: np.ndarray, results) -> None:
             pos += card
 
 
+@_timed_fill("interval", 3)
 def _fill_interval(op: str, acs, bcs, idx: np.ndarray, results) -> None:
     """run x run (plus andnot's run minus array): the banded interval
     algebra, one global sort for the whole bucket; each pair's result
@@ -365,6 +501,7 @@ def _fill_interval(op: str, acs, bcs, idx: np.ndarray, results) -> None:
         results[i] = _container_of_intervals(out_s[s : s + n], out_e[s : s + n])
 
 
+@_timed_fill("interval", 3)
 def _fill_interval_cards(op: str, acs, bcs, idx: np.ndarray, results) -> None:
     """or/xor over the bitmap-free classes (ar/ra/rr): the banded interval
     algebra computes the values without word expansion, and each result
@@ -437,6 +574,7 @@ def _format_rows_results(words64: np.ndarray, cards, idx, results) -> None:
         results[idx[j]] = BitmapContainer(words64[j].copy(), int(cards[j]))
 
 
+@_timed_fill("dense", 3)
 def _fill_dense(op: str, acs, bcs, idx: np.ndarray, results) -> None:
     """Word-matrix classes, chunked to bound peak memory: and/andnot
     expand both sides and apply one ``&`` / ``& ~``; or/xor expand the
@@ -459,6 +597,7 @@ def _fill_dense(op: str, acs, bcs, idx: np.ndarray, results) -> None:
         _format_rows_results(mat, kernels.popcount_rows(mat), chunk_l, results)
 
 
+@_timed_fill("clear", 2, op_pos=None)
 def _fill_clear(acs, bcs, idx: np.ndarray, results) -> None:
     """andnot with a dense left and an array right: expand the left,
     scatter-clear the right's values out of it in one batched pass."""
@@ -573,7 +712,9 @@ def pairwise(
     ``columnar/device.py``), a ``route()`` verdict
     (``"columnar-cpu"``/``"columnar-device"``), or None — consult the cost
     model without counting the verdict, a direct call defaulting to the
-    CPU tier. A failure of the device tier raises."""
+    CPU tier. The device tier runs under the ``columnar.device`` fault
+    site: a transient failure is retried on the card, anything else
+    raises."""
     if tier is None:
         tier = route(x1.high_low_container, x2.high_low_container, record=False, op=op)
     tier = _TIER_ARG.get(tier, tier)
@@ -584,10 +725,10 @@ def pairwise(
     if tier == "device":
         from . import device as _device_tier
 
-        results = _device_tier.matched_results_device(
+        results = _ladder.retry("columnar.device", lambda: _device_tier.matched_results_device(
             op, acs, bcs,
             lambda: (_device_tier.rows_for(x1), plan.ia), lambda: (_device_tier.rows_for(x2), plan.ib),
-        )
+        ))
     else:
         results = _matched_results(op, acs, bcs)
     return _assemble_pairwise(op, a, b, plan, results, reuse_left)
@@ -652,7 +793,10 @@ def pairwise_multi(op: str, pairs: Sequence[tuple], tier: str = "cpu") -> List[R
     if tier == "device":
         from . import device as _device_tier
 
-        results_all = _device_tier.matched_results_device_multi(op, jobs, acs_all, bcs_all)
+        results_all = _ladder.retry(
+            "columnar.device",
+            lambda: _device_tier.matched_results_device_multi(op, jobs, acs_all, bcs_all),
+        )
     else:
         results_all = _matched_results(op, acs_all, bcs_all)
     return [
@@ -797,9 +941,11 @@ def fold(groups: Dict[int, List[Container]], op: str) -> RoaringBitmap:
     multi_cs = [groups[k] for k in multi_keys]
     results: Dict[int, Optional[Container]] = {}
     if multi_keys:
-        _count(_FOLD_LABELS[op], "rows", sum(len(cs) for cs in multi_cs))
-        mat = _fold_matrix(multi_cs, op) if op in ("or", "xor") else _and_fold_matrix(multi_cs)
-        results = dict(zip(multi_keys, _rows_containers(mat)))
+        n_rows = sum(len(cs) for cs in multi_cs)
+        _count(_FOLD_LABELS[op], "rows", n_rows)
+        with _kernel_stage(op, "fold", n_rows):
+            mat = _fold_matrix(multi_cs, op) if op in ("or", "xor") else _and_fold_matrix(multi_cs)
+            results = dict(zip(multi_keys, _rows_containers(mat)))
     out = RoaringBitmap()
     hlc = out.high_low_container
     for k in keys:
@@ -829,8 +975,10 @@ def fold_multi(groups_list: Sequence[Dict[int, List[Container]]], op: str) -> Li
                 multi_cs.append(groups[k])
     results: Dict[tuple, Optional[Container]] = {}
     if multi_keys:
-        _count(_FOLD_LABELS[op], "rows", sum(len(cs) for cs in multi_cs))
-        results = dict(zip(multi_keys, _rows_containers(_fold_matrix(multi_cs, op))))
+        n_rows = sum(len(cs) for cs in multi_cs)
+        _count(_FOLD_LABELS[op], "rows", n_rows)
+        with _kernel_stage(op, "fold", n_rows):
+            results = dict(zip(multi_keys, _rows_containers(_fold_matrix(multi_cs, op))))
     outs: List[RoaringBitmap] = []
     for si, keys in enumerate(per_set_keys):
         out = RoaringBitmap()
@@ -853,6 +1001,8 @@ def or_fold_words(groups: Dict[int, List[Container]]) -> Dict[int, np.ndarray]:
     if not keys:
         return {}
     multi_cs = [groups[k] for k in keys]
-    _count("fold_or", "rows", sum(len(cs) for cs in multi_cs))
-    mat = _fold_matrix(multi_cs, "or")
+    n_rows = sum(len(cs) for cs in multi_cs)
+    _count("fold_or", "rows", n_rows)
+    with _kernel_stage("or", "fold_words", n_rows):
+        mat = _fold_matrix(multi_cs, "or")
     return {k: mat[g] for g, k in enumerate(keys)}

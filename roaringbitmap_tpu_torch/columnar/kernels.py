@@ -11,7 +11,10 @@ lifted into its own disjoint int64 band ``j * 2^16 + value``, after which
 ONE global sort / searchsorted over the concatenation performs every
 pair's merge at once (bands never interleave, so a global sort is a
 per-pair merge). A failure of the native tier raises; nothing degrades to
-numpy.
+numpy. The native batch kernels hold the ``columnar.kernel`` fault site
+(``_native_entry``), where the JAX package degrades to its numpy tier; an
+injected or real failure there raises, classified by
+``robust.errors.classify``.
 
 Ops are the four pairwise set operations on sorted unique uint16 arrays;
 the word-matrix primitives (scatter, interval fill, per-row popcount)
@@ -27,6 +30,7 @@ from typing import Tuple
 import numpy as np
 
 from .. import native
+from ..robust import faults as _faults
 from ..robust.errors import TierUnavailable
 from ..utils import bits
 
@@ -67,6 +71,16 @@ def has_native() -> bool:
     return native.available()
 
 
+def _native_entry() -> bool:
+    """``has_native()`` for a native batch kernel about to run: the
+    ``columnar.kernel`` fault site fires here when the native tier
+    serves."""
+    if not has_native():
+        return False
+    _faults.fault_point("columnar.kernel")
+    return True
+
+
 def batch_pairwise(
     avals: np.ndarray, aoffs: np.ndarray, bvals: np.ndarray, boffs: np.ndarray, op: str
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -80,7 +94,7 @@ def batch_pairwise(
     if n == 0:
         z = np.empty(0, dtype=np.int64)
         return np.empty(0, dtype=np.uint16), z, z
-    if not has_native():
+    if not _native_entry():
         return batch_pairwise_numpy(avals, aoffs, bvals, boffs, op)
     alens = np.diff(aoffs)
     blens = np.diff(boffs)
@@ -136,7 +150,7 @@ def batch_run_pairwise(
     out_lengths, starts, interval_counts, cards)`` — result intervals, pair
     j's at ``starts[j] : starts[j] + interval_counts[j]`` — or just the
     per-pair cardinalities when ``cards_only``."""
-    if not has_native():
+    if not _native_entry():
         raise TierUnavailable("batch_run_pairwise runs on the native host tier only")
     aoffs = np.concatenate(([0], np.cumsum(acnt)))
     boffs = np.concatenate(([0], np.cumsum(bcnt)))
@@ -158,7 +172,7 @@ def batch_and_cardinality(
     n = aoffs.size - 1
     if n == 0:
         return np.empty(0, dtype=np.int64)
-    if has_native():
+    if _native_entry():
         return native.batch_intersect_card_u16(avals, aoffs, bvals, boffs)
     return batch_and_cardinality_numpy(avals, aoffs, bvals, boffs)
 
@@ -185,7 +199,7 @@ def popcount_rows(mat: np.ndarray) -> np.ndarray:
     cardinalities: one call for the whole batch's format selection)."""
     if mat.shape[0] == 0:
         return np.empty(0, dtype=np.int64)
-    if mat.flags.c_contiguous and has_native():
+    if mat.flags.c_contiguous and _native_entry():
         return native.popcount_rows(mat)
     return popcount_rows_numpy(mat)
 
@@ -205,7 +219,7 @@ def scatter_values_rows(
     or/xor/clear combine; ``row_ids`` may repeat (fold accumulators)."""
     if row_ids.size == 0:
         return
-    if has_native():
+    if _native_entry():
         native.scatter_values_rows(row_ids, offsets, vals, out64, op)
         return
     scatter_values_rows_numpy(row_ids, offsets, vals, out64, op)
@@ -244,7 +258,7 @@ def fill_intervals_rows(
     accumulators)."""
     if row_ids.size == 0:
         return
-    if has_native():
+    if _native_entry():
         native.fill_intervals_rows(row_ids, run_offs, starts, ends, out64, op)
         return
     fill_intervals_rows_numpy(row_ids, run_offs, starts, ends, out64, op)

@@ -18,21 +18,23 @@ The defaults encode the structural prior (per-dispatch overhead is the
 dominant per-step cost; merging N same-class steps pays one dispatch and
 a small per-step concat) and predict ``fused`` ahead for any window with
 more steps than tiers. :meth:`FusionBatchModel.refit_from_outcomes`
-scales the curves from measured samples given explicitly; the JAX
-package's default source for them, its outcome ledger, and its hedge and
-window-autotune pricing (with the hedge's ``slack_penalty`` coefficient
-and ``fusion.hedge`` samples) wait for the port's observability and
-serving tiers. Nothing on a query path calls the refit or the
-persistence (``to_dict`` / ``from_dict`` / ``curves_view``) yet; they
-keep the JAX package's schema, and ``from_dict`` ignores the keys the
-port does not price, so a state the JAX package saved loads here.
+scales the curves from measured samples — by default the outcome
+ledger's joined ``fusion.batch`` verdicts, which every drained window
+records. The hedge and window-autotune pricing (the hedge's
+``slack_penalty`` coefficient and ``fusion.hedge`` samples;
+``hedge_estimate``, ``choose_dispatch``, ``window_for_budget``,
+``drift``) wait for the serving tier and the cost facade (ROADMAP Queue A
+items 4 and 5). The persistence (``to_dict`` / ``from_dict`` /
+``curves_view``) keeps the JAX package's schema, and ``from_dict``
+ignores the keys the port does not price, so a state the JAX package
+saved loads here.
 """
 
 from __future__ import annotations
 
 import math
 import threading
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 SCHEMA = "rb_tpu_fusion_cost/1"
 
@@ -78,15 +80,24 @@ class FusionBatchModel:
         est = self.estimate(steps, tiers)
         return "fused" if est["fused"] <= est["per-query"] else "per-query"
 
-    def refit_from_outcomes(self, samples: List[dict], min_samples: int = 2) -> dict:
+    def refit_from_outcomes(
+        self, samples: Optional[List[dict]] = None, min_samples: int = 2
+    ) -> dict:
         """Scale each engine's curve by the geometric mean of
-        measured/predicted over the given samples, each a dict with
-        ``site`` (only ``fusion.batch`` samples count), ``engine``,
+        measured/predicted over its joined samples (default: the outcome
+        ledger's tail), each a dict with ``site``, ``engine``,
         ``predicted_us`` and ``measured_s``: the curve SHAPE is
         structural, the refit learns this host's constants.
         ``per-query`` scales ``solo_step_us``; ``fused`` scales
         ``tier_us`` and ``merge_step_us`` together (their ratio is the
-        structural prior; a window's wall cannot separate them)."""
+        structural prior; a window's wall cannot separate them). Only
+        ``fusion.batch`` samples count: the JAX package's solo
+        ``fusion.hedge`` joins come with the hedged dispatch (ROADMAP
+        Queue A item 5)."""
+        if samples is None:
+            from ..observe import outcomes as _outcomes
+
+            samples = _outcomes.tail()
         ratios: Dict[str, List[float]] = {}
         rejected = 0
         for s in samples:

@@ -5,19 +5,21 @@ NaiveWriterRecommender.java:14).
 Counterpart of the JAX package's ``insights.py``: ``analyse``,
 ``recommend`` and ``native_backend``, and the execution counters that read
 the ``observe`` registry — ``dispatch_counters``,
-``reset_dispatch_counters``, ``query_counters``, ``pack_cache_counters``,
-``robust_counters``, ``decisions``, ``outcomes`` and ``metrics_snapshot``.
+``reset_dispatch_counters``, ``query_counters``, ``columnar_counters``,
+``columnar_costmodel``, ``pack_cache_counters``, ``robust_counters``,
+``decisions``, ``outcomes``, ``regret_summary``, ``health``,
+``fusion_counters``, ``observatory`` and ``metrics_snapshot``.
 
 Departures: ``dispatch_counters()["kernel"]`` is keyed by this package's
 kernel names and engines (``"rb_group_reduce[dense]/cuda"``, ``".../plain"``),
 and ``"probes"`` is ``{}``: the port never probes for a lowering, it
-launches its kernels or raises. ``"pairwise"`` reads
-``parallel.batch.PAIRWISE_COUNTS``, still a plain dict. The JAX package's
-``columnar_counters``, ``columnar_costmodel``, ``regret_summary``,
-``health``, ``fusion_counters`` and ``observatory`` come with the next
-slice of the port, ``serving``, ``epochs``, ``structure``, ``durable`` and
-``cost_authorities`` with the serving, durable and cost modules (ROADMAP
-Queue A).
+launches its kernels or raises. ``fusion_counters()["window_state"]``
+holds the effective window alone (the window's base, floor and hedge
+switch come with the serving tier). What still waits: ``serving``,
+``epochs``, ``structure`` (it needs ``cost.compaction`` and
+``serve.maintain``), ``durable`` and ``cost_authorities``, with the cost
+facade, the serving and the durable tiers (ROADMAP Queue A items 4-6);
+``observatory()`` leaves out their keys until then.
 """
 
 from __future__ import annotations
@@ -188,6 +190,114 @@ def outcomes(n: int = None) -> list:
     from . import observe
 
     return observe.outcomes.tail(n)
+
+
+def columnar_counters() -> dict:
+    """Columnar pairwise-engine observability: batched container pairs by
+    ``op/class`` (the 9 ``(array|bitmap|run)²`` classes, the device tier's
+    ``device_pair`` / ``device_gather``, ``fold_<op>/rows`` for the N-way
+    CPU folds) and the cutoff model's verdicts by tier, as plain str->int
+    dicts, from ``rb_tpu_columnar_batch_total`` /
+    ``rb_tpu_columnar_route_total``."""
+    from . import observe
+
+    m = observe.REGISTRY.get(observe.COLUMNAR_BATCH_TOTAL)
+    r = observe.REGISTRY.get(observe.COLUMNAR_ROUTE_TOTAL)
+    return {
+        "batch": {f"{lv[0]}/{lv[1]}": v for lv, v in m.series().items()} if m else {},
+        "route": {lv[0]: v for lv, v in r.series().items()} if r else {},
+    }
+
+
+def columnar_costmodel() -> dict:
+    """The columnar cutoff model's state: calibration, backend, per-engine
+    cost coefficients and the fold gate — the inputs behind every
+    ``columnar.cutoff`` decision."""
+    from . import columnar
+
+    d = columnar.MODEL.to_dict()
+    d["fold_gate_rows"] = columnar.MODEL.fold_gate_rows()
+    return d
+
+
+def regret_summary() -> dict:
+    """Per-site regret rollup: join counts, regret seconds, error ratios,
+    the worst recent decision with its inputs, the per-coefficient drift
+    gauges and the cost models' provenance."""
+    from . import columnar, observe
+    from .cost import fusion as _fusion_cost
+    from .query.plan import CARD_MODEL
+
+    return {
+        "sites": observe.outcomes.summary(),
+        "drift": observe.outcomes.drift(),
+        "pending": observe.outcomes.LEDGER.pending_count(),
+        "provenance": {
+            "columnar": columnar.MODEL.provenance if columnar.MODEL.calibrated
+            else "default-gate",
+            "planner_cardinality": CARD_MODEL.provenance,
+            "fusion_batch": _fusion_cost.MODEL.provenance,
+        },
+    }
+
+
+def health() -> dict:
+    """Health-sentinel snapshot: the process status (green / yellow /
+    red), every rule's post-hysteresis level with its value and
+    thresholds, and the recent actuation log."""
+    from . import observe
+
+    s = observe.sentinel.SENTINEL
+    level, name = s.status()
+    return {
+        "status": level,
+        "status_name": name,
+        "rules": s.rule_states(),
+        "actuations": s.actuations(8),
+        "sentinel_running": observe.sentinel.running(),
+    }
+
+
+def fusion_counters() -> dict:
+    """Cross-query fusion rollup: window volume by outcome, query volume,
+    step fates, the derived occupancy and shared-subexpression hit ratio,
+    the in-flight dedup table's live stats, the queue depth, and the
+    effective window bound."""
+    from . import observe
+    from .observe import export as _export
+    from .query import fusion as _q_fusion
+    from .query import inflight as _inflight
+
+    block = _export._fusion_block(observe.REGISTRY.snapshot())
+    block["inflight_live"] = _inflight.TABLE.stats()
+    block["window_state"] = {"effective": _q_fusion.config.window}
+    return block
+
+
+def observatory() -> dict:
+    """Resource-observatory snapshot: lock-wait quantiles over the
+    framework locks (empty until ``observe.lockstats.install()``), library
+    build counts, the device-memory reconciliation (computed fresh),
+    breaker states, pack-cache stats, the decision-log tail, the regret
+    rollup and the health sentinel's state. The JAX package's ``serving``,
+    ``epochs``, ``structure`` and ``durable`` keys come with their tiers
+    (ROADMAP Queue A items 4-6)."""
+    from . import observe
+    from .observe import lockstats
+    from .parallel import store
+    from .robust import ladder
+
+    return {
+        "locks": lockstats.wait_stats(),
+        "lock_timing": lockstats.timing_enabled(),
+        "compile": observe.compilewatch.compile_counts(),
+        "hbm": store.hbm_reconciliation(),
+        "breakers": ladder.LADDER.states(),
+        "pack_cache": store.PACK_CACHE.stats(),
+        "decisions": decisions(32),
+        "regret": regret_summary(),
+        "health": health(),
+    }
 
 
 def metrics_snapshot() -> dict:

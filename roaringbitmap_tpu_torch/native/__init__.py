@@ -54,6 +54,7 @@ from typing import Callable, Dict
 import numpy as np
 
 from ..observe import compilewatch as _compilewatch
+from ..robust import faults as _faults
 from ..robust.errors import TierUnavailable
 
 _DIR = Path(__file__).resolve().parent
@@ -216,11 +217,15 @@ def load():
 def available() -> bool:
     """True when the native tier serves (built and loaded at the first
     call; a failed build raises TierUnavailable), False when
-    ``config.tier`` is ``"numpy"``."""
+    ``config.tier`` is ``"numpy"``. The ``native.entry`` fault site fires
+    here on the native tier; where the JAX package degrades to numpy, the
+    fault raises to the caller, classified by ``robust.errors.classify``
+    (there is no native-to-numpy degrade)."""
     if config.tier == "numpy":
         return False
     if config.tier != "native":
         raise ValueError(f"host tier must be one of {TIERS}, got {config.tier!r}")
+    _faults.fault_point("native.entry")
     load()
     return True
 

@@ -1,8 +1,10 @@
 """Metrics, spans, the flight recorder and decision provenance.
 
 Counterpart of ``roaringbitmap_tpu/observe/``: one registry, three metric
-kinds, the exporters, the timeline, trace ids, the decision log and the
-outcome ledger, with the JAX package's metric names::
+kinds, the exporters, the timeline, trace ids, the decision log, the
+outcome ledger, the health rules and their sentinel, flight bundles, the
+structure ledger and lock-wait stats, with the JAX package's metric
+names::
 
     instrumented layers                           observe/
     ──────────────────────────────────            ──────────────────────────
@@ -16,14 +18,30 @@ Metric naming convention: ``rb_tpu_<layer>_<name>`` (canonical names in
 ``registry.py``). Pure stdlib apart from the ``torch.profiler`` ranges of
 ``trace=True`` spans, which import torch when they open.
 
-The JAX package's ``health``, ``lockstats``, ``sentinel``, ``bundle`` and
-``structure`` modules come with the next slice of the port (ROADMAP Queue
-A item 3b).
+``health`` judges the registry with the JAX package's rule table (one
+departure: the ``hbm-accounting-drift`` rule judges the device source by
+its sign), ``sentinel`` paces and actuates it, ``bundle`` writes the flight
+bundle of a red episode, ``structure`` keeps the container-format books of
+watched working sets. ``lockstats`` is imported on demand (``from
+roaringbitmap_tpu_torch.observe import lockstats``), as in the JAX package,
+because importing it may install the lock proxies from the environment.
+
+What still waits: the sentinel's ``refit``, ``maintain`` and ``autotune``
+actuations call ``cost.refit_all`` (ROADMAP Queue A item 4),
+``serve.maintain.run_pass`` and ``query.fusion.autotune_window`` (item
+5), which are not ported; until then each records its error in the
+actuation log. A bundle leaves out ``calibration.json`` (item 4) and the
+observatory's ``serving``, ``epochs``, ``structure`` and ``durable`` keys
+(items 4-6).
 """
 
 from .registry import (
     BREAKER_TRANSITIONS_TOTAL,
     COMPILE_TOTAL,
+    BATCH_PAIRWISE_TOTAL,
+    COLUMNAR_BATCH_TOTAL,
+    COLUMNAR_CLASS_SECONDS,
+    COLUMNAR_ROUTE_TOTAL,
     COSTMODEL_DRIFT_RATIO,
     DEADLINE_TOTAL,
     DECISION_ERROR_RATIO,
@@ -32,8 +50,20 @@ from .registry import (
     DEFAULT_TIME_BUCKETS,
     DEGRADE_TOTAL,
     FAULT_INJECTED_TOTAL,
+    FUSION_BATCH_SECONDS,
+    FUSION_BATCH_TOTAL,
+    FUSION_HEDGE_TOTAL,
+    FUSION_QUERIES_TOTAL,
+    FUSION_QUEUED_COUNT,
+    FUSION_STEPS_TOTAL,
+    FUSION_WINDOW_COUNT,
+    HBM_ACCOUNTING_DRIFT_BYTES,
+    HEALTH_ACTUATION_TOTAL,
+    HEALTH_RULE_STATE,
+    HEALTH_STATUS,
     HOST_OP_SECONDS,
     KERNEL_DISPATCH_TOTAL,
+    LOCK_WAIT_SECONDS,
     OUTCOME_ANOMALY_TOTAL,
     OUTCOME_JOIN_TOTAL,
     OUTCOME_ORPHANS_TOTAL,
@@ -43,6 +73,7 @@ from .registry import (
     PACK_CACHE_MISSES_TOTAL,
     PACK_CACHE_RESIDENT_BYTES,
     QUERY_CACHE_TOTAL,
+    QUERY_INFLIGHT_TOTAL,
     QUERY_LATENCY_SECONDS,
     QUERY_PLAN_TOTAL,
     REGISTRY,
@@ -54,6 +85,11 @@ from .registry import (
     STORE_PACK_STAGE_SECONDS,
     STORE_RESIDENT_BYTES,
     STORE_TRANSFER_BYTES_TOTAL,
+    STRUCTURE_ACCRETION_COUNT,
+    STRUCTURE_BYTES,
+    STRUCTURE_CONTAINERS,
+    STRUCTURE_DRIFT_RATIO,
+    STRUCTURE_FRAGMENTATION_COUNT,
     TIMELINE_ANOMALY_TOTAL,
     TIMELINE_SPAN_SECONDS,
     Counter,
@@ -83,8 +119,15 @@ from . import compilewatch
 # the outcome ledger is decisions' lazy dependency: imported after it
 from . import outcomes
 from . import artifacts
+from . import health
+from . import sentinel
+from . import bundle
+from . import structure
 from .context import adopt, current_trace, new_trace_id, trace_scope
-from .decisions import DecisionLog, record_decision
+from .decisions import DecisionLog, SampledSite, record_decision
+from .health import Rule, RuleState, Snapshot
+from .sentinel import SENTINEL, Sentinel
+from .structure import StructureLedger
 from .outcomes import OutcomeLedger
 from .spans import current_path, depth, reset_spans, span, span_timings
 
@@ -170,6 +213,39 @@ __all__ = [
     "OUTCOME_ORPHANS_TOTAL",
     "OUTCOME_ANOMALY_TOTAL",
     "COSTMODEL_DRIFT_RATIO",
+    "BATCH_PAIRWISE_TOTAL",
+    "COLUMNAR_BATCH_TOTAL",
+    "COLUMNAR_ROUTE_TOTAL",
+    "COLUMNAR_CLASS_SECONDS",
+    "LOCK_WAIT_SECONDS",
+    "HBM_ACCOUNTING_DRIFT_BYTES",
+    "HEALTH_STATUS",
+    "HEALTH_RULE_STATE",
+    "HEALTH_ACTUATION_TOTAL",
+    "FUSION_BATCH_TOTAL",
+    "FUSION_QUERIES_TOTAL",
+    "FUSION_STEPS_TOTAL",
+    "FUSION_BATCH_SECONDS",
+    "FUSION_QUEUED_COUNT",
+    "FUSION_HEDGE_TOTAL",
+    "FUSION_WINDOW_COUNT",
+    "QUERY_INFLIGHT_TOTAL",
+    "STRUCTURE_CONTAINERS",
+    "STRUCTURE_DRIFT_RATIO",
+    "STRUCTURE_FRAGMENTATION_COUNT",
+    "STRUCTURE_ACCRETION_COUNT",
+    "STRUCTURE_BYTES",
+    "health",
+    "sentinel",
+    "bundle",
+    "structure",
+    "Rule",
+    "RuleState",
+    "Snapshot",
+    "Sentinel",
+    "SENTINEL",
+    "StructureLedger",
+    "SampledSite",
     "context",
     "decisions",
     "outcomes",

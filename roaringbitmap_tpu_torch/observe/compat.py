@@ -6,10 +6,12 @@ their mapping interface while every value lives in a labeled registry
 the registry exporters see the same numbers under their canonical metric
 names.
 
-Counterpart of ``roaringbitmap_tpu/observe/compat.py``. One addition:
+Counterpart of ``roaringbitmap_tpu/observe/compat.py``. Two additions:
 ``fixed=`` pins some of the metric's labels, so a view can show one slice
 of a wider metric — ``LAUNCHES`` is ``rb_tpu_kernel_dispatch_total`` with
-``engine="cuda"``, keyed by the kernel name alone.
+``engine="cuda"``, keyed by the kernel name alone; ``sep=`` keys a view
+over several free labels by one joined string — the columnar engine's
+``BATCH_COUNTS`` reads ``"op/class"`` keys over ``(op, class)``.
 
 Writers inside this package go through ``Counter.inc`` (atomic under the
 registry lock); ``CounterMap.__setitem__`` exists so code that does
@@ -29,11 +31,12 @@ Key = Union[str, Tuple[str, ...]]
 class CounterMap(MutableMapping):
     """``collections.Counter``-compatible view over one labeled registry
     Counter. ``scalar=True`` maps bare-string keys onto the one label left
-    free; otherwise keys are tuples aligned with the free labels.
-    ``fixed`` maps label names to the values this view is pinned to."""
+    free; ``sep`` maps string keys joined by it onto the free labels;
+    otherwise keys are tuples aligned with the free labels. ``fixed``
+    maps label names to the values this view is pinned to."""
 
     def __init__(self, metric: Counter, scalar: bool = False,
-                 fixed: Optional[Dict[str, str]] = None):
+                 fixed: Optional[Dict[str, str]] = None, sep: Optional[str] = None):
         fixed = dict(fixed or {})
         unknown = set(fixed) - set(metric.labelnames)
         if unknown:
@@ -46,6 +49,7 @@ class CounterMap(MutableMapping):
             )
         self._metric = metric
         self._scalar = scalar
+        self._sep = sep
         self._free = free
         self._fixed = tuple(
             (i, str(fixed[n])) for i, n in enumerate(metric.labelnames) if n in fixed
@@ -56,7 +60,14 @@ class CounterMap(MutableMapping):
         return self._metric
 
     def _lv(self, key: Key) -> Tuple[str, ...]:
-        vals = [str(key)] if self._scalar else [str(k) for k in key]
+        if self._scalar:
+            vals = [str(key)]
+        elif self._sep is not None:
+            if not isinstance(key, str):
+                raise TypeError(f"{self._metric.name}: key {key!r} is not a string")
+            vals = key.split(self._sep, len(self._free) - 1)
+        else:
+            vals = [str(k) for k in key]
         if len(vals) != len(self._free):
             raise TypeError(f"{self._metric.name}: key {key!r} does not name the free labels")
         lv = [""] * len(self._metric.labelnames)
@@ -68,7 +79,9 @@ class CounterMap(MutableMapping):
 
     def _key(self, lv: Tuple[str, ...]) -> Key:
         free = tuple(lv[i] for i in self._free)
-        return free[0] if self._scalar else free
+        if self._scalar:
+            return free[0]
+        return free if self._sep is None else self._sep.join(free)
 
     def _mine(self, lv: Tuple[str, ...]) -> bool:
         return all(lv[i] == v for i, v in self._fixed)

@@ -17,10 +17,11 @@ Entry shape (plain dicts, json-dumpable)::
 
 Bounds & cost: the ring holds ``RB_TPU_DECISIONS_CAPACITY`` entries
 (default 512) under a leaf lock — recording is a deque append plus one
-labeled counter bump (``rb_tpu_decision_total{site}``).
-``configure(enabled=False)`` is the kill switch. The JAX package's
-``SampledSite`` (a 1-in-N gate for the columnar cutoff's hot verdicts)
-comes with the columnar engine's decision log (ROADMAP Queue A item 3b).
+labeled counter bump (``rb_tpu_decision_total{site}``). Hot per-pair
+sites (the columnar cutoff) record fully above the count gate, where the
+op itself costs tens of microseconds; below it a 1-in-N
+:class:`SampledSite` record keeps the zone visible to the cost model's
+calibration data. ``configure(enabled=False)`` is the kill switch.
 
 Trace ids, fingerprints, and other unbounded values belong in the entry
 payload — never in metric labels.
@@ -40,6 +41,7 @@ from collections import deque
 from typing import Dict, List, Optional
 
 from . import context as _context
+from . import outcomes as _outcomes
 from . import registry as _registry
 from . import timeline as _timeline
 
@@ -167,8 +169,6 @@ def record_decision(
     LOG.record(entry)
     _DECISION_TOTAL.inc(1, (site,))
     if outcome:
-        from . import outcomes as _outcomes
-
         _outcomes.register(seq, site, inputs, trace)
     if _timeline.enabled():
         _timeline.instant(
@@ -182,3 +182,29 @@ def decisions(n: Optional[int] = None) -> List[dict]:
     """The decision-log tail (newest ``n``, oldest first)."""
     return LOG.tail(n)
 
+
+class SampledSite:
+    """1-in-N sampling gate for decision sites too hot to record every
+    verdict (the columnar cutoff's below-gate branch sits at the ~2 µs
+    per-container floor). ``tick()`` costs one int increment and a mask
+    compare; every ``every``-th call returns True and the caller records
+    one representative entry, tagged with the sampling factor so
+    consumers can re-weight.
+
+    The counter is deliberately lock-free: a racing increment can at
+    worst skip or double one sample — sampling noise, not data loss."""
+
+    __slots__ = ("every", "_mask", "_n")
+
+    def __init__(self, every: int = 64):
+        every = max(1, int(every))
+        if every & (every - 1):
+            raise ValueError(f"sampling factor must be a power of two, got {every}")
+        self.every = every
+        self._mask = every - 1
+        self._n = 0
+
+    def tick(self) -> bool:
+        n = self._n + 1
+        self._n = n
+        return not (n & self._mask)

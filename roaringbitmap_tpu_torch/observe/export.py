@@ -16,9 +16,10 @@ Prometheus text.
   summary (``kernel``/``layout``/``transfer_bytes``/``spans`` and the
   other blocks below) plus the full registry snapshot. The context
   manager writes atomically (tmp file + os.replace) on exit, even when the
-  enclosed block raises. The JAX package's sidecar also carries health,
-  fusion, serving, epoch, structure, durable and analysis blocks; each
-  comes with the module that registers its metrics.
+  enclosed block raises. The health and fusion blocks are derived from the
+  registry alone, as in the JAX package; its serving, epoch, structure,
+  durable and analysis blocks come with the modules that register their
+  metrics (ROADMAP Queue A items 5-7).
 
 Everything is a pure function of a ``Registry`` (default: the process
 registry), so golden-format tests run against a private registry.
@@ -223,6 +224,77 @@ def _regret_block(snap: dict, registry: Registry) -> dict:
     }
 
 
+def _fusion_block(snap: dict) -> dict:
+    """The cross-query fusion sidecar block, derived purely from the
+    registry like the regret/health blocks: window volume by
+    outcome, queries through windows, step fates, the derived window
+    occupancy (queries per drained window) and shared-subexpression hit
+    ratio (deduped / planned), in-flight dedup joins, and the live queue
+    depth, and the hedge verdicts and effective window bound."""
+    batches = _counter_map(snap, _registry.FUSION_BATCH_TOTAL)
+    steps = _counter_map(snap, _registry.FUSION_STEPS_TOTAL)
+    queries = 0.0
+    m = snap.get(_registry.FUSION_QUERIES_TOTAL)
+    if m is not None:
+        queries = float(sum(s.get("value", 0) for s in m["samples"]))
+    depth = None
+    g = snap.get(_registry.FUSION_QUEUED_COUNT)
+    if g is not None:
+        for s in g["samples"]:
+            if not s["labels"]:
+                depth = s["value"]
+    window = None
+    g = snap.get(_registry.FUSION_WINDOW_COUNT)
+    if g is not None:
+        for s in g["samples"]:
+            if not s["labels"]:
+                window = s["value"]
+    n_batches = float(sum(batches.values()))
+    executed = float(steps.get("executed", 0))
+    deduped = float(steps.get("deduped", 0))
+    planned = executed + deduped
+    # hedge verdict volume: solo = hedged solo dispatches,
+    # window = priced window verdicts; the rate is solo over all verdicts
+    hedges = _counter_map(snap, _registry.FUSION_HEDGE_TOTAL)
+    verdicts = float(sum(hedges.values()))
+    return {
+        "batches": batches,
+        "queries": queries,
+        "steps": steps,
+        "occupancy": round(queries / n_batches, 3) if n_batches else None,
+        "dedup_hit_ratio": round(deduped / planned, 4) if planned else None,
+        "inflight": _counter_map(snap, _registry.QUERY_INFLIGHT_TOTAL),
+        "queue_depth": depth,
+        "hedges": hedges,
+        "hedge_rate": round(float(hedges.get("solo", 0)) / verdicts, 4)
+        if verdicts else None,
+        "window": window,
+    }
+
+
+def _health_block(snap: dict) -> dict:
+    """The health sentinel's sidecar block, derived PURELY from the
+    registry gauges (like the regret block) so a rendering needs no live
+    sentinel: the process status enum, per-rule
+    state enums, and the actuation counters. ``status`` is None when no
+    sentinel tick ever exported (the gauge has no unlabeled series)."""
+    status = None
+    m = snap.get(_registry.HEALTH_STATUS)
+    if m is not None:
+        for s in m["samples"]:
+            if not s["labels"]:
+                status = s["value"]
+    names = {0: "green", 1: "yellow", 2: "red"}
+    return {
+        "status": status,
+        "status_name": names.get(status),
+        "rules": _counter_map(snap, _registry.HEALTH_RULE_STATE),
+        "actuations": _counter_map(
+            snap, _registry.HEALTH_ACTUATION_TOTAL, joined=True
+        ),
+    }
+
+
 def sidecar_snapshot(registry: Optional[Registry] = None) -> dict:
     """The structured summary the sidecar persists: ``kernel``/``layout``/
     ``transfer_bytes``/``spans`` and the other blocks, with the full
@@ -235,13 +307,18 @@ def sidecar_snapshot(registry: Optional[Registry] = None) -> dict:
         "kernel": _counter_map(snap, _registry.KERNEL_DISPATCH_TOTAL, joined=True),
         "layout": _counter_map(snap, _registry.STORE_LAYOUT_TOTAL),
         "transfer_bytes": _counter_map(snap, _registry.STORE_TRANSFER_BYTES_TOTAL),
+        "pairwise": _counter_map(snap, _registry.BATCH_PAIRWISE_TOTAL),
         "probes": {},
         "timings": _histogram_timings(snap, _registry.HOST_OP_SECONDS),
         "spans": _histogram_timings(snap, _registry.SPAN_SECONDS),
         "latency": _latency_summaries(_reg(registry)),
+        "lock_wait": _histogram_timings(snap, _registry.LOCK_WAIT_SECONDS),
         "compile": _counter_map(snap, _registry.COMPILE_TOTAL),
+        "hbm_drift": _counter_map(snap, _registry.HBM_ACCOUNTING_DRIFT_BYTES),
         "decisions": _counter_map(snap, _registry.DECISION_TOTAL),
         "regret": _regret_block(snap, _reg(registry)),
+        "health": _health_block(snap),
+        "fusion": _fusion_block(snap),
         "registry": snap,
     }
 

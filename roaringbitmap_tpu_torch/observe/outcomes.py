@@ -28,16 +28,16 @@ flight recorder measures what each stage took; this module joins the two:
   tail to a JSONL artifact (throttled to one per second) and bumps
   ``rb_tpu_outcome_anomaly_total{site}``.
 
+  ``columnar.cutoff`` joins additionally feed a per-coefficient-cell
+  drift gauge ``rb_tpu_costmodel_drift_ratio{group,engine,shape}``
+  (geometric EWMA of measured/predicted — 1.0 means the calibrated curve
+  still prices this cell truthfully), the health sentinel's
+  ``costmodel-drift`` signal.
 * **Refit feed.** :func:`samples` hands joined samples to a refit:
-  ``query.plan.CARD_MODEL.refit_from_outcomes()`` reads the planner's.
-
-Left out here, with the columnar engine's decision log (the next slice of
-the port): the JAX package feeds each ``columnar.cutoff`` join into a
-per-coefficient-cell drift gauge for ``columnar.costmodel``'s
-``refit_from_outcomes`` (JAX ``observe/outcomes.py:445``,
-``_note_cell_drift``). No site of this package records a
-``columnar.cutoff`` decision yet, so the gauge
-``rb_tpu_costmodel_drift_ratio`` only moves through :func:`rebase_drift`.
+  ``columnar.costmodel.refit_from_outcomes()`` reads the
+  ``columnar.cutoff`` joins (op group, engine, shape, pair count,
+  measured µs), ``query.plan.CARD_MODEL.refit_from_outcomes()`` the
+  planner's.
 
 Bounds & cost: pending decisions live in a bounded map (default 2048) and
 joined entries in a bounded ring (default 512); an outcome that arrives
@@ -54,6 +54,7 @@ anomaly dump happen outside it.
 from __future__ import annotations
 
 import json
+import math
 import os
 import threading
 import time
@@ -61,6 +62,7 @@ from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Tuple
 
 from . import registry as _registry
+from . import timeline as _timeline
 from .histogram import latency_histogram
 
 DEFAULT_CAPACITY = 512
@@ -194,8 +196,6 @@ class OutcomeLedger:
             # routing-regret fraction
             agg["measured_s"] += measured
             if err is not None and err > 0:
-                import math
-
                 agg["log_err_sum"] += math.log(err)
                 agg["log_err_n"] += 1
             worst = agg["worst"]
@@ -205,8 +205,6 @@ class OutcomeLedger:
     def note_drift(self, cell: Tuple[str, str, str], ratio: float) -> float:
         """Fold one measured/predicted sample into the cell's geometric
         EWMA; returns the updated drift value (emitted by the caller)."""
-        import math
-
         with self._lock:
             prev = self._drift.get(cell)
             if prev is None or prev <= 0:
@@ -245,8 +243,6 @@ class OutcomeLedger:
         """Per-site rollup: join count, total regret seconds, geometric
         mean error ratio, and the worst (highest-regret) recent decision
         with its inputs."""
-        import math
-
         with self._lock:
             out = {}
             for site, agg in sorted(self._sites.items()):
@@ -413,6 +409,8 @@ def resolve(
         _REGRET_SECONDS.observe(joined["regret_s"], (site,))
     if error_ratio is not None:
         _ERROR_RATIO.observe(error_ratio, (site,))
+        if site == "columnar.cutoff" and predicted_us is not None:
+            _note_cell_drift(inputs, engine, measured_us, predicted_us)
         # the calibrated band judges PRICED joins only (predicted_us from
         # measured cost curves — 4x off a two-point fit is an anomaly);
         # cardinality-style ratios (the planner's structural bounds) are
@@ -425,6 +423,35 @@ def resolve(
             if not lo <= error_ratio <= hi:
                 _anomaly(site, joined)
     return joined
+
+
+_COSTMODEL = None
+
+
+def _note_cell_drift(inputs, engine, measured_us, predicted_us) -> None:
+    """Fold a columnar.cutoff join into its coefficient cell's drift
+    gauge; the cell is the exact (op-group, engine, shape) the cost model
+    fits — drift 1.0 means the two-point calibration still prices live
+    traffic truthfully."""
+    global _COSTMODEL
+    _costmodel = _COSTMODEL
+    if _costmodel is None:
+        # imported on the first join (the columnar package imports this
+        # one), then held: every routed facade call joins here
+        from ..columnar import costmodel as _costmodel
+
+        _COSTMODEL = _costmodel
+    op = inputs.get("op")
+    shape = inputs.get("shape")
+    if op is None or shape not in _costmodel.SHAPES or engine not in _costmodel.ENGINES:
+        return
+    group = _costmodel.op_group(op)
+    cell = (group, engine, shape)
+    ratio = measured_us / predicted_us if predicted_us > 0 else None
+    if ratio is None or ratio <= 0:
+        return
+    drift = LEDGER.note_drift(cell, ratio)
+    _DRIFT_RATIO.set(round(drift, 4), cell)
 
 
 class measure:
@@ -466,8 +493,6 @@ class measure:
         # the measured window lands as a span whose attrs carry the
         # decision serial, so join_recorder() can rebuild this join from
         # a dumped trace artifact
-        from . import timeline as _timeline
-
         if _timeline.enabled():
             _timeline._record_complete(
                 "outcome." + self.site, "outcome", self._t0, t1 - self._t0,

@@ -80,6 +80,58 @@ OUTCOME_JOIN_TOTAL = "rb_tpu_outcome_join_total"
 OUTCOME_ORPHANS_TOTAL = "rb_tpu_outcome_orphans_total"
 OUTCOME_ANOMALY_TOTAL = "rb_tpu_outcome_anomaly_total"
 COSTMODEL_DRIFT_RATIO = "rb_tpu_costmodel_drift_ratio"
+# batch similarity and the columnar engine: all-pairs matrix calls by
+# impl, batched container pairs by (op, class), cutoff verdicts by tier,
+# and the per-class kernel latency
+BATCH_PAIRWISE_TOTAL = "rb_tpu_batch_pairwise_total"
+COLUMNAR_BATCH_TOTAL = "rb_tpu_columnar_batch_total"
+COLUMNAR_ROUTE_TOTAL = "rb_tpu_columnar_route_total"
+COLUMNAR_CLASS_SECONDS = "rb_tpu_columnar_class_seconds"
+# resource observatory: lock-wait histograms over the framework locks and
+# device-memory accounting drift (gauge vs ledger, gauge vs the card)
+LOCK_WAIT_SECONDS = "rb_tpu_lock_wait_seconds"
+HBM_ACCOUNTING_DRIFT_BYTES = "rb_tpu_hbm_accounting_drift_bytes"
+# health sentinel: enum gauges (_status the process rollup, 0 green /
+# 1 yellow / 2 red; _state the per-rule level, same encoding) and the
+# actuations by rule and kind
+HEALTH_STATUS = "rb_tpu_health_status"
+HEALTH_RULE_STATE = "rb_tpu_health_rule_state"
+HEALTH_ACTUATION_TOTAL = "rb_tpu_health_actuation_total"
+# cross-query fusion: windows by outcome (fused | per-query | degraded),
+# queries through windows, step fates (executed | merged | deduped),
+# batch wall and per-query queue wait, the live queue depth, and the
+# in-flight dedup table's events; hedge verdicts and the effective window
+# bound are named for the health rules and the sidecar, and move with
+# the serving tier
+FUSION_BATCH_TOTAL = "rb_tpu_fusion_batch_total"
+FUSION_QUERIES_TOTAL = "rb_tpu_fusion_queries_total"
+FUSION_STEPS_TOTAL = "rb_tpu_fusion_steps_total"
+FUSION_BATCH_SECONDS = "rb_tpu_fusion_batch_seconds"
+FUSION_QUEUED_COUNT = "rb_tpu_fusion_queued_count"
+QUERY_INFLIGHT_TOTAL = "rb_tpu_query_inflight_total"
+FUSION_HEDGE_TOTAL = "rb_tpu_fusion_hedge_total"
+FUSION_WINDOW_COUNT = "rb_tpu_fusion_window_count"
+# structure observatory: live containers by declared format, actual over
+# size-rule-optimal serialized bytes, p99 runs per run container, the
+# epoch-delta accretion depth, and the byte totals behind the ratio
+STRUCTURE_CONTAINERS = "rb_tpu_structure_containers"
+STRUCTURE_DRIFT_RATIO = "rb_tpu_structure_drift_ratio"
+STRUCTURE_FRAGMENTATION_COUNT = "rb_tpu_structure_fragmentation_count"
+STRUCTURE_ACCRETION_COUNT = "rb_tpu_structure_accretion_count"
+STRUCTURE_BYTES = "rb_tpu_structure_bytes"
+# serving, epoch and durable names the health rules judge; the metrics
+# themselves are registered by the serving and durable tiers (ROADMAP
+# Queue A items 5 and 6) — until then the rules read no series and stay
+# green
+SERVE_LATENCY_SECONDS = "rb_tpu_serve_latency_seconds"
+SERVE_ADMIT_TOTAL = "rb_tpu_serve_admit_total"
+SERVE_SLO_BUDGET_SECONDS = "rb_tpu_serve_slo_budget_seconds"
+SERVE_FRESHNESS_SECONDS = "rb_tpu_serve_freshness_seconds"
+SERVE_EPOCH_FLIP_TOTAL = "rb_tpu_serve_epoch_flip_total"
+SERVE_MUTLOG_COUNT = "rb_tpu_serve_mutlog_count"
+DURABLE_PERSIST_TOTAL = "rb_tpu_durable_persist_total"
+DURABLE_PENDING_COUNT = "rb_tpu_durable_pending_count"
+DURABLE_RECOVERY_TOTAL = "rb_tpu_durable_recovery_total"
 
 # upper bucket bounds (seconds) for wall-time histograms: host phases span
 # ~100 µs packing steps to multi-second CPU folds; +Inf is implicit

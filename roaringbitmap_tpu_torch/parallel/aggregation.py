@@ -34,7 +34,9 @@ ran and its wall) and runs through ``robust.ladder.LADDER.run("agg",
 device failure raises; the CPU path is the JAX package's CPU chain —
 the columnar fold (OR/XOR above the fold gate), the per-container walk,
 then the pure-Python fold — so the decision names the same starting tier
-as the JAX package's for the same inputs.
+as the JAX package's for the same inputs. Before the trace scope opens,
+the dispatch calls the health sentinel's inline pacing hook
+(``observe.sentinel.maybe_tick``; one bool check while it is off).
 
 With ``config.mesh`` set (``sharding.make_mesh()``), the device path runs
 the mesh-sharded grouped reduce (:func:`_sharded_reduce`): the padded
@@ -67,6 +69,7 @@ from ..models.container import (
 from ..models.roaring import RoaringBitmap
 from ..observe import context as _context
 from ..observe import decisions as _decisions
+from ..observe import sentinel as _sentinel
 from ..observe import timeline as _timeline
 from ..robust import ladder as _ladder
 from ..utils import bits
@@ -324,6 +327,9 @@ def _aggregate(
         return RoaringBitmap()
     if len(bitmaps) == 1:
         return bitmaps[0].clone()
+    # inline sentinel pacing: a single-threaded serving loop gets health
+    # supervision on the dispatch path; off (the default) it is one bool
+    _sentinel.maybe_tick()
     with _context.trace_scope():
         keys, n = _dispatch_prelude(bitmaps, op)
         if keys is not None and not keys:

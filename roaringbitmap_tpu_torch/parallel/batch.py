@@ -22,10 +22,11 @@ missing card raises). On CPU tensors the kernels' plain versions run.
 Both ``impl`` labels of the matrices reach the same kernel here:
 ``rb_pairwise_and_card`` is exact in int64, and ``"mxu"`` keeps the JAX
 package's 2^31 guard so the two packages accept and refuse the same
-inputs. Left out relative to the JAX package, until ROADMAP Queue A item
-3b: the ``tracing.op_timer`` spans and the registry counter
-``rb_tpu_batch_pairwise_total`` behind ``PAIRWISE_COUNTS`` (a plain dict
-here; ``insights.dispatch_counters()["pairwise"]`` reads it).
+inputs. As in the JAX package, the one-vs-many step runs under the
+``tracing.op_timer`` span ``batch.one_vs_many.<op>`` and the all-pairs
+matrix under ``batch.pairwise.<impl>``, and ``PAIRWISE_COUNTS`` is a
+mapping view of ``rb_tpu_batch_pairwise_total{impl}``
+(``insights.dispatch_counters()["pairwise"]`` reads it).
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from .. import observe as _observe
+from .. import tracing
 from ..device import resolve_device
 from ..models.roaring import RoaringBitmap
 from ..ops import device as dev
@@ -43,7 +46,14 @@ from . import store
 
 # which engine served each pairwise-matrix call ("mxu" | "vpu"), as the
 # JAX package's dispatch counter reads
-PAIRWISE_COUNTS = {"mxu": 0, "vpu": 0}
+_PAIRWISE_TOTAL = _observe.counter(
+    _observe.BATCH_PAIRWISE_TOTAL,
+    "Pairwise-matrix dispatches by engine (mxu | vpu)",
+    ("impl",),
+)
+PAIRWISE_COUNTS = _observe.CounterMap(_PAIRWISE_TOTAL, scalar=True)
+for _impl in ("mxu", "vpu"):
+    PAIRWISE_COUNTS[_impl] = 0
 
 
 def _pack_one_vs_many(one: RoaringBitmap, many: Sequence[RoaringBitmap], device):
@@ -113,8 +123,9 @@ def prepare_batched_cardinality(
     step = _step(op, cards_only=True)
 
     def run() -> np.ndarray:
-        row_cards = step(batch, filt).cpu().numpy().astype(np.int64)
-        return row_cards.sum(axis=1)
+        with tracing.op_timer(f"batch.one_vs_many.{op}"):
+            row_cards = step(batch, filt).cpu().numpy().astype(np.int64)
+            return row_cards.sum(axis=1)
 
     run.device_tensors = (batch, filt)
     run.step = step
@@ -232,8 +243,9 @@ def pairwise_and_cardinality(
     kidx = {k: i for i, k in enumerate(keys)}
     lw = _pack_sets(lefts, keys, kidx, d)
     rw = _pack_sets(rights, keys, kidx, d)
-    PAIRWISE_COUNTS[impl] += 1
-    return kernels.pairwise_and_card(lw, rw, tile_bytes).cpu().numpy()
+    _PAIRWISE_TOTAL.inc(1, (impl,))
+    with tracing.op_timer(f"batch.pairwise.{impl}"):
+        return kernels.pairwise_and_card(lw, rw, tile_bytes).cpu().numpy()
 
 
 def _inclusion_exclusion(op: str, inter: np.ndarray, lefts, rights) -> np.ndarray:

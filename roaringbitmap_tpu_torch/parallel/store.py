@@ -36,15 +36,26 @@ card, and any other failure raises — there is no host re-expansion. The
 ``pack_cache.budget`` site spills cold entries and serves the working set
 uncached, a caching choice that stays on the device.
 
-Left out here, relative to the JAX package: pinning, the demotion probe,
-the eviction-regret ring and the residency reconciliation (ROADMAP Queue
-A items 3b, 5 and 6).
+The cache remembers its recent evictions: a miss that re-packs a
+remembered working set joins the eviction's decision with the re-pack wall
+as measured regret (the outcome ledger's ``pack_cache.evict`` site).
+:func:`hbm_reconciliation` checks the resident-bytes gauge against the
+caches' own byte ledgers and against the card's allocator
+(``torch.cuda.memory_allocated``), exporting the drift as
+``rb_tpu_hbm_accounting_drift_bytes{source}``.
+
+Left out here, relative to the JAX package: pinning and the per-thread
+last route (ROADMAP Queue A item 5), the demotion probe (item 6), and the
+eviction's re-pack estimate, which asks ``cost.residency`` (item 4) and
+is absent until then, as on the JAX package's own failure path.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time as _time
+import weakref
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -65,6 +76,7 @@ from ..models.roaring import RoaringBitmap
 from ..ops import device as dev
 from ..ops import kernels
 from ..observe import decisions as _decisions
+from ..observe import outcomes as _outcomes
 from ..observe import timeline as _timeline
 from ..robust import errors as _rerrors
 from ..robust import faults as _faults
@@ -139,6 +151,15 @@ _PACK_RESIDENT = _observe.gauge(
     _observe.PACK_CACHE_RESIDENT_BYTES,
     "Bytes currently resident in the pack cache by entry kind",
     ("kind",),
+)
+# residency reconciliation: the resident-bytes gauge against the caches'
+# byte ledgers ("ledger") and against the card's allocator ("device")
+_HBM_DRIFT = _observe.gauge(
+    _observe.HBM_ACCOUNTING_DRIFT_BYTES,
+    "Resident-bytes gauge minus independent ground truth (ledger = the "
+    "caches' entry ledgers, device = the CUDA allocator's allocated bytes "
+    "on the devices holding entries)",
+    ("source",),
 )
 # default ragged-batch bucket count for the prepare_reduce cost model
 DEFAULT_BUCKETS = 3
@@ -1158,12 +1179,20 @@ class PackCache:
     the lock (concurrent builders race benignly, first store wins), delta
     repacks run under it. The lock is re-entrant because the delta path
     drops derived layouts under it and their residency callbacks settle
-    the byte accounting."""
+    the byte accounting.
+
+    A cache holds no reference cycle (the residency callbacks reach it
+    through a weak reference), so a dropped cache is freed at once and
+    its ``__del__`` settles its share of the resident-bytes gauge."""
+
+    _EVICTED_SEQS_CAP = 256
 
     def __init__(self, max_bytes: Optional[int] = None):
         if max_bytes is None and os.environ.get("RB_TPU_PACK_CACHE_BYTES"):
             max_bytes = int(os.environ["RB_TPU_PACK_CACHE_BYTES"])
         self._lock = threading.RLock()
+        with _ALL_CACHES_LOCK:
+            _ALL_CACHES.add(self)
         # None until the first store resolves the default budget
         self.max_bytes: Optional[int] = None if max_bytes is None else int(max_bytes)  # guarded-by: self._lock
         self._entries: "OrderedDict[tuple, _PackEntry]" = OrderedDict()  # guarded-by: self._lock
@@ -1175,6 +1204,17 @@ class PackCache:
         self.evictions = 0  # guarded-by: self._lock
         # per-kind hit/miss counts ("agg", "andnot", "threshold", "bsi")
         self._kinds: Dict[str, List[int]] = {}  # guarded-by: self._lock
+        # recently evicted working sets -> the eviction's decision serial:
+        # a miss that re-packs a remembered eviction joins it with the
+        # re-pack wall as measured regret (bounded ring, oldest forgotten)
+        self._evicted_seqs: "OrderedDict[tuple, int]" = OrderedDict()  # guarded-by: self._lock
+
+    def __del__(self):
+        # a dropped cache settles its share of the process-wide gauge
+        try:
+            self.close()
+        except Exception:  # interpreter teardown: the registry may be gone
+            pass
 
     # -- public API --------------------------------------------------------
 
@@ -1243,7 +1283,18 @@ class PackCache:
         # full repack outside the lock (a racing thread packing the same
         # key is benign — first store wins)
         _timeline.instant("pack_cache.miss", "cache", kind="agg")
+        with self._lock:
+            evict_seq = self._evicted_seqs.pop(ident, None)
+        t0 = _time.perf_counter()
         packed, row_map = pack_groups_with_provenance(bitmaps, keys_filter, device)
+        if evict_seq is not None:
+            # the evicted working set came back while its eviction is still
+            # remembered: the re-pack wall is the eviction's measured regret
+            repack_s = _time.perf_counter() - t0
+            _outcomes.resolve(
+                evict_seq, "pack_cache.evict", repack_s, engine="repack",
+                regret_s=repack_s,
+            )
         with self._lock:
             self._count("agg", False)
         entry = _PackEntry(
@@ -1272,7 +1323,17 @@ class PackCache:
                 _timeline.instant("pack_cache.hit", "cache", kind=kind, bytes=e.nbytes)
                 return e.value
         _timeline.instant("pack_cache.miss", "cache", kind=kind)
+        with self._lock:
+            evict_seq = self._evicted_seqs.pop(key, None)
+        t0 = _time.perf_counter()
         value, nbytes = build()
+        if evict_seq is not None:
+            # re-build of a remembered eviction: measured regret
+            rebuild_s = _time.perf_counter() - t0
+            _outcomes.resolve(
+                evict_seq, "pack_cache.evict", rebuild_s, engine="rebuild",
+                regret_s=rebuild_s,
+            )
         with self._lock:
             self._count(kind, False)
         return self._store(_PackEntry(key, kind, value, nbytes, refs=refs)).value
@@ -1399,17 +1460,25 @@ class PackCache:
         """Byte-accounting callback for a cache-owned PackedGroups: derived
         device layouts (padded blocks, buckets) are built lazily AFTER the
         entry is stored, so their bytes must flow into the entry's weight
-        and the budget."""
+        and the budget. The callback holds the cache weakly: the entry's
+        working set is reachable from the cache, and a strong reference
+        back would make a reference cycle that only the cyclic collector
+        frees (a dropped secondary cache would then keep its bytes in the
+        process-wide gauge until a collection ran)."""
+        cache_ref = weakref.ref(self)
 
         def cb(delta: int) -> None:
-            with self._lock:
-                if self._entries.get(entry.key) is not entry:
+            cache = cache_ref()
+            if cache is None:
+                return
+            with cache._lock:
+                if cache._entries.get(entry.key) is not entry:
                     return  # raced with eviction: no longer resident
                 entry.nbytes += delta
-                self._bytes += delta
+                cache._bytes += delta
                 _PACK_RESIDENT.inc(delta, (entry.kind,))
                 if delta > 0:
-                    self._evict_over_budget()
+                    cache._evict_over_budget()
 
         return cb
 
@@ -1448,15 +1517,26 @@ class PackCache:
             self._bytes -= e.nbytes
             self.evictions += 1
             _PACK_EVICTED_BYTES.inc(e.nbytes, (e.kind,))
-            _timeline.instant("pack_cache.evict", "cache", kind=e.kind, bytes=e.nbytes)
-            _decisions.record_decision(
-                "pack_cache.evict", "lru", kind=e.kind, bytes=e.nbytes,
-                target_bytes=target,
+            # every eviction discards: the mapped rung comes with the
+            # durable tier's demotion probe (ROADMAP Queue A item 6)
+            _timeline.instant(
+                "pack_cache.evict", "cache", kind=e.kind, bytes=e.nbytes,
+                rung="discard",
             )
-            if e.kind == "agg":
-                ident = self._agg_ident(e)
-                if self._ident.get(ident) == key:
-                    del self._ident[ident]
+            seq = _decisions.record_decision(
+                "pack_cache.evict", "lru", outcome=True, kind=e.kind,
+                bytes=e.nbytes, target_bytes=target, rung="discard",
+            )
+            ident = self._agg_ident(e) if e.kind == "agg" else None
+            if ident is not None and self._ident.get(ident) == key:
+                del self._ident[ident]
+            if seq is not None:
+                # remember the eviction by its identity (agg: the
+                # generations, so a delta-mutated return still matches)
+                # for the miss-side regret join
+                self._evicted_seqs[ident if ident is not None else key] = seq
+                while len(self._evicted_seqs) > self._EVICTED_SEQS_CAP:
+                    self._evicted_seqs.popitem(last=False)
             self._release(e)
 
     def _try_delta(self, e, bitmaps, keys_filter, new_fps):
@@ -1534,6 +1614,13 @@ class PackCache:
         return dirty_rows
 
 
+# Every live cache, for the reconciliation: the resident-bytes gauge is
+# process-wide while the byte ledgers are per cache, so the ledger side
+# sums over every live cache (a dropped one settles its share through
+# __del__ -> close). The lock covers add against iteration.
+_ALL_CACHES_LOCK = threading.Lock()
+_ALL_CACHES: "weakref.WeakSet[PackCache]" = weakref.WeakSet()  # guarded-by: _ALL_CACHES_LOCK
+
 # The process-wide cache every routed consumer shares (aggregation engines,
 # BSI device packs, query kernels) — ONE eviction budget for all of them.
 PACK_CACHE = PackCache()
@@ -1546,3 +1633,93 @@ def packed_for(
     on device paths: warm working sets come back resident (zero host work),
     mutated ones delta-repack O(changed rows)."""
     return PACK_CACHE.get_packed(bitmaps, keys_filter, device)
+
+
+def _pending_bytes(value) -> int:
+    """The flat rows an entry weighs but has not built yet: a working set
+    is admitted with its flat rows' weight, and the rows are expanded on
+    the device at first touch (or never, when that expansion failed)."""
+    return sum(
+        pg.words_nbytes for pg in PackCache._packed_parts(value)
+        if pg._device_words is None
+    )
+
+
+def _reconcile_sides():
+    """``(ledger bytes, entries, entry-sum bytes, gauge bytes, {CUDA
+    device: [bytes held, bytes pending]})`` over every live cache."""
+    lb = en = es = 0
+    on_cuda: Dict[torch.device, List[int]] = {}
+    with _ALL_CACHES_LOCK:
+        caches = list(_ALL_CACHES)
+    for cache in caches:
+        with cache._lock:
+            lb += cache._bytes
+            en += len(cache._entries)
+            for e in cache._entries.values():
+                es += e.nbytes
+                d = _value_device(e.value)
+                if d.type == "cuda":
+                    pending = _pending_bytes(e.value)
+                    side = on_cuda.setdefault(d, [0, 0])
+                    side[0] += e.nbytes - pending
+                    side[1] += pending
+    gauge = sum(_PACK_RESIDENT.series().values())
+    return lb, en, es, gauge, on_cuda
+
+
+def hbm_reconciliation() -> dict:
+    """Reconcile the pack caches' resident-bytes accounting against
+    independent ground truth and export the drift as
+    ``rb_tpu_hbm_accounting_drift_bytes{source}``:
+
+    * ``ledger`` — the ``rb_tpu_pack_cache_resident_bytes`` gauge total
+      minus the caches' own entry-byte ledgers (every live cache). Both
+      move in the same locked code paths, so a nonzero drift is an
+      accounting bug;
+    * ``device`` — the bytes of the entries held on CUDA devices minus
+      ``torch.cuda.memory_allocated`` of those devices. The card holds
+      more than the pack cache (payloads in flight, scratch, results),
+      so this drift is expected to be negative; a positive drift means
+      the cache accounts for memory the allocator does not hold. An entry
+      is weighed by its flat rows from admission, but builds them at
+      first touch: rows not built yet (``device_pending_bytes``) are left
+      out of the held side, so a working set between admission and its
+      expansion, or whose expansion failed, shows as pending, not as
+      drift. The device side is read only when CUDA is already
+      initialized in this process and an entry lives on a card: a
+      monitoring read never initializes CUDA or probes for a device, and
+      with no entry on a card the report has no device keys.
+
+    Two consecutive equal reads of the ledger side make one report, so an
+    admission or eviction between the ledger scan and the gauge read
+    cannot show as drift. Returns the report."""
+    prev = _reconcile_sides()
+    for _ in range(4):
+        cur = _reconcile_sides()
+        if cur == prev:
+            break
+        prev = cur
+    ledger_bytes, entries, entry_sum, gauge_bytes, on_cuda = prev
+    ledger_drift = int(gauge_bytes - ledger_bytes)
+    _HBM_DRIFT.set(ledger_drift, ("ledger",))
+    report = {
+        "gauge_bytes": int(gauge_bytes),
+        "ledger_bytes": int(ledger_bytes),
+        "entry_sum_bytes": int(entry_sum),
+        "entries": entries,
+        "ledger_drift_bytes": ledger_drift,
+    }
+    if on_cuda and torch.cuda.is_initialized():
+        in_use = {str(d): int(torch.cuda.memory_allocated(d)) for d in on_cuda}
+        resident = int(sum(held for held, _pending in on_cuda.values()))
+        device_drift = resident - sum(in_use.values())
+        _HBM_DRIFT.set(device_drift, ("device",))
+        report.update(
+            device_resident_bytes=resident,
+            device_pending_bytes=int(sum(p for _held, p in on_cuda.values())),
+            device_bytes_in_use=int(sum(in_use.values())),
+            device_bytes_by_device=in_use,
+            device_drift_bytes=int(device_drift),
+        )
+    return report

@@ -44,14 +44,24 @@ executing one query, one node, one dispatch at a time.
    assembly helpers as its solo twin.
 
 3. **Priced verdict.** Each window prices batch against solo with the
-   fusion-batch authority (``cost/fusion.py``) and runs fused or serial.
-   The fused attempt has no degradation: a failure inside a merged tier
-   (a kernel, the device) raises out of :func:`execute_fused`, after
-   aborting every in-flight claim the window holds.
+   fusion-batch authority (``cost/fusion.py``), records the verdict as a
+   ``fusion.batch`` decision whose measured wall the outcome ledger joins
+   (the authority's ``refit_from_outcomes`` reads those joins), and runs
+   fused or serial. The fused attempt holds the ``query.fusion`` fault
+   site. It has no degradation: where the JAX package's ``query.fusion``
+   ladder re-runs a failed window per query, a failure here (an injected
+   fault, or a kernel or the device inside a merged tier, after aborting
+   every in-flight claim the window holds) raises out of
+   :func:`execute_fused`, so the outcome ``degraded`` never counts.
 
-``STEP_COUNTS`` counts the window's step fates: ``executed`` (unique
-steps the cache could not serve), ``deduped`` (steps shared across the
-window's queries) and ``merged`` (steps that rode a merged dispatch).
+Metrics, with the JAX package's names: windows by outcome
+(``rb_tpu_fusion_batch_total{outcome}``: fused | per-query | degraded),
+queries through windows, step fates (``rb_tpu_fusion_steps_total{kind}``:
+executed, deduped, merged — ``STEP_COUNTS`` is a view of it), the batch
+wall and the per-query queue wait (``rb_tpu_fusion_batch_seconds
+{phase}``), the queue depth over every live executor
+(``rb_tpu_fusion_queued_count``, the ``fusion-queue-stall`` rule's
+signal) and the effective window bound (``rb_tpu_fusion_window_count``).
 
 **Windowing:** :func:`execute_fused` is the synchronous batch entry;
 :class:`FusionExecutor` is the serving shape — ``submit()`` returns a
@@ -61,10 +71,11 @@ future, a drain loop coalesces up to ``RB_TPU_FUSION_WINDOW`` queries
 ``RB_TPU_FUSION=off`` (or ``configure(enabled=False)``) reduces
 :func:`execute_fused` to the plain serial loop.
 
-Left out here, relative to the JAX package: the observability counters
-and decision record, the ``query.fusion`` ladder (the port raises), the
-hedged solo dispatch, tenant budgets and the window autotune (they need
-the serving tier).
+Left out here, relative to the JAX package: the hedged solo dispatch,
+tenant budgets and the window autotune (``autotune_window``, the health
+sentinel's ``autotune`` target), which need the serving tier (ROADMAP
+Queue A item 5); ``rb_tpu_fusion_hedge_total`` is registered and stays
+empty until then.
 """
 
 from __future__ import annotations
@@ -79,8 +90,14 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import observe as _observe
 from ..cost import fusion as _fusion_cost
 from ..models.roaring import RoaringBitmap
+from ..observe import context as _context
+from ..observe import decisions as _decisions
+from ..observe import outcomes as _outcomes
+from ..observe import timeline as _timeline
+from ..robust import faults as _faults
 from ..robust.ladder import deadline_expired, deadline_scope
 from . import exec as _exec
 from . import inflight as _inflight
@@ -88,13 +105,79 @@ from .cache import DEFAULT_CACHE, ResultCache, cache_key, leaf_fps_current
 from .expr import Expr
 from .plan import Plan, PlanStep
 
+_BATCH_TOTAL = _observe.counter(
+    _observe.FUSION_BATCH_TOTAL,
+    "Fusion windows drained, by execution outcome "
+    "(fused | per-query | degraded)",
+    ("outcome",),
+)
+_QUERIES_TOTAL = _observe.counter(
+    _observe.FUSION_QUERIES_TOTAL,
+    "Queries that entered a fusion window",
+)
+_STEPS_TOTAL = _observe.counter(
+    _observe.FUSION_STEPS_TOTAL,
+    "Window plan-step fates (executed = unique steps run, deduped = "
+    "steps shared across the window's queries, merged = steps that rode "
+    "a merged-tier dispatch)",
+    ("kind",),
+)
+_BATCH_SECONDS = _observe.latency_histogram(
+    _observe.FUSION_BATCH_SECONDS,
+    "Fusion latencies by phase (batch = drained-window execution wall, "
+    "queued = per-query wait in the window queue)",
+    ("phase",),
+)
+_QUEUED_COUNT = _observe.gauge(
+    _observe.FUSION_QUEUED_COUNT,
+    "Queries currently waiting across every live fusion window queue "
+    "(the fusion-queue-stall sentinel rule's depth signal)",
+)
+_HEDGE_TOTAL = _observe.counter(
+    _observe.FUSION_HEDGE_TOTAL,
+    "Joint priced batch-vs-solo verdicts for budgeted requests (window "
+    "= rode the forming window, solo = hedged solo dispatch through the "
+    "in-flight dedup table because the window would blow the tenant's "
+    "p99 budget)",
+    ("verdict",),
+)
+_WINDOW_COUNT = _observe.gauge(
+    _observe.FUSION_WINDOW_COUNT,
+    "Effective fusion window bound (queries per drained batch) — the "
+    "serving-p99-pressure actuation auto-tunes this between "
+    "RB_TPU_FUSION_WINDOW_MIN and the configured base from the fusion "
+    "authority's refitted curves",
+)
+
 # the window's step fates, summed over every window of the process
-STEP_COUNTS = {"executed": 0, "deduped": 0, "merged": 0}
+STEP_KINDS = ("executed", "deduped", "merged")
+STEP_COUNTS = _observe.CounterMap(_STEPS_TOTAL, scalar=True)
 
 
 def reset_counts() -> None:
-    for k in STEP_COUNTS:
+    for k in STEP_KINDS:
         STEP_COUNTS[k] = 0
+
+
+reset_counts()
+
+# per-executor queue depths folded into ONE gauge value: a process may run
+# several FusionExecutors, and letting each .set() the shared series would
+# have a healthy executor's drains overwrite a stalled one's parked depth
+_DEPTH_LOCK = threading.Lock()
+_QUEUE_DEPTHS: Dict[int, int] = {}  # id(executor) -> depth, guarded-by: _DEPTH_LOCK
+
+
+def _publish_depth(executor_id: int, depth: Optional[int]) -> None:
+    """Record one executor's live queue depth (None = executor closed)
+    and export the sum over every live executor."""
+    with _DEPTH_LOCK:
+        if depth is None:
+            _QUEUE_DEPTHS.pop(executor_id, None)
+        else:
+            _QUEUE_DEPTHS[executor_id] = depth
+        total = sum(_QUEUE_DEPTHS.values())
+    _QUEUED_COUNT.set(total)
 
 
 def _env_flag(name: str, default: bool) -> bool:
@@ -131,6 +214,10 @@ def configure(
         if max_wait_ms < 0:
             raise ValueError(f"max_wait_ms must be >= 0, got {max_wait_ms}")
         config.max_wait_ms = float(max_wait_ms)
+    _WINDOW_COUNT.set(config.window)
+
+
+_WINDOW_COUNT.set(config.window)
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +270,8 @@ def execute_fused(
             _exec.execute(q, cache=cache, mode=mode, deadline_s=deadline_s)
             for q in qs
         ]
-    return _execute_window(qs, cache, mode, deadline_s)
+    with _context.trace_scope():
+        return _execute_window(qs, cache, mode, deadline_s)
 
 
 def _execute_window(qs, cache, mode, deadline_s) -> List[RoaringBitmap]:
@@ -217,14 +305,39 @@ def _execute_window(qs, cache, mode, deadline_s) -> List[RoaringBitmap]:
         len(_group([s for s in steps if s.node.uid in live]))
         for steps in levels.values()
     )
-    STEP_COUNTS["executed"] += n_steps
-    STEP_COUNTS["deduped"] += deduped
-    if n_steps == 0 or _fusion_cost.MODEL.choose(n_steps, n_tiers) == "per-query":
+    _QUERIES_TOTAL.inc(len(qs))
+    if n_steps:
+        _STEPS_TOTAL.inc(n_steps, ("executed",))
+    if deduped:
+        _STEPS_TOTAL.inc(deduped, ("deduped",))
+    est = _fusion_cost.MODEL.estimate(n_steps, n_tiers)
+    verdict = "fused" if est["fused"] <= est["per-query"] else "per-query"
+    seq = _decisions.record_decision(
+        "fusion.batch", verdict, outcome=_outcomes.enabled(),
+        est_us=est, queries=len(qs), steps=n_steps, tiers=n_tiers,
+        deduped=deduped,
+    )
+
+    def _serial() -> List[RoaringBitmap]:
         return [
             _exec.execute(p, cache=cache, mode=mode, deadline_s=deadline_s)
             for p in plans
         ]
-    return _run_fused(plans, unique, levels, cache, deadline_s)
+
+    t0 = time.perf_counter()
+    if verdict == "per-query" or n_steps == 0:
+        with _outcomes.measure(seq, "fusion.batch", engine="per-query"):
+            out = _serial()
+        _BATCH_TOTAL.inc(1, ("per-query",))
+        _BATCH_SECONDS.observe(time.perf_counter() - t0, ("batch",))
+        return out
+
+    with _outcomes.measure(seq, "fusion.batch", engine="fused"):
+        _faults.fault_point("query.fusion")
+        out = _run_fused(plans, unique, levels, cache, deadline_s)
+    _BATCH_TOTAL.inc(1, ("fused",))
+    _BATCH_SECONDS.observe(time.perf_counter() - t0, ("batch",))
+    return out
 
 
 def _levels(unique: Dict[int, PlanStep]) -> Dict[int, List[PlanStep]]:
@@ -266,7 +379,9 @@ def _run_fused(plans, unique, levels, cache, deadline_s) -> List[RoaringBitmap]:
             if l.uid not in leaf_fps:
                 leaf_fps[l.uid] = l.fingerprint()
                 results[l.uid] = l.bitmap
-    with deadline_scope(deadline_s):
+    with _timeline.tspan(
+        "fusion.window", "fusion", queries=len(plans), steps=len(unique),
+    ), deadline_scope(deadline_s):
         for d in sorted(levels):
             for cls, steps in sorted(_group(levels[d]).items()):
                 _run_group(cls, steps, results, leaf_fps, cache)
@@ -318,7 +433,7 @@ def _run_group(cls, steps, results, leaf_fps, cache) -> None:
                 _inflight.TABLE.abort(key, entry)
         raise
     if merged:
-        STEP_COUNTS["merged"] += len(ready)
+        _STEPS_TOTAL.inc(len(ready), ("merged",))
     for (s, key, entry), val in zip(ready, vals):
         if cache is not None:
             valid = leaf_fps_current(s.node, leaf_fps)
@@ -570,6 +685,7 @@ class FusionExecutor:
             if self._closed:
                 raise RuntimeError("FusionExecutor is closed")
             self._queue.append((query, fut, t_enq, deadline))
+            _publish_depth(id(self), len(self._queue))
             if self._thread is None:
                 self._thread = threading.Thread(
                     target=self._drain_loop, name="rb-fusion", daemon=True
@@ -605,6 +721,10 @@ class FusionExecutor:
                     self._queue.popleft()
                     for _ in range(min(self._target_window(), len(self._queue)))
                 ]
+                _publish_depth(id(self), len(self._queue))
+            now = time.perf_counter()
+            for _q, _fut, t_enq, _dl in batch:
+                _BATCH_SECONDS.observe(now - t_enq, ("queued",))
             try:
                 outs = execute_fused(
                     [q for q, _f, _t, _dl in batch],
@@ -629,6 +749,9 @@ class FusionExecutor:
             t = self._thread
         if t is not None:
             t.join(timeout=10.0)
+        # a closed executor's parked depth must neither pin the stall rule
+        # firing nor mask another executor's live depth
+        _publish_depth(id(self), None)
 
     def __enter__(self) -> "FusionExecutor":
         return self

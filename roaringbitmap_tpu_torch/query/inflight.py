@@ -23,13 +23,25 @@ exception.
 Bounds: one leaf lock around a plain dict; entries exist only while a
 computation is in flight, so the table is bounded by executor concurrency.
 Joiner waits carry a timeout (default 30 s): a wedged owner sends the
-joiner back to computing the node itself, never into a deadlock.
+joiner back to computing the node itself, never into a deadlock. Every
+event counts in ``rb_tpu_query_inflight_total{event}`` (lead | join |
+stale | fail), as in the JAX package.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Optional, Tuple
+
+from .. import observe as _observe
+
+_INFLIGHT_TOTAL = _observe.counter(
+    _observe.QUERY_INFLIGHT_TOTAL,
+    "In-flight dedup table events (lead = became owner, join = joined a "
+    "pending computation, stale = completion failed fingerprint "
+    "validation, fail = owner raised)",
+    ("event",),
+)
 
 # a joiner never waits forever on a wedged owner: past this it recomputes
 DEFAULT_JOIN_TIMEOUT_S = 30.0
@@ -69,6 +81,7 @@ class InflightTable:
                 entry = self._pending[key] = _Entry()
                 self.leads += 1
                 owner = True
+        _INFLIGHT_TOTAL.inc(1, ("lead" if owner else "join",))
         return owner, entry
 
     def complete(self, key: tuple, entry: _Entry, value, valid: bool) -> None:
@@ -80,6 +93,7 @@ class InflightTable:
         if not valid:
             with self._lock:
                 self.stale += 1
+            _INFLIGHT_TOTAL.inc(1, ("stale",))
         self._remove(key, entry)
         entry.event.set()
 
@@ -87,6 +101,7 @@ class InflightTable:
         """Owner failure: wake joiners empty-handed (they recompute —
         inheriting the owner's exception would couple unrelated queries'
         failures)."""
+        _INFLIGHT_TOTAL.inc(1, ("fail",))
         self._remove(key, entry)
         entry.event.set()
 

@@ -27,11 +27,10 @@ Two ways to arm faults:
 ``suspended()`` masks every fault on the current thread (a no-fault
 reference run mid-schedule).
 
-:data:`SITES` lists the sites that have a call site in this package. The
-JAX package's other sites (``query.fusion``, ``query.hedge``,
-``serve.admit``, ``epoch.flip``, ``columnar.kernel``, ``columnar.device``,
-``native.entry``, ``serve.maintain``, ``durable.persist``) come with the
-modules that call them (ROADMAP Queue A).
+:data:`SITES` lists the sites that have a call site in this package, in
+the JAX package's order. The JAX package's other sites (``query.hedge``,
+``serve.admit``, ``epoch.flip``, ``serve.maintain``, ``durable.persist``)
+come with the serving and durable tiers (ROADMAP Queue A items 5 and 6).
 """
 
 from __future__ import annotations
@@ -54,6 +53,10 @@ SITES: Tuple[str, ...] = (
     "store.expand",      # device-side payload expansion, also on the overlap lane
     "ops.dispatch",      # kernel launch: reduce, popcount, expand, threshold (ops/kernels.py)
     "query.exec",        # query executor device-engine step dispatch
+    "query.fusion",      # fused micro-batch execution (query/fusion.py)
+    "columnar.kernel",   # columnar native batch-kernel entry (columnar/kernels.py)
+    "columnar.device",   # columnar device-tier entry (columnar/device.py)
+    "native.entry",      # native host tier entry (native/__init__.py)
     "pack_cache.budget", # resident pack-cache byte-budget admission
 )
 

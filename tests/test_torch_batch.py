@@ -637,3 +637,56 @@ def test_cuda_entry_points_match_the_cpu_device_path(workload, matrices):
         assert K.LAUNCHES["rb_pairwise_and_card"] == before + 1
         assert np.array_equal(got, tb.pairwise_and_cardinality(tl, tr, impl=impl, device=CPU))
     assert np.array_equal(tb.pairwise_jaccard(tl, tr, device="cuda"), tb.pairwise_jaccard(tl, tr, device=CPU))
+
+
+# ---------------------------------------------------------------------------
+# the batch spans and the registry-backed PAIRWISE_COUNTS
+# ---------------------------------------------------------------------------
+
+
+def _span_counts(tracing_mod):
+    return {k: v["count"] for k, v in tracing_mod.timings().items() if k.startswith("batch.")}
+
+
+def test_batch_spans_match_the_jax_package(workload, matrices):
+    from roaringbitmap_tpu import tracing as jtracing
+
+    from roaringbitmap_tpu_torch import tracing as ttracing
+
+    jf, tf, jmany, tmany = workload
+    jl, tl, jr, tr = matrices
+    t0, j0 = _span_counts(ttracing), _span_counts(jtracing)
+    for op in ("and", "andnot"):
+        tb.batched_cardinality(tf, tmany, op=op, device=CPU)
+        jb.batched_cardinality(jf, jmany, op=op)
+    run_t = tb.prepare_batched_cardinality(tf, tmany, device=CPU)
+    run_j = jb.prepare_batched_cardinality(jf, jmany)
+    assert np.array_equal(run_t(), run_j()) and np.array_equal(run_t(), run_j())
+    for impl in ("vpu", "mxu"):
+        tb.pairwise_and_cardinality(tl, tr, impl=impl, device=CPU)
+        jb.pairwise_and_cardinality(jl, jr, impl=impl)
+    t_delta = {k: v - t0.get(k, 0) for k, v in _span_counts(ttracing).items()}
+    j_delta = {k: v - j0.get(k, 0) for k, v in _span_counts(jtracing).items()}
+    assert t_delta == j_delta == {
+        "batch.one_vs_many.and": 3, "batch.one_vs_many.andnot": 1,
+        "batch.pairwise.vpu": 1, "batch.pairwise.mxu": 1,
+    }
+    spans = tpkg.observe.span_timings()
+    assert "batch.pairwise.mxu" in spans
+
+
+def test_pairwise_counts_are_the_registry_counter(matrices):
+    import roaringbitmap_tpu_torch.observe as tobs
+
+    from roaringbitmap_tpu_torch import insights
+
+    _jl, tl, _jr, tr = matrices
+    metric = tobs.REGISTRY.get(tobs.BATCH_PAIRWISE_TOTAL)
+    assert tb.PAIRWISE_COUNTS.metric is metric
+    before = metric.get(("vpu",))
+    tb.pairwise_and_cardinality(tl, tr, impl="vpu", device=CPU)
+    assert metric.get(("vpu",)) == tb.PAIRWISE_COUNTS["vpu"] == before + 1
+    assert insights.dispatch_counters()["pairwise"] == dict(tb.PAIRWISE_COUNTS)
+    assert tobs.sidecar_snapshot()["pairwise"]["vpu"] == before + 1
+    insights.reset_dispatch_counters()
+    assert dict(tb.PAIRWISE_COUNTS) == {"mxu": 0, "vpu": 0}

@@ -36,6 +36,11 @@ from roaringbitmap_tpu.parallel import store as jstore
 from roaringbitmap_tpu.parallel.aggregation import FastAggregation as JFA
 from roaringbitmap_tpu.query import kernels as jqk
 
+import roaringbitmap_tpu.observe as jobs
+from roaringbitmap_tpu.columnar import engine as jengine
+from roaringbitmap_tpu.observe import decisions as jdecisions
+from roaringbitmap_tpu.observe import outcomes as joutcomes
+
 from roaringbitmap_tpu_torch import FastAggregation as TFA
 from roaringbitmap_tpu_torch import ParallelAggregation as TPA
 from roaringbitmap_tpu_torch import RoaringBitmap as TRB
@@ -52,6 +57,12 @@ from roaringbitmap_tpu_torch.parallel import store as tstore
 from roaringbitmap_tpu_torch.query import kernels as tqk
 from roaringbitmap_tpu_torch.robust.errors import TierUnavailable
 from roaringbitmap_tpu_torch.utils import datasets as tdatasets
+import roaringbitmap_tpu_torch.observe as tobs
+from roaringbitmap_tpu_torch import insights as tinsights
+from roaringbitmap_tpu_torch.observe import decisions as tdecisions
+from roaringbitmap_tpu_torch.observe import outcomes as toutcomes
+from roaringbitmap_tpu_torch.robust import errors as terrors
+from roaringbitmap_tpu_torch.robust import faults as tfaults
 
 OPS = ("and", "or", "xor", "andnot")
 TIERS = ("cpu", "device")
@@ -822,3 +833,284 @@ def test_cuda_device_tier_matches_the_cpu_device_path(op, monkeypatch):
     got = tcol.pairwise_multi(op, pairs, tier="device")
     assert K.LAUNCHES["rb_pair_rows"] == before + 1
     assert [g.serialize() for g in got] == [w.serialize() for w in want]
+
+
+# ---------------------------------------------------------------------------
+# the cutoff decision log, the outcome join, the refit and the fault sites
+# ---------------------------------------------------------------------------
+
+
+
+
+def _cal_state(backend="cpu"):
+    """A calibrated cost table whose argmin moves with the count and the
+    shape, the same dict for both packages."""
+    table = {
+        "per-container": {"array": [2.0, 1.5], "bitmap": [2.0, 9.0], "run": [2.0, 14.0]},
+        "columnar-cpu": {"array": [90.0, 1.2], "bitmap": [80.0, 2.0], "run": [70.0, 1.0]},
+        "columnar-device": {"array": [400.0, 0.9], "bitmap": [300.0, 0.4], "run": [350.0, 0.5]},
+    }
+    slower = {e: {s: [c[0] * 1.5, c[1] * 1.25] for s, c in v.items()} for e, v in table.items()}
+    return {
+        "schema": jcost.SCHEMA, "backend": backend, "calibrated": True,
+        "coeffs": {"and": table, "or": slower}, "ship_us_per_row": 3.0,
+        "fold_rows_min": 96, "provenance": "calibrated",
+    }
+
+
+@pytest.fixture
+def calibrated(monkeypatch):
+    """Both packages' cost models on the same calibrated table, the
+    outcome ledgers and the cutoff's registry series empty, and fresh
+    below-gate samplers (their counters are process-wide)."""
+    monkeypatch.setattr(tengine, "_BELOW_GATE", tdecisions.SampledSite(64))
+    monkeypatch.setattr(jengine, "_BELOW_GATE", jdecisions.SampledSite(64))
+    assert tcost.SCHEMA == jcost.SCHEMA
+    assert tcost.MODEL.from_dict(_cal_state(), check_backend=False)
+    assert jcost.MODEL.from_dict(_cal_state(), check_backend=False)
+    for mod in (toutcomes, joutcomes):
+        mod.reset()
+    for obs in (tobs, jobs):
+        obs.REGISTRY.get(obs.COSTMODEL_DRIFT_RATIO).clear()
+        obs.REGISTRY.get(obs.COLUMNAR_BATCH_TOTAL).clear()
+    tdecisions.LOG.clear()
+    jdecisions.LOG.clear()
+    yield
+    for mod in (toutcomes, joutcomes):
+        mod.reset()
+
+
+def _cutoff_entries(dec):
+    return [
+        (e["decision"], {k: v for k, v in (e.get("inputs") or {}).items()})
+        for e in dec.decisions() if e["site"] == "columnar.cutoff"
+    ]
+
+
+def _routing_corpus(rng):
+    shapes = {
+        "arrays-20": ["array"] * 20,
+        "bitmaps-20": ["array", "bitmap"] * 10,
+        "runs-20": ["array", "run"] * 10,
+        "runs-80": ["run", "array"] * 40,
+        "bitmaps-200": ["bitmap", "array"] * 100,
+        "few": ["run"] * 5,
+    }
+    return {k: _typed(v, rng) for k, v in shapes.items()}
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_calibrated_verdicts_and_cutoff_inputs_match_jax(op, calibrated):
+    built = _routing_corpus(np.random.default_rng(131))
+    verdicts = []
+    for _ka, (ja, ta) in built.items():
+        for _kb, (jb, tb) in built.items():
+            got = tcol.route(ta.high_low_container, tb.high_low_container, op=op)
+            want = jcol.route(ja.high_low_container, jb.high_low_container, op=op)
+            assert str(got) == str(want)
+            assert (getattr(got, "seq", None) is None) == (getattr(want, "seq", None) is None)
+            verdicts.append(str(got))
+    assert _cutoff_entries(tdecisions) == _cutoff_entries(jdecisions)
+    assert {"per-container", "columnar-cpu"} <= set(verdicts)
+    entries = _cutoff_entries(tdecisions)
+    assert entries and all(inputs["resident"] is False for _d, inputs in entries
+                           if "est_us" in inputs)
+
+
+def test_verdict_carries_its_serial_and_the_facade_joins_it(calibrated):
+    (_, a), (_, b) = _random_pair(np.random.default_rng(137), n_keys=40)
+    tier = tcol.route(a.high_low_container, b.high_low_container, op="or")
+    assert isinstance(tier, tcol.Verdict) and tier.seq is not None
+    assert tier == str(tier) and hash(tier) == hash(str(tier))
+    before = len(toutcomes.tail())
+    with tcol.disabled():
+        want = TRB.or_(a, b)
+    assert TRB.or_(a, b) == want
+    joined = toutcomes.tail()[before:]
+    assert [e["site"] for e in joined] == ["columnar.cutoff"]
+    assert joined[0]["engine"] in tcost.ENGINES and joined[0]["predicted_us"] is not None
+    # provenance-only verdicts (the count facades) park no pending join
+    pending = toutcomes.LEDGER.pending_count()
+    assert tcol.enabled_for(a.high_low_container, b.high_low_container) in (True, False)
+    assert toutcomes.LEDGER.pending_count() == pending
+
+
+def test_outcome_joins_set_the_same_drift_cells_as_jax(calibrated):
+    built = _routing_corpus(np.random.default_rng(139))
+    rng = np.random.default_rng(5)
+    for (ja, ta), (jb, tb) in zip(built.values(), list(built.values())[1:]):
+        for op in ("and", "or"):
+            measured = float(rng.uniform(1e-5, 2e-3))
+            for col, dec_mod, out_mod, a, b in ((tcol, tdecisions, toutcomes, ta, tb),
+                                                (jcol, jdecisions, joutcomes, ja, jb)):
+                v = col.route(a.high_low_container, b.high_low_container, op=op)
+                if getattr(v, "seq", None) is not None:
+                    out_mod.resolve(v.seq, "columnar.cutoff", measured, engine=str(v))
+    t_drift = tobs.REGISTRY.get(tobs.COSTMODEL_DRIFT_RATIO).series()
+    j_drift = jobs.REGISTRY.get(jobs.COSTMODEL_DRIFT_RATIO).series()
+    assert t_drift == j_drift and t_drift
+    assert toutcomes.drift() == joutcomes.drift()
+    assert toutcomes.samples() == joutcomes.samples()
+
+
+def _refit_samples(seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(60):
+        engine = str(rng.choice(tcost.ENGINES))
+        shape = str(rng.choice(tcost.SHAPES))
+        n = int(rng.integers(16, 300))
+        out.append({"op": str(rng.choice(OPS)), "engine": engine, "shape": shape, "n": n,
+                    "measured_us": float(40 + 3 * n * rng.uniform(0.5, 1.5))})
+    out += [
+        {"op": "and", "engine": "columnar-cpu", "shape": "run", "n": 50, "measured_us": 1e9},
+        {"op": "and", "engine": "bogus", "shape": "run", "n": 50, "measured_us": 10.0},
+        {"op": "and", "engine": "columnar-cpu", "shape": "run", "n": 50, "measured_us": float("nan")},
+        {"engine": "columnar-cpu"},
+    ]
+    return out
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_refit_from_outcomes_moves_the_same_cells_as_jax(seed, calibrated):
+    samples = _refit_samples(seed)
+    got = tcost.refit_from_outcomes(samples=samples, persist="")
+    want = jcost.refit_from_outcomes(samples=samples, persist="")
+    assert got == want and got["moved"] and got["rejected"] >= 3
+    assert tcost.MODEL.coeffs == jcost.MODEL.coeffs
+    assert tcost.MODEL.provenance == jcost.MODEL.provenance == "refit-from-traffic"
+    assert tdecisions.decisions(1)[0]["site"] == "costmodel.refit"
+
+
+def test_refit_reads_the_live_ledger_and_refuses_an_uncalibrated_model(calibrated):
+    built = _routing_corpus(np.random.default_rng(149))
+    rng = np.random.default_rng(9)
+    pairs = list(built.values())
+    for _ in range(3):
+        for (ja, ta), (jb, tb) in zip(pairs, pairs[1:]):
+            measured = float(rng.uniform(1e-4, 1e-3))
+            for col, out_mod, a, b in ((tcol, toutcomes, ta, tb), (jcol, joutcomes, ja, jb)):
+                v = col.route(a.high_low_container, b.high_low_container, op="and")
+                if getattr(v, "seq", None) is not None:
+                    out_mod.resolve(v.seq, "columnar.cutoff", measured, engine=str(v))
+    got = tcost.refit_from_outcomes(min_samples=2)
+    want = jcost.refit_from_outcomes(min_samples=2)
+    assert got == want and got["samples"] > 0
+    tcost.MODEL.reset()
+    jcost.MODEL.reset()
+    assert tcost.refit_from_outcomes(samples=[]) == jcost.refit_from_outcomes(samples=[])
+
+
+def test_below_gate_verdicts_are_sampled_one_in_64(monkeypatch):
+    monkeypatch.setattr(tengine, "_BELOW_GATE", tdecisions.SampledSite(64))
+    monkeypatch.setattr(jengine, "_BELOW_GATE", jdecisions.SampledSite(64))
+    tdecisions.LOG.clear()
+    jdecisions.LOG.clear()
+    (ja, ta) = _typed(["run"] * 4, np.random.default_rng(151))
+    for _ in range(130):
+        assert tcol.route(ta.high_low_container, ta.high_low_container) == "per-container"
+        jcol.route(ja.high_low_container, ja.high_low_container)
+    got, want = _cutoff_entries(tdecisions), _cutoff_entries(jdecisions)
+    assert got == want and len(got) == 2
+    assert got[0] == ("per-container", {"reason": "outside-gate", "sampled": 64, "na": 4, "nb": 4})
+    with pytest.raises(ValueError):
+        tdecisions.SampledSite(48)
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_columnar_counters_and_class_spans_match_jax(op):
+    (ja, ta), (jb, tb) = _nine_class_pair(np.random.default_rng(157))
+    for obs in (tobs, jobs):
+        obs.REGISTRY.get(obs.COLUMNAR_BATCH_TOTAL).clear()
+    tcol.pairwise(op, ta, tb, tier="cpu")
+    jcol.pairwise(op, ja, jb, tier="cpu")
+    from roaringbitmap_tpu import insights as jinsights
+
+    assert tinsights.columnar_counters()["batch"] == jinsights.columnar_counters()["batch"]
+    assert tengine.BATCH_COUNTS == tinsights.columnar_counters()["batch"]
+    spans = tobs.REGISTRY.get(tobs.COLUMNAR_CLASS_SECONDS).series()
+    assert any(lv[0] == op for lv in spans)
+    model = tinsights.columnar_costmodel()
+    assert model["fold_gate_rows"] == tcost.MODEL.fold_gate_rows()
+    assert set(tinsights.columnar_counters()["route"]) >= set()
+
+
+def test_router_records_the_residency_of_both_sides(calibrated, monkeypatch):
+    monkeypatch.setattr(tcost.CostModel, "device_eligible", lambda self: True)
+    (_, a), (_, b) = _random_pair(np.random.default_rng(163))
+    assert not tdevice.rows_resident(a) and not tdevice.rows_resident(b)
+
+    def last_resident():
+        tcol.route(a.high_low_container, b.high_low_container, op="or")
+        return tdecisions.decisions(1)[0]["inputs"]["resident"]
+
+    assert last_resident() is False
+    rows = tdevice.rows_for(a)
+    assert tdevice.rows_resident(a) and not tdevice.rows_resident(b)
+    assert last_resident() is False  # one side only
+    tdevice.rows_for(b)
+    assert tdevice.rows_resident_hlc(b.high_low_container)
+    assert last_resident() is True
+    assert rows.numel() * 4 == 2048 * 4 * a.get_container_count()
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_transient_device_fault_is_retried_and_exact(op):
+    rng = np.random.default_rng(167)
+    (_, a), (_, b) = _random_pair(rng)
+    want = tcol.pairwise(op, a, b, tier="cpu")
+    key = ("columnar.device", "recovered")
+    retries = tobs.REGISTRY.get(tobs.RETRY_TOTAL)
+    before = retries.get(key)
+    with tfaults.inject("columnar.device", every=1, times=1) as inj:
+        got = tcol.pairwise(op, a, b, tier="device")
+    assert inj.fired == 1 and got == want
+    assert retries.get(key) == before + 1
+    with tfaults.inject("columnar.device", every=1, times=1) as inj:
+        multi = tcol.pairwise_multi(op, [(a, b), (b, a)], tier="device")
+    assert inj.fired == 1 and multi == [want, tcol.pairwise(op, b, a, tier="cpu")]
+
+
+def test_device_fault_that_is_not_transient_raises():
+    (_, a), (_, b) = _random_pair(np.random.default_rng(173))
+    with tfaults.inject("columnar.device", terrors.ResourceExhausted, every=1):
+        with pytest.raises(terrors.ResourceExhausted):
+            tcol.pairwise("or", a, b, tier="device")
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_kernel_fault_raises_classified_on_the_native_tier(op):
+    tnative.set_tier("native")
+    (_, a), (_, b) = _nine_class_pair(np.random.default_rng(179))
+    with tfaults.inject("columnar.kernel", every=1, times=1) as inj:
+        with pytest.raises(terrors.TransientDeviceError) as ei:
+            tcol.pairwise(op, a, b, tier="cpu")
+    assert inj.fired == 1 and terrors.classify(ei.value) == terrors.TRANSIENT
+    tnative.set_tier("numpy")
+    with tfaults.inject("columnar.kernel", every=1) as inj:  # the numpy tier holds no site
+        tcol.pairwise(op, a, b, tier="cpu")
+    assert inj.fired == 0
+
+
+@pytest.mark.cuda
+def test_cuda_device_tier_retries_a_transient_fault_and_a_kernel_fault_raises(monkeypatch):
+    """Phase 17 (e) on the card: the device tier with a transient
+    ``columnar.device`` fault is retried on the card and equals the CPU
+    tier; a ``columnar.kernel`` fault on the native tier raises,
+    classified."""
+    _need_card()
+    rng = np.random.default_rng(181)
+    (_, a), (_, b) = _random_pair(rng)
+    want = tcol.pairwise("or", a, b, tier="cpu")
+    monkeypatch.setattr(aggregation.config, "device", "cuda")
+    before = K.LAUNCHES["rb_pair_rows"]
+    with tfaults.inject("columnar.device", every=1, times=1) as inj:
+        got = tcol.pairwise("or", a, b, tier="device")
+    assert inj.fired == 1 and got == want
+    assert K.LAUNCHES["rb_pair_rows"] == before + 1
+    assert tdevice.rows_resident(a) and tdevice.rows_resident(b)
+    tnative.set_tier("native")
+    with tfaults.inject("columnar.kernel", every=1, times=1):
+        with pytest.raises(terrors.TransientDeviceError) as ei:
+            tcol.pairwise("and", a, b, tier="cpu")
+    assert terrors.classify(ei.value) == terrors.TRANSIENT

@@ -38,6 +38,11 @@ from roaringbitmap_tpu.query import fusion as jfusion
 from roaringbitmap_tpu.query import inflight as jinflight
 from roaringbitmap_tpu.query import plan as jplan
 
+import roaringbitmap_tpu.observe as jobs
+from roaringbitmap_tpu.observe import decisions as jdecisions
+from roaringbitmap_tpu.observe import export as jexport
+from roaringbitmap_tpu.observe import outcomes as joutcomes
+
 from roaringbitmap_tpu_torch import RoaringBitmap as TRB
 from roaringbitmap_tpu_torch import columnar as tcol
 from roaringbitmap_tpu_torch import native as tnative
@@ -50,6 +55,13 @@ from roaringbitmap_tpu_torch.parallel import aggregation, store
 from roaringbitmap_tpu_torch.query import exec as texec
 from roaringbitmap_tpu_torch.query import fusion
 from roaringbitmap_tpu_torch.query import inflight
+import roaringbitmap_tpu_torch.observe as tobs
+from roaringbitmap_tpu_torch import insights as tinsights
+from roaringbitmap_tpu_torch.observe import decisions as tdecisions
+from roaringbitmap_tpu_torch.observe import export as texport
+from roaringbitmap_tpu_torch.observe import outcomes as toutcomes
+from roaringbitmap_tpu_torch.robust import faults as tfaults
+from roaringbitmap_tpu_torch.robust.errors import TransientDeviceError
 
 MODES = (None, "device")
 HOST_TIERS = ("numpy", "native")
@@ -550,3 +562,109 @@ def test_routed_facade_answers_without_a_card_under_the_default_config(n_keys, m
         want = getattr(JRB, name)(ja, jb)
         assert got.serialize() == want.serialize(), name
     assert not tcost.MODEL.calibrated
+
+
+# ---------------------------------------------------------------------------
+# the fusion counters, the decision record and the fault site
+# ---------------------------------------------------------------------------
+
+
+
+_FUSION_METRICS = ("FUSION_BATCH_TOTAL", "FUSION_QUERIES_TOTAL", "FUSION_STEPS_TOTAL",
+                   "QUERY_INFLIGHT_TOTAL")
+
+
+def _clear_fusion_metrics():
+    for obs in (tobs, jobs):
+        for name in _FUSION_METRICS:
+            obs.REGISTRY.get(getattr(obs, name)).clear()
+    tdecisions.LOG.clear()
+    jdecisions.LOG.clear()
+
+
+def _fusion_decisions(dec):
+    return [(e["decision"], e.get("inputs")) for e in dec.decisions() if e["site"] == "fusion.batch"]
+
+
+def _counters(obs):
+    snap = obs.REGISTRY.snapshot()
+    return {
+        name: sorted((tuple(s["labels"].items()), s["value"]) for s in snap[getattr(obs, name)]["samples"])
+        for name in _FUSION_METRICS
+    }
+
+
+@pytest.mark.parametrize("cached", [False, True])
+@pytest.mark.parametrize("name", sorted(WINDOWS))
+def test_fusion_counters_and_decision_records_match_the_jax_package(name, cached):
+    tqs, jqs = _window(name)
+    # mode="device": the two planners choose the same engines (the default
+    # mode's choice depends on each package's device configuration)
+    for tq_, jq_ in zip(tqs, jqs):
+        tp, jp = tq.plan(tq_, mode="device"), jplan(jq_, mode="device")
+        assert [s.engine for s in tp.steps] == [s.engine for s in jp.steps]
+    _clear_fusion_metrics()
+    t_cache = tq.ResultCache(max_entries=64) if cached else None
+    j_cache = JResultCache(max_entries=64) if cached else None
+    for _ in range(2):  # cold, then warm through the cache when there is one
+        tq.execute_fused(tqs, cache=t_cache, mode="device")
+        j_execute_fused(jqs, cache=j_cache, mode="device")
+    assert _fusion_decisions(tdecisions) == _fusion_decisions(jdecisions)
+    assert _counters(tobs) == _counters(jobs)
+    t_block = texport._fusion_block(tobs.REGISTRY.snapshot())
+    j_block = jexport._fusion_block(jobs.REGISTRY.snapshot())
+    for key in ("batches", "queries", "steps", "occupancy", "dedup_hit_ratio", "inflight"):
+        assert t_block[key] == j_block[key], key
+    assert dict(fusion.STEP_COUNTS) == t_block["steps"] == tinsights.fusion_counters()["steps"]
+    fusion.reset_counts()  # the view's keys again, at 0
+    assert dict(fusion.STEP_COUNTS) == {k: 0 for k in fusion.STEP_KINDS}
+
+
+def test_fused_window_joins_its_decision_and_the_refit_reads_the_ledger():
+    tqs, _ = _window("overlapping")
+    toutcomes.reset()
+    tq.execute_fused(tqs, cache=None)
+    joined = [e for e in toutcomes.tail() if e["site"] == "fusion.batch"]
+    assert len(joined) == 1 and joined[0]["engine"] in ("fused", "per-query")
+    assert joined[0]["predicted_us"] is not None
+    live, given = tfusion_cost.FusionBatchModel(), tfusion_cost.FusionBatchModel()
+    report = live.refit_from_outcomes(min_samples=1)  # default: the live ledger
+    assert report == given.refit_from_outcomes(samples=toutcomes.tail(), min_samples=1)
+    assert report["moved"] and live.coeffs == given.coeffs
+    toutcomes.reset()
+
+
+def test_query_fusion_fault_raises_and_counts_no_window():
+    tqs, _ = _window("overlapping")
+    _clear_fusion_metrics()
+    with tfaults.inject("query.fusion", every=1, times=1) as inj:
+        with pytest.raises(TransientDeviceError):
+            tq.execute_fused(tqs, cache=None)
+    assert inj.fired == 1
+    assert tobs.REGISTRY.get(tobs.FUSION_BATCH_TOTAL).series() == {}
+    assert inflight.TABLE.pending_count() == 0
+    got = tq.execute_fused(tqs, cache=None)  # the next window runs fused
+    assert [g.serialize() for g in got] == [texec.execute(q, cache=None).serialize() for q in tqs]
+    assert tobs.REGISTRY.get(tobs.FUSION_BATCH_TOTAL).get(("fused",)) == 1
+    fusion.reset_counts()
+
+
+def test_executor_publishes_queue_depth_and_queued_latency():
+    tqs, _ = _window("overlapping")
+    queued = tobs.REGISTRY.get(tobs.FUSION_BATCH_SECONDS)
+    before = (queued.get(("queued",)) or {"count": 0})["count"]
+    ex = fusion.FusionExecutor(window=3, max_wait_ms=1.0, cache=None)
+    try:
+        outs = ex.map(tqs)
+    finally:
+        ex.close()
+    assert [o.serialize() for o in outs] == [texec.execute(q, cache=None).serialize() for q in tqs]
+    assert queued.get(("queued",))["count"] == before + len(tqs)
+    assert tobs.REGISTRY.get(tobs.FUSION_QUEUED_COUNT).get(()) == 0
+    assert tobs.REGISTRY.get(tobs.FUSION_WINDOW_COUNT).get(()) == fusion.config.window
+    fusion.configure(window=5)
+    try:
+        assert tobs.REGISTRY.get(tobs.FUSION_WINDOW_COUNT).get(()) == 5
+        assert tinsights.fusion_counters()["window_state"] == {"effective": 5}
+    finally:
+        fusion.configure(window=8)

@@ -429,10 +429,13 @@ def test_planner_refits_from_the_live_ledger():
 # the census-shaped path and Q1, against the JAX package
 # ---------------------------------------------------------------------------
 
-# decision sites the port records (the JAX package's columnar, fusion and
-# serving sites come with their modules)
+# decision sites the port records (the JAX package's serving sites come
+# with the serving tier). ``columnar.cutoff`` is compared in
+# test_torch_columnar.py: on a device dispatch the JAX package also builds
+# its CPU fallback chain, whose fold gate records a verdict the port's
+# device-only tier list never makes (ROADMAP, departures).
 PORT_SITES = {"agg.dispatch", "query.plan", "pack_cache.admit", "pack_cache.evict",
-              "ladder.degrade", "ladder.breaker"}
+              "ladder.degrade", "ladder.breaker", "fusion.batch"}
 
 
 def _census(n=240):
@@ -548,3 +551,45 @@ def test_cuda_timeline_keeps_the_bytes_and_counts_the_launches(mode, monkeypatch
     assert launches["rb_expand_rows"] == 1 and launches["rb_popcount_rows"] == 2
     joined = [e for e in tout.tail() if e["site"] == "agg.dispatch"]
     assert len(joined) == 2 and all(e["engine"] == "device" for e in joined)
+
+
+# ---------------------------------------------------------------------------
+# the sidecar and insights surfaces of this slice, against the JAX package
+# ---------------------------------------------------------------------------
+
+# sidecar blocks and observatory keys whose sources come with the serving,
+# durable and analysis tiers (ROADMAP Queue A items 4-7)
+UNPORTED_BLOCKS = {"serial_bytes", "serving", "epochs", "structure", "durable", "analysis"}
+
+
+def test_sidecar_blocks_are_the_jax_blocks_less_the_unported():
+    from roaringbitmap_tpu.observe import export as jexport
+
+    got = set(tobs.sidecar_snapshot())
+    want = set(jexport.sidecar_snapshot())
+    assert got == want - UNPORTED_BLOCKS
+    assert {"health", "fusion", "pairwise", "lock_wait", "hbm_drift"} <= got
+
+
+def test_insights_surfaces_have_the_jax_shapes():
+    from roaringbitmap_tpu import insights as jinsights
+
+    assert set(insights.columnar_counters()) == set(jinsights.columnar_counters())
+    assert set(insights.regret_summary()) == set(jinsights.regret_summary())
+    assert set(insights.regret_summary()["provenance"]) == set(jinsights.regret_summary()["provenance"])
+    assert set(insights.health()) == set(jinsights.health())
+    assert set(insights.fusion_counters()) == set(jinsights.fusion_counters())
+    assert set(insights.observatory()) == set(jinsights.observatory()) - {
+        "serving", "epochs", "structure", "durable"
+    }
+    model = insights.columnar_costmodel()
+    assert set(model) == set(jinsights.columnar_costmodel())
+
+
+def test_new_metric_names_are_the_jax_names():
+    from roaringbitmap_tpu.observe import registry as jreg
+    from roaringbitmap_tpu_torch.observe import registry as treg
+
+    names = {k: v for k, v in vars(treg).items() if k.isupper() and isinstance(v, str)
+             and v.startswith("rb_tpu_")}
+    assert names and all(getattr(jreg, k) == v for k, v in names.items())

@@ -428,3 +428,199 @@ def test_pack_cache_hammer_threadsafe():
     st = cache.stats()
     assert st["hits"] + st["misses"] == 8 * 20 and st["entries"] == len(sets)
     cache.close()
+
+
+# ---------------------------------------------------------------------------
+# the eviction-regret ring and the residency reconciliation
+# ---------------------------------------------------------------------------
+
+
+def _recon_ok(recon):
+    assert recon["ledger_drift_bytes"] == 0
+    assert recon["gauge_bytes"] == recon["ledger_bytes"] == recon["entry_sum_bytes"]
+
+
+def test_hbm_reconciliation_ledger_agrees():
+    """The counterpart of the JAX package's test of the same name: it must
+    pass in any order, after any other test of the process."""
+    import roaringbitmap_tpu_torch.observe as tobs
+
+    store.PACK_CACHE.close()
+    recon0 = store.hbm_reconciliation()
+    assert recon0["ledger_drift_bytes"] == 0
+    bms = _working_set(seed=17, k=4)
+    packed = store.packed_for(bms, device=CPU)
+    _ = packed.device_words
+    recon = store.hbm_reconciliation()
+    assert recon["entries"] >= 1
+    _recon_ok(recon)
+    drift = tobs.REGISTRY.get(tobs.HBM_ACCOUNTING_DRIFT_BYTES)
+    assert drift.get(("ledger",)) == 0
+    store.PACK_CACHE.close()
+    assert store.hbm_reconciliation()["gauge_bytes"] == 0
+    # no card holds an entry: the report has no device keys
+    assert not any(k.startswith("device") for k in recon)
+
+
+def test_ledger_drift_is_zero_after_admit_delta_spill_and_evict():
+    from roaringbitmap_tpu_torch.robust import faults
+
+    cache = store.PackCache(max_bytes=1 << 60)
+    sets = [_working_set(seed=140 + i, k=3) for i in range(3)]
+    packs = [cache.get_packed(s, device=CPU) for s in sets]  # admit
+    _recon_ok(store.hbm_reconciliation())
+    packs[0].padded_device(0)  # a derived layout grows an entry
+    packs[1].padded_buckets_device(0)
+    _recon_ok(store.hbm_reconciliation())
+    sets[0][0].add((int(sets[0][0].high_low_container.keys[0]) << 16) | 11)
+    assert cache.get_packed(sets[0], device=CPU) is packs[0]  # delta
+    _recon_ok(store.hbm_reconciliation())
+    with faults.inject("pack_cache.budget", every=1, times=1):  # spill
+        cache.get_packed(_working_set(seed=150, k=2), device=CPU)
+    _recon_ok(store.hbm_reconciliation())
+    cache.configure(max_bytes=packs[2].words_nbytes + 1)  # evict
+    assert cache.stats()["evictions"] >= 1
+    _recon_ok(store.hbm_reconciliation())
+    cache.close()
+    recon = store.hbm_reconciliation()
+    _recon_ok(recon)
+
+
+@pytest.mark.parametrize("layouts", [False, True])
+def test_a_dropped_cache_settles_the_gauge_without_a_collection(layouts):
+    """A secondary cache dropped with resident entries (and derived
+    layouts, whose residency callbacks point back at it) is freed at once:
+    no reference cycle keeps its bytes in the process-wide gauge."""
+    import gc
+
+    cache = store.PackCache(max_bytes=1 << 60)
+    packed = cache.get_packed(_working_set(seed=160, k=3), device=CPU)
+    if layouts:
+        packed.padded_device(0)
+        packed.padded_buckets_device(0)
+    held = store.hbm_reconciliation()
+    assert held["ledger_bytes"] >= packed.words_nbytes
+    gc_was = gc.isenabled()
+    gc.disable()
+    try:
+        del cache, packed
+        recon = store.hbm_reconciliation()
+    finally:
+        if gc_was:
+            gc.enable()
+    _recon_ok(recon)
+    assert recon["gauge_bytes"] == held["gauge_bytes"] - held["ledger_bytes"] + recon["ledger_bytes"]
+    assert not [c for c in store._ALL_CACHES if c is not store.PACK_CACHE and len(c)]
+
+
+def test_eviction_regret_joins_a_remembered_working_set():
+    from roaringbitmap_tpu_torch.observe import decisions, outcomes
+
+    outcomes.reset()
+    cache = store.PackCache(max_bytes=1 << 60)
+    a, b = _working_set(seed=170, k=2), _working_set(seed=171, k=2)
+    pa = cache.get_packed(a, device=CPU)
+    cache.get_packed(b, device=CPU)
+    cache.configure(max_bytes=pa.words_nbytes + 1)  # evicts a (the LRU)
+    evict = [e for e in decisions.decisions() if e["site"] == "pack_cache.evict"][-1]
+    assert evict["inputs"]["rung"] == "discard" and evict["inputs"]["kind"] == "agg"
+    assert outcomes.LEDGER.pending_count() >= 1
+    a[0].add((int(a[0].high_low_container.keys[0]) << 16) | 3)  # a delta-mutated return
+    cache.get_packed(a, device=CPU)  # re-pack of the remembered eviction
+    joined = [e for e in outcomes.tail() if e["site"] == "pack_cache.evict"]
+    assert len(joined) == 1 and joined[0]["engine"] == "repack"
+    assert joined[0]["regret_s"] > 0 and joined[0]["seq"] == evict["seq"]
+    # a generic entry's eviction joins on its rebuild
+    key = ("threshold", "cpu", ("x",))
+    cache.get_or_build(key, lambda: ("v", 1 << 40))
+    cache.get_or_build(key, lambda: ("v", 1 << 40))  # hit
+    cache.get_packed(b, device=CPU)  # an agg entry pushes the big one out
+    assert key not in cache
+    cache.get_or_build(key, lambda: ("v", 8))
+    joined = [e for e in outcomes.tail() if e["site"] == "pack_cache.evict"]
+    # b came back too (a's return pushed it out): every agg join re-packed,
+    # the generic entry's join rebuilt
+    assert [e["engine"] for e in joined] == ["repack", "repack", "rebuild"]
+    cache.close()
+    outcomes.reset()
+
+
+def test_the_device_source_is_read_only_when_cuda_is_initialized(monkeypatch):
+    import roaringbitmap_tpu_torch.observe as tobs
+
+    cache = store.PackCache(max_bytes=1 << 60)
+    packed = cache.get_packed(_working_set(seed=180, k=2), device=CPU)
+    fake = torch.device("cuda", 0)
+    monkeypatch.setattr(store, "_value_device", lambda value: fake)
+    reads = []
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d: reads.append(d) or (3 << 30))
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    recon = store.hbm_reconciliation()
+    assert reads == [] and "device_drift_bytes" not in recon
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    recon = store.hbm_reconciliation()
+    assert reads == [fake]
+    # admitted, its flat rows not built yet: pending, not held
+    assert recon["device_resident_bytes"] == 0
+    assert recon["device_pending_bytes"] == packed.words_nbytes
+    assert recon["device_drift_bytes"] == -(3 << 30)
+    _ = packed.device_words
+    packed.padded_device(0)
+    recon = store.hbm_reconciliation()
+    resident = recon["device_resident_bytes"]
+    assert resident == recon["ledger_bytes"] > packed.words_nbytes
+    assert recon["device_pending_bytes"] == 0
+    assert recon["device_drift_bytes"] == resident - (3 << 30) < 0
+    assert recon["device_bytes_by_device"] == {"cuda:0": 3 << 30}
+    drift = tobs.REGISTRY.get(tobs.HBM_ACCOUNTING_DRIFT_BYTES)
+    assert drift.get(("device",)) == recon["device_drift_bytes"]
+    cache.close()
+    drift.clear()  # the synthetic device source goes with it
+
+
+def test_a_failed_expansion_shows_as_pending_not_as_drift(monkeypatch):
+    """A working set admitted whose device expansion then failed keeps its
+    weight in the ledger, but holds no rows: the device side counts it as
+    pending, so the drift rule does not read the failure as freed memory."""
+    from roaringbitmap_tpu_torch.robust import errors, faults
+
+    monkeypatch.setattr(store.PACK_CACHE, "max_bytes", 2 << 30)
+    monkeypatch.setattr(store, "_value_device", lambda value: torch.device("cuda", 0))
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d: 1 << 20)
+    bms = _working_set(seed=185, k=3)
+    with faults.inject("store.expand", errors.ResourceExhausted, every=1):
+        with pytest.raises(errors.ResourceExhausted):
+            FA.or_(*bms, mode="device", device="cpu")
+    (entry,) = store.PACK_CACHE._entries.values()
+    recon = store.hbm_reconciliation()
+    _recon_ok(recon)
+    assert recon["device_pending_bytes"] == entry.nbytes == entry.value.words_nbytes
+    assert recon["device_resident_bytes"] == 0 and recon["device_drift_bytes"] == -(1 << 20)
+    store.PACK_CACHE.close()
+    import roaringbitmap_tpu_torch.observe as tobs
+
+    tobs.REGISTRY.get(tobs.HBM_ACCOUNTING_DRIFT_BYTES).clear()
+
+
+@pytest.mark.cuda
+def test_cuda_reconciliation_with_a_resident_pack(monkeypatch):
+    """Phase 17 (a) on the card: with a pack resident on the card the
+    ledger drift is 0, the device drift at or below 0 (the card holds more
+    than the pack cache), the gauge the entries' bytes; after ``close()``
+    the gauge is 0 and the allocator freed at least the bytes released."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    monkeypatch.setattr(aggregation.config, "device", "cuda")
+    bms = _working_set(seed=190, k=6)
+    FA.or_(*bms, mode="device")
+    torch.cuda.synchronize()
+    recon = store.hbm_reconciliation()
+    _recon_ok(recon)
+    assert recon["device_drift_bytes"] <= 0 and recon["device_resident_bytes"] == recon["gauge_bytes"]
+    before = torch.cuda.memory_allocated()
+    store.PACK_CACHE.close()
+    torch.cuda.synchronize()
+    after = store.hbm_reconciliation()
+    assert after["gauge_bytes"] == 0 and "device_drift_bytes" not in after
+    assert before - torch.cuda.memory_allocated() >= recon["gauge_bytes"]

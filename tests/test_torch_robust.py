@@ -33,6 +33,7 @@ from roaringbitmap_tpu.robust import ladder as jladder
 
 import roaringbitmap_tpu_torch.observe as tobs
 from roaringbitmap_tpu_torch import RoaringBitmap as TRB
+from roaringbitmap_tpu_torch import columnar as tcolumnar
 from roaringbitmap_tpu_torch import insights
 from roaringbitmap_tpu_torch import query as tq
 from roaringbitmap_tpu_torch import robust as trobust
@@ -202,8 +203,11 @@ def test_port_sites_are_a_subset_of_the_jax_sites():
     assert set(tfaults.SITES) <= set(jfaults.SITES)
     assert set(tfaults.SITES) == {
         "store.ship", "store.hbm", "store.expand", "ops.dispatch", "query.exec",
+        "query.fusion", "columnar.kernel", "columnar.device", "native.entry",
         "pack_cache.budget",
     }
+    # the port keeps the JAX package's order of the sites it has
+    assert list(tfaults.SITES) == [s for s in jfaults.SITES if s in tfaults.SITES]
 
 
 def test_unknown_site_and_bad_rules_are_loud():
@@ -441,6 +445,10 @@ def test_every_site_fires_through_its_real_path(site):
     exc = trobust.ResourceExhausted if site == "pack_cache.budget" else trobust.TransientDeviceError
     if site == "ops.dispatch":
         TFA.or_(*tb, mode="device")  # resident: the next call's first dispatch is the reduce
+    if site == "query.fusion":
+        qs = [_q1_shape(tq.Q, tb), tq.Q.or_(*tb[:3])]
+    if site.startswith("columnar.") or site == "native.entry":
+        want_pair = TRB.or_(tb[0], tb[1])
     with tfaults.inject(site, exc, every=1, times=1) as inj:
         if site == "query.exec":
             with pytest.raises(trobust.TransientDeviceError):
@@ -448,6 +456,15 @@ def test_every_site_fires_through_its_real_path(site):
         elif site == "ops.dispatch":
             with pytest.raises(trobust.TransientDeviceError):
                 TFA.or_(*tb, mode="device")
+        elif site == "query.fusion":  # no per-query degrade: it raises
+            with pytest.raises(trobust.TransientDeviceError):
+                tq.execute_fused(qs, cache=None, mode="device")
+        elif site in ("columnar.kernel", "native.entry"):  # no numpy degrade
+            with pytest.raises(trobust.TransientDeviceError) as ei:
+                tcolumnar.pairwise("or", tb[0], tb[1], tier="cpu")
+            assert trobust.classify(ei.value) == terrors.TRANSIENT
+        elif site == "columnar.device":  # retried on the device
+            assert tcolumnar.pairwise("or", tb[0], tb[1], tier="device") == want_pair
         else:  # ship, hbm, expand: retried on the device; budget: spilled
             assert TFA.or_(*tb, mode="device") == want
     assert inj.fired == 1

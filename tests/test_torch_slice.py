@@ -280,6 +280,11 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "from roaringbitmap_tpu_torch.observe import timeline, spans, export, decisions, outcomes\n"
         "from roaringbitmap_tpu_torch.observe import compilewatch, context, artifacts, compat\n"
         "from roaringbitmap_tpu_torch.robust import errors, faults, ladder\n"
+        "from roaringbitmap_tpu_torch.observe import health, sentinel, bundle, structure, lockstats\n"
+        "from roaringbitmap_tpu_torch.cost import fusion as fusion_cost\n"
+        "from roaringbitmap_tpu_torch.query import fusion, inflight\n"
+        "from roaringbitmap_tpu_torch.parallel import batch\n"
+        "insights.observatory(); bundle._collect_sections(None)\n"
         "bad = [m for m in set(sys.modules) - before\n"
         "       if m in ('jax', 'jaxlib', 'roaringbitmap_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'roaringbitmap_tpu.'))]\n"
