@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only sixtyfour  # phases 1-2 and 14: the 64-bit family
     python3 chip_smoke.py --only mesh     # phases 1-2, 3 (c) and 15: row widths, multi-device
     python3 chip_smoke.py --only observe  # phases 1-2, 16 and 17: instrumentation, faults, health
+    python3 chip_smoke.py --only tenants  # phases 1-2 and 18: the cost facade and the serving read path
 
 ``--only paths`` runs only the phases whose end-to-end times PERF.md limits
 against a parent commit; copied into a checkout of the parent, it times
@@ -220,7 +221,8 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    5) and warm (median of 10) walls of ``FastAggregation64.or_`` and
    ``or_navigable`` in turns, both profiled (device idle share), peak
    device memory; (b) the BSI north star at 64 bits: 100,000,000 columns
-   at ``2^33 + arange``, values uniform in [0, 2^48) from the seed (48
+   at ``2^33 + arange`` (50,000,000 in the whole script, to keep it
+   inside its time), values uniform in [0, 2^48) from the seed (48
    slices, 1526 high-48 chunks), built through ``set_values`` (timed
    apart); phase 6's nine queries scaled to these values and a GE near the
    max (at least 2^47), ``compare`` and ``compare_cardinality`` each
@@ -304,7 +306,39 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    raised and classified transient; (f) the structure ledger's census of
    the 10,000 bitmaps equal to a host count by container type; (g) a
    census facet count and a 320 x 10,000 all-pairs matrix under their
-   ``batch.*`` spans, ``rb_tpu_batch_pairwise_total`` moving.
+   ``batch.*`` spans, ``rb_tpu_batch_pairwise_total`` moving. Phase 17
+   snapshots every pricing authority's state and the dispatcher's device
+   gate before it starts and restores them after: it fails if either
+   stays changed (its armed sentinel may refit, and (e) calibrates).
+
+18. (run after phase 11, on the same census working set) the cost facade
+   and the serving read path, every launch counted
+   (``launches_tenants``): (a) ``FastAggregation.or_`` over census
+   prefixes of about 60 to 7,900 containers, ``mode="device"`` and
+   ``mode="cpu"`` in turns, every result against numpy, then
+   ``breakeven.MODEL.refit_from_outcomes()``: both curves and the measured
+   gate printed (None is a finding); (b) a pack-cache budget of 1.5 census
+   halves, the halves' ORs evicting each other, the residency refit's
+   learned ``repack_s`` for ``agg`` beside the next eviction's
+   ``est_us.repack`` and the re-pack wall it then measures; (c) the load
+   harness, 8 threads, closed loop, 200 requests of three declared
+   tenants (interactive on ``default_mix``; a batch tenant of Q1-shaped
+   queries over phase 8's A, B, C; a low quota), every served result
+   equal to ``run_serial`` byte for byte, sheds only for the quota
+   tenant and all ``ShedRejection``, hedged solo dispatches for the
+   interactive tenant, per-tenant p50/p99 of queue and execute, the three
+   serving rules reading values, per-tenant byte shares, a ``query.hedge``
+   fault through the window with the same bytes and a ``serve.admit``
+   fault admitting; (d) a seeded ``costmodel-drift`` making a sentinel run
+   ``refit_all`` (a report per authority, no error) and write a red
+   bundle whose ``calibration.json`` lists the eight authorities,
+   ``serving-p99-pressure`` running ``autotune_window`` to shrink and
+   regrow the window, and ``save_state`` / ``load_state`` round-tripping
+   on the card with the breakeven and residency states stamped
+   ``"cuda"`` (``"cpu"``-stamped copies refused). The phase restores every
+   authority and the device gate as it found them, and fails if either
+   stays changed or if ``rb_expand_rows``, ``rb_group_reduce``,
+   ``rb_popcount_rows`` or ``rb_threshold`` read 0 launches.
 
 Every profiler window (``_profiled``) is a ``tracing.trace`` window; where
 it shows no device events twice, the kernels are timed with CUDA events
@@ -315,15 +349,17 @@ The last three lines are a JSON object of the host tier's entry points
 ``--only kernels``), a JSON object describing every kernel (``launches``
 on its main path, ``launches_mapped`` on phase 13's, ``launches_64`` on
 phase 14's, ``launches_mesh`` on phase 15's, ``launches_observe`` on
-phase 16's, ``launches_observatory`` on phase 17's; a ``name@1024`` row is the
+phase 16's, ``launches_observatory`` on phase 17's, ``launches_tenants`` on
+phase 18's; a ``name@1024`` row is the
 kernel at 1024 words, whose path is phase 15 (b), its counts summed over
 the ranks) and the JSON result ``{"ok": true, "device": {...}}``; with
 ``--only sixtyfour`` the phase's launch counts (``{"launches_64": ...}``)
 and the JSON result; with ``--only mesh`` phase 15 (a)'s launch counts
 and the 1024-word rows, then the JSON result; with ``--only observe``
 phase 16's and 17's launch counts (``{"launches_observe": ...,
-"launches_observatory": ...}``) and the JSON result. The port needs no JAX and nothing
-of the JAX package.
+"launches_observatory": ...}``) and the JSON result; with ``--only tenants``
+phase 18's launch counts (``{"launches_tenants": ...}``) and the JSON
+result. The port needs no JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -3591,6 +3627,15 @@ BSI64_ROWS = 100_000_000  # BASELINE.md config 4, at 64 bits
 BSI64_BASE = 1 << 33  # the first column id: every id lies above 2^32
 BSI64_VALUE_BITS = 48  # values uniform in [0, 2^48)
 S_BSI64, K_BSI64 = BSI64_VALUE_BITS, (BSI64_ROWS + 65535) // 65536  # [48, 1526, 2048] slices
+# the whole script builds phase 14 (b)'s index at this depth (its
+# set_values is ~150 s of host time at 100M rows), keeping the script
+# inside its time with phase 18 added; --only sixtyfour keeps 100M rows
+WHOLE_BSI64_ROWS = 50_000_000
+
+
+def _cut_bsi64(rows: int) -> None:
+    global BSI64_ROWS, K_BSI64
+    BSI64_ROWS, K_BSI64 = rows, (rows + 65535) // 65536
 
 
 def _check64(tag, name, got, oracle):
@@ -5312,6 +5357,7 @@ def phase_observatory(base, bitmaps, real, card: str):
     from roaringbitmap_tpu_torch.robust import errors, faults, ladder
 
     t_phase = time.perf_counter()
+    authorities = _authority_snapshot()  # the armed sentinel's refit and (e)'s calibration move them
     oracle_or = np.unique(np.concatenate(base[:min(len(base), len(bitmaps))]))
     q1, want_q1, _sets, _parts = _q1_setup(base, bitmaps, real)
 
@@ -5446,8 +5492,8 @@ def phase_observatory(base, bitmaps, real, card: str):
                 fail(f"(c) expected one bundle over the red episode, got {bundles} ({names})")
             manifest = bundle.read_manifest(bundles[0]["path"], verify=True)
             sections = sorted(manifest["files"])
-            want_sections = ["decisions.json", "health.json", "metrics.jsonl", "observatory.json",
-                             "outcomes.json", "timeline.jsonl"]
+            want_sections = ["calibration.json", "decisions.json", "health.json", "metrics.jsonl",
+                             "observatory.json", "outcomes.json", "timeline.jsonl"]
             if sections != want_sections:
                 fail(f"(c) the bundle's sections are {sections}, expected {want_sections}")
             obs = json.loads(open(os.path.join(bundles[0]["path"], "observatory.json")).read())
@@ -5614,18 +5660,417 @@ def phase_observatory(base, bitmaps, real, card: str):
     outcomes.reset()
     decisions.LOG.clear()
     store.PACK_CACHE.close()
+    _restore_authorities("[observatory]", authorities)
     say(f"[observatory] phase 17 took {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return launches
+
+def _authority_snapshot():
+    """Every pricing authority's state and the dispatcher's device gate,
+    deep-copied (a calibrated columnar model adopts the dict it loads)."""
+    from roaringbitmap_tpu_torch import cost
+    from roaringbitmap_tpu_torch.parallel import aggregation
+
+    states = {name: cost.authority(name).state() for name in cost.names()}
+    return json.loads(json.dumps(states)), aggregation.config.min_device_containers
+
+
+def _restore_authorities(tag: str, snap) -> None:
+    """Put back what ``_authority_snapshot`` saw, and fail the phase if any
+    authority's state or the device gate still differs (a moved gate would
+    route phase 9's and every later phase's aggregations differently)."""
+    from roaringbitmap_tpu_torch import cost
+    from roaringbitmap_tpu_torch.parallel import aggregation
+
+    states, gate = snap
+    for name, st in states.items():
+        # an uncalibrated or default state is not loadable: reset to it
+        if not cost.authority(name).load_state(json.loads(json.dumps(st))):
+            cost.authority(name).reset()
+    aggregation.config.min_device_containers = gate
+    changed = [name for name, st in states.items()
+               if json.loads(json.dumps(cost.authority(name).state())) != st]
+    if changed or aggregation.config.min_device_containers != gate:
+        fail(f"{tag} left authorities {changed} or the device gate "
+             f"({aggregation.config.min_device_containers}, was {gate}) changed")
+    say(f"{tag} the {len(states)} authorities' states and min_device_containers = {gate} "
+        f"restored as the phase found them")
+
+
+TENANT_REQUESTS = 200  # (c): the harness's schedule
+TENANT_WARMUP = 24  # (c): requests before the health rules' arming tick
+TENANT_THREADS = 8
+SWEEP_PREFIXES = (2, 3, 4, 8, 16, 32, 64, 128, 256)  # ~60 to ~7,900 containers (one bitmap is a clone)
+SWEEP_TURNS = 2  # warm runs of each tier per prefix, the tiers in turns
+TENANT_KERNELS = ("rb_expand_rows", "rb_group_reduce", "rb_popcount_rows", "rb_threshold")
+
+
+def phase_tenants(base, bitmaps, real, card: str):
+    """Phase 18: the cost facade and the serving read path on the card —
+    (a) the breakeven sweep and the measured device gate, (b) residency
+    pricing of two census working sets that evict each other, (c) the load
+    harness with three declared tenants, (d) the sentinel's refit and
+    autotune actuations, a red episode's calibration.json and the cost
+    state's round trip. Every authority and the device gate are restored as
+    the phase found them. Returns the launch counts of the phase's path."""
+    import tempfile
+
+    from roaringbitmap_tpu_torch import FastAggregation, cost, insights
+    from roaringbitmap_tpu_torch import query as tq
+    from roaringbitmap_tpu_torch import serve
+    from roaringbitmap_tpu_torch.cost import breakeven, residency
+    from roaringbitmap_tpu_torch.observe import (
+        artifacts, bundle, decisions, health, outcomes, sentinel,
+    )
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import aggregation, store
+    from roaringbitmap_tpu_torch.query import fusion
+    from roaringbitmap_tpu_torch.robust import faults, ladder
+    from roaringbitmap_tpu_torch.serve import slo
+
+    t_phase = time.perf_counter()
+    authorities = _authority_snapshot()
+    nb = len(base)
+    if (aggregation.config.device, aggregation.config.mode) != ("cuda", "auto"):
+        fail(f"aggregation config is {aggregation.config.device}/{aggregation.config.mode}, "
+             "expected cuda/auto")
+    oracle_all = np.unique(np.concatenate(base[:min(nb, len(bitmaps))]))
+    sentinel.configure(inline=False)
+    outcomes.reset()
+    decisions.LOG.clear()
+    ladder.LADDER.reset()
+    slo.reset()
+    K.reset_launches()  # --- phase 18's path, counts live from here ---
+
+    # (a) the breakeven sweep: census prefixes, device and CPU tiers in turns
+    t0 = time.perf_counter()
+    prefixes = [n for n in SWEEP_PREFIXES if n <= len(bitmaps)]
+    rows = {}
+    for n in prefixes:
+        sub = bitmaps[:n]
+        rows[n] = sum(b.get_container_count() for b in sub)
+        want = np.unique(np.concatenate([base[i % nb] for i in range(n)]))
+        got = FastAggregation.or_(*sub, mode="device")  # the cold pack: not a sample
+        if not np.array_equal(got.to_array(), want):
+            fail(f"(a) the device OR of the first {n} bitmaps differs from numpy")
+    outcomes.reset()
+    walls = {"device": [], "cpu": []}
+    for _ in range(SWEEP_TURNS):
+        for n in prefixes:
+            sub = bitmaps[:n]
+            want = None
+            for mode in ("device", "cpu"):
+                t1 = time.perf_counter()
+                got = FastAggregation.or_(*sub, mode=mode)
+                walls[mode].append(time.perf_counter() - t1)
+                arr = got.to_array()
+                if want is None:
+                    want = np.unique(np.concatenate([base[i % nb] for i in range(n)]))
+                if not np.array_equal(arr, want):
+                    fail(f"(a) the {mode} OR of the first {n} bitmaps differs from numpy")
+    joined = [e for e in outcomes.tail() if e["site"] == "agg.dispatch"]
+    by_tier = {}
+    for e in joined:
+        by_tier.setdefault(e["engine"], set()).add(e["inputs"]["rows"])
+    counts = {t: sum(1 for e in joined if e["engine"] == t) for t in by_tier}
+    if counts.get("device", 0) < 6 or len(by_tier.get("device", ())) < 2 or \
+            sum(c for t, c in counts.items() if t != "device") < 6:
+        fail(f"(a) agg.dispatch joins per tier {counts}, row counts {by_tier}")
+    gate0 = aggregation.config.min_device_containers
+    rep = breakeven.MODEL.refit_from_outcomes()
+    view = breakeven.MODEL.curves_view()
+    say(f"[tenants] (a) breakeven sweep over {len(prefixes)} census prefixes ({rows[prefixes[0]]} to "
+        f"{rows[prefixes[-1]]} containers), device and CPU tiers in turns, {SWEEP_TURNS} runs each, "
+        f"every result equal to numpy; joins {counts}; refit: curves (overhead us, us a row) "
+        f"{view['tiers']}, measured gate {view['gate_rows']} (min_device_containers {gate0} -> "
+        f"{view['config_min_device_containers']}; the JAX default is 64), rejected {rep['rejected']}, "
+        f"provenance {rep['provenance']}, backend {breakeven.MODEL.backend}; "
+        f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    if breakeven.MODEL.backend != "cuda":
+        fail(f"(a) the breakeven state is stamped {breakeven.MODEL.backend!r}, expected 'cuda'")
+    if view["gate_rows"] is not None and aggregation.config.min_device_containers != view["gate_rows"]:
+        fail("(a) the measured gate did not reach the dispatcher on the card")
+    aggregation.config.min_device_containers = gate0  # (b)-(d) route as the phase found them
+
+    # (b) residency: two census halves evicting each other
+    t0 = time.perf_counter()
+    halves = (bitmaps[: len(bitmaps) // 2], bitmaps[len(bitmaps) // 2:])
+    store.PACK_CACHE.close()
+    prev_budget = store.PACK_CACHE.max_bytes
+    FastAggregation.or_(*halves[0], mode="device")
+    one = store.PACK_CACHE.stats()["bytes"]
+    store.PACK_CACHE.configure(max_bytes=int(one * 1.5))
+    try:
+        repacks = []
+        for k in range(4):  # W1 W2 W1 W2 after W1: three evictions, three regret joins
+            half = halves[(k + 1) % 2]
+            t1 = time.perf_counter()
+            got = FastAggregation.or_(*half, mode="device")
+            repacks.append(time.perf_counter() - t1)
+            if not np.array_equal(got.to_array(), oracle_all):
+                fail("(b) a census half's OR differs from numpy")
+        evict_joins = [e for e in outcomes.tail() if e["site"] == "pack_cache.evict"]
+        rrep = residency.MODEL.refit_from_outcomes()
+        learned = residency.MODEL.repack_estimate("agg")
+        if not learned or not evict_joins:
+            fail(f"(b) no learned repack_s for agg: joins {len(evict_joins)}, report {rrep}")
+        seq0 = decisions.decisions()[-1]["seq"] if decisions.decisions() else 0
+        FastAggregation.or_(*halves[1], mode="device")  # evicts the other half, priced
+        priced = [e for e in decisions.decisions()
+                  if e["site"] == "pack_cache.evict" and e["seq"] > seq0]
+        if not priced or "est_us" not in priced[-1]["inputs"]:
+            fail(f"(b) the eviction after the refit carries no est_us: {priced[-1:] }")
+        est = priced[-1]["inputs"]["est_us"]
+        t1 = time.perf_counter()
+        FastAggregation.or_(*halves[0], mode="device")  # its return: the re-pack
+        back_s = time.perf_counter() - t1
+        join = [e for e in outcomes.tail() if e["site"] == "pack_cache.evict"
+                and e["seq"] == priced[-1]["seq"]]
+        if not join:
+            fail("(b) the priced eviction's return did not join")
+        say(f"[tenants] (b) two census halves ({one} bytes resident each) under a "
+            f"{int(one * 1.5)}-byte budget: {store.PACK_CACHE.stats()['evictions']} evictions, "
+            f"{len(evict_joins)} regret joins, cold ORs {', '.join(f'{w * 1e3:.1f}' for w in repacks)} ms; "
+            f"learned repack_s[agg] {learned:.6f} s (provenance {rrep['provenance']}); the next "
+            f"eviction's est_us {est}; the re-pack wall it then measured {join[0]['measured_s'] * 1e6:.1f} us "
+            f"(error ratio {join[0].get('error_ratio')}), the whole OR {back_s * 1e3:.1f} ms  [{card}]")
+    finally:
+        store.PACK_CACHE.configure(max_bytes=prev_budget)
+        store.PACK_CACHE.close()
+
+    # (c) the harness: three declared tenants, 8 threads, closed loop
+    t0 = time.perf_counter()
+    Q = tq.Q
+    q1, _want_q1, (A, B, C, _head), (_uA, _uB, _uC, abc, _t2) = _q1_setup(base, bitmaps, real)
+    core = (Q.or_(*A) & Q.or_(*B)) - Q.or_(*C)
+    n_heads = max(1, min(10, len(bitmaps) // Q1_HEAD))
+
+    drawn = {}  # expression uid -> (head, k), for the numpy check
+
+    def q1_mix(rng, corpus, shared):
+        j = int(rng.integers(0, n_heads))
+        k = int(rng.integers(2, 4))
+        expr = core | Q.threshold(k, *corpus[j * Q1_HEAD:(j + 1) * Q1_HEAD])
+        drawn[expr.uid] = (j, k)
+        return expr
+
+    def q1_oracle(j, k):
+        v, c = np.unique(np.concatenate([base[(j * Q1_HEAD + i) % nb] for i in range(Q1_HEAD)]),
+                         return_counts=True)
+        return np.union1d(abc, v[c >= k])
+
+    profiles = [
+        serve.TenantProfile("interactive", weight=2.0, quota_qps=1e6, latency_class="interactive"),
+        serve.TenantProfile("batch-q1", weight=1.0, quota_qps=1e6, mix=q1_mix),
+        serve.TenantProfile("low-quota", weight=1.0, quota_qps=2.0, burst=2.0,
+                            latency_class="balanced"),
+    ]
+    adm = serve.AdmissionController(max_inflight=2 * TENANT_THREADS, queue_limit=0)
+    harness = serve.LoadHarness(bitmaps, profiles, threads=TENANT_THREADS, admission=adm)
+    # a warm-up window: the packs resident, every tenant's series minted
+    # before the health rules' arming tick (first sight counts nothing)
+    harness.run(serve.build_requests(bitmaps, profiles, TENANT_WARMUP, seed=SEED + 1))
+    rules = {r.name: r for r in health.DEFAULT_RULES
+             if r.name in ("serving-p99-breach", "tenant-saturation", "serving-p99-pressure")}
+    arm = health.snapshot(refresh_hbm=False)
+    for r in rules.values():
+        r.probe(arm)
+    hedge_series = insights.fusion_counters()["hedges"]
+    solo0 = hedge_series.get("solo", 0)
+    reqs = serve.build_requests(bitmaps, profiles, TENANT_REQUESTS, seed=SEED)
+    t1 = time.perf_counter()
+    report = harness.run(reqs)
+    run_s = time.perf_counter() - t1
+    probed = health.snapshot(prev_sums=arm.sums, refresh_hbm=False)
+    values = {name: r.probe(probed) for name, r in rules.items()}
+    solo = insights.fusion_counters()["hedges"].get("solo", 0) - solo0
+    t1 = time.perf_counter()
+    oracle = harness.run_serial(reqs)
+    serial_s = time.perf_counter() - t1
+    mismatched = [i for i, (g, w) in enumerate(zip(report.results, oracle))
+                  if not isinstance(g, serve.ShedRejection) and g.serialize() != w.serialize()]
+    if mismatched:
+        fail(f"(c) {len(mismatched)} served results differ from run_serial (first at {mismatched[0]})")
+    bad_sheds = [r for r in report.results if r is None or (
+        not isinstance(r, serve.ShedRejection) and not hasattr(r, "serialize"))]
+    if bad_sheds:
+        fail(f"(c) {len(bad_sheds)} result slots hold neither a bitmap nor a ShedRejection")
+    checked = 0
+    for req, got in zip(reqs, report.results):  # the batch tenant's answers against numpy
+        if req.tenant == "batch-q1" and not isinstance(got, serve.ShedRejection) and checked < 6:
+            j, k = drawn[req.expr.uid]
+            if not np.array_equal(got.to_array(), q1_oracle(j, k)):
+                fail(f"(c) a Q1-shaped answer (head {j}, k = {k}) differs from numpy")
+            checked += 1
+    tenant_rows = report.tenant_rows()
+    if report.stats["low-quota"].shed == 0 or report.stats["interactive"].shed or \
+            report.stats["batch-q1"].shed:
+        fail(f"(c) sheds: {{t: st.shed for t, st in report.stats.items()}}")
+    if solo <= 0:
+        fail("(c) no hedged solo dispatch for the interactive tenant")
+    if any(v is None for v in values.values()):
+        fail(f"(c) a serving rule read no value: {values}")
+    shares = {t: row.get("bytes") for t, row in insights.serving()["tenants"].items()
+              if t in report.stats}
+    if not all(shares.values()):
+        fail(f"(c) insights.serving() byte shares: {shares}")
+    say(f"[tenants] (c) {len(reqs)} requests, {TENANT_THREADS} threads, closed loop: served "
+        f"{report.served}, shed {report.shed} (all ShedRejection, all low-quota), every served result "
+        f"equal to run_serial byte for byte ({checked} Q1-shaped answers also to numpy); wall "
+        f"{run_s:.2f} s ({report.aggregate_qps()} served/s), run_serial {serial_s:.2f} s; hedged solo "
+        f"dispatches {solo}; rules serving-p99-breach {values['serving-p99-breach']}, tenant-saturation "
+        f"{values['tenant-saturation']}, serving-p99-pressure {values['serving-p99-pressure']}; "
+        f"byte shares {shares}  [{card}]")
+    for tenant, row in tenant_rows.items():
+        say(f"[tenants] (c) {tenant}: served {row['served']}, shed {row['shed']}, queue p50/p99 "
+            f"{row['queue_p50_ms']}/{row['queue_p99_ms']} ms, execute p50/p99 {row['execute_p50_ms']}/"
+            f"{row['execute_p99_ms']} ms, end-to-end p99 {row['total_p99_ms']} ms against "
+            f"{row['p99_budget_ms']} ms ({row['latency_class']})  [{card}]")
+    # the hedge's fault site: the solo rung degrades to the window, same bytes
+    inter = [r for r in reqs if r.tenant == "interactive"][:6]
+    want = [tq.execute(r.expr, cache=None).serialize() for r in inter]
+    with fusion.FusionExecutor(cache=None) as ex:
+        with faults.inject("query.hedge", every=1) as inj:
+            got = [ex.submit(r.expr, tenant="interactive").result(timeout=120).serialize() for r in inter]
+        batches = ex.batches
+    if got != want or inj.fired < 1 or batches < len(inter):
+        fail(f"(c) query.hedge faults: fired {inj.fired}, windows {batches}, bytes equal {got == want}")
+    ladder.LADDER.reset()
+    # admission's fault site: a quota that sheds admits, degraded
+    c = serve.AdmissionController(max_inflight=4, queue_limit=0, clock=lambda: 0.0)
+    for _ in range(3):
+        c.admit("low-quota", now=0.0, wait=False).release()
+    shed = c.admit("low-quota", now=0.0, wait=False)
+    with faults.inject("serve.admit", every=1) as inj2:
+        opened = c.admit("low-quota", now=0.0, wait=False)
+    admitted = (opened.admitted, opened.degraded)
+    opened.release()
+    if shed.admitted or admitted != (True, True) or inj2.fired != 1:
+        fail(f"(c) serve.admit: without the fault {shed.verdict}, with it (admitted, degraded) {admitted}")
+    say(f"[tenants] (c) {inj.fired} query.hedge faults: {len(inter)} interactive requests through the "
+        f"window ({batches} windows), bytes equal; a serve.admit fault admitted a request the quota "
+        f"shed, degraded; phase (c) {time.perf_counter() - t0:.1f} s  [{card}]")
+
+    # (d) the actuations: refit, autotune, a red bundle, the state round trip
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="rb_tenants_") as sink:
+        prev_sink = artifacts.artifact_dir()
+        artifacts.configure(dir=sink)
+        try:
+            drift_rule = next(r for r in health.DEFAULT_RULES if r.name == "costmodel-drift")
+            s = sentinel.Sentinel(rules=(drift_rule,), clock=lambda: 0.0)
+            tick_s, reps = [], []
+            for k in range(2):  # fire_after = 2: the second tick actuates
+                snap_k = health.snapshot(prev_sums=dict(s._prev_sums), now=2e6 + k, refresh_hbm=False)
+                snap_k.drift = {"or/columnar-cpu/run": 8.0}  # a seeded cell, critical
+                t1 = time.perf_counter()
+                reps.append(s.tick(now=2e6 + k, snap=snap_k))
+                tick_s.append(time.perf_counter() - t1)
+            refit = [a for r in reps for a in r["actuated"] if a["kind"] == "refit"]
+            bundles = [a for r in reps for a in r["actuated"] if a["kind"] == "bundle"]
+            if len(refit) != 1 or "error" in refit[0] or sorted(refit[0]["authorities"]) != cost.names():
+                fail(f"(d) the seeded costmodel-drift refit: {refit}")
+            if len(bundles) != 1 or "error" in bundles[0]:
+                fail(f"(d) the red episode's bundle: {bundles}")
+            bundle.read_manifest(bundles[0]["path"], verify=True)
+            cal = json.loads(open(os.path.join(bundles[0]["path"], "calibration.json")).read())
+            if sorted(cal["authorities"]) != cost.names() or len(cal["authorities"]) != 8:
+                fail(f"(d) the bundle's calibration.json holds {sorted(cal['authorities'])}")
+            say(f"[tenants] (d) seeded costmodel-drift (8.0): red on tick 2, refit_all with a report per "
+                f"authority ({', '.join(f'{n}: {sorted(a['moved']) or a.get('refused') or []}' for n, a in refit[0]['authorities'].items())}), "
+                f"no error; the ticks {tick_s[0] * 1e3:.2f} / {tick_s[1] * 1e3:.2f} ms (the second with the "
+                f"refit and the bundle); the bundle's calibration.json lists the {len(cal['authorities'])} "
+                f"authorities  [{card}]")
+        finally:
+            artifacts.configure(dir=prev_sink)
+    # serving-p99-pressure -> autotune_window: shrink, then regrow
+    pressure = next(r for r in health.DEFAULT_RULES if r.name == "serving-p99-pressure")
+    slo.TENANTS.declare("tight", quota_qps=1e6, latency_class="interactive", p99_budget_ms=0.3)
+    slo.record("tight", "ok", execute_s=0.0001)  # the series exists before the arm
+    s = sentinel.Sentinel(rules=(pressure,), clock=lambda: 0.0, autotune_cooldown_s=30.0)
+    s._actuate_bundle = lambda now, tick, rules, evals: {"tick": tick, "kind": "bundle"}
+    base_window = fusion.config.window_base
+    windows, tunes = [], []
+    for k, (now, budget, slow_s) in enumerate(((3e6, None, None), (3e6 + 1, None, 0.02),
+                                               (3e6 + 2, None, 0.02), (3e6 + 40, 100.0, 2.0),
+                                               (3e6 + 41, 100.0, 2.0))):
+        if budget is not None:
+            slo.TENANTS.declare("tight", quota_qps=1e6, latency_class="interactive", p99_budget_ms=budget)
+        for _ in range(10 if slow_s else 0):
+            slo.record("tight", "ok", execute_s=slow_s)
+        rep_k = s.tick(now=now, snap=health.snapshot(prev_sums=dict(s._prev_sums), now=now,
+                                                    refresh_hbm=False))
+        tunes += [a for a in rep_k["actuated"] if a["kind"] == "autotune"]
+        windows.append(fusion.config.window)
+    verdicts = [a.get("verdict") for a in tunes]
+    if any("error" in a for a in tunes) or "shrink" not in verdicts or "regrow" not in verdicts or \
+            fusion.config.window != base_window:
+        fail(f"(d) serving-p99-pressure autotunes {tunes}, windows {windows}")
+    say(f"[tenants] (d) serving-p99-pressure: autotune_window {verdicts} "
+        f"({', '.join(f'{a['window_from']}->{a['window_to']} at {a['budget_ms']} ms' for a in tunes)}); "
+        f"the window over the ticks {windows}, back at its base {base_window}  [{card}]")
+    # the cost state on the card: a round trip, and a host's state refused.
+    # Loading a state with a gate pushes it into the dispatcher (on the
+    # card), so the views are compared without the breakeven view's copy
+    # of min_device_containers, which is checked against the gate apart
+    def cal_view():
+        view = cost.calibration_state()
+        view["authorities"]["device-breakeven"]["curves"].pop("config_min_device_containers")
+        return view
+
+    with tempfile.TemporaryDirectory(prefix="rb_cost_") as d:
+        path = os.path.join(d, "cost.json")
+        before = cal_view()
+        cost.save_state(path)
+        doc = json.loads(open(path).read())
+        stamps = {n: doc["authorities"][n].get("backend") for n in ("device-breakeven", "pack-residency")}
+        cost.reset_all()
+        verdicts = cost.load_state(path)
+        after = cal_view()
+        if not all(verdicts.values()) and [n for n, v in verdicts.items() if not v] != ["columnar-cutoff"]:
+            fail(f"(d) load_state on the card: {verdicts}")
+        if after != before or stamps != {"device-breakeven": "cuda", "pack-residency": "cuda"}:
+            fail(f"(d) the round trip changed the calibration state (stamps {stamps})")
+        loaded_gate = breakeven.MODEL.gate_rows
+        if loaded_gate is not None and aggregation.config.min_device_containers != loaded_gate:
+            fail(f"(d) load_state on the card did not push the gate {loaded_gate}")
+        for n in stamps:
+            doc["authorities"][n]["backend"] = "cpu"
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        host = cost.load_state(path)
+        if host["device-breakeven"] or host["pack-residency"] or cal_view() != before:
+            fail(f"(d) a 'cpu'-stamped state was not refused: {host}")
+    say(f"[tenants] (d) save_state / load_state on the card: stamps {stamps}, verdicts {verdicts}, "
+        f"calibration_state equal after the round trip, the loaded gate {loaded_gate} pushed into "
+        f"min_device_containers ({aggregation.config.min_device_containers}); the 'cpu'-stamped breakeven and residency "
+        f"states refused ({ {n: host[n] for n in stamps} }); (d) {time.perf_counter() - t0:.1f} s  [{card}]")
+
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    say(f"[tenants] launches over phase 18's path: {launches}  [{card}]")
+    for name in TENANT_KERNELS:  # a kernel's count summed over its layouts
+        if not sum(v for k, v in launches.items() if k == name or k.startswith(name + "[")):
+            fail(f"kernel {name} was not launched on phase 18's path")
+    slo.reset()
+    serve.CONTROLLER.reset()
+    outcomes.reset()
+    decisions.LOG.clear()
+    ladder.LADDER.reset()
+    store.PACK_CACHE.close()
+    tq.DEFAULT_CACHE.clear()
+    _restore_authorities("[tenants]", authorities)
+    say(f"[tenants] phase 18 took {time.perf_counter() - t_phase:.1f} s  [{card}]")
     return launches
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels", "paths", "columnar", "serving", "host", "batch", "mapped",
-                                       "sixtyfour", "mesh", "observe"],
+                                       "sixtyfour", "mesh", "observe", "tenants"],
                     help="kernels: phases 1-3; paths: phases 1-2 and the timed paths 5, 8 and 6; "
                          "columnar: phases 1-2 and 9; serving: phases 1-2 and 10; host: phases 1-2, 11 "
                          "and 6; batch: phases 1-3 and 12; mapped: phases 1-2, 6, 7 and 13; "
                          "sixtyfour: phases 1-2 and 14; mesh: phases 1-2, 3 (c) and 15; "
-                         "observe: phases 1-2, 16 and 17")
+                         "observe: phases 1-2, 16 and 17; tenants: phases 1-2 and 18")
     ap.add_argument("--window-pairs", type=int, default=WINDOW_PAIRS,
                     help=f"adjacent pairs in phase 9's window (default {WINDOW_PAIRS})")
     # one rank of phase 15 (b), started by the phase itself
@@ -5699,6 +6144,13 @@ def main():
                         "launches_observatory": launches_observatory}))
         say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return
+    if args.only == "tenants":
+        base, bitmaps, real = build_working_set()
+        launches_tenants = phase_tenants(base, bitmaps, real, card)
+        say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
+        say(json.dumps({"launches_tenants": launches_tenants}))
+        say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return
     if args.only == "sixtyfour":
         from roaringbitmap_tpu_torch.utils import datasets
 
@@ -5724,6 +6176,7 @@ def main():
     mesh_launches = None  # phase 15's paths, (a) and (b), counted when it runs
     observe_launches = None  # phase 16's path, counted when it runs
     observatory_launches = None  # phase 17's path, counted when it runs
+    tenants_launches = None  # phase 18's path, counted when it runs
     host = None
     if args.only == "batch":
         del bitmaps
@@ -5738,6 +6191,7 @@ def main():
         columnar_launches = phase_columnar(base, bitmaps, card, args.window_pairs)
         serving_launches = phase_serving(base, bitmaps, card)
         host = phase_host(base, bitmaps, card)
+        tenants_launches = phase_tenants(base, bitmaps, real, card)
         del bitmaps
         batch_launches, pairwise = phase_batch(base, card)
         from roaringbitmap_tpu_torch.models import bsi as tbsi
@@ -5747,6 +6201,7 @@ def main():
         vals, bsi_launches, index, bsi_times = phase_bsi(card)
         phase_range_bitmap(vals)
         mapped_launches = phase_mapped(base, index, vals, bsi_times, card)
+        _cut_bsi64(WHOLE_BSI64_ROWS)
         launches_64, index64 = phase_sixtyfour(base, card)
         mesh_launches = phase_mesh(base, index, vals, index64, card)
         del index, vals, index64
@@ -5797,6 +6252,8 @@ def main():
                 0 if name.endswith("@1024") else observe_launches.get(name, 0)),
             "launches_observatory": None if observatory_launches is None else (
                 0 if name.endswith("@1024") else observatory_launches.get(name, 0)),
+            "launches_tenants": None if tenants_launches is None else (
+                0 if name.endswith("@1024") else tenants_launches.get(name, 0)),
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

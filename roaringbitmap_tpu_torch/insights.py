@@ -8,17 +8,15 @@ the ``observe`` registry — ``dispatch_counters``,
 ``reset_dispatch_counters``, ``query_counters``, ``columnar_counters``,
 ``columnar_costmodel``, ``pack_cache_counters``, ``robust_counters``,
 ``decisions``, ``outcomes``, ``regret_summary``, ``health``,
-``fusion_counters``, ``observatory`` and ``metrics_snapshot``.
+``fusion_counters``, ``serving``, ``cost_authorities``, ``observatory``
+and ``metrics_snapshot``.
 
 Departures: ``dispatch_counters()["kernel"]`` is keyed by this package's
 kernel names and engines (``"rb_group_reduce[dense]/cuda"``, ``".../plain"``),
 and ``"probes"`` is ``{}``: the port never probes for a lowering, it
-launches its kernels or raises. ``fusion_counters()["window_state"]``
-holds the effective window alone (the window's base, floor and hedge
-switch come with the serving tier). What still waits: ``serving``,
-``epochs``, ``structure`` (it needs ``cost.compaction`` and
-``serve.maintain``), ``durable`` and ``cost_authorities``, with the cost
-facade, the serving and the durable tiers (ROADMAP Queue A items 4-6);
+launches its kernels or raises. What still waits: ``epochs``,
+``structure`` (it needs ``serve.maintain``) and ``durable``, with the
+serving tier's write path and the durable tier (ROADMAP Queue A);
 ``observatory()`` leaves out their keys until then.
 """
 
@@ -225,7 +223,6 @@ def regret_summary() -> dict:
     the worst recent decision with its inputs, the per-coefficient drift
     gauges and the cost models' provenance."""
     from . import columnar, observe
-    from .cost import fusion as _fusion_cost
     from .query.plan import CARD_MODEL
 
     return {
@@ -236,9 +233,15 @@ def regret_summary() -> dict:
             "columnar": columnar.MODEL.provenance if columnar.MODEL.calibrated
             else "default-gate",
             "planner_cardinality": CARD_MODEL.provenance,
-            "fusion_batch": _fusion_cost.MODEL.provenance,
+            "fusion_batch": _fusion_model_provenance(),
         },
     }
+
+
+def _fusion_model_provenance() -> str:
+    from .cost import fusion as _fusion_cost
+
+    return _fusion_cost.MODEL.provenance
 
 
 def health() -> dict:
@@ -270,8 +273,37 @@ def fusion_counters() -> dict:
 
     block = _export._fusion_block(observe.REGISTRY.snapshot())
     block["inflight_live"] = _inflight.TABLE.stats()
-    block["window_state"] = {"effective": _q_fusion.config.window}
+    # effective < base means the serving-p99-pressure actuation has shrunk
+    # the window and not yet regrown it
+    block["window_state"] = {
+        "effective": _q_fusion.config.window,
+        "base": _q_fusion.config.window_base,
+        "min": _q_fusion.config.window_min,
+        "hedge_enabled": _q_fusion.config.hedge,
+    }
     return block
+
+
+def serving() -> dict:
+    """Serving-tier rollup: per-tenant rolling QPS, latency p50/p99 per
+    phase, admission verdict volume, queue / in-flight depth, saturation
+    and resident byte shares (registry-derived), plus the live admission
+    controller's stats."""
+    from . import observe
+    from .observe import export as _export
+    from .serve import admission as _admission
+
+    block = _export._serving_block(observe.REGISTRY.snapshot(), observe.REGISTRY)
+    block["admission_live"] = _admission.CONTROLLER.stats()
+    return block
+
+
+def cost_authorities() -> dict:
+    """The unified cost facade's view: every pricing authority's curves,
+    provenance and live drift."""
+    from . import cost
+
+    return cost.calibration_state()
 
 
 def observatory() -> dict:
@@ -279,9 +311,9 @@ def observatory() -> dict:
     framework locks (empty until ``observe.lockstats.install()``), library
     build counts, the device-memory reconciliation (computed fresh),
     breaker states, pack-cache stats, the decision-log tail, the regret
-    rollup and the health sentinel's state. The JAX package's ``serving``,
-    ``epochs``, ``structure`` and ``durable`` keys come with their tiers
-    (ROADMAP Queue A items 4-6)."""
+    rollup, the health sentinel's state and the serving panel. The JAX
+    package's ``epochs``, ``structure`` and ``durable`` keys come with
+    their tiers (ROADMAP Queue A)."""
     from . import observe
     from .observe import lockstats
     from .parallel import store
@@ -297,6 +329,9 @@ def observatory() -> dict:
         "decisions": decisions(32),
         "regret": regret_summary(),
         "health": health(),
+        # the per-tenant panel rides the observatory view, so a red
+        # episode's flight bundle carries the serving state that fired it
+        "serving": serving(),
     }
 
 

@@ -77,6 +77,15 @@ from .registry import (
     QUERY_LATENCY_SECONDS,
     QUERY_PLAN_TOTAL,
     REGISTRY,
+    SERVE_ADMIT_TOTAL,
+    SERVE_INFLIGHT_COUNT,
+    SERVE_LATENCY_SECONDS,
+    SERVE_QPS,
+    SERVE_QUEUE_COUNT,
+    SERVE_REQUESTS_TOTAL,
+    SERVE_SATURATION_RATIO,
+    SERVE_SLO_BUDGET_SECONDS,
+    SERVE_TENANT_BYTES,
     RETRY_TOTAL,
     SPAN_SECONDS,
     STORE_DELTA_STAGE_SECONDS,
@@ -203,6 +212,15 @@ __all__ = [
     "DEGRADE_TOTAL",
     "BREAKER_TRANSITIONS_TOTAL",
     "RETRY_TOTAL",
+    "SERVE_ADMIT_TOTAL",
+    "SERVE_INFLIGHT_COUNT",
+    "SERVE_LATENCY_SECONDS",
+    "SERVE_QPS",
+    "SERVE_QUEUE_COUNT",
+    "SERVE_REQUESTS_TOTAL",
+    "SERVE_SATURATION_RATIO",
+    "SERVE_SLO_BUDGET_SECONDS",
+    "SERVE_TENANT_BYTES",
     "FAULT_INJECTED_TOTAL",
     "DEADLINE_TOTAL",
     "COMPILE_TOTAL",

@@ -15,16 +15,18 @@ directory:
         decisions.json      decision-log tail
         outcomes.json       ledger tail + per-site rollup + drift cells
         metrics.jsonl       full registry export (one series per line)
+        calibration.json    every pricing authority's curves, provenance
+                            and drift (``cost.calibration_state()``)
         observatory.json    lock-wait stats, compile counts, breaker
                             states + open ages, pack-cache stats, the
-                            device-memory reconciliation
+                            device-memory reconciliation, the serving
+                            panel (``insights.serving()``)
         health.json         sentinel status, rule states, evaluation
                             history, actuation log
 
-The JAX package's bundle also carries ``calibration.json`` (every pricing
-authority of the ``cost/`` facade, ROADMAP Queue A item 4) and the
-observatory's ``serving``, ``epochs``, ``structure`` and ``durable``
-panels (items 4-6); each comes with the module that holds its source.
+The JAX package's observatory also carries the ``epochs``, ``structure``
+and ``durable`` panels; they come with the serving tier's write path and
+the durable tier (ROADMAP Queue A).
 
 **Atomicity**: everything is written into a hidden ``.tmp-…`` sibling and
 the directory is renamed into place as the last step — a crash mid-write
@@ -111,7 +113,15 @@ def _collect_sections(health_dump: Optional[dict]) -> Dict[str, str]:
             {"error": f"{type(e).__name__}: {e}"}
         ) + "\n"
 
+    def _calibration():
+        from .. import cost as _cost
+
+        return _cost.calibration_state()
+
+    sections["calibration.json"] = _json_or_error(_calibration)
+
     def _observatory():
+        from .. import insights as _insights
         from ..parallel import store as _store
         from ..robust import ladder as _ladder
         from . import compilewatch as _compilewatch
@@ -125,6 +135,9 @@ def _collect_sections(health_dump: Optional[dict]) -> Dict[str, str]:
             "breaker_open_ages": _ladder.LADDER.open_ages(),
             "pack_cache": _store.PACK_CACHE.stats(),
             "hbm": _store.hbm_reconciliation(),
+            # a red episode the serving rules triggered ships the
+            # per-tenant state that fired it
+            "serving": _insights.serving(),
         }
 
     sections["observatory.json"] = _json_or_error(_observatory)

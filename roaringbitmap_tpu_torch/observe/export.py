@@ -16,10 +16,10 @@ Prometheus text.
   summary (``kernel``/``layout``/``transfer_bytes``/``spans`` and the
   other blocks below) plus the full registry snapshot. The context
   manager writes atomically (tmp file + os.replace) on exit, even when the
-  enclosed block raises. The health and fusion blocks are derived from the
-  registry alone, as in the JAX package; its serving, epoch, structure,
-  durable and analysis blocks come with the modules that register their
-  metrics (ROADMAP Queue A items 5-7).
+  enclosed block raises. The health, fusion and serving blocks are
+  derived from the registry alone, as in the JAX package; its epoch,
+  structure, durable and analysis blocks come with the modules that
+  register their metrics (ROADMAP Queue A).
 
 Everything is a pure function of a ``Registry`` (default: the process
 registry), so golden-format tests run against a private registry.
@@ -272,6 +272,55 @@ def _fusion_block(snap: dict) -> dict:
     }
 
 
+def _serving_block(snap: dict, registry: Registry) -> dict:
+    """The serving tier's sidecar block, derived purely from the registry
+    like the regret / health / fusion blocks: per-tenant rolling QPS,
+    latency p50/p99 per (tenant, phase), admission verdict volume, the
+    queue / in-flight depth gauges, per-tenant saturation, the resident
+    byte shares and the declared p99 budgets."""
+    tenants: dict = {}
+    lat = registry.get(_registry.SERVE_LATENCY_SECONDS)
+    if isinstance(lat, LatencyHistogram):
+        for lv, st in sorted(lat.series().items()):
+            tenant, phase = lv
+            tenants.setdefault(tenant, {}).setdefault("latency", {})[phase] = {
+                "count": st["count"],
+                **{
+                    "p%g" % (q * 100): round(lat._quantile_of_state(st, q), 6)
+                    for q in SNAPSHOT_QUANTILES
+                },
+            }
+    for name, key in (
+        (_registry.SERVE_QPS, "qps"),
+        (_registry.SERVE_SATURATION_RATIO, "saturation"),
+        (_registry.SERVE_TENANT_BYTES, "bytes"),
+        (_registry.SERVE_SLO_BUDGET_SECONDS, "slo_budget_s"),
+    ):
+        m = snap.get(name)
+        if m is None:
+            continue
+        for s in m["samples"]:
+            tenant = s["labels"].get("tenant")
+            if tenant is not None:
+                tenants.setdefault(tenant, {})[key] = s["value"]
+
+    def _gauge(name):
+        m = snap.get(name)
+        if m is not None:
+            for s in m["samples"]:
+                if not s["labels"]:
+                    return s["value"]
+        return None
+
+    return {
+        "tenants": tenants,
+        "admit": _counter_map(snap, _registry.SERVE_ADMIT_TOTAL, joined=True),
+        "requests": _counter_map(snap, _registry.SERVE_REQUESTS_TOTAL, joined=True),
+        "queue_depth": _gauge(_registry.SERVE_QUEUE_COUNT),
+        "inflight": _gauge(_registry.SERVE_INFLIGHT_COUNT),
+    }
+
+
 def _health_block(snap: dict) -> dict:
     """The health sentinel's sidecar block, derived PURELY from the
     registry gauges (like the regret block) so a rendering needs no live
@@ -319,6 +368,7 @@ def sidecar_snapshot(registry: Optional[Registry] = None) -> dict:
         "regret": _regret_block(snap, _reg(registry)),
         "health": _health_block(snap),
         "fusion": _fusion_block(snap),
+        "serving": _serving_block(snap, _reg(registry)),
         "registry": snap,
     }
 

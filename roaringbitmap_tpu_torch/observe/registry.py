@@ -119,13 +119,22 @@ STRUCTURE_DRIFT_RATIO = "rb_tpu_structure_drift_ratio"
 STRUCTURE_FRAGMENTATION_COUNT = "rb_tpu_structure_fragmentation_count"
 STRUCTURE_ACCRETION_COUNT = "rb_tpu_structure_accretion_count"
 STRUCTURE_BYTES = "rb_tpu_structure_bytes"
-# serving, epoch and durable names the health rules judge; the metrics
-# themselves are registered by the serving and durable tiers (ROADMAP
-# Queue A items 5 and 6) — until then the rules read no series and stay
-# green
+# serving tier (serve/slo.py, serve/admission.py): per-tenant latency by
+# phase, rolling QPS, requests by outcome, admission verdicts, the live
+# queue and in-flight depths, per-tenant quota saturation, byte shares of
+# the resident packs and the declared p99 budgets
 SERVE_LATENCY_SECONDS = "rb_tpu_serve_latency_seconds"
+SERVE_QPS = "rb_tpu_serve_qps"
 SERVE_ADMIT_TOTAL = "rb_tpu_serve_admit_total"
+SERVE_REQUESTS_TOTAL = "rb_tpu_serve_requests_total"
+SERVE_QUEUE_COUNT = "rb_tpu_serve_queue_count"
+SERVE_INFLIGHT_COUNT = "rb_tpu_serve_inflight_count"
+SERVE_SATURATION_RATIO = "rb_tpu_serve_saturation_ratio"
+SERVE_TENANT_BYTES = "rb_tpu_serve_tenant_bytes"
 SERVE_SLO_BUDGET_SECONDS = "rb_tpu_serve_slo_budget_seconds"
+# epoch and durable names the health rules judge; their metrics are
+# registered by the serving tier's write path and the durable tier
+# (ROADMAP Queue A) — until then those rules read no series and stay green
 SERVE_FRESHNESS_SECONDS = "rb_tpu_serve_freshness_seconds"
 SERVE_EPOCH_FLIP_TOTAL = "rb_tpu_serve_epoch_flip_total"
 SERVE_MUTLOG_COUNT = "rb_tpu_serve_mutlog_count"

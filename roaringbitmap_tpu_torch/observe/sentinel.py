@@ -45,11 +45,11 @@ a verdict:
     (``observe.bundle``) per red episode, cooldown-guarded
     (``RB_TPU_SENTINEL_BUNDLE_COOLDOWN_S``, default 300 s).
 
-  The targets of ``refit``, ``maintain`` and ``autotune`` arrive with the
-  cost facade (ROADMAP Queue A item 4) and the serving tier (item 5).
-  Until then each of these actuations records its error in the actuation
-  log, as the JAX package's own failure path does, and its rule stays
-  firing; ``alert`` and ``bundle`` work in full.
+  The ``maintain`` target arrives with the serving tier's write path
+  (ROADMAP Queue A); until then that actuation records its error in the
+  actuation log, as the JAX package's own failure path does, and its
+  rules stay firing. ``refit``, ``autotune``, ``alert`` and ``bundle``
+  work in full.
 
 Every tick exports ``rb_tpu_health_status`` (process rollup) and
 ``rb_tpu_health_rule_state{rule}``; actuations count in

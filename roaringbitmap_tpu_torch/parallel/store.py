@@ -44,10 +44,18 @@ caches' own byte ledgers and against the card's allocator
 (``torch.cuda.memory_allocated``), exporting the drift as
 ``rb_tpu_hbm_accounting_drift_bytes{source}``.
 
+An eviction is priced by the residency authority's learned re-pack cost
+for its kind (``cost.residency``): the evict decision records it as
+``est_us`` (``repack`` and ``rebuild``) once evict-regret traffic has
+taught the curve, so the regret join scores the pricing.
+:meth:`PackCache.resident_bytes_for` charges a working set's resident
+bytes to its leaves' fingerprints (the serving tier's per-tenant byte
+shares).
+
 Left out here, relative to the JAX package: pinning and the per-thread
-last route (ROADMAP Queue A item 5), the demotion probe (item 6), and the
-eviction's re-pack estimate, which asks ``cost.residency`` (item 4) and
-is absent until then, as on the JAX package's own failure path.
+last route (they come with the serving tier's write path, ROADMAP Queue
+A), and the demotion probe with its ``readmit`` estimate (the durable
+tier).
 """
 
 from __future__ import annotations
@@ -1126,6 +1134,14 @@ def static_fp_refs(bitmaps: Sequence[RoaringBitmap]) -> tuple:
     )
 
 
+def _repack_estimate_s(kind: str) -> Optional[float]:
+    """The residency authority's learned re-pack cost for ``kind``: None
+    until evict-regret traffic taught the curve."""
+    from ..cost import residency as _residency
+
+    return _residency.MODEL.repack_estimate(kind)
+
+
 DEFAULT_HOST_BUDGET = 2 << 30
 
 
@@ -1388,6 +1404,30 @@ class PackCache:
         with self._lock:
             return len(self._entries)
 
+    def resident_bytes_for(self, fps) -> int:
+        """Resident bytes attributable to a working set: the sum of entry
+        bytes whose key (or recorded fingerprint tuple) embeds any of the
+        given leaf ``fingerprint()`` tuples. An entry serving several
+        overlapping working sets is charged to each caller — the serving
+        tier's per-tenant byte shares are shares, not a partition, so
+        they may sum past the resident total."""
+        want = set(fps)
+        if not want:
+            return 0
+        total = 0
+        with self._lock:
+            for e in self._entries.values():
+                if e.fps and any(fp in want for fp in e.fps):
+                    total += e.nbytes
+                    continue
+                for el in e.key:
+                    if el in want or (
+                        isinstance(el, tuple) and any(fp in want for fp in el)
+                    ):
+                        total += e.nbytes
+                        break
+        return total
+
     def __contains__(self, key: tuple) -> bool:
         with self._lock:
             return key in self._entries
@@ -1523,9 +1563,19 @@ class PackCache:
                 "pack_cache.evict", "cache", kind=e.kind, bytes=e.nbytes,
                 rung="discard",
             )
+            # the residency authority's learned re-pack cost prices this
+            # eviction: the evict-regret join then scores the pricing
+            # (predicted vs measured re-pack wall)
+            evict_inputs = {"kind": e.kind, "bytes": e.nbytes,
+                            "target_bytes": target, "rung": "discard"}
+            est_repack_s = _repack_estimate_s(e.kind)
+            if est_repack_s:
+                evict_inputs["est_us"] = {
+                    "repack": round(est_repack_s * 1e6, 1),
+                    "rebuild": round(est_repack_s * 1e6, 1),
+                }
             seq = _decisions.record_decision(
-                "pack_cache.evict", "lru", outcome=True, kind=e.kind,
-                bytes=e.nbytes, target_bytes=target, rung="discard",
+                "pack_cache.evict", "lru", outcome=True, **evict_inputs,
             )
             ident = self._agg_ident(e) if e.kind == "agg" else None
             if ident is not None and self._ident.get(ident) == key:

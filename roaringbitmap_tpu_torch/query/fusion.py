@@ -67,15 +67,27 @@ signal) and the effective window bound (``rb_tpu_fusion_window_count``).
 :class:`FusionExecutor` is the serving shape — ``submit()`` returns a
 future, a drain loop coalesces up to ``RB_TPU_FUSION_WINDOW`` queries
 (default 8) or whatever arrived within ``RB_TPU_FUSION_LATENCY_MS``
-(default 2 ms), closed earlier by a member's ``slack_ms``.
+(default 2 ms), closed earlier by a member's slack.
 ``RB_TPU_FUSION=off`` (or ``configure(enabled=False)``) reduces
 :func:`execute_fused` to the plain serial loop.
 
-Left out here, relative to the JAX package: the hedged solo dispatch,
-tenant budgets and the window autotune (``autotune_window``, the health
-sentinel's ``autotune`` target), which need the serving tier (ROADMAP
-Queue A item 5); ``rb_tpu_fusion_hedge_total`` is registered and stays
-empty until then.
+**The hedge:** a budgeted submit (``tenant=`` from the serving tier's
+registry, or ``slack_ms=``) records the joint priced window-vs-solo
+verdict (``fusion.hedge``, ``cost/fusion.py``'s ``choose_dispatch``); an
+interactive request the verdict prices out of the window runs solo in
+the caller thread through the serial executor, whose claim/join loop
+rides the same in-flight dedup table. The solo rung holds the
+``query.hedge`` fault site, and a failed solo rung degrades to the window
+through the ladder — the JAX package's semantics: both rungs run the same
+device path, so the degrade gives up the latency hedge, never the card.
+``rb_tpu_fusion_hedge_total{verdict}`` counts the verdicts.
+
+**The autotune:** :func:`autotune_window` (the health sentinel's
+``autotune`` target, actuated by ``serving-p99-pressure``) moves the
+effective window (``config.window``) between ``config.window_min``
+(``RB_TPU_FUSION_WINDOW_MIN``) and ``config.window_base`` from the fusion
+authority's curves against the tightest declared interactive budget;
+executors built without an explicit window follow it live.
 """
 
 from __future__ import annotations
@@ -98,6 +110,7 @@ from ..observe import decisions as _decisions
 from ..observe import outcomes as _outcomes
 from ..observe import timeline as _timeline
 from ..robust import faults as _faults
+from ..robust import ladder as _ladder
 from ..robust.ladder import deadline_expired, deadline_scope
 from . import exec as _exec
 from . import inflight as _inflight
@@ -189,35 +202,95 @@ def _env_flag(name: str, default: bool) -> bool:
 
 class config:
     """Fusion dispatch knobs (env-seeded, runtime-overridable via
-    :func:`configure`). ``window`` bounds the queries one drained batch
-    coalesces; ``max_wait_ms`` bounds how long the drain loop holds an
-    open window for stragglers — a member's declared slack can only
-    CLOSE the window earlier, never extend it."""
+    :func:`configure`). ``window`` is the effective window bound (queries
+    one drained batch coalesces), which :func:`autotune_window` moves
+    between ``window_min`` and ``window_base``; ``max_wait_ms`` bounds how
+    long the drain loop holds an open window for stragglers — a member's
+    declared slack can only CLOSE the window earlier, never extend it.
+    ``hedge`` arms the solo bypass for interactive requests whose priced
+    verdict says the forming window would blow their budget."""
 
     enabled: bool = _env_flag("RB_TPU_FUSION", True)
     window: int = max(2, int(os.environ.get("RB_TPU_FUSION_WINDOW") or 8))
+    window_base: int = window
+    window_min: int = max(2, int(os.environ.get("RB_TPU_FUSION_WINDOW_MIN") or 2))
     max_wait_ms: float = float(os.environ.get("RB_TPU_FUSION_LATENCY_MS") or 2.0)
+    hedge: bool = _env_flag("RB_TPU_FUSION_HEDGE", True)
+
+
+_WINDOW_COUNT.set(config.window)
 
 
 def configure(
     enabled: Optional[bool] = None,
     window: Optional[int] = None,
     max_wait_ms: Optional[float] = None,
+    window_min: Optional[int] = None,
+    hedge: Optional[bool] = None,
 ) -> None:
     if enabled is not None:
         config.enabled = bool(enabled)
     if window is not None:
         if window < 2:
             raise ValueError(f"fusion window must be >= 2, got {window}")
+        # an explicit window is a new base: the autotune shrinks from (and
+        # regrows back to) whatever was last declared
         config.window = int(window)
+        config.window_base = int(window)
+        _WINDOW_COUNT.set(config.window)
     if max_wait_ms is not None:
         if max_wait_ms < 0:
             raise ValueError(f"max_wait_ms must be >= 0, got {max_wait_ms}")
         config.max_wait_ms = float(max_wait_ms)
-    _WINDOW_COUNT.set(config.window)
+    if window_min is not None:
+        if window_min < 2:
+            raise ValueError(f"window_min must be >= 2, got {window_min}")
+        config.window_min = int(window_min)
+    if hedge is not None:
+        config.hedge = bool(hedge)
 
 
-_WINDOW_COUNT.set(config.window)
+def autotune_window(
+    budget_ms: Optional[float] = None, reason: str = "manual"
+) -> dict:
+    """Recompute the effective window bound from the fusion authority's
+    current (possibly refitted) curves against the tightest declared
+    interactive p99 budget (the ``serving-p99-pressure`` actuation's
+    body): shrink when a full base window cannot fit inside the budget,
+    regrow toward ``config.window_base`` when it can or when no
+    interactive tenant is declared. Returns the tuning record; the
+    verdict lands in the decision log as ``fusion.autotune``."""
+    if budget_ms is None:
+        from ..serve import slo as _slo
+
+        budget_ms = min(
+            (
+                _slo.TENANTS.p99_budget_ms(t)
+                for t in _slo.TENANTS.names()
+                if _slo.TENANTS.latency_class(t) == "interactive"
+            ),
+            default=None,
+        )
+    frm = config.window
+    if budget_ms is None:
+        target = config.window_base
+    else:
+        target = _fusion_cost.MODEL.window_for_budget(float(budget_ms) * 1e3)
+        target = min(config.window_base, max(config.window_min, target))
+    verdict = (
+        "shrink" if target < frm else ("regrow" if target > frm else "hold")
+    )
+    config.window = target
+    _WINDOW_COUNT.set(target)
+    _decisions.record_decision(
+        "fusion.autotune", verdict, window_from=frm, window_to=target,
+        budget_ms=budget_ms, reason=reason,
+        provenance=_fusion_cost.MODEL.provenance,
+    )
+    return {
+        "verdict": verdict, "window_from": frm, "window_to": target,
+        "budget_ms": budget_ms, "reason": reason,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -637,8 +710,11 @@ class FusionExecutor:
     arrived within ``max_wait_ms`` of the window opening, or whatever fits
     before the tightest member deadline) and executes the batch through
     :func:`execute_fused`. An exception of a batch reaches every future of
-    it. One drain thread, lazily started; ``close()`` drains what is
-    queued and stops."""
+    it. A budgeted submit (``tenant`` / ``slack_ms``) records the joint
+    priced window-vs-solo verdict (``fusion.hedge``); an interactive
+    request the verdict prices out of the window dispatches solo in the
+    caller thread instead. One drain thread, lazily started; ``close()``
+    drains what is queued and stops."""
 
     def __init__(
         self,
@@ -649,6 +725,7 @@ class FusionExecutor:
         deadline_s: Optional[float] = None,
     ):
         # an explicit window pins this executor; None tracks config.window
+        # live, so the autotune reaches running executors
         self._window_override = window is not None
         self.window = int(window) if window is not None else config.window
         self.max_wait_s = (
@@ -662,29 +739,132 @@ class FusionExecutor:
         self._closed = False  # guarded-by: self._cond
         self._thread: Optional[threading.Thread] = None  # guarded-by: self._cond
         self.batches = 0
+        self.hedges = 0
 
     def _target_window(self) -> int:
         if self._window_override:
             return self.window
         return max(2, config.window)
 
+    @staticmethod
+    def _slack_for(
+        tenant: Optional[str], slack_ms: Optional[float],
+        latency_class: Optional[str],
+    ) -> Tuple[Optional[float], Optional[str]]:
+        """Resolve the request's latency budget: explicit arguments win,
+        else the tenant's declared SLO from the serving tier's registry
+        (an undeclared tenant declares no budget)."""
+        if slack_ms is None and tenant is not None:
+            from ..serve import slo as _slo
+
+            try:
+                slack_ms = _slo.TENANTS.p99_budget_ms(tenant)
+                if latency_class is None:
+                    latency_class = _slo.TENANTS.latency_class(tenant)
+            except KeyError:
+                return None, None
+        if slack_ms is None:
+            return None, None
+        return float(slack_ms) / 1e3, latency_class
+
     def submit(
-        self, query: Union[Expr, Plan], slack_ms: Optional[float] = None
+        self,
+        query: Union[Expr, Plan],
+        tenant: Optional[str] = None,
+        slack_ms: Optional[float] = None,
+        latency_class: Optional[str] = None,
     ) -> "Future[RoaringBitmap]":
-        """Enqueue ``query``; ``slack_ms`` is the latency budget it
-        declares, which can close its window earlier than
-        ``max_wait_ms``."""
+        """Enqueue ``query``, or hedge it solo. Its latency budget
+        (``slack_ms``, else the declared budget of ``tenant``) can close
+        its window earlier than ``max_wait_ms`` and is priced by the
+        ``fusion.hedge`` verdict."""
         fut: "Future[RoaringBitmap]" = Future()
         t_enq = time.perf_counter()
-        deadline = t_enq + float(slack_ms) / 1e3 if slack_ms is not None else None
-        self._enqueue(query, fut, t_enq, deadline)
+        slack_s, cls = self._slack_for(tenant, slack_ms, latency_class)
+        deadline = (t_enq + slack_s) if slack_s is not None else None
+        seq = None
+        if slack_s is not None and config.enabled:
+            verdict, seq = self._hedge_verdict(query, t_enq, slack_s, cls)
+            if verdict == "solo":
+                return self._dispatch_solo(query, fut, deadline, seq)
+            if seq is not None:
+                _HEDGE_TOTAL.inc(1, ("window",))
+        self._enqueue(query, fut, t_enq, deadline, seq)
         return fut
 
-    def _enqueue(self, query, fut, t_enq, deadline) -> None:
+    def _hedge_verdict(self, query, t_enq, slack_s, cls):
+        """The per-request joint priced decision: predicted window
+        completion (deadline-bounded hold + fused estimate of the forming
+        batch) against this request's own solo curve, each penalized past
+        the slack. Only interactive requests act on a solo verdict;
+        every budgeted request records it."""
+        try:
+            plan = query if isinstance(query, Plan) else _exec._memo_plan(
+                query, self.mode
+            )
+            steps = max(1, len(plan.steps))
+        except Exception:  # a plan error surfaces on the window path (the future), not in the pricing probe
+            return "window", None
+        with self._cond:
+            depth = len(self._queue)
+            t_open = self._queue[0][2] if self._queue else t_enq
+            deadlines = [e[3] for e in self._queue]
+        close_at = window_close_at(t_open, self.max_wait_s, deadlines)
+        # the deadline-aware drain would close our window by our own slack
+        # anyway: the hold we would pay is bounded by both
+        wait_us = max(0.0, (min(close_at, t_enq + slack_s) - t_enq)) * 1e6
+        verdict, est = _fusion_cost.MODEL.choose_dispatch(
+            steps, depth, wait_us, slack_s * 1e6
+        )
+        hedged = verdict == "solo" and cls == "interactive" and config.hedge
+        recorded = "solo" if hedged else "window"
+        seq = _decisions.record_decision(
+            "fusion.hedge", recorded, outcome=_outcomes.enabled(),
+            est_us=est, latency_class=cls, slack_ms=round(slack_s * 1e3, 3),
+            depth=depth, steps=steps, priced=verdict,
+        )
+        return recorded, seq
+
+    def _run_solo(self, query) -> RoaringBitmap:
+        """The hedge's solo rung (fault site ``query.hedge``): the serial
+        executor in the caller thread, whose claim/join loop rides the
+        same in-flight dedup table as the fused path."""
+        _faults.fault_point("query.hedge")
+        return _exec.execute(
+            query, cache=self.cache, mode=self.mode,
+            deadline_s=self.deadline_s,
+        )
+
+    def _dispatch_solo(self, query, fut, deadline, seq):
+        """Hedged solo dispatch: bypass the window and execute in the
+        caller thread. A failing solo rung degrades to the window through
+        the ``query.hedge`` ladder (losing the latency hedge, keeping the
+        answer); both rungs run the same device path."""
+        self.hedges += 1
+        _HEDGE_TOTAL.inc(1, ("solo",))
+
+        def _window_rung() -> RoaringBitmap:
+            f2: "Future[RoaringBitmap]" = Future()
+            self._enqueue(query, f2, time.perf_counter(), deadline, None)
+            return f2.result()
+
+        try:
+            val = _ladder.LADDER.run(
+                "query.hedge",
+                [("solo", lambda: self._run_solo(query)), ("window", _window_rung)],
+                outcome_seq=seq, outcome_site="fusion.hedge",
+            )
+        except Exception as e:  # both rungs failed: the error belongs to this caller's future, like a drained batch's
+            fut.set_exception(e)
+        else:
+            fut.set_result(val)
+        return fut
+
+    def _enqueue(self, query, fut, t_enq, deadline, seq) -> None:
         with self._cond:
             if self._closed:
                 raise RuntimeError("FusionExecutor is closed")
-            self._queue.append((query, fut, t_enq, deadline))
+            self._queue.append((query, fut, t_enq, deadline, seq))
             _publish_depth(id(self), len(self._queue))
             if self._thread is None:
                 self._thread = threading.Thread(
@@ -723,20 +903,28 @@ class FusionExecutor:
                 ]
                 _publish_depth(id(self), len(self._queue))
             now = time.perf_counter()
-            for _q, _fut, t_enq, _dl in batch:
+            for _q, _fut, t_enq, _dl, _seq in batch:
                 _BATCH_SECONDS.observe(now - t_enq, ("queued",))
             try:
                 outs = execute_fused(
-                    [q for q, _f, _t, _dl in batch],
+                    [q for q, _f, _t, _dl, _seq in batch],
                     cache=self.cache, mode=self.mode, deadline_s=self.deadline_s,
                 )
             except Exception as e:  # the batch's error belongs to its callers' futures; the drain thread serves the next window
-                for _q, fut, _t, _dl in batch:
+                for _q, fut, _t, _dl, _seq in batch:
                     fut.set_exception(e)
             else:
                 self.batches += 1
-                for (_q, fut, _t, _dl), val in zip(batch, outs):
+                done = time.perf_counter()
+                for (_q, fut, t_enq, _dl, seq), val in zip(batch, outs):
                     fut.set_result(val)
+                    if seq is not None:
+                        # the window verdict's half of the fusion.hedge
+                        # join: measured enqueue-to-result wall against the
+                        # predicted window completion
+                        _outcomes.resolve(
+                            seq, "fusion.hedge", done - t_enq, engine="window",
+                        )
 
     def queue_depth(self) -> int:
         with self._cond:

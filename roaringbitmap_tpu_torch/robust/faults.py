@@ -28,9 +28,9 @@ Two ways to arm faults:
 reference run mid-schedule).
 
 :data:`SITES` lists the sites that have a call site in this package, in
-the JAX package's order. The JAX package's other sites (``query.hedge``,
-``serve.admit``, ``epoch.flip``, ``serve.maintain``, ``durable.persist``)
-come with the serving and durable tiers (ROADMAP Queue A items 5 and 6).
+the JAX package's order. The JAX package's other sites (``epoch.flip``,
+``serve.maintain``, ``durable.persist``) come with the serving tier's
+write path and the durable tier (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -54,6 +54,8 @@ SITES: Tuple[str, ...] = (
     "ops.dispatch",      # kernel launch: reduce, popcount, expand, threshold (ops/kernels.py)
     "query.exec",        # query executor device-engine step dispatch
     "query.fusion",      # fused micro-batch execution (query/fusion.py)
+    "query.hedge",       # hedged solo dispatch of an SLO-priced request (query/fusion.py)
+    "serve.admit",       # serving-tier admission verdict (serve/admission.py)
     "columnar.kernel",   # columnar native batch-kernel entry (columnar/kernels.py)
     "columnar.device",   # columnar device-tier entry (columnar/device.py)
     "native.entry",      # native host tier entry (native/__init__.py)

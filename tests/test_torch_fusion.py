@@ -475,13 +475,8 @@ def test_executor_close_drains_then_refuses():
 
 def test_fusion_cost_model_matches_the_jax_package():
     t, j = tfusion_cost.FusionBatchModel(), jfusion_cost.FusionBatchModel()
-    priced = set(tfusion_cost.DEFAULT_COEFFS)
-
-    def jax_coeffs():  # the JAX package's, less its hedge's slack_penalty
-        return {k: v for k, v in j.coeffs.items() if k in priced}
-
-    assert priced == set(jfusion_cost.DEFAULT_COEFFS) - {"slack_penalty"}
-    assert tfusion_cost.DEFAULT_COEFFS == jax_coeffs()
+    assert tfusion_cost.DEFAULT_COEFFS == jfusion_cost.DEFAULT_COEFFS
+    assert t.coeffs == j.coeffs
     for steps in (0, 1, 2, 3, 5, 8, 13, 40, 200):
         for tiers in (0, 1, 2, 3, 7, 50):
             assert t.estimate(steps, tiers) == j.estimate(steps, tiers)
@@ -497,24 +492,50 @@ def test_fusion_cost_model_matches_the_jax_package():
     ]
     got, want = t.refit_from_outcomes(samples), j.refit_from_outcomes(samples)
     assert got == want and got["moved"] and got["rejected"] == 1
-    assert t.coeffs == jax_coeffs() and t.provenance == j.provenance == "refit-from-traffic"
-    # the port has no hedge: its samples refit nothing here
-    hedged = t.refit_from_outcomes(
-        [{"site": "fusion.hedge", "engine": "solo", "predicted_us": 300.0, "measured_s": 0.002}] * 4
-    )
-    assert hedged["moved"] == {} and t.coeffs == jax_coeffs()
+    assert t.coeffs == j.coeffs and t.provenance == j.provenance == "refit-from-traffic"
+    # hedged solo joins refit the per-query curve; window joins refit nothing
+    hedged = [{"site": "fusion.hedge", "engine": "solo", "predicted_us": 300.0, "measured_s": 0.002}] * 4
+    windowed = [{"site": "fusion.hedge", "engine": "window", "predicted_us": 100.0, "measured_s": 0.5}] * 4
+    for batch in (hedged, windowed):
+        assert t.refit_from_outcomes(batch) == j.refit_from_outcomes(batch)
+        assert t.coeffs == j.coeffs
     state = t.to_dict()
-    assert state == dict(j.to_dict(), coeffs=jax_coeffs())
+    assert state == j.to_dict()
     fresh = tfusion_cost.FusionBatchModel()
-    assert fresh.from_dict(state) and fresh.coeffs == jax_coeffs()
+    assert fresh.from_dict(state) and fresh.coeffs == j.coeffs
     fresh.reset()
-    assert fresh.from_dict(j.to_dict()) and fresh.coeffs == jax_coeffs()  # a JAX-saved state
-    assert fresh.curves_view() == dict(j.curves_view(), coeffs=jax_coeffs())
+    assert fresh.from_dict(j.to_dict()) and fresh.coeffs == j.coeffs  # a JAX-saved state
+    assert fresh.curves_view() == j.curves_view()
     assert not fresh.from_dict({"schema": "other"})
     bad = dict(state, coeffs=dict(state["coeffs"], tier_us=1e9))
-    assert not fresh.from_dict(bad) and fresh.coeffs == jax_coeffs()
+    assert not fresh.from_dict(bad) and fresh.coeffs == j.coeffs
     fresh.reset()
     assert fresh.coeffs == tfusion_cost.DEFAULT_COEFFS and fresh.provenance == "default"
+
+
+# ---------------------------------------------------------------------------
+# the hedge and the window autotune, against the JAX package
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("refit", [False, True])
+def test_hedge_pricing_matches_the_jax_package(refit):
+    t, j = tfusion_cost.FusionBatchModel(), jfusion_cost.FusionBatchModel()
+    if refit:  # the verdicts under refitted curves too
+        samples = [{"site": "fusion.hedge", "engine": "solo", "predicted_us": 240.0,
+                    "measured_s": 960.0 / 1e6}] * 4 + [
+            {"site": "fusion.batch", "engine": "fused", "predicted_us": 400.0, "measured_s": 1e-4}] * 3
+        assert t.refit_from_outcomes(samples) == j.refit_from_outcomes(samples)
+    for steps in (0, 1, 2, 5, 13):
+        for depth in (0, 1, 3, 9):
+            for wait_us in (0.0, 150.0, 2000.0, 5e4):
+                assert t.hedge_estimate(steps, depth, wait_us) == j.hedge_estimate(steps, depth, wait_us)
+                for slack_us in (1.0, 300.0, 2500.0, 1e5):
+                    assert (t.choose_dispatch(steps, depth, wait_us, slack_us)
+                            == j.choose_dispatch(steps, depth, wait_us, slack_us))
+    for budget_us in (0.0, 200.0, 300.0, 1000.0, 25e3, 1e6):
+        for spq in (1.0, 2.0, 3.5):
+            assert t.window_for_budget(budget_us, spq) == j.window_for_budget(budget_us, spq)
 
 
 # ---------------------------------------------------------------------------
@@ -665,6 +686,211 @@ def test_executor_publishes_queue_depth_and_queued_latency():
     fusion.configure(window=5)
     try:
         assert tobs.REGISTRY.get(tobs.FUSION_WINDOW_COUNT).get(()) == 5
-        assert tinsights.fusion_counters()["window_state"] == {"effective": 5}
+        # the window state of the JAX package: effective, base, floor, hedge
+        assert tinsights.fusion_counters()["window_state"] == {
+            "effective": 5, "base": 5, "min": fusion.config.window_min,
+            "hedge_enabled": fusion.config.hedge,
+        }
     finally:
         fusion.configure(window=8)
+
+
+# ---------------------------------------------------------------------------
+# the hedged executor and the window autotune, against the JAX package
+# (tests/test_query_fusion.py:593-800)
+# ---------------------------------------------------------------------------
+
+
+def _hedge_query(seed, k=4):
+    tb, jb = _bms(np.random.default_rng(seed), k)
+    return (tq.Q.leaf(tb[0]) & tq.Q.leaf(tb[1])) | tq.Q.leaf(tb[2]), \
+        (JQ.leaf(jb[0]) & JQ.leaf(jb[1])) | JQ.leaf(jb[2])
+
+
+def _hedge_records(decisions_mod):
+    return [
+        {k: v for k, v in e.items() if k not in ("seq", "ts", "ts_ns", "trace")}
+        for e in decisions_mod.decisions() if e["site"] == "fusion.hedge"
+    ]
+
+
+@pytest.mark.parametrize("latency_class,slack_ms", [
+    ("interactive", 1.0), ("interactive", 5000.0), ("batch", 1.0), (None, 30.0),
+])
+def test_hedge_verdict_and_its_decision_match_the_jax_package(latency_class, slack_ms):
+    """The joint priced verdict: with an empty queue the hold and the
+    estimates are deterministic, so both packages record the same
+    ``fusion.hedge`` decision and take the same path."""
+    tqy, jqy = _hedge_query(43)
+    got = []
+    for label, mod, dec, out in (("port", fusion, tdecisions, toutcomes),
+                                 ("jax", jfusion, jdecisions, joutcomes)):
+        dec.LOG.clear()
+        out.reset()
+        ex = mod.FusionExecutor(max_wait_ms=100.0, cache=None)
+        try:
+            res = ex.submit(tqy if label == "port" else jqy, slack_ms=slack_ms,
+                            latency_class=latency_class).result(timeout=60)
+        finally:
+            ex.close()
+        joined = [(e["engine"], e.get("predicted_us")) for e in out.tail() if e["site"] == "fusion.hedge"]
+        got.append((res.serialize(), ex.hedges, ex.batches, _hedge_records(dec), joined))
+    assert got[0] == got[1]
+    _bytes, hedges, batches, records, joined = got[0]
+    assert len(records) == 1 and len(joined) == 1
+    # a window's 100 ms hold prices above the solo curve at both slacks:
+    # every interactive request hedges, no other class acts on it
+    solo = latency_class == "interactive"
+    assert (hedges, batches) == ((1, 0) if solo else (0, 1))
+    assert records[0]["decision"] == ("solo" if solo else "window")
+    assert joined[0][0] == records[0]["decision"] and joined[0][1] > 0
+
+
+def test_a_declared_tenant_prices_its_own_budget():
+    from roaringbitmap_tpu_torch.serve import slo as tslo
+
+    tqy, _ = _hedge_query(44)
+    tslo.TENANTS.declare("fx-int", latency_class="interactive", p99_budget_ms=1.0)
+    try:
+        assert fusion.FusionExecutor._slack_for("fx-int", None, None) == (0.001, "interactive")
+        assert fusion.FusionExecutor._slack_for("fx-unknown", None, None) == (None, None)
+        assert fusion.FusionExecutor._slack_for(None, 50.0, "batch") == (0.05, "batch")
+        with fusion.FusionExecutor(max_wait_ms=2000.0, cache=None) as ex:
+            got = ex.submit(tqy, tenant="fx-int").result(timeout=60)
+            assert ex.hedges == 1 and ex.batches == 0
+        assert got.serialize() == texec.execute(tqy, cache=None).serialize()
+        # the hedge switch off: the verdict is recorded, the window serves
+        fusion.configure(hedge=False)
+        with fusion.FusionExecutor(max_wait_ms=20.0, cache=None) as ex:
+            ex.submit(tqy, tenant="fx-int").result(timeout=60)
+            assert ex.hedges == 0 and ex.batches == 1
+    finally:
+        fusion.configure(hedge=True)
+        tslo.reset()
+
+
+def test_hedge_fault_degrades_to_the_window_like_the_jax_package():
+    tqy, jqy = _hedge_query(53)
+    got = []
+    for mod, faults, q in ((fusion, tfaults, tqy), (jfusion, None, jqy)):
+        if faults is None:
+            from roaringbitmap_tpu.robust import faults
+        ex = mod.FusionExecutor(max_wait_ms=20.0, cache=None)
+        try:
+            with faults.inject("query.hedge", every=1) as inj:
+                out = ex.submit(q, slack_ms=1.0, latency_class="interactive").result(timeout=60)
+            got.append((out.serialize(), ex.hedges, ex.batches >= 1, inj.fired))
+        finally:
+            ex.close()
+    assert got[0] == got[1]  # the same path and the same bytes
+    assert got[0][1:] == (1, True, 1)
+    assert got[0][0] == texec.execute(tqy, cache=None).serialize()
+
+
+def test_hedged_solo_joins_a_pending_fused_subexpression(monkeypatch):
+    """A hedged solo request whose expression is computing inside a fused
+    window joins that in-flight entry instead of recomputing."""
+    tb, _jb = _bms(np.random.default_rng(59), 3)
+    q = tq.Q.leaf(tb[0]) & tq.Q.leaf(tb[1])
+    cache = tq.ResultCache(max_entries=32)
+    gate, entered = threading.Event(), threading.Event()
+    orig = texec._run_step
+
+    def slow_step(*a, **kw):
+        entered.set()
+        gate.wait(10.0)
+        return orig(*a, **kw)
+
+    joins0 = inflight.TABLE.stats()["joins"]
+    out = {}
+    monkeypatch.setattr(texec, "_run_step", slow_step)
+    t1 = threading.Thread(target=lambda: out.setdefault("fused", fusion.execute_fused([q], cache=cache)[0]))
+    t1.start()
+    try:
+        assert entered.wait(10.0), "the fused window never claimed the step"
+        monkeypatch.setattr(texec, "_run_step", orig)  # the joiner needs no gate
+        with fusion.FusionExecutor(cache=cache, max_wait_ms=2000.0) as ex:
+            fut = ex.submit(q, slack_ms=1.0, latency_class="interactive")
+            time.sleep(0.05)
+            gate.set()
+            out["hedged"] = fut.result(timeout=60)
+            assert ex.hedges == 1
+    finally:
+        gate.set()
+        t1.join(10.0)
+    assert out["fused"].serialize() == out["hedged"].serialize() == texec.execute(q, cache=None).serialize()
+    assert inflight.TABLE.stats()["joins"] > joins0
+
+
+def test_autotune_window_shrinks_and_regrows_like_the_jax_package():
+    from roaringbitmap_tpu.serve import slo as jslo
+    from roaringbitmap_tpu_torch.serve import slo as tslo
+
+    records = []
+    for mod, slo, dec in ((fusion, tslo, tdecisions), (jfusion, jslo, jdecisions)):
+        base = mod.config.window_base
+        slo.reset()
+        dec.LOG.clear()
+        try:
+            mod.configure(window=8, window_min=2)
+            seq = []
+            slo.TENANTS.declare("int-t", latency_class="interactive", p99_budget_ms=0.2)
+            seq.append(mod.autotune_window(reason="test"))
+            slo.TENANTS.declare("int-t", latency_class="interactive", p99_budget_ms=10_000.0)
+            seq.append(mod.autotune_window(reason="test"))
+            slo.TENANTS.declare("int-t", latency_class="interactive", p99_budget_ms=0.8)
+            seq.append(mod.autotune_window(reason="test"))
+            slo.reset()
+            seq.append(mod.autotune_window(reason="test"))
+            seq.append(mod.autotune_window(budget_ms=2.0, reason="explicit"))
+            ex_live, ex_pinned = mod.FusionExecutor(), mod.FusionExecutor(window=6)
+            try:
+                seq.append((ex_live._target_window(), ex_pinned._target_window()))
+            finally:
+                ex_live.close()
+                ex_pinned.close()
+            seq.append(_hedge_records(dec) + [
+                {k: v for k, v in e.items() if k not in ("seq", "ts", "ts_ns", "trace")}
+                for e in dec.decisions() if e["site"] == "fusion.autotune"])
+            records.append(seq)
+        finally:
+            slo.reset()
+            mod.configure(window=base)
+    assert records[0] == records[1]
+    verdicts = [r["verdict"] for r in records[0][:5]]
+    assert verdicts[:2] == ["shrink", "regrow"] and records[0][3]["budget_ms"] is None
+    assert records[0][0]["window_to"] == 2 and records[0][1]["window_to"] == 8
+    assert tobs.REGISTRY.get(tobs.FUSION_WINDOW_COUNT).get(()) == fusion.config.window
+
+
+def test_sentinel_autotune_actuation_rides_the_pressure_rule():
+    """The closed loop on a fake clock: a serving-p99-pressure breach
+    actuates one window autotune per cooldown, as in the JAX package."""
+    from roaringbitmap_tpu_torch.observe import health as thealth
+    from roaringbitmap_tpu_torch.observe import sentinel as tsentinel
+    from roaringbitmap_tpu_torch.serve import slo as tslo
+
+    base = fusion.config.window_base
+    tslo.reset()
+    try:
+        fusion.configure(window=8, window_min=2)
+        tslo.TENANTS.declare("int-t", latency_class="interactive", p99_budget_ms=0.2)
+        rule = next(r for r in thealth.DEFAULT_RULES if r.name == "serving-p99-pressure")
+        dial = {"v": 3.0}
+        probe = thealth.Rule(rule.name, rule.help, lambda s: dial["v"], warn=rule.warn,
+                             critical=rule.critical, fire_after=1, clear_after=1,
+                             actuation=rule.actuation)
+        s = tsentinel.Sentinel(rules=(probe,), clock=lambda: 0.0, autotune_cooldown_s=30.0)
+        s._actuate_bundle = lambda now, tick, rules, evals: {"tick": tick, "kind": "bundle"}
+        stub = thealth.Snapshot(metrics={}, breaker_open_ages={}, drift={}, outcome_sites={}, now=0.0)
+        r1 = s.tick(now=0.0, snap=stub)
+        tuned = next(a for a in r1["actuated"] if a["kind"] == "autotune")
+        assert "error" not in tuned and tuned["verdict"] == "shrink" and fusion.config.window == 2
+        assert "autotune" not in [a["kind"] for a in s.tick(now=1.0, snap=stub)["actuated"]]
+        tslo.TENANTS.declare("int-t", latency_class="interactive", p99_budget_ms=10_000.0)
+        r3 = s.tick(now=31.0, snap=stub)
+        regrown = next(a for a in r3["actuated"] if a["kind"] == "autotune")
+        assert regrown["verdict"] == "regrow" and fusion.config.window == 8
+    finally:
+        tslo.reset()
+        fusion.configure(window=base)

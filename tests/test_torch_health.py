@@ -35,6 +35,7 @@ from roaringbitmap_tpu.robust import ladder as jladder
 import roaringbitmap_tpu_torch.observe as tobs
 from roaringbitmap_tpu_torch import FastAggregation as TFA
 from roaringbitmap_tpu_torch import RoaringBitmap as TRB
+from roaringbitmap_tpu_torch import cost as tcost
 from roaringbitmap_tpu_torch import insights
 from roaringbitmap_tpu_torch.observe import artifacts as tartifacts
 from roaringbitmap_tpu_torch.observe import bundle as tbundle
@@ -370,39 +371,69 @@ def _actuation_script(health_mod, sentinel_mod, actuation, stub_targets):
 
 @pytest.mark.parametrize("actuation", ["refit", "maintain", "autotune", "alert"])
 def test_actuation_kinds_and_cooldown_skips_match_the_jax_package(actuation, monkeypatch):
-    # the JAX package's targets exist; stub them so the schedule alone
-    # is compared
-    monkeypatch.setattr(jcost, "refit_all", lambda: {})
+    # both packages' targets stubbed alike, so the schedule alone is
+    # compared (the port has no serve.maintain yet)
     from roaringbitmap_tpu.query import fusion as jfusion
     from roaringbitmap_tpu.serve import maintain as jmaintain
+    from roaringbitmap_tpu_torch.query import fusion as tfusion
 
+    for cost_mod in (jcost, tcost):
+        monkeypatch.setattr(cost_mod, "refit_all", lambda: {})
     monkeypatch.setattr(jmaintain, "run_pass", lambda reason=None: {"outcome": "noop"})
-    monkeypatch.setattr(jfusion, "autotune_window", lambda reason=None: {"verdict": "hold"})
+    for fusion_mod in (jfusion, tfusion):
+        monkeypatch.setattr(fusion_mod, "autotune_window", lambda reason=None: {"verdict": "hold"})
     got, t_log = _actuation_script(thealth, tsentinel, actuation, {})
-    want, _j_log = _actuation_script(jhealth, jsentinel, actuation, {})
+    want, j_log = _actuation_script(jhealth, jsentinel, actuation, {})
     assert got == want
-    if actuation != "alert":
-        # the port's targets arrive with ROADMAP Queue A items 4 and 5:
-        # every actuation records its missing-target error, nothing raises
+    if actuation == "maintain":
+        # its target arrives with the serving tier's write path: every
+        # actuation records its missing-target error, nothing raises
         assert t_log and all("error" in e for e in t_log)
+    else:  # refit and autotune reach their targets, as in the JAX package
+        assert t_log and not any("error" in e for e in t_log)
+        assert _drop(t_log) == _drop(j_log)
 
 
 @pytest.mark.parametrize("rule_name", [
     "costmodel-drift", "structure-drift", "delta-accretion", "serving-p99-pressure",
 ])
-def test_missing_targets_record_their_error_and_the_rule_stays_firing(rule_name):
+def test_missing_targets_record_their_error_and_the_rule_stays_firing(rule_name, monkeypatch):
+    """``maintain`` (structure-drift, delta-accretion) still has no target:
+    its error is recorded and the rule stays firing. ``refit``
+    (costmodel-drift) and ``autotune`` (serving-p99-pressure) reach their
+    targets, stubbed here as the JAX package's tests stub them: no error,
+    and the rule clears once the target has moved what it judges."""
+    from roaringbitmap_tpu_torch.query import fusion as tfusion
+
     base = next(r for r in thealth.DEFAULT_RULES if r.name == rule_name)
     dial = _Dial(base.critical * 2)
+    calls = []
+
+    def target(*_a, **_kw):  # the refit / autotune re-bases what the rule reads
+        calls.append(1)
+        dial.value = 0.0
+        return {} if base.actuation == "refit" else {"verdict": "shrink", "window_from": 8,
+                                                     "window_to": 2, "budget_ms": 25.0}
+
+    monkeypatch.setattr(tcost, "refit_all", target)
+    monkeypatch.setattr(tfusion, "autotune_window", target)
     rule = thealth.Rule(base.name, base.help, dial, warn=base.warn, critical=base.critical,
                         fire_after=1, clear_after=1, actuation=base.actuation)
     s = tsentinel.Sentinel(rules=(rule,), clock=lambda: 0.0)
     s._actuate_bundle = lambda now, tick, rules, evals: {"tick": tick, "kind": "bundle"}
     first = s.tick(now=0.0, snap=_stub(thealth))
     acted = [a for a in first["actuated"] if a["kind"] == base.actuation]
-    assert len(acted) == 1 and "error" in acted[0]
     second = s.tick(now=1000.0, snap=_stub(thealth))
-    assert second["rules"][rule_name]["level"] == thealth.CRITICAL
-    assert [a["kind"] for a in second["actuated"]] == [base.actuation]
+    if base.actuation == "maintain":
+        assert len(acted) == 1 and "error" in acted[0]
+        assert second["rules"][rule_name]["level"] == thealth.CRITICAL
+        assert [a["kind"] for a in second["actuated"]] == [base.actuation]
+    else:
+        assert len(acted) == 1 and "error" not in acted[0] and calls == [1]
+        if base.actuation == "autotune":
+            assert acted[0]["verdict"] == "shrink" and acted[0]["window_to"] == 2
+        assert second["rules"][rule_name]["level"] == thealth.OK
+        assert second["actuated"] == []
 
 
 def test_bundle_once_per_red_episode_matches_the_jax_package():
@@ -519,11 +550,15 @@ def _sections(path):
 def test_bundle_sections_are_the_jax_set_less_the_unported(tmp_path):
     t = tbundle.write_bundle("t", trigger={"tick": 1}, dir=str(tmp_path / "t"))
     j = jbundle.write_bundle("t", trigger={"tick": 1}, dir=str(tmp_path / "j"))
-    assert set(_sections(t)) == set(_sections(j)) - {"calibration.json"}
+    assert set(_sections(t)) == set(_sections(j))
     obs = json.loads(open(os.path.join(t, "observatory.json")).read())
     jobs_ = json.loads(open(os.path.join(j, "observatory.json")).read())
     assert "error" not in obs
-    assert set(obs) == set(jobs_) - {"serving", "epochs", "structure", "durable"}
+    assert set(obs) == set(jobs_) - {"epochs", "structure", "durable"}
+    assert set(obs["serving"]) == set(jobs_["serving"])
+    cal = json.loads(open(os.path.join(t, "calibration.json")).read())
+    jcal = json.loads(open(os.path.join(j, "calibration.json")).read())
+    assert cal["schema"] == jcal["schema"] and set(cal["authorities"]) == set(jcal["authorities"])
     assert obs["hbm"]["ledger_drift_bytes"] == 0 and "device_drift_bytes" not in obs["hbm"]
     manifest = tbundle.read_manifest(t, verify=True)
     assert manifest["schema"] == jbundle.SCHEMA and manifest["trigger"] == {"tick": 1}
@@ -625,8 +660,10 @@ def test_red_episode_writes_one_verified_bundle_into_the_sink(tmp_path):
         assert "breaker-stuck-open" in manifest["trigger"]["rules"]
         assert set(manifest["files"]) == {
             "timeline.jsonl", "decisions.json", "outcomes.json", "metrics.jsonl",
-            "observatory.json", "health.json",
+            "calibration.json", "observatory.json", "health.json",
         }
+        cal = json.loads(open(os.path.join(path, "calibration.json")).read())
+        assert sorted(cal["authorities"]) == tcost.names() and len(tcost.names()) == 8
         dump = json.loads(open(os.path.join(path, "health.json")).read())
         assert dump["status_name"] == "red"
         obs = json.loads(open(os.path.join(path, "observatory.json")).read())
@@ -764,6 +801,6 @@ def test_lockstats_wrapped_locks_serve_a_thread_hammer():
 def test_observatory_snapshot_shape():
     obs = insights.observatory()
     assert set(obs) == {"locks", "lock_timing", "compile", "hbm", "breakers",
-                        "pack_cache", "decisions", "regret", "health"}
+                        "pack_cache", "decisions", "regret", "health", "serving"}
     assert obs["hbm"]["ledger_drift_bytes"] == 0
     assert isinstance(obs["decisions"], list)

@@ -557,9 +557,10 @@ def test_cuda_timeline_keeps_the_bytes_and_counts_the_launches(mode, monkeypatch
 # the sidecar and insights surfaces of this slice, against the JAX package
 # ---------------------------------------------------------------------------
 
-# sidecar blocks and observatory keys whose sources come with the serving,
-# durable and analysis tiers (ROADMAP Queue A items 4-7)
-UNPORTED_BLOCKS = {"serial_bytes", "serving", "epochs", "structure", "durable", "analysis"}
+# sidecar blocks and observatory keys whose sources come with the serving
+# tier's write path, the durable tier and the analysis tooling (ROADMAP
+# Queue A)
+UNPORTED_BLOCKS = {"serial_bytes", "epochs", "structure", "durable", "analysis"}
 
 
 def test_sidecar_blocks_are_the_jax_blocks_less_the_unported():
@@ -568,7 +569,7 @@ def test_sidecar_blocks_are_the_jax_blocks_less_the_unported():
     got = set(tobs.sidecar_snapshot())
     want = set(jexport.sidecar_snapshot())
     assert got == want - UNPORTED_BLOCKS
-    assert {"health", "fusion", "pairwise", "lock_wait", "hbm_drift"} <= got
+    assert {"health", "fusion", "serving", "pairwise", "lock_wait", "hbm_drift"} <= got
 
 
 def test_insights_surfaces_have_the_jax_shapes():
@@ -580,10 +581,48 @@ def test_insights_surfaces_have_the_jax_shapes():
     assert set(insights.health()) == set(jinsights.health())
     assert set(insights.fusion_counters()) == set(jinsights.fusion_counters())
     assert set(insights.observatory()) == set(jinsights.observatory()) - {
-        "serving", "epochs", "structure", "durable"
+        "epochs", "structure", "durable"
     }
+    assert set(insights.serving()) == set(jinsights.serving())
+    assert insights.cost_authorities()["schema"] == jinsights.cost_authorities()["schema"]
+    assert set(insights.cost_authorities()["authorities"]) == set(
+        jinsights.cost_authorities()["authorities"])
     model = insights.columnar_costmodel()
     assert set(model) == set(jinsights.columnar_costmodel())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_serving_block_on_a_private_registry_is_the_jax_block(seed):
+    """``export._serving_block`` is a pure function of a registry: the
+    same per-tenant series on a private registry of each package give the
+    same block."""
+    from roaringbitmap_tpu.observe.histogram import latency_histogram as jlat
+    from roaringbitmap_tpu_torch.observe.histogram import latency_histogram as tlat
+
+    rng = np.random.default_rng(seed)
+    script = [(str(rng.choice(["a", "b", "c"])), str(rng.choice(["queue", "execute"])),
+               float(rng.lognormal(-5, 1.5))) for _ in range(80)]
+    blocks = []
+    for o, export, lat in ((tobs, texport, tlat), (jobs, jexport, jlat)):
+        reg = o.Registry()
+        h = lat(o.SERVE_LATENCY_SECONDS, "", ("tenant", "phase"), registry=reg)
+        for tenant, phase, s in script:
+            h.observe(s, (tenant, phase))
+        for name, labels, value in ((o.SERVE_QPS, ("a",), 12.4), (o.SERVE_TENANT_BYTES, ("b",), 8192),
+                                    (o.SERVE_SATURATION_RATIO, ("c",), 0.75),
+                                    (o.SERVE_SLO_BUDGET_SECONDS, ("a",), 0.025)):
+            reg.gauge(name, "", ("tenant",)).set(value, labels)
+        adm = reg.counter(o.SERVE_ADMIT_TOTAL, "", ("tenant", "verdict"))
+        req = reg.counter(o.SERVE_REQUESTS_TOTAL, "", ("tenant", "outcome"))
+        for tenant, verdict in (("a", "admit"), ("a", "shed"), ("b", "queue"), ("a", "admit")):
+            adm.inc(1, (tenant, verdict))
+            req.inc(1, (tenant, "ok" if verdict != "shed" else "shed"))
+        reg.gauge(o.SERVE_QUEUE_COUNT, "").set(3)
+        reg.gauge(o.SERVE_INFLIGHT_COUNT, "").set(7)
+        blocks.append(export._serving_block(reg.snapshot(), reg))
+    assert blocks[0] == blocks[1]
+    assert blocks[0]["queue_depth"] == 3 and blocks[0]["inflight"] == 7
+    assert set(blocks[0]["tenants"]) == {"a", "b", "c"}
 
 
 def test_new_metric_names_are_the_jax_names():

@@ -545,6 +545,83 @@ def test_eviction_regret_joins_a_remembered_working_set():
     outcomes.reset()
 
 
+def test_the_eviction_is_priced_by_the_learned_repack_cost():
+    """Until evict-regret traffic taught the residency curve an eviction
+    carries no ``est_us``; after the refit it records the learned re-pack
+    cost as ``repack`` and ``rebuild``, and the next join scores it — the
+    JAX package's decision inputs, key for key."""
+    from roaringbitmap_tpu.cost import residency as jresidency
+    from roaringbitmap_tpu_torch.cost import residency as tresidency
+    from roaringbitmap_tpu_torch.observe import decisions, outcomes
+
+    outcomes.reset()
+    tresidency.MODEL.reset()
+    cache = store.PackCache(max_bytes=1 << 60)
+    try:
+        a, b = _working_set(seed=180, k=2), _working_set(seed=181, k=2)
+        pa = cache.get_packed(a, device=CPU)
+        cache.get_packed(b, device=CPU)
+        cache.configure(max_bytes=pa.words_nbytes + 1)  # evicts a, unpriced
+        first = [e for e in decisions.decisions() if e["site"] == "pack_cache.evict"][-1]
+        assert "est_us" not in first["inputs"]
+        cache.get_packed(a, device=CPU)  # the regret join (b goes)
+        report = tresidency.MODEL.refit_from_outcomes()
+        assert set(report["moved"]) == {"agg"}
+        learned = tresidency.MODEL.repack_estimate("agg")
+        assert learned > 0 and tresidency.MODEL.repack_estimate("threshold") is None
+        cache.get_packed(b, device=CPU)  # evicts a again, now priced
+        priced = [e for e in decisions.decisions() if e["site"] == "pack_cache.evict"][-1]
+        est = round(learned * 1e6, 1)
+        assert priced["inputs"]["est_us"] == {"repack": est, "rebuild": est}
+        assert set(priced["inputs"]) == {"kind", "bytes", "target_bytes", "rung", "est_us"}
+        jax_inputs = {"kind", "bytes", "target_bytes", "rung", "est_us"}  # parallel/store.py:2086-2093
+        assert set(priced["inputs"]) == jax_inputs
+        cache.get_packed(a, device=CPU)  # its return joins against the estimate
+        joined = [e for e in outcomes.tail() if e["site"] == "pack_cache.evict"][-1]
+        assert joined["seq"] == priced["seq"] and joined["engine"] == "repack"
+        assert joined["predicted_us"] == est
+        # a second refit folds only the joins since the first (b's and a's
+        # returns), as the JAX package's model does on the same ledger
+        joins = [e for e in outcomes.tail() if e["site"] == "pack_cache.evict"]
+        again = tresidency.MODEL.refit_from_outcomes()
+        assert again["samples"] == len(joins) - 1 == 2
+        want = jresidency.ResidencyModel()
+        want.refit_from_outcomes(joins[:1])
+        assert want.refit_from_outcomes(joins) == again
+        assert tresidency.MODEL.to_dict()["repack_s"] == want.to_dict()["repack_s"]
+    finally:
+        cache.close()
+        tresidency.MODEL.reset()
+        outcomes.reset()
+
+
+def test_resident_bytes_for_charges_entries_by_their_leaves():
+    cache = store.PackCache(max_bytes=1 << 60)
+    try:
+        a, b = _working_set(seed=190, k=3), _working_set(seed=191, k=2)
+        pa = cache.get_packed(a, device=CPU)
+        pb = cache.get_packed(b, device=CPU)
+        e_a = sum(e.nbytes for e in cache._entries.values() if e.value is pa)
+        e_b = sum(e.nbytes for e in cache._entries.values() if e.value is pb)
+        fps = lambda bms: {bm.fingerprint() for bm in bms}  # noqa: E731
+        assert cache.resident_bytes_for(fps(a)) == e_a > 0
+        assert cache.resident_bytes_for(fps(a[:1])) == e_a  # one leaf charges its entry
+        assert cache.resident_bytes_for(fps(a) | fps(b)) == e_a + e_b
+        assert cache.resident_bytes_for(fps(_working_set(seed=192, k=2))) == 0
+        assert cache.resident_bytes_for(set()) == 0
+        # an overlapping working set charges a shared entry to each caller
+        ab = cache.get_packed(a[:1] + b[:1], device=CPU)
+        e_ab = sum(e.nbytes for e in cache._entries.values() if e.value is ab)
+        assert cache.resident_bytes_for(fps(a)) == e_a + e_ab
+        assert cache.resident_bytes_for(fps(b)) == e_b + e_ab
+        # a generic entry whose key embeds a fingerprint tuple
+        key = ("threshold", "cpu", tuple(sorted(fps(b))))
+        cache.get_or_build(key, lambda: ("v", 4096))
+        assert cache.resident_bytes_for(fps(b)) == e_b + e_ab + 4096
+    finally:
+        cache.close()
+
+
 def test_the_device_source_is_read_only_when_cuda_is_initialized(monkeypatch):
     import roaringbitmap_tpu_torch.observe as tobs
 

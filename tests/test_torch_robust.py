@@ -203,8 +203,8 @@ def test_port_sites_are_a_subset_of_the_jax_sites():
     assert set(tfaults.SITES) <= set(jfaults.SITES)
     assert set(tfaults.SITES) == {
         "store.ship", "store.hbm", "store.expand", "ops.dispatch", "query.exec",
-        "query.fusion", "columnar.kernel", "columnar.device", "native.entry",
-        "pack_cache.budget",
+        "query.fusion", "query.hedge", "serve.admit", "columnar.kernel",
+        "columnar.device", "native.entry", "pack_cache.budget",
     }
     # the port keeps the JAX package's order of the sites it has
     assert list(tfaults.SITES) == [s for s in jfaults.SITES if s in tfaults.SITES]
@@ -465,6 +465,26 @@ def test_every_site_fires_through_its_real_path(site):
             assert trobust.classify(ei.value) == terrors.TRANSIENT
         elif site == "columnar.device":  # retried on the device
             assert tcolumnar.pairwise("or", tb[0], tb[1], tier="device") == want_pair
+        elif site == "query.hedge":  # the solo rung degrades to the window
+            with tq.FusionExecutor(max_wait_ms=20.0, cache=None, mode="device") as ex:
+                got = ex.submit(tq.Q.or_(*tb), slack_ms=0.001,
+                                latency_class="interactive").result(timeout=60)
+                assert ex.hedges == 1 and ex.batches == 1
+            assert got == want
+        elif site == "serve.admit":  # fails open: a quota that sheds admits
+            from roaringbitmap_tpu_torch.serve import AdmissionController, slo
+
+            slo.TENANTS.declare("site-t", quota_qps=0.5, burst=1.0)
+            try:
+                c = AdmissionController(max_inflight=4, queue_limit=0)
+                with tfaults.suspended():
+                    c.admit("site-t", now=0.0).release()  # spends the one token
+                    assert not c.admit("site-t", now=0.0).admitted
+                tk = c.admit("site-t", now=0.0)
+                assert tk.admitted and tk.degraded
+                tk.release()
+            finally:
+                slo.reset()
         else:  # ship, hbm, expand: retried on the device; budget: spilled
             assert TFA.or_(*tb, mode="device") == want
     assert inj.fired == 1

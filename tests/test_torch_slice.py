@@ -284,7 +284,12 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "from roaringbitmap_tpu_torch.cost import fusion as fusion_cost\n"
         "from roaringbitmap_tpu_torch.query import fusion, inflight\n"
         "from roaringbitmap_tpu_torch.parallel import batch\n"
+        "from roaringbitmap_tpu_torch import cost, serve\n"
+        "from roaringbitmap_tpu_torch.cost import admission, breakeven, compaction, epoch, facade, residency\n"
+        "from roaringbitmap_tpu_torch.serve import harness, slo\n"
         "insights.observatory(); bundle._collect_sections(None)\n"
+        "cost.calibration_state(); cost.refit_all(); insights.serving(); insights.cost_authorities()\n"
+        "fusion.autotune_window(reason='import-check')\n"
         "bad = [m for m in set(sys.modules) - before\n"
         "       if m in ('jax', 'jaxlib', 'roaringbitmap_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'roaringbitmap_tpu.'))]\n"
@@ -360,3 +365,65 @@ def test_cuda_without_a_card_raises(monkeypatch):
     small = tb[:2]
     assert sum(b.get_container_count() for b in small) < 64
     assert TFA.or_(*small).serialize() == TFA.naive_or(*small).serialize()
+
+
+@pytest.mark.parametrize("threads", [4, 8])
+def test_the_serving_slice_end_to_end_matches_the_jax_package(threads, monkeypatch):
+    """The slice as a whole on the CPU: three declared tenants (an
+    interactive one, a batch tenant of wide Q1-shaped steps, a low quota)
+    through admission, the hedged fusion window and the device path on CPU
+    tensors; every served result equals the JAX package's serial oracle,
+    every unserved one is a typed shed; then the cost facade refits from
+    the traffic's own ledger with a report for each of the eight
+    authorities, and the serving rules read values."""
+    from roaringbitmap_tpu import query as jq
+    from roaringbitmap_tpu import serve as jserve
+    from roaringbitmap_tpu_torch import cost as tcost
+    from roaringbitmap_tpu_torch import insights
+    from roaringbitmap_tpu_torch import query as tq
+    from roaringbitmap_tpu_torch import serve as tserve
+    from roaringbitmap_tpu_torch.observe import health, outcomes
+
+    monkeypatch.setattr(aggregation.config, "device", "cpu")
+    rng = np.random.default_rng(77)
+    vals = [np.sort(rng.choice(1 << 20, 3000, replace=False)).astype(np.uint32) for _ in range(24)]
+    tc, jc = [TRB(v) for v in vals], [JRB(v) for v in vals]
+
+    def profiles(serve, Q):
+        def q1(rng_, corpus, shared):
+            n = len(corpus) // 3
+            return ((Q.or_(*corpus[:n]) & Q.or_(*corpus[n:2 * n])) - Q.or_(*corpus[2 * n:])) | \
+                Q.threshold(2, *corpus[:8])
+        return [serve.TenantProfile("e2e-int", weight=2.0, quota_qps=1e6, latency_class="interactive"),
+                serve.TenantProfile("e2e-bat", weight=1.0, quota_qps=1e6, mix=q1),
+                serve.TenantProfile("e2e-low", weight=1.0, quota_qps=0.1, burst=1.0)]
+
+    tserve.slo.reset()
+    outcomes.reset()
+    tstore.PACK_CACHE.close()
+    try:
+        tprof, jprof = profiles(tserve, tq.Q), profiles(jserve, jq.Q)
+        treqs = tserve.build_requests(tc, tprof, 60, seed=4)
+        jreqs = jserve.build_requests(jc, jprof, 60, seed=4)
+        oracle = [r.serialize() for r in jserve.LoadHarness(jc, jprof, threads=1).run_serial(jreqs)]
+        h = tserve.LoadHarness(tc, tprof, threads=threads,
+                               admission=tserve.AdmissionController(max_inflight=2 * threads, queue_limit=0))
+        report = h.run(treqs)
+        for got, want in zip(report.results, oracle):
+            assert isinstance(got, tserve.ShedRejection) or got.serialize() == want
+        assert report.stats["e2e-low"].shed > 0 and report.stats["e2e-bat"].served > 0
+        reports = tcost.refit_all()
+        assert sorted(reports) == tcost.names() and len(reports) == 8
+        sites = {e["site"] for e in outcomes.tail()}
+        assert {"serve.admit", "fusion.batch", "agg.dispatch"} <= sites
+        rows = insights.serving()["tenants"]
+        assert rows["e2e-int"]["bytes"] > 0 and rows["e2e-int"]["latency"]["execute"]["count"] > 0
+        snap = health.snapshot(refresh_hbm=False)
+        rule = next(r for r in health.DEFAULT_RULES if r.name == "serving-p99-pressure")
+        assert rule.probe(snap) is None or rule.probe(snap) >= 0
+    finally:
+        tserve.slo.reset()
+        tserve.CONTROLLER.reset()
+        outcomes.reset()
+        tstore.PACK_CACHE.close()
+        jstore.PACK_CACHE.close()
