@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only mesh     # phases 1-2, 3 (c) and 15: row widths, multi-device
     python3 chip_smoke.py --only observe  # phases 1-2, 16 and 17: instrumentation, faults, health
     python3 chip_smoke.py --only tenants  # phases 1-2 and 18: the cost facade and the serving read path
+    python3 chip_smoke.py --only epochs   # phases 1-2 and 19: the serving write path and the durable tier
 
 ``--only paths`` runs only the phases whose end-to-end times PERF.md limits
 against a parent commit; copied into a checkout of the parent, it times
@@ -340,17 +341,59 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    stays changed or if ``rb_expand_rows``, ``rb_group_reduce``,
    ``rb_popcount_rows`` or ``rb_threshold`` read 0 launches.
 
+19. (run after phase 18, on clones of the census working set) the serving
+   write path and the durable tier, the launches of its own path counted
+   segment by segment (``launches_epochs``; the oracles and the checks
+   between the segments are not counted): (a) an ``EpochStore`` over a clone of the 10,000
+   bitmaps with phase 8's A, B, C and the whole set registered, pinned
+   and warm on the card; the load harness, 8 threads, 200 requests of
+   phase 18's two reader tenants and a writer tenant (``writes=1.0``,
+   about a quarter of the requests (40 requests in the whole script), each a batch into a bitmap's
+   existing chunk keys followed by the priced ``maybe_flip``), through
+   ``LoadHarness(epoch_store=)``, every result equal to
+   ``run_serial_epochs`` over a second clone; then, with the overlap lane
+   on, three flips (one in the whole script) each started while a reader
+   pinned to the old epoch runs Q1-shaped queries and queries over fresh
+   subsets (which the lane stages) through ``execute_pipelined`` (four
+   queries a reader; two in the whole script), every result equal to its
+   epoch's oracle; a flip behind a reader whose device copy of the whole
+   set's rows, queued on a side stream behind a device sleep, is still in
+   flight when its pin is released: the copy must hold the old epoch's
+   rows and the flip must patch them; every flip must take the delta
+   route (no full repack);
+   the flips' delta records, the four flip stage walls, freshness p50 /
+   p99 and each tenant's p99s; (b) ``maintain.run_pass(force=True)`` over
+   the watched corpus: 0 audit anomalies, the wide OR of A, B, C and the
+   whole set unchanged bit for bit, the drift ratio lower, the reclaimed
+   bytes and rewritten keys; (c) a ``DurableStore`` in a temporary
+   directory: a persist with its artifact bytes, stage walls and the
+   ``rb_tpu_serial_bytes_total`` delta, then a flip and a
+   ``durable.persist`` fault at each of the five crash points, after
+   each of which ``recover`` must find the last complete epoch (points
+   1-4: the first persist's; point 5 follows the rename: the new one);
+   the newest artifact truncated, which ``recover`` must skip as torn;
+   (d) ``recover`` -> ``resume_store`` -> the census wide OR, equal to the
+   corpus's OR when the recovered epoch was persisted; ``readmit`` of the
+   whole set from the map and its first OR, the learned ``readmit_s``;
+   under a budget of 1.5 mapped halves an eviction that demotes to the
+   mapped rung (``rb_tpu_durable_demote_total{rung="mapped"}``, the
+   ``demote-mapped`` decision); the recovery closed after the pack cache
+   and the directory deleted. The phase restores every authority as it
+   found them and fails if ``rb_expand_rows``, ``rb_group_reduce``,
+   ``rb_popcount_rows`` or ``rb_threshold`` read 0 launches.
+
 Every profiler window (``_profiled``) is a ``tracing.trace`` window; where
 it shows no device events twice, the kernels are timed with CUDA events
 around each kernel wrapper and the line says so.
 
-The last three lines are a JSON object of the host tier's entry points
+The last lines are phase 19's launch counts (``{"launches_epochs": ...}``),
+a JSON object of the host tier's entry points
 (``{"host_tier": [...]}``, each one's native and numpy ms; not with
 ``--only kernels``), a JSON object describing every kernel (``launches``
 on its main path, ``launches_mapped`` on phase 13's, ``launches_64`` on
 phase 14's, ``launches_mesh`` on phase 15's, ``launches_observe`` on
 phase 16's, ``launches_observatory`` on phase 17's, ``launches_tenants`` on
-phase 18's; a ``name@1024`` row is the
+phase 18's, ``launches_epochs`` on phase 19's; a ``name@1024`` row is the
 kernel at 1024 words, whose path is phase 15 (b), its counts summed over
 the ranks) and the JSON result ``{"ok": true, "device": {...}}``; with
 ``--only sixtyfour`` the phase's launch counts (``{"launches_64": ...}``)
@@ -359,7 +402,9 @@ and the 1024-word rows, then the JSON result; with ``--only observe``
 phase 16's and 17's launch counts (``{"launches_observe": ...,
 "launches_observatory": ...}``) and the JSON result; with ``--only tenants``
 phase 18's launch counts (``{"launches_tenants": ...}``) and the JSON
-result. The port needs no JAX and nothing of the JAX package.
+result; with ``--only epochs`` phase 19's launch counts
+(``{"launches_epochs": ...}``) and the JSON result. The port needs no JAX
+and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -6062,15 +6107,462 @@ def phase_tenants(base, bitmaps, real, card: str):
     say(f"[tenants] phase 18 took {time.perf_counter() - t_phase:.1f} s  [{card}]")
     return launches
 
+
+EPOCH_REQUESTS = 200  # (a): the read-write schedule
+EPOCH_THREADS = 8
+EPOCH_LANE_ROUNDS = 3  # (a): flips between readers pinned through the overlap lane
+EPOCH_LANE_QUERIES = 4  # queries a pinned reader runs through the lane: half Q1-shaped
+# the whole script's cut of (a): phase 19 took 131.5 s inside it and the
+# script 942.1 s (past its 900 s); at 80 requests and 2 lane flips 72.4 s
+# and 901.1 s; --only epochs keeps the sizes above
+WHOLE_EPOCH_SIZES = (40, 1, 2)
+EPOCH_KERNELS = ("rb_expand_rows", "rb_group_reduce", "rb_popcount_rows", "rb_threshold")
+# cycles of torch.cuda._sleep ahead of a reader's device copy that is still in
+# flight when its pin is released (about half a second: longer than a flip's
+# host work, so the patch would land first were it not ordered after the copy)
+IN_FLIGHT_SLEEP_CYCLES = 1_000_000_000
+
+
+def _stage_row(hist, stages):
+    """``{stage: (count, p50 ms, p99 ms)}`` of a latency histogram's series."""
+    out = {}
+    for st in stages:
+        s = hist.series().get((st,))
+        if s is not None:
+            out[st] = (s["count"], round(hist._quantile_of_state(s, 0.5) * 1e3, 3),
+                       round(hist._quantile_of_state(s, 0.99) * 1e3, 3))
+    return out
+
+
+def _counted(into: dict):
+    """A context manager that adds the kernel launches made inside its block
+    to ``into``: a phase's own path counted segment by segment, with the
+    oracle and the checks run between the segments left out."""
+    import contextlib
+
+    from roaringbitmap_tpu_torch.ops import kernels as K
+
+    @contextlib.contextmanager
+    def segment():
+        snap = dict(K.LAUNCHES)
+        try:
+            yield
+        finally:
+            for k, v in dict(K.LAUNCHES).items():
+                if v != snap.get(k, 0):
+                    into[k] = into.get(k, 0) + v - snap.get(k, 0)
+
+    return segment()
+
+
+def _wide_ors(sets, device):
+    """The serialized device OR of each working set (a list of bitmaps)."""
+    from roaringbitmap_tpu_torch import FastAggregation
+
+    return [FastAggregation.or_(*ws, mode="device", device=device).serialize() for ws in sets]
+
+
+def phase_epochs(base, bitmaps, card: str,
+                 sizes=(EPOCH_REQUESTS, EPOCH_LANE_ROUNDS, EPOCH_LANE_QUERIES)):
+    """Phase 19: the serving write path and the durable tier on the card —
+    (a) ingest and epoch flips under the load harness with a writer tenant,
+    and flips between readers pinned through the overlap lane, every
+    result equal to the epoch-replay oracle; (b) a forced maintenance pass;
+    (c) atomic persists, a fault at each of the five crash points and a
+    torn artifact; (d) recovery, the readmit from the map and the mapped
+    demotion rung. ``sizes``: the schedule's requests, the lane rounds and
+    the queries a lane reader runs. Returns the launch counts of the
+    phase's path: its segments only, without the oracle's and the checks'
+    launches between them."""
+    import shutil
+    import tempfile
+    import threading
+
+    from roaringbitmap_tpu_torch import durable, insights, serve
+    from roaringbitmap_tpu_torch import observe as tobs
+    from roaringbitmap_tpu_torch import query as tq
+    from roaringbitmap_tpu_torch.cost import residency
+    from roaringbitmap_tpu_torch.observe import REGISTRY, decisions, outcomes, structure
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import aggregation, overlap, store
+    from roaringbitmap_tpu_torch.robust import faults, ladder
+    from roaringbitmap_tpu_torch.robust.errors import TransientDeviceError
+    from roaringbitmap_tpu_torch.serve import epochs, ingest, maintain, slo
+
+    t_phase = time.perf_counter()
+    authorities = _authority_snapshot()
+    n_requests, lane_rounds, lane_queries = sizes
+    nb = len(base)
+    device = aggregation.config.device
+    if (device, aggregation.config.mode) != ("cuda", "auto"):
+        fail(f"aggregation config is {device}/{aggregation.config.mode}, expected cuda/auto")
+    outcomes.reset()
+    decisions.LOG.clear()
+    ladder.LADDER.reset()
+    slo.reset()
+    structure.LEDGER.reset()
+    maintain.reset()
+    store.PACK_CACHE.close()
+    tq.DEFAULT_CACHE.clear()
+    overlap.LANE.configure("on")
+    K.reset_launches()
+    on_path = {}  # the launches of phase 19's own path: every `with _counted(on_path)` block
+
+    # (a) ingest and flips: an epoch store over a clone of the corpus, the
+    # oracle's clone beside it (both made before any write)
+    t0 = time.perf_counter()
+    corpus = [b.clone() for b in bitmaps]
+    clone = [b.clone() for b in bitmaps]
+    clone_s = time.perf_counter() - t0
+    idx_sets = {name: [i for i in range(len(corpus)) if lo <= i % nb < hi]
+                for name, (lo, hi) in zip("ABC", Q1_THIRDS)}
+    idx_sets["all"] = list(range(len(corpus)))
+    es = serve.EpochStore(corpus)
+    t0 = time.perf_counter()
+    pinned = [[corpus[i] for i in idx] for idx in idx_sets.values()]
+    for idx, ws in zip(idx_sets.values(), pinned):
+        es.register_working_set(idx)
+        # resident and pinned (the oracle's packs must not evict them), rows
+        # on the card
+        store.PACK_CACHE.pin_packed(ws, device=device)
+        _wide_ors([ws], device)
+    warm_s = time.perf_counter() - t0
+    if store.PACK_CACHE.stats()["pinned"] != len(pinned):
+        fail(f"(a) pinned entries {store.PACK_CACHE.stats()['pinned']}, expected {len(pinned)}")
+    n_heads = max(1, min(10, len(corpus) // Q1_HEAD))
+    cores = {}
+
+    def q1_mix(rng, cor, shared):
+        core = cores.get(id(cor[0]))
+        if core is None:
+            A, B, C = ([cor[i] for i in idx_sets[n]] for n in "ABC")
+            core = cores[id(cor[0])] = (tq.Q.or_(*A) & tq.Q.or_(*B)) - tq.Q.or_(*C)
+        j = int(rng.integers(0, n_heads))
+        k = int(rng.integers(2, 4))
+        return core | tq.Q.threshold(k, *cor[j * Q1_HEAD:(j + 1) * Q1_HEAD])
+
+    profiles = [
+        serve.TenantProfile("interactive", weight=2.0, quota_qps=1e6, latency_class="interactive"),
+        serve.TenantProfile("batch-q1", weight=1.0, quota_qps=1e6, mix=q1_mix),
+        serve.TenantProfile("writer", weight=1.0, quota_qps=1e6, writes=1.0),
+    ]
+    reqs = serve.build_requests(corpus, profiles, n_requests, seed=SEED + 19)
+    clone_reqs = serve.build_requests(clone, profiles, n_requests, seed=SEED + 19)
+    n_writes = sum(r.kind == "write" for r in reqs)
+    adm = serve.AdmissionController(max_inflight=2 * EPOCH_THREADS, queue_limit=0)
+    harness = serve.LoadHarness(corpus, profiles, threads=EPOCH_THREADS, admission=adm,
+                                epoch_store=es)
+    t1 = time.perf_counter()
+    with _counted(on_path):
+        report = harness.run(reqs)
+    run_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    oracle = serve.LoadHarness.run_serial_epochs(clone_reqs, clone, report)
+    serial_s = time.perf_counter() - t1
+    bad = [pos for pos, (g, w) in enumerate(zip(report.results, oracle))
+           if (g != w if isinstance(g, tuple) else
+               isinstance(g, serve.ShedRejection) or g.serialize() != w.serialize())]
+    if bad or report.shed:
+        fail(f"(a) {len(bad)} results differ from run_serial_epochs (first at {bad[:1]}), "
+             f"{report.shed} shed")
+    lineage = [r for r in es.lineage() if r["outcome"] == "flipped"]
+    full = [r["epoch"] for r in lineage if r["delta"]["full_repacks"]]
+    if not lineage or full or es.log.depth():
+        fail(f"(a) flips {len(lineage)}, flips with a full repack {full}, log depth {es.log.depth()}")
+    # flips between readers pinned through the overlap lane: each reader's
+    # result against the oracle of its own epoch
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 190)
+    abc = idx_sets["A"] + idx_sets["B"] + idx_sets["C"]
+    lane_checked = 0
+    for rnd in range(lane_rounds + 1):
+        batch = None
+        if rnd < lane_rounds:
+            batch = {}
+            for i in rng.choice(abc, 3, replace=False).tolist():
+                keys = corpus[i].high_low_container.keys
+                hb = int(keys[int(rng.integers(0, len(keys)))])
+                batch[i] = ((hb << 16) | rng.integers(0, 1 << 16, 40)).astype(np.int64)
+        heads = [int(h) for h in rng.integers(0, n_heads, lane_queries // 2)]
+        # fresh subsets holding the round's bitmaps: packs the lane stages
+        # on its own stream while the flip waits on the pin
+        touched = sorted(batch) if batch else []
+        subsets = [sorted(set(touched) | set(rng.choice(len(corpus), 300, replace=False).tolist()))
+                   for _ in range(lane_queries - len(heads))]
+
+        def exprs(cor, heads=heads, subsets=subsets):
+            out = [q1_mix(np.random.default_rng(h), cor, None) for h in heads]
+            for sub in subsets:
+                half = len(sub) // 2
+                out.append(tq.Q.or_(*[cor[i] for i in sub[:half]])
+                           | tq.Q.and_(tq.Q.or_(*[cor[i] for i in sub[half:]]), cor[sub[0]]))
+            return out
+        flipper = None
+        with _counted(on_path):
+            with es.reader() as pin:
+                if batch is not None:
+                    es.submit("writer", batch)
+                    flipper = threading.Thread(target=es.flip, kwargs={"reason": "lane"}, daemon=True)
+                    flipper.start()
+                got = [r.serialize() for r in tq.execute_pipelined(exprs(corpus), cache=None)]
+                epoch = pin.epoch
+            if flipper is not None:
+                flipper.join(120.0)
+        if flipper is not None and flipper.is_alive():
+            fail("(a) a flip behind a pinned lane reader did not finish")
+        want = [tq.execute(e, cache=None).serialize() for e in exprs(clone)]
+        if got != want:
+            fail(f"(a) a lane reader pinned to epoch {epoch} differs from its epoch's oracle")
+        lane_checked += len(got)
+        if batch is not None:
+            ingest.apply_batches(clone, [ingest.MutationBatch("writer", batch)])
+    overlap.LANE.drain()
+    lane_s = time.perf_counter() - t1
+    lane_stats = overlap.LANE.stats()
+    # a reader's device read still in flight when its pin is released: a
+    # copy of the whole set's resident rows queued on a side stream behind a
+    # device sleep; the flip may patch those rows only after the copy ran
+    t1 = time.perf_counter()
+    pg = store.packed_for(pinned[-1], device=device)
+    rows_before = pg.device_words.clone()
+    i = int(rng.choice(abc))
+    keys = corpus[i].high_low_container.keys
+    batch = {i: ((int(keys[0]) << 16) | rng.integers(0, 1 << 16, 64)).astype(np.int64)}
+    es.submit("writer", batch)
+    side = torch.cuda.Stream()
+    with _counted(on_path):
+        with es.reader():
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(IN_FLIGHT_SLEEP_CYCLES)
+                rows_seen = pg.device_words.clone()
+        inflight = es.flip(reason="in-flight")
+    torch.cuda.synchronize()
+    ingest.apply_batches(clone, [ingest.MutationBatch("writer", batch)])
+    patched = not torch.equal(pg.device_words, rows_before)
+    held = torch.equal(rows_seen, rows_before)
+    if inflight["outcome"] != "flipped" or not inflight["delta"]["delta_rows"] or not patched or not held:
+        fail(f"(a) a flip behind a device read still in flight: {inflight['outcome']}, delta "
+             f"{inflight.get('delta')}, rows patched {patched}, the in-flight copy holds its "
+             f"epoch's rows {held}")
+    inflight_s = time.perf_counter() - t1
+    del pg, rows_before, rows_seen
+    lineage = [r for r in es.lineage() if r["outcome"] == "flipped"]
+    full = [r["epoch"] for r in lineage if r["delta"]["full_repacks"]]
+    if full:
+        fail(f"(a) flips with a full repack: {full}")
+    if [b.serialize() for b in corpus[:200]] != [b.serialize() for b in clone[:200]]:
+        fail("(a) the epoch store's corpus and the oracle's clone diverged")
+    stages = _stage_row(epochs.FLIP_STAGE_SECONDS, epochs.FLIP_STAGES)
+    fresh = insights.epochs()["freshness"]
+    rows = report.tenant_rows()
+    say(f"[epochs] (a) {len(reqs)} requests ({n_writes} writes), {EPOCH_THREADS} threads, overlap lane on: "
+        f"served {report.served}, shed {report.shed}, wall {run_s:.2f} s, run_serial_epochs {serial_s:.2f} s, "
+        f"every result equal to the epoch-replay oracle; clones {clone_s:.1f} s, warm-up of A, B, C and "
+        f"all {warm_s:.1f} s  [{card}]")
+    say(f"[epochs] (a) {lane_rounds} flips between readers pinned through the lane: {lane_checked} "
+        f"results (Q1-shaped and over fresh subsets the lane staged), each equal to its epoch's "
+        f"oracle; lane {lane_stats}; {lane_s:.1f} s  [{card}]")
+    say(f"[epochs] (a) a flip behind a reader's device copy of the whole set's rows, still in flight on "
+        f"a side stream when its pin was released: the copy holds its epoch's rows, the flip patched "
+        f"{inflight['delta']['delta_rows']} rows after it, flip wall {inflight['wall_s'] * 1e3:.1f} ms; "
+        f"{inflight_s:.1f} s  [{card}]")
+    say(f"[epochs] (a) flips {len(lineage)} (epoch {es.current()}), every one on the delta route; delta "
+        f"records {[r['delta'] for r in lineage]}  [{card}]")
+    say(f"[epochs] (a) flip stages (count, p50 ms, p99 ms) {stages}; freshness "
+        f"{ {t: (f['count'], round(f['p50'] * 1e3, 3), round(f['p99'] * 1e3, 3)) for t, f in fresh.items()} } "
+        f"(count, p50 ms, p99 ms)  [{card}]")
+    for tenant in ("interactive", "batch-q1", "writer"):
+        row = rows[tenant]
+        say(f"[epochs] (a) {tenant}: served {row['served']}, queue p99 {row['queue_p99_ms']} ms, "
+            f"execute p50/p99 {row['execute_p50_ms']}/{row['execute_p99_ms']} ms, end-to-end p99 "
+            f"{row['total_p99_ms']} ms  [{card}]")
+    del clone, clone_reqs, oracle, report
+
+    # (b) a forced maintenance pass over the whole corpus
+    t0 = time.perf_counter()
+    sets = [[corpus[i] for i in idx] for idx in idx_sets.values()]
+    before = _wide_ors(sets, device)
+    structure.LEDGER.watch("census", corpus)
+    drift0 = structure.LEDGER.refresh()
+    t1 = time.perf_counter()
+    with _counted(on_path):
+        rec = maintain.run_pass(es, reason="chip", force=True)
+    pass_s = time.perf_counter() - t1
+    after = _wide_ors(sets, device)
+    drift1 = structure.LEDGER.stats()
+    if rec["outcome"] != "compacted" or rec["anomalies"] or after != before:
+        fail(f"(b) pass {rec['outcome']}, anomalies {rec.get('anomalies')}, "
+             f"wide ORs unchanged {after == before}")
+    if not drift1["drift_ratio"] < drift0["drift_ratio"] or rec["flip"]["delta"]["full_repacks"]:
+        fail(f"(b) drift {drift0['drift_ratio']} -> {drift1['drift_ratio']}, flip delta {rec['flip']['delta']}")
+    say(f"[epochs] (b) forced maintenance pass: rewritten keys {rec['rewritten_keys']}, reclaimed "
+        f"{rec['reclaimed_bytes']} bytes, audited {rec['audited']}, anomalies 0; drift ratio "
+        f"{drift0['drift_ratio']} -> {drift1['drift_ratio']}; the wide OR of A, B, C and all unchanged "
+        f"bit for bit; its flip {rec['flip']['delta']}; pass {pass_s:.2f} s, phase (b) "
+        f"{time.perf_counter() - t0:.1f} s  [{card}]")
+
+    # (c) persists, the five crash points and a torn artifact
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="rb_epochs_")
+    rc = None
+    try:
+        ds = durable.DurableStore(root, keep=3)
+        serial = REGISTRY.get(tobs.SERIAL_BYTES_TOTAL)
+        ser0 = serial.get(("serialize",))
+        t1 = time.perf_counter()
+        with _counted(on_path):
+            first = ds.persist(es, reason="chip")
+        persist_s = time.perf_counter() - t1
+        ser_moved = serial.get(("serialize",)) - ser0
+        if first["outcome"] != "persisted":
+            fail(f"(c) the first persist: {first}")
+        # the pre-crash result: the corpus's wide OR at the epoch persisted first
+        complete, first_or = first["epoch"], _wide_ors([corpus], device)[0]
+        pstages = _stage_row(durable.store.PERSIST_STAGE_SECONDS, durable.PERSIST_STAGES)
+        say(f"[epochs] (c) persist of epoch {complete}: artifact {first['artifact_bytes']} bytes, "
+            f"{first['n_bitmaps']} bitmaps, wall {persist_s:.2f} s, stages (count, p50 ms, p99 ms) "
+            f"{pstages}; rb_tpu_serial_bytes_total{{serialize}} +{ser_moved}  [{card}]")
+        rng = np.random.default_rng(SEED + 191)
+        crash = []
+        for point in range(1, 6):
+            i = int(rng.integers(0, len(corpus)))
+            keys = corpus[i].high_low_container.keys
+            es.submit("writer", {i: [(int(keys[0]) << 16) | int(rng.integers(0, 1 << 16))]})
+            with _counted(on_path):
+                flip = es.flip(reason=f"crash-{point}")
+            if flip["outcome"] != "flipped" or flip["delta"]["full_repacks"]:
+                fail(f"(c) the flip before crash point {point}: {flip}")
+            faults.clear()  # the per-site hit counter restarts: after= counts this persist's hits
+            with _counted(on_path), faults.inject("durable.persist", TransientDeviceError,
+                                               after=point - 1) as inj:
+                rec = ds.persist(es, reason=f"crash-{point}")
+            if point == 5:  # after the rename: the new epoch is on disk
+                complete = es.current()
+            with _counted(on_path):
+                rc = durable.recover(root)
+            found = None if rc is None else rc.epoch
+            if rc is not None:
+                rc.close()
+                rc = None
+            crash.append((point, rec["outcome"], inj.fired, found))
+            if rec["outcome"] != "aborted" or inj.fired != 1 or found != complete:
+                fail(f"(c) crash point {point}: persist {rec['outcome']}, fired {inj.fired}, "
+                     f"recover found epoch {found}, expected {complete}")
+        ladder.LADDER.reset()
+        # a torn artifact: the newest corpus file cut in half
+        newest = os.path.join(root, durable.store.epoch_dir_name(complete))
+        path = os.path.join(newest, durable.store.CORPUS_NAME)
+        with open(path, "r+b") as f:
+            f.truncate(os.path.getsize(path) // 2)
+        torn0 = REGISTRY.get(tobs.DURABLE_RECOVERY_TOTAL).get(("torn",))
+        with _counted(on_path):
+            rc = durable.recover(root)
+        torn = REGISTRY.get(tobs.DURABLE_RECOVERY_TOTAL).get(("torn",)) - torn0
+        if rc is None or rc.epoch != first["epoch"] or torn != 1:
+            fail(f"(c) the torn artifact: recover found {None if rc is None else rc.epoch}, "
+                 f"torn {torn}")
+        say(f"[epochs] (c) a durable.persist fault at each crash point (point, outcome, fired, "
+            f"epoch recover found): {crash}; the truncated epoch {complete} skipped as torn, "
+            f"recover found epoch {rc.epoch}; phase (c) {time.perf_counter() - t0:.1f} s  [{card}]")
+
+        for ws in pinned:
+            store.PACK_CACHE.unpin_packed(ws, device=device)
+        if store.PACK_CACHE.stats()["pinned"]:
+            fail(f"(c) pins left after unpinning: {store.PACK_CACHE.stats()['pinned']}")
+
+        # (d) recovery: resume, the census wide OR, the readmit, the mapped rung
+        t0 = time.perf_counter()
+        t1 = time.perf_counter()
+        with _counted(on_path):
+            resumed = rc.resume_store()
+        resume_s = time.perf_counter() - t1
+        if resumed.current() != first["epoch"]:
+            fail(f"(d) resumed at epoch {resumed.current()}, expected {first['epoch']}")
+        with _counted(on_path):  # the recovered corpus's wide OR
+            got_or = _wide_ors([resumed.corpus], device)[0]
+        del resumed
+        if got_or != first_or:
+            fail("(d) the recovered corpus's wide OR differs from the pre-crash result")
+        t1 = time.perf_counter()
+        with _counted(on_path):  # the readmit and its first OR
+            rep = rc.readmit()
+            mapped = rc.corpus.bitmaps()
+            mapped_or = _wide_ors([mapped], device)[0]
+        readmit_s = time.perf_counter() - t1
+        learned = residency.MODEL.readmit_estimate("agg")
+        if mapped_or != first_or or not learned:
+            fail(f"(d) the mapped corpus's OR equal {mapped_or == first_or}, readmit_s {learned}")
+        # a budget under two working sets: the eviction demotes to the mapped rung
+        halves = (mapped[: len(mapped) // 2], mapped[len(mapped) // 2:])
+        store.PACK_CACHE.close()
+        prev_budget = store.PACK_CACHE.max_bytes
+        demote = REGISTRY.get(tobs.DURABLE_DEMOTE_TOTAL)
+        mapped0 = demote.get(("mapped",))
+        seq0 = decisions.decisions()[-1]["seq"] if decisions.decisions() else 0
+        try:
+            with _counted(on_path):
+                store.packed_for(halves[0], device=device)
+            one = store.PACK_CACHE.stats()["bytes"]
+            store.PACK_CACHE.configure(max_bytes=int(one * 1.5))
+            with _counted(on_path):
+                store.packed_for(halves[1], device=device)
+        finally:
+            store.PACK_CACHE.configure(max_bytes=prev_budget)
+        evicted = [d for d in decisions.decisions()
+                   if d["site"] == "pack_cache.evict" and d["seq"] > seq0]
+        moved = demote.get(("mapped",)) - mapped0
+        if not moved or not evicted or evicted[-1]["decision"] != "demote-mapped":
+            fail(f"(d) mapped demotions {moved}, evictions {[d['decision'] for d in evicted]}")
+        store.PACK_CACHE.close()
+        del mapped, halves
+        rc.close()
+        rc = None
+        say(f"[epochs] (d) recover -> resume_store ({len(corpus)} copies, {resume_s:.2f} s) -> the census wide "
+            f"OR equal to the pre-crash result; readmit of the whole set from the map "
+            f"{rep['wall_s'] * 1e3:.1f} ms (pack), with its first OR {readmit_s:.2f} s, equal; learned "
+            f"readmit_s[agg] {learned:.6f} s; under a {int(one * 1.5)}-byte budget an eviction demoted to "
+            f"the mapped rung ({moved} demotions, decision {evicted[-1]['decision']}, est_us "
+            f"{evicted[-1]['inputs'].get('est_us')}); recovery closed; phase (d) "
+            f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    finally:
+        if rc is not None:
+            store.PACK_CACHE.close()
+            rc.close()
+        store.set_demotion_probe(None)
+        shutil.rmtree(root, ignore_errors=True)
+
+    torch.cuda.synchronize()
+    launches = {k: on_path.get(k, 0) for k in dict(K.LAUNCHES)}
+    say(f"[epochs] launches over phase 19's path (its segments only): {launches}; with the oracle's and "
+        f"the checks' between them: {dict(K.LAUNCHES)}  [{card}]")
+    for name in EPOCH_KERNELS:  # a kernel's count summed over its layouts
+        if not sum(v for k, v in launches.items() if k == name or k.startswith(name + "[")):
+            fail(f"kernel {name} was not launched on phase 19's path")
+    overlap.LANE.configure("auto")
+    structure.LEDGER.reset()
+    maintain.reset()
+    slo.reset()
+    serve.CONTROLLER.reset()
+    outcomes.reset()
+    decisions.LOG.clear()
+    ladder.LADDER.reset()
+    store.PACK_CACHE.close()
+    tq.DEFAULT_CACHE.clear()
+    _restore_authorities("[epochs]", authorities)
+    say(f"[epochs] phase 19 took {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels", "paths", "columnar", "serving", "host", "batch", "mapped",
-                                       "sixtyfour", "mesh", "observe", "tenants"],
+                                       "sixtyfour", "mesh", "observe", "tenants", "epochs"],
                     help="kernels: phases 1-3; paths: phases 1-2 and the timed paths 5, 8 and 6; "
                          "columnar: phases 1-2 and 9; serving: phases 1-2 and 10; host: phases 1-2, 11 "
                          "and 6; batch: phases 1-3 and 12; mapped: phases 1-2, 6, 7 and 13; "
                          "sixtyfour: phases 1-2 and 14; mesh: phases 1-2, 3 (c) and 15; "
-                         "observe: phases 1-2, 16 and 17; tenants: phases 1-2 and 18")
+                         "observe: phases 1-2, 16 and 17; tenants: phases 1-2 and 18; "
+                         "epochs: phases 1-2 and 19")
     ap.add_argument("--window-pairs", type=int, default=WINDOW_PAIRS,
                     help=f"adjacent pairs in phase 9's window (default {WINDOW_PAIRS})")
     # one rank of phase 15 (b), started by the phase itself
@@ -6151,6 +6643,13 @@ def main():
         say(json.dumps({"launches_tenants": launches_tenants}))
         say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return
+    if args.only == "epochs":
+        base, bitmaps, _real = build_working_set()
+        launches_epochs = phase_epochs(base, bitmaps, card)
+        say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
+        say(json.dumps({"launches_epochs": launches_epochs}))
+        say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return
     if args.only == "sixtyfour":
         from roaringbitmap_tpu_torch.utils import datasets
 
@@ -6177,6 +6676,7 @@ def main():
     observe_launches = None  # phase 16's path, counted when it runs
     observatory_launches = None  # phase 17's path, counted when it runs
     tenants_launches = None  # phase 18's path, counted when it runs
+    epochs_launches = None  # phase 19's path, counted when it runs
     host = None
     if args.only == "batch":
         del bitmaps
@@ -6192,6 +6692,7 @@ def main():
         serving_launches = phase_serving(base, bitmaps, card)
         host = phase_host(base, bitmaps, card)
         tenants_launches = phase_tenants(base, bitmaps, real, card)
+        epochs_launches = phase_epochs(base, bitmaps, card, WHOLE_EPOCH_SIZES)
         del bitmaps
         batch_launches, pairwise = phase_batch(base, card)
         from roaringbitmap_tpu_torch.models import bsi as tbsi
@@ -6254,6 +6755,8 @@ def main():
                 0 if name.endswith("@1024") else observatory_launches.get(name, 0)),
             "launches_tenants": None if tenants_launches is None else (
                 0 if name.endswith("@1024") else tenants_launches.get(name, 0)),
+            "launches_epochs": None if epochs_launches is None else (
+                0 if name.endswith("@1024") else epochs_launches.get(name, 0)),
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -6263,6 +6766,8 @@ def main():
             **({"shape": t["shape"]} if "shape" in t else {}),
         })
     say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
+    if epochs_launches is not None:
+        say(json.dumps({"launches_epochs": epochs_launches}))
     if host is not None:
         say(json.dumps({"host_tier": host}))
     say(json.dumps({"kernels": kernels}))

@@ -20,8 +20,11 @@ without a parse, ``MutableRoaringBitmap``, ``BufferFastAggregation`` /
 instrumentation: the metrics registry, flight-recorder timeline, trace
 ids, decision log and outcome ledger (``observe``), fault injection and
 the tier ladder with retries, breakers and deadlines (``robust``), and
-``torch.profiler`` windows and host-phase timers (``tracing``); with the
-device path in PyTorch and its kernels written by hand in CUDA
+``torch.profiler`` windows and host-phase timers (``tracing``); the cost
+authorities (``cost``); the serving tier (``serve``: tenants, admission,
+the load harness, the ingest log, epoch flips and maintenance passes) and
+the durable tier (``durable``: atomic epoch persists, crash recovery and
+the mapped corpus); with the device path in PyTorch and its kernels written by hand in CUDA
 (``csrc/``). It imports neither JAX nor
 the JAX package; that package stays the reference the port is tested
 against.

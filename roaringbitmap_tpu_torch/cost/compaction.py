@@ -1,10 +1,9 @@
 """The compaction pricing authority: compact-now vs let-it-ride.
 
 Counterpart of ``roaringbitmap_tpu/cost/compaction.py``, with the same
-schema, curves, clamps and refit. The port has no maintenance pass yet
-(``serve/maintain.py`` waits in ROADMAP Queue A): the cost facade
-registers this authority, and it prices and refits from explicit sample
-lists until that module records ``serve.maintain`` joins.
+schema, curves, clamps and refit. ``serve/maintain.py`` (``run_pass``)
+prices its verdicts here and records the ``serve.maintain`` joins it
+refits from.
 
 The background maintenance pass (serve/maintain.py) trades **structure
 drift** against **pass wall**: compacting now re-runs format selection

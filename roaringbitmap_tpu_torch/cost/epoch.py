@@ -1,11 +1,9 @@
 """The epoch-flip pricing authority: flip-now vs accumulate-more.
 
 Counterpart of ``roaringbitmap_tpu/cost/epoch.py``, with the same
-schema, curves, clamps and refit. The port has no epoch ledger yet
-(``serve/epochs.py`` and the durable tier wait in ROADMAP Queue A): the
-cost facade registers this authority, and it prices and refits from
-explicit sample lists until those modules record ``epoch.flip`` and
-``durable.persist`` joins.
+schema, curves, clamps and refit. ``serve/epochs.py`` (``maybe_flip``)
+and ``durable/store.py`` (``maybe_persist``) price their verdicts here and
+record the ``epoch.flip`` and ``durable.persist`` joins it refits from.
 
 The epoch flip (serve/epochs.py) trades **staleness** against **repack
 amortization**: flipping early makes pending mutations queryable sooner

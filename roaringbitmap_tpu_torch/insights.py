@@ -8,16 +8,13 @@ the ``observe`` registry — ``dispatch_counters``,
 ``reset_dispatch_counters``, ``query_counters``, ``columnar_counters``,
 ``columnar_costmodel``, ``pack_cache_counters``, ``robust_counters``,
 ``decisions``, ``outcomes``, ``regret_summary``, ``health``,
-``fusion_counters``, ``serving``, ``cost_authorities``, ``observatory``
-and ``metrics_snapshot``.
+``fusion_counters``, ``serving``, ``epochs``, ``structure``, ``durable``,
+``cost_authorities``, ``observatory`` and ``metrics_snapshot``.
 
 Departures: ``dispatch_counters()["kernel"]`` is keyed by this package's
 kernel names and engines (``"rb_group_reduce[dense]/cuda"``, ``".../plain"``),
 and ``"probes"`` is ``{}``: the port never probes for a lowering, it
-launches its kernels or raises. What still waits: ``epochs``,
-``structure`` (it needs ``serve.maintain``) and ``durable``, with the
-serving tier's write path and the durable tier (ROADMAP Queue A);
-``observatory()`` leaves out their keys until then.
+launches its kernels or raises.
 """
 
 from __future__ import annotations
@@ -298,6 +295,65 @@ def serving() -> dict:
     return block
 
 
+def epochs() -> dict:
+    """Epoch-ledger rollup: the current epoch, live mutation-log depth,
+    flip volume by outcome, per-tenant freshness p50/p99 and the flip
+    stage decomposition (registry-derived), plus the live EpochStore's
+    lineage tail and stats (process-local)."""
+    from . import observe
+    from .observe import export as _export
+    from .serve import epochs as _epochs
+
+    block = _export._epochs_block(observe.REGISTRY.snapshot(), observe.REGISTRY)
+    store = _epochs.current_store()
+    if store is not None:
+        block["store_live"] = store.stats()
+        block["lineage"] = store.lineage(16)
+    else:
+        block["store_live"] = None
+        block["lineage"] = []
+    return block
+
+
+def structure() -> dict:
+    """Structure-ledger rollup: the container-format census, actual and
+    optimal serialized bytes with the drift ratio, run fragmentation p99,
+    accretion depth and maintenance-pass volume (registry-derived), plus
+    the live ledger's stats, the last taken pass's record and the
+    compaction authority's provenance."""
+    from . import observe
+    from .cost import compaction as _compaction_cost
+    from .observe import export as _export
+    from .observe import structure as _structure
+    from .serve import maintain as _maintain
+
+    block = _export._structure_block(observe.REGISTRY.snapshot())
+    block["ledger_live"] = (
+        _structure.LEDGER.stats() if _structure.LEDGER.watched() else None
+    )
+    block["last_pass"] = _maintain.last_pass() or None
+    block["authority"] = _compaction_cost.MODEL.provenance
+    return block
+
+
+def durable() -> dict:
+    """Durable-epoch rollup: persisted against serving epoch, artifact
+    bytes, persist / recovery / demotion volume (registry-derived), plus
+    the live ``durable.DurableStore``'s stats and the last recovery's
+    provenance (which directory won, how many torn artifacts were
+    skipped)."""
+    from . import observe
+    from .durable import recovery as _recovery
+    from .durable import store as _dstore
+    from .observe import export as _export
+
+    block = _export._durable_block(observe.REGISTRY.snapshot())
+    live = _dstore.current_store()
+    block["store_live"] = live.stats() if live is not None else None
+    block["recovery_last"] = _recovery.LAST
+    return block
+
+
 def cost_authorities() -> dict:
     """The unified cost facade's view: every pricing authority's curves,
     provenance and live drift."""
@@ -311,9 +367,8 @@ def observatory() -> dict:
     framework locks (empty until ``observe.lockstats.install()``), library
     build counts, the device-memory reconciliation (computed fresh),
     breaker states, pack-cache stats, the decision-log tail, the regret
-    rollup, the health sentinel's state and the serving panel. The JAX
-    package's ``epochs``, ``structure`` and ``durable`` keys come with
-    their tiers (ROADMAP Queue A)."""
+    rollup, the health sentinel's state and the serving, epoch, structure
+    and durable panels."""
     from . import observe
     from .observe import lockstats
     from .parallel import store
@@ -332,6 +387,13 @@ def observatory() -> dict:
         # the per-tenant panel rides the observatory view, so a red
         # episode's flight bundle carries the serving state that fired it
         "serving": serving(),
+        # which snapshot was serving, how stale the log is, and the
+        # lineage that led here
+        "epochs": epochs(),
+        # the corpus shape behind the structure-drift rule
+        "structure": structure(),
+        # which frozen epoch, if any, a restart would recover to
+        "durable": durable(),
     }
 
 

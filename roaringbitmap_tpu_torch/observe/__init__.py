@@ -26,13 +26,11 @@ watched working sets. ``lockstats`` is imported on demand (``from
 roaringbitmap_tpu_torch.observe import lockstats``), as in the JAX package,
 because importing it may install the lock proxies from the environment.
 
-What still waits: the sentinel's ``refit``, ``maintain`` and ``autotune``
-actuations call ``cost.refit_all`` (ROADMAP Queue A item 4),
-``serve.maintain.run_pass`` and ``query.fusion.autotune_window`` (item
-5), which are not ported; until then each records its error in the
-actuation log. A bundle leaves out ``calibration.json`` (item 4) and the
-observatory's ``serving``, ``epochs``, ``structure`` and ``durable`` keys
-(items 4-6).
+The sentinel's ``refit``, ``maintain`` and ``autotune`` actuations call
+``cost.refit_all``, ``serve.maintain.run_pass`` and
+``query.fusion.autotune_window``; a bundle carries ``calibration.json``
+and the observatory's ``serving``, ``epochs``, ``structure`` and
+``durable`` panels, as in the JAX package.
 """
 
 from .registry import (
@@ -49,6 +47,15 @@ from .registry import (
     DECISION_TOTAL,
     DEFAULT_TIME_BUCKETS,
     DEGRADE_TOTAL,
+    DURABLE_ARTIFACT_BYTES,
+    DURABLE_DEMOTE_TOTAL,
+    DURABLE_EPOCH_COUNT,
+    DURABLE_PENDING_COUNT,
+    DURABLE_PERSIST_BYTES_TOTAL,
+    DURABLE_PERSIST_STAGE_SECONDS,
+    DURABLE_PERSIST_TOTAL,
+    DURABLE_PERSIST_WALL_SECONDS,
+    DURABLE_RECOVERY_TOTAL,
     FAULT_INJECTED_TOTAL,
     FUSION_BATCH_SECONDS,
     FUSION_BATCH_TOTAL,
@@ -77,9 +84,20 @@ from .registry import (
     QUERY_LATENCY_SECONDS,
     QUERY_PLAN_TOTAL,
     REGISTRY,
+    SERIAL_BYTES_TOTAL,
     SERVE_ADMIT_TOTAL,
+    SERVE_EPOCH_COUNT,
+    SERVE_EPOCH_FLIP_TOTAL,
+    SERVE_FLIP_STAGE_SECONDS,
+    SERVE_FRESHNESS_SECONDS,
     SERVE_INFLIGHT_COUNT,
+    SERVE_INGEST_TOTAL,
     SERVE_LATENCY_SECONDS,
+    SERVE_MAINTAIN_KEYS_TOTAL,
+    SERVE_MAINTAIN_RECLAIMED_BYTES_TOTAL,
+    SERVE_MAINTAIN_SECONDS,
+    SERVE_MAINTAIN_TOTAL,
+    SERVE_MUTLOG_COUNT,
     SERVE_QPS,
     SERVE_QUEUE_COUNT,
     SERVE_REQUESTS_TOTAL,

@@ -19,14 +19,12 @@ directory:
                             and drift (``cost.calibration_state()``)
         observatory.json    lock-wait stats, compile counts, breaker
                             states + open ages, pack-cache stats, the
-                            device-memory reconciliation, the serving
-                            panel (``insights.serving()``)
+                            device-memory reconciliation, the serving,
+                            epoch, structure and durable panels
+                            (``insights.serving()`` / ``epochs()`` /
+                            ``structure()`` / ``durable()``)
         health.json         sentinel status, rule states, evaluation
                             history, actuation log
-
-The JAX package's observatory also carries the ``epochs``, ``structure``
-and ``durable`` panels; they come with the serving tier's write path and
-the durable tier (ROADMAP Queue A).
 
 **Atomicity**: everything is written into a hidden ``.tmp-…`` sibling and
 the directory is renamed into place as the last step — a crash mid-write
@@ -138,6 +136,16 @@ def _collect_sections(health_dump: Optional[dict]) -> Dict[str, str]:
             # a red episode the serving rules triggered ships the
             # per-tenant state that fired it
             "serving": _insights.serving(),
+            # which snapshot was serving, how stale the log is and the
+            # lineage that led here (freshness-lag-breach, epoch-flip-stall)
+            "epochs": _insights.epochs(),
+            # format census, drift ratio and maintenance-pass state
+            # (structure-drift, delta-accretion)
+            "structure": _insights.structure(),
+            # which frozen epoch a restart would recover to, with its
+            # torn-skip provenance (epoch-persist-stall,
+            # recovery-manifest-torn)
+            "durable": _insights.durable(),
         }
 
     sections["observatory.json"] = _json_or_error(_observatory)

@@ -16,10 +16,10 @@ Prometheus text.
   summary (``kernel``/``layout``/``transfer_bytes``/``spans`` and the
   other blocks below) plus the full registry snapshot. The context
   manager writes atomically (tmp file + os.replace) on exit, even when the
-  enclosed block raises. The health, fusion and serving blocks are
-  derived from the registry alone, as in the JAX package; its epoch,
-  structure, durable and analysis blocks come with the modules that
-  register their metrics (ROADMAP Queue A).
+  enclosed block raises. The health, fusion, serving, epochs, structure
+  and durable blocks are derived from the registry alone, as in the JAX
+  package. The JAX package's ``analysis`` block is left out: its analyzer
+  is not part of this package.
 
 Everything is a pure function of a ``Registry`` (default: the process
 registry), so golden-format tests run against a private registry.
@@ -321,6 +321,127 @@ def _serving_block(snap: dict, registry: Registry) -> dict:
     }
 
 
+def _epochs_block(snap: dict, registry: Registry) -> dict:
+    """The epoch ledger's sidecar block, derived purely from
+    the registry like the serving/fusion blocks so a ``--from`` rendering
+    needs no live process: the current epoch gauge, live mutation-log
+    depth, flip volume by outcome, per-tenant freshness p50/p99
+    (ingest->queryable lag), ingest batch volume by tenant, and the flip
+    stage latency decomposition. Epoch LINEAGE is process-local (the
+    EpochStore's bounded ledger) and rides ``insights.epochs()`` /
+    flight bundles, never the registry — epoch ids are unbounded and
+    must not mint series."""
+    freshness: dict = {}
+    fr = registry.get(_registry.SERVE_FRESHNESS_SECONDS)
+    if isinstance(fr, LatencyHistogram):
+        for lv, st in sorted(fr.series().items()):
+            freshness[lv[0]] = {
+                "count": st["count"],
+                **{
+                    "p%g" % (q * 100): round(fr._quantile_of_state(st, q), 6)
+                    for q in SNAPSHOT_QUANTILES
+                },
+            }
+    stages: dict = {}
+    fs = registry.get(_registry.SERVE_FLIP_STAGE_SECONDS)
+    if isinstance(fs, LatencyHistogram):
+        for lv, st in sorted(fs.series().items()):
+            stages[lv[0]] = {
+                "count": st["count"],
+                "sum": round(st["sum"], 6),
+                "p99": round(fs._quantile_of_state(st, 0.99), 6),
+            }
+    def _gauge(name):
+        m = snap.get(name)
+        if m is not None:
+            for s in m["samples"]:
+                if not s["labels"]:
+                    return s["value"]
+        return None
+    return {
+        "epoch": _gauge(_registry.SERVE_EPOCH_COUNT),
+        "mutlog_depth": _gauge(_registry.SERVE_MUTLOG_COUNT),
+        "flips": _counter_map(snap, _registry.SERVE_EPOCH_FLIP_TOTAL),
+        "ingest": _counter_map(snap, _registry.SERVE_INGEST_TOTAL),
+        "freshness": freshness,
+        "flip_stages": stages,
+    }
+
+
+def _structure_block(snap: dict) -> dict:
+    """The structure observatory's sidecar block, derived purely from
+    the registry like every block here: the container-format
+    census, actual/optimal serialized bytes + drift ratio, the run
+    fragmentation p99 and epoch-delta accretion depth gauges, and the
+    maintenance tier's volume (passes by outcome, reclaimed bytes,
+    rewritten keys, pass wall time)."""
+    def _gauge(name):
+        m = snap.get(name)
+        if m is not None:
+            for s in m["samples"]:
+                if not s["labels"]:
+                    return s["value"]
+        return None
+    bytes_by_kind = _counter_map(snap, _registry.STRUCTURE_BYTES)
+    wall = None
+    m = snap.get(_registry.SERVE_MAINTAIN_SECONDS)
+    if m is not None:
+        for s in m["samples"]:
+            if not s["labels"]:
+                wall = {"count": s["count"], "sum": round(s["sum"], 6)}
+    return {
+        "containers": _counter_map(snap, _registry.STRUCTURE_CONTAINERS),
+        "bytes": bytes_by_kind,
+        "drift_ratio": _gauge(_registry.STRUCTURE_DRIFT_RATIO),
+        "fragmentation_p99": _gauge(_registry.STRUCTURE_FRAGMENTATION_COUNT),
+        "accretion_depth": _gauge(_registry.STRUCTURE_ACCRETION_COUNT),
+        "passes": _counter_map(snap, _registry.SERVE_MAINTAIN_TOTAL),
+        "reclaimed_bytes": _gauge(_registry.SERVE_MAINTAIN_RECLAIMED_BYTES_TOTAL),
+        "rewritten_keys": _gauge(_registry.SERVE_MAINTAIN_KEYS_TOTAL),
+        "pass_wall": wall,
+    }
+
+
+def _durable_block(snap: dict) -> dict:
+    """The durable-epoch sidecar block, derived purely from the registry
+    like every block here: the last persisted vs serving
+    epoch, the frozen artifact's bytes, persist volume by outcome +
+    cumulative bytes, the persist stage latency decomposition, pending
+    (unpersisted) epoch depth, last persist wall seconds, recovery
+    outcome volume, and residency demotions by rung. Recovery
+    PROVENANCE (which directory, torn-skip list) is process-local and
+    rides ``insights.durable()`` / flight bundles, never the registry —
+    paths are unbounded label values and must not mint series."""
+    def _gauge(name):
+        m = snap.get(name)
+        if m is not None:
+            for s in m["samples"]:
+                if not s["labels"]:
+                    return s["value"]
+        return None
+    stages: dict = {}
+    m = snap.get(_registry.DURABLE_PERSIST_STAGE_SECONDS)
+    if m is not None:
+        for s in m["samples"]:
+            if s["labels"]:
+                stages[s["labels"]["stage"]] = {
+                    "count": s["count"],
+                    "sum": round(s["sum"], 6),
+                }
+    return {
+        "epoch": _gauge(_registry.DURABLE_EPOCH_COUNT),
+        "serving_epoch": _gauge(_registry.SERVE_EPOCH_COUNT),
+        "pending_epochs": _gauge(_registry.DURABLE_PENDING_COUNT),
+        "artifact_bytes": _gauge(_registry.DURABLE_ARTIFACT_BYTES),
+        "persist_wall_s": _gauge(_registry.DURABLE_PERSIST_WALL_SECONDS),
+        "persists": _counter_map(snap, _registry.DURABLE_PERSIST_TOTAL),
+        "persist_bytes": _gauge(_registry.DURABLE_PERSIST_BYTES_TOTAL),
+        "persist_stages": stages,
+        "recoveries": _counter_map(snap, _registry.DURABLE_RECOVERY_TOTAL),
+        "demotions": _counter_map(snap, _registry.DURABLE_DEMOTE_TOTAL),
+    }
+
+
 def _health_block(snap: dict) -> dict:
     """The health sentinel's sidecar block, derived PURELY from the
     registry gauges (like the regret block) so a rendering needs no live
@@ -357,6 +478,7 @@ def sidecar_snapshot(registry: Optional[Registry] = None) -> dict:
         "layout": _counter_map(snap, _registry.STORE_LAYOUT_TOTAL),
         "transfer_bytes": _counter_map(snap, _registry.STORE_TRANSFER_BYTES_TOTAL),
         "pairwise": _counter_map(snap, _registry.BATCH_PAIRWISE_TOTAL),
+        "serial_bytes": _counter_map(snap, _registry.SERIAL_BYTES_TOTAL),
         "probes": {},
         "timings": _histogram_timings(snap, _registry.HOST_OP_SECONDS),
         "spans": _histogram_timings(snap, _registry.SPAN_SECONDS),
@@ -369,6 +491,9 @@ def sidecar_snapshot(registry: Optional[Registry] = None) -> dict:
         "health": _health_block(snap),
         "fusion": _fusion_block(snap),
         "serving": _serving_block(snap, _reg(registry)),
+        "epochs": _epochs_block(snap, _reg(registry)),
+        "structure": _structure_block(snap),
+        "durable": _durable_block(snap),
         "registry": snap,
     }
 

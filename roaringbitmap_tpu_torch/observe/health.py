@@ -62,9 +62,9 @@ Actuations (the sentinel's closed-loop half — see ``observe.sentinel``):
 and decision entry on the fire transition); any rule reaching CRITICAL
 also triggers a one-shot flight bundle (``observe.bundle``).
 
-The rules over serving, epoch and durable metrics read series that the
-serving and durable tiers register (ROADMAP Queue A items 5 and 6); until
-those tiers are ported the rules read no data and stay green.
+The rules over serving, epoch and durable metrics read the series that
+``serve/`` (``slo``, ``admission``, ``ingest``, ``epochs``, ``maintain``)
+and ``durable/`` register.
 
 **The one departure is ``hbm-accounting-drift``.** The JAX rule judges
 ``max |drift|`` over every source. Its ``device`` source is the resident

@@ -86,6 +86,8 @@ COSTMODEL_DRIFT_RATIO = "rb_tpu_costmodel_drift_ratio"
 BATCH_PAIRWISE_TOTAL = "rb_tpu_batch_pairwise_total"
 COLUMNAR_BATCH_TOTAL = "rb_tpu_columnar_batch_total"
 COLUMNAR_ROUTE_TOTAL = "rb_tpu_columnar_route_total"
+# RoaringFormatSpec bytes by direction (serialize | deserialize)
+SERIAL_BYTES_TOTAL = "rb_tpu_serial_bytes_total"
 COLUMNAR_CLASS_SECONDS = "rb_tpu_columnar_class_seconds"
 # resource observatory: lock-wait histograms over the framework locks and
 # device-memory accounting drift (gauge vs ledger, gauge vs the card)
@@ -132,15 +134,38 @@ SERVE_INFLIGHT_COUNT = "rb_tpu_serve_inflight_count"
 SERVE_SATURATION_RATIO = "rb_tpu_serve_saturation_ratio"
 SERVE_TENANT_BYTES = "rb_tpu_serve_tenant_bytes"
 SERVE_SLO_BUDGET_SECONDS = "rb_tpu_serve_slo_budget_seconds"
-# epoch and durable names the health rules judge; their metrics are
-# registered by the serving tier's write path and the durable tier
-# (ROADMAP Queue A) — until then those rules read no series and stay green
+# epoch ledger (serve/ingest.py, serve/epochs.py): ingest->queryable lag
+# per tenant, flip stage walls (drain | repack | publish | reclaim),
+# mutation batches by tenant, flips by outcome, the live mutation-log
+# depth and the current epoch id as a gauge VALUE — epoch ids are
+# unbounded and never label values
 SERVE_FRESHNESS_SECONDS = "rb_tpu_serve_freshness_seconds"
+SERVE_FLIP_STAGE_SECONDS = "rb_tpu_serve_flip_stage_seconds"
+SERVE_INGEST_TOTAL = "rb_tpu_serve_ingest_total"
 SERVE_EPOCH_FLIP_TOTAL = "rb_tpu_serve_epoch_flip_total"
 SERVE_MUTLOG_COUNT = "rb_tpu_serve_mutlog_count"
+SERVE_EPOCH_COUNT = "rb_tpu_serve_epoch_count"
+# maintenance passes (serve/maintain.py): passes by outcome, the pass
+# wall, reclaimed serialized bytes and rewritten chunk keys
+SERVE_MAINTAIN_TOTAL = "rb_tpu_serve_maintain_total"
+SERVE_MAINTAIN_SECONDS = "rb_tpu_serve_maintain_seconds"
+SERVE_MAINTAIN_RECLAIMED_BYTES_TOTAL = "rb_tpu_serve_maintain_reclaimed_bytes_total"
+SERVE_MAINTAIN_KEYS_TOTAL = "rb_tpu_serve_maintain_keys_total"
+# durable epochs (durable/): persists by outcome, the persist stage walls
+# (snapshot | lineage | manifest | publish), artifact bytes written, the
+# newest persisted epoch id and artifact size as gauge VALUES, the
+# unpersisted backlog, the last persist wall, recoveries by outcome
+# (recovered | torn | empty) and eviction demotions by residency rung
+# (mapped | discard)
 DURABLE_PERSIST_TOTAL = "rb_tpu_durable_persist_total"
+DURABLE_PERSIST_STAGE_SECONDS = "rb_tpu_durable_persist_stage_seconds"
+DURABLE_PERSIST_BYTES_TOTAL = "rb_tpu_durable_persist_bytes_total"
+DURABLE_EPOCH_COUNT = "rb_tpu_durable_epoch_count"
+DURABLE_ARTIFACT_BYTES = "rb_tpu_durable_artifact_bytes"
 DURABLE_PENDING_COUNT = "rb_tpu_durable_pending_count"
+DURABLE_PERSIST_WALL_SECONDS = "rb_tpu_durable_persist_wall_seconds"
 DURABLE_RECOVERY_TOTAL = "rb_tpu_durable_recovery_total"
+DURABLE_DEMOTE_TOTAL = "rb_tpu_durable_demote_total"
 
 # upper bucket bounds (seconds) for wall-time histograms: host phases span
 # ~100 µs packing steps to multi-second CPU folds; +Inf is implicit

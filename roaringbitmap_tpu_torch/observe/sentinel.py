@@ -45,11 +45,9 @@ a verdict:
     (``observe.bundle``) per red episode, cooldown-guarded
     (``RB_TPU_SENTINEL_BUNDLE_COOLDOWN_S``, default 300 s).
 
-  The ``maintain`` target arrives with the serving tier's write path
-  (ROADMAP Queue A); until then that actuation records its error in the
-  actuation log, as the JAX package's own failure path does, and its
-  rules stay firing. ``refit``, ``autotune``, ``alert`` and ``bundle``
-  work in full.
+  Every actuation reaches its target; a target that raises records its
+  error in the actuation log, as the JAX package's failure path does, and
+  its rules stay firing.
 
 Every tick exports ``rb_tpu_health_status`` (process rollup) and
 ``rb_tpu_health_rule_state{rule}``; actuations count in

@@ -29,9 +29,8 @@ the per-key cache. The one full walk is :meth:`census` under a
 scratch.
 
 :meth:`drift_targets` lists the keys whose actual serialized size exceeds
-the size-rule optimum — the rewrite set of a maintenance pass (the
-serving tier's ``serve/maintain.py``, ROADMAP Queue A item 5, which also
-brings ``insights.structure``).
+the size-rule optimum — the rewrite set of a maintenance pass
+(``serve/maintain.py``); ``insights.structure`` reads the books.
 """
 
 from __future__ import annotations

@@ -47,15 +47,20 @@ caches' own byte ledgers and against the card's allocator
 An eviction is priced by the residency authority's learned re-pack cost
 for its kind (``cost.residency``): the evict decision records it as
 ``est_us`` (``repack`` and ``rebuild``) once evict-regret traffic has
-taught the curve, so the regret join scores the pricing.
-:meth:`PackCache.resident_bytes_for` charges a working set's resident
-bytes to its leaves' fingerprints (the serving tier's per-tenant byte
-shares).
+taught the curve, so the regret join scores the pricing. Once the durable
+tier has persisted an epoch it installs a demotion probe
+(:func:`set_demotion_probe`): an eviction the probe accepts demotes to the
+mapped rung (``rb_tpu_durable_demote_total{rung="mapped"}``, the
+``demote-mapped`` decision, priced with the learned ``readmit`` cost)
+instead of discarding. :meth:`PackCache.resident_bytes_for` charges a
+working set's resident bytes to its leaves' fingerprints (the serving
+tier's per-tenant byte shares).
 
-Left out here, relative to the JAX package: pinning and the per-thread
-last route (they come with the serving tier's write path, ROADMAP Queue
-A), and the demotion probe with its ``readmit`` estimate (the durable
-tier).
+Pins are a refcount on an entry (:meth:`PackCache.pin_packed` /
+``unpin_packed``): a pinned entry is never evicted, and is found by
+identity even after its bitmaps mutated. :meth:`PackCache.last_route`
+reads this thread's route of its last ``get_packed`` (``hit``, ``delta``,
+``full`` or ``disabled``), which the epoch flip's lineage records.
 """
 
 from __future__ import annotations
@@ -154,6 +159,13 @@ _PACK_EVICTED_BYTES = _observe.counter(
     _observe.PACK_CACHE_EVICTED_BYTES_TOTAL,
     "Bytes released by byte-budget LRU eviction",
     ("kind",),
+)
+_DEMOTE_TOTAL = _observe.counter(
+    _observe.DURABLE_DEMOTE_TOTAL,
+    "Evictions by residency rung (mapped = working set stays "
+    "re-admittable from the persisted epoch mmap | discard = cold "
+    "repack on return — the pre-durable behavior)",
+    ("rung",),
 )
 _PACK_RESIDENT = _observe.gauge(
     _observe.PACK_CACHE_RESIDENT_BYTES,
@@ -329,7 +341,10 @@ class RowPayload:
         """Expand to the uint32 [n, 2048] host word block: bitmap rows
         bulk-copy, array values scatter in one pass (the native tier's
         ``rb_pack_array_rows``, else ``np.bitwise_or.at``), run rows fill
-        per interval."""
+        every interval in one pass (the native tier's
+        ``rb_fill_intervals_rows``, else its vectorized plain version)."""
+        from ..columnar import kernels as ck
+
         (arr_rows, arr_offsets, arr_values, bmp_rows, bmp_words,
          run_rows, run_counts, run_starts, run_lengths) = self.materialize()
         out64 = np.zeros((self.n_rows, bits.WORDS_PER_CONTAINER), dtype=np.uint64)
@@ -345,15 +360,12 @@ class RowPayload:
             bit = np.uint64(1) << (v & 63).astype(np.uint64)
             np.bitwise_or.at(out64.reshape(-1), flat_idx, bit)
         if len(run_rows):
-            off = 0
-            for r, cnt in zip(run_rows.tolist(), run_counts.tolist()):
-                row = out64[r]
-                for s, l in zip(
-                    run_starts[off:off + cnt].tolist(),
-                    run_lengths[off:off + cnt].tolist(),
-                ):
-                    bits.set_bitmap_range(row, s, s + l + 1)
-                off += cnt
+            offs = np.zeros(len(run_rows) + 1, dtype=np.int64)
+            np.cumsum(run_counts, out=offs[1:])
+            starts = np.asarray(run_starts).view(np.uint16).astype(np.int64)
+            ends = starts + np.asarray(run_lengths).view(np.uint16).astype(np.int64) + 1
+            fill = native.fill_intervals_rows if native.available() else ck.fill_intervals_rows_numpy
+            fill(run_rows, offs, starts, ends, out64, "or")
         return out64.view(np.uint32)
 
     def expand_device(self, device) -> torch.Tensor:
@@ -1065,13 +1077,14 @@ def pack_groups_with_provenance(
 
 
 class _PackEntry:
-    __slots__ = ("key", "kind", "value", "nbytes", "fps", "row_map", "refs")
+    __slots__ = ("key", "kind", "value", "nbytes", "pins", "fps", "row_map", "refs")
 
     def __init__(self, key, kind, value, nbytes, fps=None, row_map=None, refs=()):
         self.key = key
         self.kind = kind
         self.value = value
         self.nbytes = int(nbytes)
+        self.pins = 0           # pin refcount: >0 exempts from eviction
         self.fps = fps          # agg entries: fingerprints at pack time
         self.row_map = row_map  # agg entries: (bitmap_idx, key) -> row
         # container arrays behind ("static", id) fingerprints: held so the
@@ -1140,6 +1153,32 @@ def _repack_estimate_s(kind: str) -> Optional[float]:
     from ..cost import residency as _residency
 
     return _residency.MODEL.repack_estimate(kind)
+
+
+def _readmit_estimate_s(kind: str) -> Optional[float]:
+    """The residency authority's learned mmap re-admit cost for ``kind``
+    (the mapped rung): None until ``durable.readmit`` traffic taught the
+    curve."""
+    from ..cost import residency as _residency
+
+    return _residency.MODEL.readmit_estimate(kind)
+
+
+# The durable tier's demotion probe: installed once a persisted epoch
+# artifact exists, it answers whether an evicted entry of ``kind`` stays
+# re-admittable from the epoch map. With a probe answering True, an
+# eviction demotes to the mapped rung (device bytes freed, the payload one
+# zero-copy readmit away) instead of discarding. None: every eviction
+# discards.
+_DEMOTE_PROBE = None
+
+
+def set_demotion_probe(probe) -> None:
+    """Install (or clear with ``None``) the mapped-rung demotion probe,
+    ``probe(kind) -> bool``. ``durable/store.py`` installs it after its
+    first completed persist."""
+    global _DEMOTE_PROBE
+    _DEMOTE_PROBE = probe
 
 
 DEFAULT_HOST_BUDGET = 2 << 30
@@ -1224,6 +1263,11 @@ class PackCache:
         # a miss that re-packs a remembered eviction joins it with the
         # re-pack wall as measured regret (bounded ring, oldest forgotten)
         self._evicted_seqs: "OrderedDict[tuple, int]" = OrderedDict()  # guarded-by: self._lock
+        # per-THREAD route of the most recent get_packed: the epoch flip's
+        # lineage needs per-working-set delta-vs-full evidence, and a diff
+        # of the global counters would race every concurrent cache user;
+        # thread-local needs no lock
+        self._route_tls = threading.local()
 
     def __del__(self):
         # a dropped cache settles its share of the process-wide gauge
@@ -1260,6 +1304,7 @@ class PackCache:
         bitmaps = list(bitmaps)
         device = resolve_device(device)
         marker = "all" if keys_filter is None else "and"
+        self._route_tls.route = None  # set on every exit path below
         with _timeline.stage(
             _PACK_STAGE_SECONDS, "fingerprints", "pack.fingerprints",
             cat="pack", operands=len(bitmaps),
@@ -1268,6 +1313,7 @@ class PackCache:
         if self._disabled():  # always a fresh uncached pack
             with self._lock:
                 self._count("agg", False)
+            self._route_tls.route = ("disabled", 0)
             return pack_groups(group_by_key(bitmaps, keys_filter=keys_filter), device)
         key = ("agg", marker, str(device), fps)
         ident = ("agg", marker, str(device), idents)
@@ -1277,6 +1323,7 @@ class PackCache:
                 self._entries.move_to_end(key)
                 self._count("agg", True)
                 _timeline.instant("pack_cache.hit", "cache", kind="agg", bytes=e.nbytes)
+                self._route_tls.route = ("hit", 0)
                 return e.value
             old_key = self._ident.get(ident)
             e = None if old_key is None else self._entries.get(old_key)
@@ -1295,6 +1342,7 @@ class PackCache:
                     )
                     if rows:
                         _PACK_DELTA_ROWS.inc(len(rows), ("agg",))
+                    self._route_tls.route = ("delta", len(rows))
                     return e.value
         # full repack outside the lock (a racing thread packing the same
         # key is benign — first store wins)
@@ -1317,7 +1365,17 @@ class PackCache:
             key, "agg", packed, packed.words_nbytes, fps=fps, row_map=row_map,
             refs=static_fp_refs(bitmaps),
         )
+        self._route_tls.route = ("full", 0)
         return self._store(entry, ident=ident).value
+
+    def last_route(self) -> Optional[tuple]:
+        """``(route, delta_rows)`` of THIS thread's most recent
+        :meth:`get_packed` — ``route`` is ``"hit"`` | ``"delta"`` |
+        ``"full"`` | ``"disabled"``, ``delta_rows`` is nonzero only on the
+        delta route. Thread-local: the epoch flip classifies each
+        working-set refresh for its lineage record. ``None`` before any
+        call on this thread."""
+        return getattr(self._route_tls, "route", None)
 
     def get_or_build(self, key: tuple, build: Callable[[], tuple], refs: tuple = ()):
         """Generic resident entry (BSI slice tensors, query-kernel packs):
@@ -1354,6 +1412,49 @@ class PackCache:
             self._count(kind, False)
         return self._store(_PackEntry(key, kind, value, nbytes, refs=refs)).value
 
+    def pin_packed(
+        self, bitmaps: Sequence[RoaringBitmap], keys_filter: Optional[set] = None,
+        device=None,
+    ) -> PackedGroups:
+        """Get (building if needed) and pin this working set's pack: a
+        pinned entry is never evicted. Pins are a refcount — every
+        ``pin_packed`` needs a matching :meth:`unpin_packed`; ``close``
+        releases everything regardless."""
+        packed = self.get_packed(bitmaps, keys_filter, device)
+        with self._lock:
+            e = self._agg_entry(bitmaps, keys_filter, device)
+            if e is not None:
+                e.pins += 1
+                _timeline.instant("pack_cache.pin", "cache", kind="agg", pins=e.pins)
+        return packed
+
+    def unpin_packed(
+        self, bitmaps: Sequence[RoaringBitmap], keys_filter: Optional[set] = None,
+        device=None,
+    ) -> None:
+        with self._lock:
+            e = self._agg_entry(bitmaps, keys_filter, device)
+            if e is not None:
+                e.pins = max(0, e.pins - 1)
+                _timeline.instant("pack_cache.unpin", "cache", kind="agg", pins=e.pins)
+                if e.pins == 0:
+                    self._evict_over_budget()
+
+    def _agg_entry(self, bitmaps, keys_filter, device=None) -> Optional[_PackEntry]:
+        """This working set's entry by exact fingerprints OR by identity
+        (generations): pin / unpin must find the entry even after the
+        bitmaps mutated, or a pin would leak forever. Caller holds
+        self._lock."""
+        marker = "all" if keys_filter is None else "and"
+        dev_s = str(resolve_device(device))
+        fps = tuple(bm.fingerprint() for bm in bitmaps)
+        e = self._entries.get(("agg", marker, dev_s, fps))
+        if e is not None:
+            return e
+        ident = ("agg", marker, dev_s, tuple(_fp_ident(fp) for fp in fps))
+        key = self._ident.get(ident)
+        return self._entries.get(key) if key is not None else None
+
     def discard(self, key: tuple) -> None:
         """Drop one entry by exact key: for builders that discover after
         the store that the pack cannot serve their device path (threshold's
@@ -1368,8 +1469,8 @@ class PackCache:
             self._drop(key)
 
     def close(self) -> None:
-        """Release every resident entry; the cache stays usable and refills
-        on next use."""
+        """Release every resident entry (pinned included); the cache stays
+        usable and refills on next use."""
         with self._lock:
             for e in self._entries.values():
                 self._release(e)
@@ -1396,6 +1497,7 @@ class PackCache:
                 "evictions": self.evictions,
                 "entries": len(self._entries),
                 "bytes": self._bytes,
+                "pinned": sum(1 for e in self._entries.values() if e.pins),
                 "max_bytes": self.max_bytes,
                 "kinds": {k: {"hits": h, "misses": m} for k, (h, m) in self._kinds.items()},
             }
@@ -1545,37 +1647,62 @@ class PackCache:
         self._evict_to(self.max_bytes)
 
     def _evict_to(self, target: int) -> None:
-        # caller holds self._lock; LRU order. At least one entry always
-        # survives: a single working set larger than the whole budget
-        # would otherwise thrash store->evict on every call.
+        # caller holds self._lock; LRU order, pinned entries skipped. At
+        # least one UNPINNED entry always survives: a single working set
+        # larger than the whole budget would otherwise thrash store->evict
+        # on every call, and counting pinned entries toward that survivor
+        # would bring the thrash back once a pinned index fills the budget.
         if target is None or self._bytes <= target:
             return
-        for key in list(self._entries)[:-1]:
-            if self._bytes <= target:
+        unpinned = sum(1 for e in self._entries.values() if not e.pins)
+        for key in list(self._entries):
+            if self._bytes <= target or unpinned <= 1:
                 break
-            e = self._entries.pop(key)
+            e = self._entries[key]
+            if e.pins:
+                continue
+            unpinned -= 1
+            del self._entries[key]
             self._bytes -= e.nbytes
             self.evictions += 1
             _PACK_EVICTED_BYTES.inc(e.nbytes, (e.kind,))
-            # every eviction discards: the mapped rung comes with the
-            # durable tier's demotion probe (ROADMAP Queue A item 6)
+            # with a durable epoch artifact on disk the evicted bytes demote
+            # to the mapped rung (re-admittable from the map at the readmit
+            # curve's price) instead of discarding
+            probe = _DEMOTE_PROBE
+            mapped = False
+            if probe is not None:
+                try:
+                    mapped = bool(probe(e.kind))
+                except Exception:  # a broken probe must not turn an eviction into a failure: the entry is discarded, as in the JAX package
+                    mapped = False
+            rung = "mapped" if mapped else "discard"
+            _DEMOTE_TOTAL.inc(1, (rung,))
             _timeline.instant(
-                "pack_cache.evict", "cache", kind=e.kind, bytes=e.nbytes,
-                rung="discard",
+                "pack_cache.evict", "cache", kind=e.kind, bytes=e.nbytes, rung=rung,
             )
             # the residency authority's learned re-pack cost prices this
             # eviction: the evict-regret join then scores the pricing
             # (predicted vs measured re-pack wall)
             evict_inputs = {"kind": e.kind, "bytes": e.nbytes,
-                            "target_bytes": target, "rung": "discard"}
+                            "target_bytes": target, "rung": rung}
             est_repack_s = _repack_estimate_s(e.kind)
             if est_repack_s:
                 evict_inputs["est_us"] = {
                     "repack": round(est_repack_s * 1e6, 1),
                     "rebuild": round(est_repack_s * 1e6, 1),
                 }
+            if mapped:
+                # the demotion's priced return path: the learned readmit
+                # cost (None until durable.readmit traffic taught it)
+                est_readmit_s = _readmit_estimate_s(e.kind)
+                if est_readmit_s:
+                    evict_inputs.setdefault("est_us", {})["readmit"] = round(
+                        est_readmit_s * 1e6, 1
+                    )
             seq = _decisions.record_decision(
-                "pack_cache.evict", "lru", outcome=True, **evict_inputs,
+                "pack_cache.evict", "demote-mapped" if mapped else "lru",
+                outcome=True, **evict_inputs,
             )
             ident = self._agg_ident(e) if e.kind == "agg" else None
             if ident is not None and self._ident.get(ident) == key:

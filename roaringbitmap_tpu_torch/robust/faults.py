@@ -27,10 +27,8 @@ Two ways to arm faults:
 ``suspended()`` masks every fault on the current thread (a no-fault
 reference run mid-schedule).
 
-:data:`SITES` lists the sites that have a call site in this package, in
-the JAX package's order. The JAX package's other sites (``epoch.flip``,
-``serve.maintain``, ``durable.persist``) come with the serving tier's
-write path and the durable tier (ROADMAP Queue A).
+:data:`SITES` lists the JAX package's sites, in its order; each has a call
+site in this package.
 """
 
 from __future__ import annotations
@@ -56,10 +54,13 @@ SITES: Tuple[str, ...] = (
     "query.fusion",      # fused micro-batch execution (query/fusion.py)
     "query.hedge",       # hedged solo dispatch of an SLO-priced request (query/fusion.py)
     "serve.admit",       # serving-tier admission verdict (serve/admission.py)
+    "epoch.flip",        # epoch flip of the streaming ingest log (serve/epochs.py)
     "columnar.kernel",   # columnar native batch-kernel entry (columnar/kernels.py)
     "columnar.device",   # columnar device-tier entry (columnar/device.py)
     "native.entry",      # native host tier entry (native/__init__.py)
     "pack_cache.budget", # resident pack-cache byte-budget admission
+    "serve.maintain",    # maintenance / compaction pass (serve/maintain.py)
+    "durable.persist",   # atomic epoch snapshot persist (durable/store.py)
 )
 
 _FAULT_TOTAL = _observe.counter(

@@ -23,6 +23,10 @@ exercised against the reference's ``crashproneinput*.bin`` corpus.
 
 This format is also the bridge between this package and its JAX reference:
 both write the same bytes for the same bitmap.
+
+Bytes produced by :func:`serialize` and consumed by :func:`read_into` are
+counted by direction in ``rb_tpu_serial_bytes_total{direction}``
+(``serialize`` | ``deserialize``), at the JAX package's places.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from typing import Union
 
 import numpy as np
 
+from . import observe as _observe
 from .utils import bits as _bits
 from .models.container import (
     ARRAY_MAX_SIZE,
@@ -47,6 +52,15 @@ SERIAL_COOKIE = 12347  # RoaringArray.java:23
 SERIAL_COOKIE_NO_RUNCONTAINER = 12346  # RoaringArray.java:24
 NO_OFFSET_THRESHOLD = 4  # RoaringArray.java:25
 _MAX_CONTAINERS = 1 << 16
+
+# wire-format byte accounting: bytes produced by serialize and consumed by
+# the parsers, by direction — the checkpoint/interop traffic ledger beside
+# the store's host-to-device one
+_SERIAL_BYTES = _observe.counter(
+    _observe.SERIAL_BYTES_TOTAL,
+    "RoaringFormatSpec bytes by direction (serialize | deserialize)",
+    ("direction",),
+)
 
 
 class InvalidRoaringFormat(ValueError):
@@ -137,7 +151,9 @@ def serialize(bm: RoaringBitmap) -> bytes:
 
     for c in containers:
         parts.append(_container_payload(c))
-    return b"".join(parts)
+    out = b"".join(parts)
+    _SERIAL_BYTES.inc(len(out), ("serialize",))
+    return out
 
 
 def _need(buf: memoryview, pos: int, n: int) -> None:
@@ -336,6 +352,7 @@ def read_into(bm: RoaringBitmap, data, copy: bool = True) -> int:
             c = ArrayContainer(values)
         hlc.keys.append(key)
         hlc.containers.append(c)
+    _SERIAL_BYTES.inc(pos, ("deserialize",))
     return pos
 
 

@@ -14,13 +14,26 @@ Counterpart of ``roaringbitmap_tpu/serve/`` (see each module):
   cap with shed-or-queue backpressure, every verdict priced at the
   ``serve.admit`` decision site (``cost/admission.py``).
 
-The health sentinel's ``serving-p99-breach``, ``tenant-saturation`` and
-``serving-p99-pressure`` rules (``observe/health.py``) judge the series
-this tier registers. The write path (``ingest``, ``epochs``,
-``maintain``) comes with the durable tier (ROADMAP Queue A).
+The write path:
+
+* ``ingest.py`` — the batched mutation log: stamped per-tenant batches
+  accumulate while readers keep serving the current epoch untouched;
+* ``epochs.py`` — snapshot-isolated epoch publication: readers pin the
+  epoch they were admitted under, and the flip drains the log through the
+  sorted-stream writer into one delta repack per touched working set on
+  the device, observing every published batch's ingest->queryable lag in
+  ``rb_tpu_serve_freshness_seconds{tenant}``; the flip is a priced
+  ``epoch.flip`` decision (``cost/epoch.py``);
+* ``maintain.py`` — priced compaction passes that ride the flip
+  (``cost/compaction.py``), the sentinel's ``maintain`` target.
+
+The health sentinel's ``serving-p99-breach``, ``tenant-saturation``,
+``serving-p99-pressure``, ``freshness-lag-breach`` and ``epoch-flip-stall``
+rules (``observe/health.py``) judge the series this tier registers.
 """
 
 from .admission import CONTROLLER, AdmissionController, ShedRejection, Ticket
+from .epochs import EpochStore, EpochTicket, FLIP_STAGES, current_store
 from .harness import (
     HarnessReport,
     LoadHarness,
@@ -30,14 +43,20 @@ from .harness import (
     build_requests,
     default_mix,
 )
+from .ingest import IngestLog, MutationBatch
 from .slo import TENANTS, TenantRegistry
-from . import admission, harness, slo
+from . import admission, epochs, harness, ingest, slo
 
 __all__ = [
     "AdmissionController",
     "CONTROLLER",
+    "EpochStore",
+    "EpochTicket",
+    "FLIP_STAGES",
     "HarnessReport",
+    "IngestLog",
     "LoadHarness",
+    "MutationBatch",
     "Request",
     "ShedRejection",
     "TENANTS",
@@ -47,7 +66,10 @@ __all__ = [
     "Ticket",
     "admission",
     "build_requests",
+    "current_store",
     "default_mix",
+    "epochs",
     "harness",
+    "ingest",
     "slo",
 ]

@@ -1,4 +1,4 @@
-"""Multi-tenant serving load harness, read path.
+"""Multi-tenant serving load harness, read and write paths.
 
 Counterpart of ``roaringbitmap_tpu/serve/harness.py``: a multi-threaded
 load generator driving the fused query path over a shared corpus with a
@@ -33,16 +33,19 @@ slot — typed, never a bitmap — so the serial oracle (:meth:`run_serial`)
 can check that every served result is exact and every unserved one is
 loudly a shed.
 
-Left out here, relative to the JAX package: the write path (the epoch
-store, writer profiles and ``run_serial_epochs``), which comes with the
-epoch ledger (ROADMAP Queue A). ``build_requests`` still draws writer
-requests as the JAX package does, so schedules stay equal, but a
-:class:`LoadHarness` over a writer profile raises the ``ValueError`` the
-JAX package raises without an epoch store.
+* **Writes** — with ``epoch_store=`` (an :class:`~.epochs.EpochStore`
+  over the harness corpus, by identity) every query runs under a reader
+  pin and a writer tenant's requests (``TenantProfile(writes=...)``) are
+  stamped mutation batches into the store's ingest log, each followed by
+  the priced ``maybe_flip`` verdict; the run ends with a flip of whatever
+  the log still holds. The report keeps each query's admitted epoch and
+  each write's batch id, which :meth:`LoadHarness.run_serial_epochs`
+  replays serially over a clone of the corpus.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 import zlib
@@ -64,8 +67,11 @@ class TenantProfile:
     (``weight``), its admission quota, its query profile over the shared
     corpus (``mix`` draws one expression from a seeded rng), and its
     latency SLO (``latency_class`` / ``p99_budget_ms``, the class default
-    unless overridden). ``writes`` > 0 makes the tenant a writer, which
-    needs the epoch ledger the port does not have yet."""
+    unless overridden). ``writes`` makes the tenant a writer: that
+    fraction of its requests are stamped mutation batches into the epoch
+    store's ingest log instead of queries (``write_values`` values a
+    batch, drawn into the touched bitmap's existing chunk keys, so the
+    flip's repack stays on the delta route)."""
 
     name: str
     weight: float = 1.0
@@ -214,6 +220,7 @@ class LoadHarness:
         max_wait_ms: Optional[float] = None,
         admission: Optional[AdmissionController] = None,
         cache_entries: int = 256,
+        epoch_store=None,
     ):
         if threads < 1:
             raise ValueError(f"threads must be >= 1, got {threads}")
@@ -225,7 +232,16 @@ class LoadHarness:
         self.max_wait_ms = max_wait_ms
         self.admission = admission if admission is not None else CONTROLLER
         self.cache_entries = int(cache_entries)
-        if any(p.writes > 0 for p in self.profiles):
+        # with an epoch store every query runs under a reader pin and the
+        # write requests feed its ingest log; writer profiles need one
+        self.epoch_store = epoch_store
+        if epoch_store is not None and (
+            len(epoch_store.corpus) != len(self.corpus)
+            or any(a is not b for a, b in zip(epoch_store.corpus, self.corpus))
+        ):  # identity, not content: a content compare of serving-scale
+            # bitmaps would cost more than the run it guards
+            raise ValueError("epoch store must wrap the harness corpus")
+        if epoch_store is None and any(p.writes > 0 for p in self.profiles):
             raise ValueError("writer tenants need an epoch_store")
         for p in self.profiles:
             TENANTS.declare(
@@ -243,9 +259,13 @@ class LoadHarness:
         from ..query import exec as _exec
 
         requests = list(requests)
-        if any(r.kind == "write" for r in requests):
+        if self.epoch_store is None and any(r.kind == "write" for r in requests):
             raise ValueError("write requests need an epoch_store")
         results: List[object] = [None] * len(requests)
+        # per-position admitted epoch (queries) and minted batch id
+        # (writes): the epoch-replay oracle's join keys
+        epochs: List[Optional[int]] = [None] * len(requests)
+        batch_ids: List[Optional[int]] = [None] * len(requests)
         stats: Dict[str, TenantStats] = {p.name: TenantStats() for p in self.profiles}
         stats_lock = threading.Lock()  # leaf: guards the stats dict only
         cursor = {"i": 0}
@@ -258,6 +278,9 @@ class LoadHarness:
             )
             if self.use_fusion
             else None
+        )
+        epoch_start = (
+            self.epoch_store.current() if self.epoch_store is not None else 0
         )
         t_open = time.perf_counter()
 
@@ -275,12 +298,16 @@ class LoadHarness:
                     delay = (t_open + req.start_s) - time.perf_counter()
                     if delay > 0:
                         time.sleep(delay)
+                ambient_epoch = (
+                    self.epoch_store.current()
+                    if self.epoch_store is not None else None
+                )
                 with _timeline.tspan(
                     "serve.request", "serve", tenant=req.tenant, idx=req.idx,
                     kind=req.kind,
-                ):
+                ) as span:
                     t0 = time.perf_counter()
-                    ticket = self.admission.admit(req.tenant)
+                    ticket = self.admission.admit(req.tenant, epoch=ambient_epoch)
                     queue_s = time.perf_counter() - t0
                     if not ticket.admitted:
                         results[pos] = ShedRejection(req.tenant, "admission")
@@ -290,15 +317,37 @@ class LoadHarness:
                         return
                     try:
                         t1 = time.perf_counter()
-                        if executor is not None:
-                            # the tenant rides along so the executor can
-                            # price the request's slack against its
-                            # declared SLO
-                            out = executor.submit(
-                                req.expr, tenant=req.tenant
-                            ).result()
+                        if req.kind == "write":
+                            # a stamped batch into the ingest log (readers
+                            # untouched), then the priced flip-now-vs-
+                            # accumulate verdict; the flip is the only
+                            # corpus mutation point
+                            batch = self.epoch_store.submit(req.tenant, req.mutations)
+                            self.epoch_store.maybe_flip(reason="ingest")
+                            out = ("write", batch.batch_id if batch else None)
+                            batch_ids[pos] = out[1]
                         else:
-                            out = _exec.execute(req.expr, cache=cache)
+                            # the reader pin fixes the epoch for the whole
+                            # execution; its id rides the request's span
+                            pin = (
+                                self.epoch_store.reader()
+                                if self.epoch_store is not None
+                                else contextlib.nullcontext()
+                            )
+                            with pin as tk:
+                                if tk is not None:
+                                    epochs[pos] = tk.epoch
+                                    if span is not None:  # off mode: no span
+                                        span.attr(epoch=tk.epoch)
+                                if executor is not None:
+                                    # the tenant rides along so the executor
+                                    # can price the request's slack against
+                                    # its declared SLO
+                                    out = executor.submit(
+                                        req.expr, tenant=req.tenant
+                                    ).result()
+                                else:
+                                    out = _exec.execute(req.expr, cache=cache)
                         execute_s = time.perf_counter() - t1
                     except Exception:
                         _slo.record(req.tenant, "error", queue_s=queue_s)
@@ -314,6 +363,8 @@ class LoadHarness:
                         st.served += 1
                         st.queue_s.append(queue_s)
                         st.execute_s.append(execute_s)
+                        if req.kind == "write":
+                            st.writes += 1
                         if ticket.verdict == "queue":
                             st.queued += 1
 
@@ -342,33 +393,122 @@ class LoadHarness:
             executor.close()
         if errors:
             raise errors[0]
+        # the run-end flip, after the wall: every accepted batch becomes
+        # queryable, trailing freshness is observed and the epoch-replay
+        # oracle sees a complete lineage
+        if self.epoch_store is not None and self.epoch_store.log.depth():
+            self.epoch_store.flip(reason="run-end")
         # per-tenant byte share: the tenant's reachable corpus is the whole
         # shared corpus under the default mixes — charge the resident
         # entries its leaves appear in
         for p in self.profiles:
             _slo.note_tenant_bytes(p.name, self.corpus)
-        return HarnessReport(requests, results, stats, wall_s, profiles=self.profiles)
+        lineage = (
+            self.epoch_store.lineage() if self.epoch_store is not None else []
+        )
+        return HarnessReport(
+            requests, results, stats, wall_s,
+            epochs=epochs, batch_ids=batch_ids, lineage=lineage,
+            epoch_start=epoch_start, profiles=self.profiles,
+        )
 
     def run_serial(self, requests: Sequence[Request]) -> List[object]:
         """The serial oracle: the same query multiset, one at a time, no
         admission, no fusion, no shared cache — what the concurrent run
-        must equal byte for byte. Read-only schedules only."""
+        must equal byte for byte. Read-only schedules only; read-write
+        schedules use :meth:`run_serial_epochs`."""
         from ..query import exec as _exec
 
         if any(r.kind == "write" for r in requests):
-            raise ValueError("run_serial replays read-only schedules")
+            raise ValueError(
+                "run_serial replays read-only schedules; use "
+                "run_serial_epochs for a read-write schedule"
+            )
         return [_exec.execute(r.expr, cache=None) for r in requests]
+
+    @staticmethod
+    def run_serial_epochs(
+        clone_requests: Sequence[Request],
+        clone_corpus: Sequence,
+        report: "HarnessReport",
+    ) -> List[object]:
+        """The epoch-replay oracle: replay the concurrent run's
+        admitted-epoch schedule serially over a cloned corpus.
+
+        ``clone_requests`` is the same seeded schedule rebuilt over
+        ``clone_corpus`` (``build_requests`` is a pure function of the
+        seed, so expressions map one to one by position, with the clones
+        as leaves; the clone must predate the concurrent run). The oracle
+        walks epochs in lineage order: it evaluates every query the run
+        admitted under epoch ``e`` against the clone's epoch-``e`` state,
+        then applies the lineage record's batches (by the write positions
+        that minted them) to advance the clone to ``e + 1``. A concurrent
+        result that differs from its position here is a torn read."""
+        from ..query import exec as _exec
+        from . import ingest as _ingest_mod
+
+        clone_requests = list(clone_requests)
+        if len(clone_requests) != len(report.results):
+            raise ValueError("oracle schedule does not match the report")
+        # batch id -> the clone-schedule position that minted it
+        pos_of_batch = {
+            bid: pos for pos, bid in enumerate(report.batch_ids) if bid is not None
+        }
+        by_epoch: Dict[int, List[int]] = {}
+        for pos, ep in enumerate(report.epochs):
+            if ep is not None:
+                by_epoch.setdefault(ep, []).append(pos)
+        results: List[object] = [None] * len(clone_requests)
+        for pos, bid in enumerate(report.batch_ids):
+            if bid is not None:
+                results[pos] = ("write", bid)
+        epoch = report.epoch_start
+        # only flips of this run advance the clone (the lineage ring may
+        # hold older records)
+        lineage = [
+            r for r in report.lineage
+            if r.get("outcome") == "flipped" and r["parent"] >= epoch
+        ]
+        for rec in lineage + [None]:  # None: the final (current) epoch
+            for pos in by_epoch.get(epoch, ()):
+                results[pos] = _exec.execute(clone_requests[pos].expr, cache=None)
+            if rec is None:
+                break
+            for bid in rec["batches"]:
+                wpos = pos_of_batch.get(bid)
+                if wpos is None:
+                    raise ValueError(
+                        f"lineage batch {bid} has no write position in the "
+                        "schedule (a foreign submit during the run?)"
+                    )
+                _ingest_mod.apply_batches(
+                    clone_corpus,
+                    [_ingest_mod.MutationBatch(
+                        clone_requests[wpos].tenant, clone_requests[wpos].mutations,
+                    )],
+                )
+            epoch = rec["epoch"]
+        return results
 
 
 class HarnessReport:
     """One run's outcome: per-request results aligned with the schedule,
-    per-tenant stats and the aggregate wall."""
+    per-tenant stats, the aggregate wall and, for epoch-store runs, the
+    admitted-epoch schedule (per-position epoch for queries, minted batch
+    id for writes) with the lineage the run published — what
+    :meth:`LoadHarness.run_serial_epochs` replays."""
 
-    def __init__(self, requests, results, stats, wall_s, profiles=None):
+    def __init__(self, requests, results, stats, wall_s,
+                 epochs=None, batch_ids=None, lineage=None, epoch_start=0,
+                 profiles=None):
         self.requests = requests
         self.results = results
         self.stats = stats
         self.wall_s = wall_s
+        self.epochs = epochs if epochs is not None else [None] * len(requests)
+        self.batch_ids = batch_ids if batch_ids is not None else [None] * len(requests)
+        self.lineage = lineage or []
+        self.epoch_start = int(epoch_start)
         self.profiles = list(profiles) if profiles is not None else []
 
     @property

@@ -369,41 +369,75 @@ def _actuation_script(health_mod, sentinel_mod, actuation, stub_targets):
     return ticks, s.actuations()
 
 
+def _maintained_store(pkg):
+    """An epoch store over a drifted corpus (long runs held as bitmap and
+    array containers) with the corpus watched by the structure ledger: the
+    current store a real maintenance pass runs on."""
+    import itertools
+
+    if pkg == "port":
+        from roaringbitmap_tpu_torch.observe import structure
+        from roaringbitmap_tpu_torch.serve import EpochStore, ingest, maintain
+        RB = TRB
+    else:
+        from roaringbitmap_tpu.models.roaring import RoaringBitmap as RB
+        from roaringbitmap_tpu.observe import structure
+        from roaringbitmap_tpu.serve import EpochStore, ingest, maintain
+    ingest._BATCH_IDS = itertools.count(1)
+    structure.LEDGER.reset()
+    maintain.reset()
+    # twelve long runs held as bitmap containers: ~96 KiB over optimal,
+    # enough that the priced verdict compacts
+    corpus = [RB(np.concatenate([np.arange(((3 * i + k) << 16) + 50, ((3 * i + k) << 16) + 20050)
+                                 for k in range(3)]).astype(np.uint32)) for i in range(4)]
+    structure.LEDGER.watch("health", corpus)
+    return EpochStore(corpus, clock=lambda: 3.0), structure, maintain
+
+
 @pytest.mark.parametrize("actuation", ["refit", "maintain", "autotune", "alert"])
 def test_actuation_kinds_and_cooldown_skips_match_the_jax_package(actuation, monkeypatch):
-    # both packages' targets stubbed alike, so the schedule alone is
-    # compared (the port has no serve.maintain yet)
+    # refit and autotune stubbed alike in both packages, so their schedule
+    # is compared; maintain runs real passes over each package's own
+    # epoch store
     from roaringbitmap_tpu.query import fusion as jfusion
-    from roaringbitmap_tpu.serve import maintain as jmaintain
     from roaringbitmap_tpu_torch.query import fusion as tfusion
 
     for cost_mod in (jcost, tcost):
         monkeypatch.setattr(cost_mod, "refit_all", lambda: {})
-    monkeypatch.setattr(jmaintain, "run_pass", lambda reason=None: {"outcome": "noop"})
     for fusion_mod in (jfusion, tfusion):
         monkeypatch.setattr(fusion_mod, "autotune_window", lambda reason=None: {"verdict": "hold"})
+    keep = []
+    if actuation == "maintain":
+        keep.append(_maintained_store("port"))
     got, t_log = _actuation_script(thealth, tsentinel, actuation, {})
+    if actuation == "maintain":
+        keep.append(_maintained_store("jax"))
     want, j_log = _actuation_script(jhealth, jsentinel, actuation, {})
     assert got == want
+    # every target is reached, as in the JAX package
+    assert t_log and not any("error" in e for e in t_log)
+    assert _drop(t_log) == _drop(j_log)
     if actuation == "maintain":
-        # its target arrives with the serving tier's write path: every
-        # actuation records its missing-target error, nothing raises
-        assert t_log and all("error" in e for e in t_log)
-    else:  # refit and autotune reach their targets, as in the JAX package
-        assert t_log and not any("error" in e for e in t_log)
-        assert _drop(t_log) == _drop(j_log)
+        outcomes = [e["outcome"] for e in t_log]
+        assert outcomes[0] == "compacted" and t_log[0]["rewritten_keys"] > 0
+        for es, structure, maintain in keep:
+            assert es.current() >= 1
+            structure.LEDGER.reset()
+            maintain.reset()
 
 
 @pytest.mark.parametrize("rule_name", [
     "costmodel-drift", "structure-drift", "delta-accretion", "serving-p99-pressure",
 ])
 def test_missing_targets_record_their_error_and_the_rule_stays_firing(rule_name, monkeypatch):
-    """``maintain`` (structure-drift, delta-accretion) still has no target:
-    its error is recorded and the rule stays firing. ``refit``
-    (costmodel-drift) and ``autotune`` (serving-p99-pressure) reach their
-    targets, stubbed here as the JAX package's tests stub them: no error,
-    and the rule clears once the target has moved what it judges."""
+    """Every actuation now reaches its target. ``refit`` (costmodel-drift)
+    and ``autotune`` (serving-p99-pressure) are stubbed as the JAX
+    package's tests stub them; ``maintain`` (structure-drift,
+    delta-accretion) runs a real pass, whose record equals the JAX
+    package's pass on the same corpus. No error, and the rule clears once
+    the target has moved what it judges."""
     from roaringbitmap_tpu_torch.query import fusion as tfusion
+    from roaringbitmap_tpu_torch.serve import maintain as tmaintain
 
     base = next(r for r in thealth.DEFAULT_RULES if r.name == rule_name)
     dial = _Dial(base.critical * 2)
@@ -415,8 +449,20 @@ def test_missing_targets_record_their_error_and_the_rule_stays_firing(rule_name,
         return {} if base.actuation == "refit" else {"verdict": "shrink", "window_from": 8,
                                                      "window_to": 2, "budget_ms": 25.0}
 
+    real_pass = tmaintain.run_pass
+    passes = []
+
+    def maintain_target(*a, **kw):  # a real pass; then the drift it judged is gone
+        rec = real_pass(*a, **kw)
+        passes.append(rec)
+        calls.append(1)
+        dial.value = 0.0
+        return rec
+
     monkeypatch.setattr(tcost, "refit_all", target)
     monkeypatch.setattr(tfusion, "autotune_window", target)
+    monkeypatch.setattr(tmaintain, "run_pass", maintain_target)
+    keep = _maintained_store("port") if base.actuation == "maintain" else None
     rule = thealth.Rule(base.name, base.help, dial, warn=base.warn, critical=base.critical,
                         fire_after=1, clear_after=1, actuation=base.actuation)
     s = tsentinel.Sentinel(rules=(rule,), clock=lambda: 0.0)
@@ -424,16 +470,23 @@ def test_missing_targets_record_their_error_and_the_rule_stays_firing(rule_name,
     first = s.tick(now=0.0, snap=_stub(thealth))
     acted = [a for a in first["actuated"] if a["kind"] == base.actuation]
     second = s.tick(now=1000.0, snap=_stub(thealth))
+    assert len(acted) == 1 and "error" not in acted[0] and calls == [1]
+    if base.actuation == "autotune":
+        assert acted[0]["verdict"] == "shrink" and acted[0]["window_to"] == 2
     if base.actuation == "maintain":
-        assert len(acted) == 1 and "error" in acted[0]
-        assert second["rules"][rule_name]["level"] == thealth.CRITICAL
-        assert [a["kind"] for a in second["actuated"]] == [base.actuation]
-    else:
-        assert len(acted) == 1 and "error" not in acted[0] and calls == [1]
-        if base.actuation == "autotune":
-            assert acted[0]["verdict"] == "shrink" and acted[0]["window_to"] == 2
-        assert second["rules"][rule_name]["level"] == thealth.OK
-        assert second["actuated"] == []
+        from roaringbitmap_tpu.serve import maintain as jmaintain
+
+        jes, jstructure, _jm = _maintained_store("jax")
+        want = jmaintain.run_pass(jes, reason=f"sentinel:{rule_name}")
+        assert _drop(passes, ("wall_s",)) == [_drop(want, ("wall_s",))]
+        assert acted[0]["outcome"] == "compacted" == want["outcome"]
+        assert acted[0]["reclaimed_bytes"] == want["reclaimed_bytes"] > 0
+        jstructure.LEDGER.reset()
+        jmaintain.reset()
+        keep[1].LEDGER.reset()
+        keep[2].reset()
+    assert second["rules"][rule_name]["level"] == thealth.OK
+    assert second["actuated"] == []
 
 
 def test_bundle_once_per_red_episode_matches_the_jax_package():
@@ -554,7 +607,9 @@ def test_bundle_sections_are_the_jax_set_less_the_unported(tmp_path):
     obs = json.loads(open(os.path.join(t, "observatory.json")).read())
     jobs_ = json.loads(open(os.path.join(j, "observatory.json")).read())
     assert "error" not in obs
-    assert set(obs) == set(jobs_) - {"epochs", "structure", "durable"}
+    assert set(obs) == set(jobs_)
+    for panel in ("epochs", "structure", "durable"):
+        assert set(obs[panel]) == set(jobs_[panel])
     assert set(obs["serving"]) == set(jobs_["serving"])
     cal = json.loads(open(os.path.join(t, "calibration.json")).read())
     jcal = json.loads(open(os.path.join(j, "calibration.json")).read())
@@ -801,6 +856,7 @@ def test_lockstats_wrapped_locks_serve_a_thread_hammer():
 def test_observatory_snapshot_shape():
     obs = insights.observatory()
     assert set(obs) == {"locks", "lock_timing", "compile", "hbm", "breakers",
-                        "pack_cache", "decisions", "regret", "health", "serving"}
+                        "pack_cache", "decisions", "regret", "health", "serving",
+                        "epochs", "structure", "durable"}
     assert obs["hbm"]["ledger_drift_bytes"] == 0
     assert isinstance(obs["decisions"], list)

@@ -557,10 +557,9 @@ def test_cuda_timeline_keeps_the_bytes_and_counts_the_launches(mode, monkeypatch
 # the sidecar and insights surfaces of this slice, against the JAX package
 # ---------------------------------------------------------------------------
 
-# sidecar blocks and observatory keys whose sources come with the serving
-# tier's write path, the durable tier and the analysis tooling (ROADMAP
-# Queue A)
-UNPORTED_BLOCKS = {"serial_bytes", "epochs", "structure", "durable", "analysis"}
+# the sidecar block whose source, the analysis tooling, is not part of the
+# port (ROADMAP Queue A item 7)
+UNPORTED_BLOCKS = {"analysis"}
 
 
 def test_sidecar_blocks_are_the_jax_blocks_less_the_unported():
@@ -569,7 +568,8 @@ def test_sidecar_blocks_are_the_jax_blocks_less_the_unported():
     got = set(tobs.sidecar_snapshot())
     want = set(jexport.sidecar_snapshot())
     assert got == want - UNPORTED_BLOCKS
-    assert {"health", "fusion", "serving", "pairwise", "lock_wait", "hbm_drift"} <= got
+    assert {"health", "fusion", "serving", "pairwise", "lock_wait", "hbm_drift", "serial_bytes",
+            "epochs", "structure", "durable"} <= got
 
 
 def test_insights_surfaces_have_the_jax_shapes():
@@ -580,9 +580,9 @@ def test_insights_surfaces_have_the_jax_shapes():
     assert set(insights.regret_summary()["provenance"]) == set(jinsights.regret_summary()["provenance"])
     assert set(insights.health()) == set(jinsights.health())
     assert set(insights.fusion_counters()) == set(jinsights.fusion_counters())
-    assert set(insights.observatory()) == set(jinsights.observatory()) - {
-        "epochs", "structure", "durable"
-    }
+    assert set(insights.observatory()) == set(jinsights.observatory())
+    for panel in ("epochs", "structure", "durable"):
+        assert set(getattr(insights, panel)()) == set(getattr(jinsights, panel)())
     assert set(insights.serving()) == set(jinsights.serving())
     assert insights.cost_authorities()["schema"] == jinsights.cost_authorities()["schema"]
     assert set(insights.cost_authorities()["authorities"]) == set(
@@ -632,3 +632,52 @@ def test_new_metric_names_are_the_jax_names():
     names = {k: v for k, v in vars(treg).items() if k.isupper() and isinstance(v, str)
              and v.startswith("rb_tpu_")}
     assert names and all(getattr(jreg, k) == v for k, v in names.items())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_serial_bytes_count_the_same_bytes_as_the_jax_package(seed):
+    """``rb_tpu_serial_bytes_total{direction}``: serializing and parsing the
+    same bitmaps moves both packages' counters by the same bytes, and the
+    sidecar's ``serial_bytes`` block reports them."""
+    from roaringbitmap_tpu import serialization as jser
+    from roaringbitmap_tpu.models.roaring import RoaringBitmap as JRB
+    from roaringbitmap_tpu_torch import RoaringBitmap as TRB
+    from roaringbitmap_tpu_torch import serialization as tser
+
+    rng = np.random.default_rng(seed)
+    vals = [np.sort(rng.choice(1 << 20, int(rng.integers(1, 20000)), replace=False)).astype(np.uint32)
+            for _ in range(6)]
+    vals.append(np.arange(3 << 16, (3 << 16) + 90000, dtype=np.uint32))
+    moved = {}
+    for label, RB, ser, export in (("port", TRB, tser, texport), ("jax", JRB, jser, jexport)):
+        bms = [RB(v) for v in vals]
+        bms[-1].run_optimize()
+        before = export.sidecar_snapshot()["serial_bytes"]
+        blobs = [b.serialize() for b in bms]
+        for blob in blobs:
+            ser.read_into(RB(), blob)
+        after = export.sidecar_snapshot()["serial_bytes"]
+        moved[label] = ({k: after[k] - before.get(k, 0) for k in after}, blobs)
+    assert moved["port"] == moved["jax"]
+    total = sum(len(b) for b in moved["port"][1])
+    assert moved["port"][0] == {"serialize": total, "deserialize": total}
+
+
+def test_registry_names_are_the_jax_names_less_the_probe_and_analysis():
+    """Every canonical ``rb_tpu_*`` name of the JAX registry is in the
+    port's, with the same value, except ``KERNEL_PROBE_TOTAL`` (the port
+    never probes for a lowering) and the ``ANALYSIS_*`` family (the
+    analysis tooling is not ported); the port has no name of its own."""
+    from roaringbitmap_tpu.observe import registry as jreg
+    from roaringbitmap_tpu_torch.observe import registry as treg
+
+    def names(mod):
+        return {k: v for k, v in vars(mod).items()
+                if k.isupper() and isinstance(v, str) and v.startswith("rb_tpu_")}
+
+    t, j = names(treg), names(jreg)
+    missing = set(j) - set(t)
+    assert missing == {"KERNEL_PROBE_TOTAL"} | {k for k in j if k.startswith("ANALYSIS_")}
+    assert set(t) <= set(j) and all(t[k] == j[k] for k in t)
+    exported = {k for k in dir(tobs) if k in t}
+    assert exported == set(t)

@@ -701,3 +701,117 @@ def test_cuda_reconciliation_with_a_resident_pack(monkeypatch):
     after = store.hbm_reconciliation()
     assert after["gauge_bytes"] == 0 and "device_drift_bytes" not in after
     assert before - torch.cuda.memory_allocated() >= recon["gauge_bytes"]
+
+
+# ---------------------------------------------------------------------------
+# the route of the last get_packed, and pins
+# ---------------------------------------------------------------------------
+
+
+def _routes(mod, RB, packed_for, vals):
+    """The per-thread route after each step of one script: full, hit,
+    delta, a structural change (full), disabled; another thread's calls
+    leave this thread's route alone."""
+    corpus = [RB(v) for v in vals]
+    cache = mod.PACK_CACHE
+    cache.close()
+    out = []
+    packed_for(corpus)
+    out.append(cache.last_route())
+    packed_for(corpus)
+    out.append(cache.last_route())
+    hb = int(corpus[0].high_low_container.keys[0])
+    corpus[0].add((hb << 16) | 4242)
+    corpus[1].add((int(corpus[1].high_low_container.keys[0]) << 16) | 4243)
+    packed_for(corpus)
+    out.append(cache.last_route())
+    box = {}
+
+    def other():
+        box["before"] = cache.last_route()
+        packed_for([bm.clone() for bm in corpus])
+        box["after"] = cache.last_route()
+
+    th = threading.Thread(target=other, daemon=True)
+    th.start()
+    th.join(30.0)
+    out.append((box["before"], box["after"], cache.last_route()))
+    corpus[2].add(250 << 16)  # a fresh chunk key: structural, the full route
+    packed_for(corpus)
+    out.append(cache.last_route())
+    budget = cache.max_bytes
+    cache.configure(max_bytes=0)
+    try:
+        packed_for(corpus)
+        out.append(cache.last_route())
+    finally:
+        cache.configure(max_bytes=budget)
+    cache.close()
+    return out
+
+
+def test_last_route_per_route_and_per_thread_matches_the_jax_package():
+    rng = np.random.default_rng(71)
+    vals = [_values(rng) for _ in range(4)]
+    got = _routes(store, RoaringBitmap, lambda c: store.packed_for(c, device="cpu"), vals)
+    want = _routes(jstore, JRB, jstore.packed_for, vals)
+    assert got == want
+    assert got[:3] == [("full", 0), ("hit", 0), ("delta", 2)]
+    assert got[3] == (None, ("full", 0), ("delta", 2))
+    assert got[4:] == [("full", 0), ("disabled", 0)]
+
+
+def _pins(mod, RB, vals, get, unpin):
+    """One pin script on a private cache: (stats, key present) after each
+    step — pinned entries survive eviction, pins are a refcount, an unpin
+    after a mutation finds the entry by identity, and a pinned entry over
+    the budget does not make a new unpinned entry thrash."""
+    sets = [[RB(v) for v in vs] for vs in vals]
+    cache = mod.PackCache(max_bytes=1 << 60)
+    steps = []
+
+    def note(tag, ws=None):
+        st = cache.stats()
+        steps.append((tag, st["pinned"], st["entries"], st["evictions"],
+                      None if ws is None else len(ws) and any(
+                          e.fps == tuple(b.fingerprint() for b in ws) for e in cache._entries.values())))
+
+    get(cache, sets[0], pin=True)
+    get(cache, sets[1])
+    note("pinned+one", sets[0])
+    cache.configure(max_bytes=1)
+    note("budget 1", sets[0])
+    get(cache, sets[0], pin=True)  # a second consumer
+    unpin(cache, sets[0])
+    note("refcount", sets[0])
+    hb = int(sets[0][0].high_low_container.keys[0])
+    sets[0][0].add((hb << 16) | 77)  # mutate between pin and unpin
+    unpin(cache, sets[0])
+    note("unpinned after mutation", sets[0])
+    p1 = get(cache, sets[2])
+    p2 = get(cache, sets[2])
+    note("no thrash", sets[2])
+    cache.close()
+    note("closed")
+    return steps, p1 is p2
+
+
+def test_pins_match_the_jax_package():
+    rng = np.random.default_rng(72)
+    vals = [[_values(rng) for _ in range(2)] for _ in range(3)]
+
+    def tget(cache, ws, pin=False):
+        return (cache.pin_packed if pin else cache.get_packed)(ws, device="cpu")
+
+    def jget(cache, ws, pin=False):
+        return (cache.pin_packed if pin else cache.get_packed)(ws)
+
+    got = _pins(store, RoaringBitmap, vals, tget, lambda c, ws: c.unpin_packed(ws, device="cpu"))
+    want = _pins(jstore, JRB, vals, jget, lambda c, ws: c.unpin_packed(ws))
+    assert got == want
+    steps, same = got
+    # under a 1-byte budget the pinned entry stays, and so does the one
+    # unpinned survivor the evictor always keeps
+    assert steps[0][1:3] == (1, 2) and steps[1][1:3] == (1, 2) and steps[1][4] is True
+    assert steps[2][1] == 1 and steps[3][1] == 0
+    assert same is True

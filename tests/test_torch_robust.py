@@ -200,14 +200,11 @@ def test_schedule_error_kinds_match_the_site():
 
 
 def test_port_sites_are_a_subset_of_the_jax_sites():
+    # since the write path and the durable tier, the subset is the whole
+    # set: the port has every JAX site, in the JAX package's order
     assert set(tfaults.SITES) <= set(jfaults.SITES)
-    assert set(tfaults.SITES) == {
-        "store.ship", "store.hbm", "store.expand", "ops.dispatch", "query.exec",
-        "query.fusion", "query.hedge", "serve.admit", "columnar.kernel",
-        "columnar.device", "native.entry", "pack_cache.budget",
-    }
-    # the port keeps the JAX package's order of the sites it has
-    assert list(tfaults.SITES) == [s for s in jfaults.SITES if s in tfaults.SITES]
+    assert tuple(tfaults.SITES) == tuple(jfaults.SITES)
+    assert {"epoch.flip", "serve.maintain", "durable.persist"} <= set(tfaults.SITES)
 
 
 def test_unknown_site_and_bad_rules_are_loud():
@@ -484,6 +481,34 @@ def test_every_site_fires_through_its_real_path(site):
                 assert tk.admitted and tk.degraded
                 tk.release()
             finally:
+                slo.reset()
+        elif site in ("epoch.flip", "serve.maintain", "durable.persist"):
+            # fail closed to the old epoch / the uncompacted corpus / memory only
+            import tempfile
+
+            from roaringbitmap_tpu_torch import durable
+            from roaringbitmap_tpu_torch.observe import structure
+            from roaringbitmap_tpu_torch.serve import EpochStore, maintain, slo
+
+            slo.TENANTS.declare("site-t", quota_qps=1e6, burst=1e6)
+            try:
+                es = EpochStore(tb)
+                es.submit("site-t", {0: [123]})
+                if site == "epoch.flip":
+                    assert es.flip()["outcome"] == "aborted"
+                    assert es.current() == 0 and not tb[0].contains(123)
+                elif site == "serve.maintain":
+                    structure.LEDGER.watch("site", tb)
+                    assert maintain.run_pass(es, force=True)["outcome"] == "aborted"
+                    assert es.current() == 0 and es.log.depth() == 1
+                else:
+                    with tempfile.TemporaryDirectory() as root:
+                        ds = durable.DurableStore(root)
+                        assert ds.persist(es)["outcome"] == "aborted"
+                        assert durable.recover(root) is None
+            finally:
+                structure.LEDGER.reset()
+                maintain.reset()
                 slo.reset()
         else:  # ship, hbm, expand: retried on the device; budget: spilled
             assert TFA.or_(*tb, mode="device") == want

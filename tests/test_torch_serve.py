@@ -477,13 +477,16 @@ def test_serving_rules_on_seeded_histograms_match_the_jax_package(scenario):
         assert values["serving-p99-breach"] is None
 
 
+SIDE_TENANTS = ("side-a", "side-b")
+
+
 def test_sidecar_serving_block_and_insights_serving_match_the_jax_package():
     for _l, _serve, slo, adm, _cost, _f, _e in BOTH:
         slo.TENANTS.declare("side-a", quota_qps=1e6, latency_class="interactive")
         slo.TENANTS.declare("side-b", quota_qps=1.0, burst=1.0)
         c = adm.AdmissionController(max_inflight=4, queue_limit=0, clock=lambda: 0.0)
         for i in range(5):
-            for tenant in ("side-a", "side-b"):
+            for tenant in SIDE_TENANTS:
                 t = c.admit(tenant, now=0.0, wait=False)
                 if t.admitted:
                     slo.record(tenant, "ok", queue_s=0.0001 * i, execute_s=0.002 * (i + 1), now=50.0 + i)
@@ -494,12 +497,13 @@ def test_sidecar_serving_block_and_insights_serving_match_the_jax_package():
 
     def block(export, obs):
         sv = export.sidecar_snapshot()["serving"]
-        sv["tenants"] = {k: v for k, v in sv["tenants"].items() if k.startswith("side-")}
+        # only this test's tenants: other tests of the process declare
+        # theirs (the JAX package's tests a "side-t") and count requests
+        sv["tenants"] = {k: v for k, v in sv["tenants"].items() if k in SIDE_TENANTS}
         for row in sv["tenants"].values():
             row.pop("bytes", None)
-        # cumulative counters of the process: only this test's tenants
-        sv["admit"] = {k: v for k, v in sv["admit"].items() if k.startswith("side-")}
-        sv["requests"] = {k: v for k, v in sv["requests"].items() if k.startswith("side-")}
+        sv["admit"] = {k: v for k, v in sv["admit"].items() if k in SIDE_TENANTS}
+        sv["requests"] = {k: v for k, v in sv["requests"].items() if k in SIDE_TENANTS}
         return sv
 
     t_block, j_block = block(texport, tobs), block(jexport, jobs)
