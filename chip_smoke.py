@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only observe  # phases 1-2, 16 and 17: instrumentation, faults, health
     python3 chip_smoke.py --only tenants  # phases 1-2 and 18: the cost facade and the serving read path
     python3 chip_smoke.py --only epochs   # phases 1-2 and 19: the serving write path and the durable tier
+    python3 chip_smoke.py --only fuzz     # phases 1-2 and 20: the fuzz campaign on the card
 
 ``--only paths`` runs only the phases whose end-to-end times PERF.md limits
 against a parent commit; copied into a checkout of the parent, it times
@@ -382,18 +383,37 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    found them and fails if ``rb_expand_rows``, ``rb_group_reduce``,
    ``rb_popcount_rows`` or ``rb_threshold`` read 0 launches.
 
+20. (run last; ``--only fuzz`` runs it after phases 1-2) the fuzz
+   campaign of ``roaringbitmap_tpu_torch.fuzz`` on the card, its launches
+   counted (``launches_fuzz``): (a) ``run_campaign(n, device="cuda")`` as
+   shipped, each family's iterations and wall printed; (b) the same with
+   ``aggregation.config.mode = "device"`` (fuzz-sized sets hold 1-4
+   containers, below the auto gate), restored after, the crash family's
+   children run with ``cuda``; (c) ``kernels.group_reduce`` swapped for a
+   version that flips one bit of one output row, under which
+   ``device-layouts-vs-cpu-engines(or)`` (3 iterations) must raise
+   ``InvarianceFailure`` whose base64 repro rebuilds one of the seed's
+   working sets; the wrapper is restored. ``n`` is 200 with ``--only
+   fuzz`` and 16 in the whole script, the least count at which
+   ``rb_group_reduce`` dense and CSR, ``rb_popcount_rows``,
+   ``rb_expand_rows``, ``rb_threshold`` and ``rb_oneil_counts`` (launch key
+   ``rb_oneil_compare[batched]``) all launch; the phase fails if one reads
+   0.
+
 Every profiler window (``_profiled``) is a ``tracing.trace`` window; where
 it shows no device events twice, the kernels are timed with CUDA events
 around each kernel wrapper and the line says so.
 
 The last lines are phase 19's launch counts (``{"launches_epochs": ...}``),
+phase 20's (``{"launches_fuzz": ...}``),
 a JSON object of the host tier's entry points
 (``{"host_tier": [...]}``, each one's native and numpy ms; not with
 ``--only kernels``), a JSON object describing every kernel (``launches``
 on its main path, ``launches_mapped`` on phase 13's, ``launches_64`` on
 phase 14's, ``launches_mesh`` on phase 15's, ``launches_observe`` on
 phase 16's, ``launches_observatory`` on phase 17's, ``launches_tenants`` on
-phase 18's, ``launches_epochs`` on phase 19's; a ``name@1024`` row is the
+phase 18's, ``launches_epochs`` on phase 19's, ``launches_fuzz`` on phase
+20's; a ``name@1024`` row is the
 kernel at 1024 words, whose path is phase 15 (b), its counts summed over
 the ranks) and the JSON result ``{"ok": true, "device": {...}}``; with
 ``--only sixtyfour`` the phase's launch counts (``{"launches_64": ...}``)
@@ -403,7 +423,9 @@ phase 16's and 17's launch counts (``{"launches_observe": ...,
 "launches_observatory": ...}``) and the JSON result; with ``--only tenants``
 phase 18's launch counts (``{"launches_tenants": ...}``) and the JSON
 result; with ``--only epochs`` phase 19's launch counts
-(``{"launches_epochs": ...}``) and the JSON result. The port needs no JAX
+(``{"launches_epochs": ...}``) and the JSON result; with ``--only fuzz``
+phase 20's launch counts (``{"launches_fuzz": ...}``) and the JSON result.
+The port needs no JAX
 and nothing of the JAX package.
 """
 
@@ -6553,16 +6575,115 @@ def phase_epochs(base, bitmaps, card: str,
     return launches
 
 
+FUZZ_ITERATIONS = 200  # --only fuzz: the campaign's iterations a family, each pass
+# the whole script's count: the least at which every kernel of FUZZ_KERNELS
+# launches over passes (a) and (b), found on the CPU by counting the plain
+# versions' calls (rb_threshold first runs at 16, in (b)'s second iteration
+# of query-planner-vs-naive(device); rb_group_reduce[csr] at 3, when
+# device-layouts-vs-cpu-engines(or) reaches its segmented-scan set)
+WHOLE_FUZZ_ITERATIONS = 16
+FUZZ_KERNELS = ("rb_group_reduce[dense]", "rb_group_reduce[csr]", "rb_popcount_rows",
+                "rb_expand_rows", "rb_threshold", "rb_oneil_compare[batched]")
+FUZZ_FAMILIES = 31  # run_campaign's invariant families
+PLANTED_ITERATIONS = 3  # (c): padded, bucketed and segmented-scan sets
+
+
+def phase_fuzz(card: str, n: int = FUZZ_ITERATIONS):
+    """Phase 20: the fuzz campaign on the card. (a) ``run_campaign(n,
+    device="cuda")`` as shipped (``mode="auto"``: fuzz-sized sets go to the
+    CPU folds except where a family forces the device); (b) the same with
+    ``aggregation.config.mode = "device"`` (restored after), so every
+    family's aggregations, queries and serving steps run the kernels, and
+    the crash family's children run with ``cuda``; (c) a planted fault:
+    ``kernels.group_reduce`` swapped for a version that flips one bit of
+    one output row, under which ``device-layouts-vs-cpu-engines(or)`` must
+    raise ``InvarianceFailure`` whose base64 repro rebuilds the failing
+    working set. Counts the launches of (a) and (b) (``launches_fuzz``) and
+    fails if a kernel of FUZZ_KERNELS read 0."""
+    from roaringbitmap_tpu_torch import fuzz
+    from roaringbitmap_tpu_torch.models import bsi
+    from roaringbitmap_tpu_torch.ops import kernels as K
+    from roaringbitmap_tpu_torch.parallel import aggregation
+
+    t_phase = time.perf_counter()
+    config = (aggregation.config.device, aggregation.config.mode, bsi.config.device)
+    if config != ("cuda", "auto", "cuda"):
+        fail(f"aggregation/BSI config is {config}, expected cuda/auto/cuda")
+    launches: dict = {}
+    for tag, mode in (("a", "auto"), ("b", "device")):
+        walls: dict = {}
+        aggregation.config.mode = mode
+        t0 = time.perf_counter()
+        try:
+            with _counted(launches):
+                res = fuzz.run_campaign(n, verbose=False, device="cuda", walls=walls)
+        finally:
+            aggregation.config.mode = "auto"
+        wall = time.perf_counter() - t0
+        if len(res) != FUZZ_FAMILIES or res["and-distributes-over-or"] != n or not all(
+            1 <= v <= n for v in res.values()
+        ):
+            fail(f"[fuzz] ({tag}) campaign returned {res}")
+        for name, ran in res.items():
+            say(f"[fuzz] ({tag}) {name}: {ran} iterations, {walls[name]:.3f} s")
+        slowest = sorted(walls, key=walls.get, reverse=True)[:3]
+        say(f"[fuzz] ({tag}) mode={mode}: {len(res)} families green at n={n} in {wall:.1f} s; "
+            "slowest " + ", ".join(f"{k} {walls[k]:.1f} s" for k in slowest) + f"  [{card}]")
+    if (aggregation.config.device, aggregation.config.mode, bsi.config.device) != config:
+        fail("[fuzz] run_campaign did not restore the aggregation/BSI config")
+    missing = [k for k in FUZZ_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f"[fuzz] no launch of {missing} over (a) and (b): {launches}")
+    say(f"[fuzz] launches over (a) and (b): {launches}")
+
+    # (c) the planted bit: the differential on the card must catch it
+    plain_reduce = K.group_reduce
+    flips = [0]
+
+    def flipped(words, plan, op, row_map=None):
+        out = plain_reduce(words, plan, op, row_map=row_map).clone()
+        out[0, 0] ^= 1
+        flips[0] += 1
+        return out
+
+    K.group_reduce = flipped
+    caught = None
+    try:
+        fuzz.verify_layout_invariance("device-layouts-vs-cpu-engines(or)", op="or",
+                                      iterations=PLANTED_ITERATIONS, seed=31)
+    except fuzz.InvarianceFailure as e:
+        caught = e
+    finally:
+        K.group_reduce = plain_reduce
+    if caught is None:
+        fail(f"[fuzz] (c) a flipped bit in rb_group_reduce's output ({flips[0]} calls) was not caught")
+    rebuilt = [fuzz.reproduce(r).serialize() for r in caught.repro]
+    rng = np.random.default_rng(31)
+    layouts = ("padded", "bucketed", "segmented-scan")
+    match = None
+    for i in range(PLANTED_ITERATIONS):
+        ws = fuzz.random_working_set(rng, layouts[i % 3])
+        if [b.serialize() for b in ws] == rebuilt:
+            match = layouts[i % 3]
+            break
+    if match is None:
+        fail("[fuzz] (c) the failure's base64 repro does not rebuild a working set of the seed")
+    say(f"[fuzz] (c) planted bit caught after {flips[0]} reduce call(s): "
+        f"{str(caught).splitlines()[0]}; repro rebuilds the {match} set ({len(rebuilt)} bitmaps)")
+    say(f"[fuzz] phase 20 took {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels", "paths", "columnar", "serving", "host", "batch", "mapped",
-                                       "sixtyfour", "mesh", "observe", "tenants", "epochs"],
+                                       "sixtyfour", "mesh", "observe", "tenants", "epochs", "fuzz"],
                     help="kernels: phases 1-3; paths: phases 1-2 and the timed paths 5, 8 and 6; "
                          "columnar: phases 1-2 and 9; serving: phases 1-2 and 10; host: phases 1-2, 11 "
                          "and 6; batch: phases 1-3 and 12; mapped: phases 1-2, 6, 7 and 13; "
                          "sixtyfour: phases 1-2 and 14; mesh: phases 1-2, 3 (c) and 15; "
                          "observe: phases 1-2, 16 and 17; tenants: phases 1-2 and 18; "
-                         "epochs: phases 1-2 and 19")
+                         "epochs: phases 1-2 and 19; fuzz: phases 1-2 and 20")
     ap.add_argument("--window-pairs", type=int, default=WINDOW_PAIRS,
                     help=f"adjacent pairs in phase 9's window (default {WINDOW_PAIRS})")
     # one rank of phase 15 (b), started by the phase itself
@@ -6650,6 +6771,12 @@ def main():
         say(json.dumps({"launches_epochs": launches_epochs}))
         say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
         return
+    if args.only == "fuzz":
+        launches_fuzz = phase_fuzz(card)
+        say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
+        say(json.dumps({"launches_fuzz": launches_fuzz}))
+        say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+        return
     if args.only == "sixtyfour":
         from roaringbitmap_tpu_torch.utils import datasets
 
@@ -6677,6 +6804,7 @@ def main():
     observatory_launches = None  # phase 17's path, counted when it runs
     tenants_launches = None  # phase 18's path, counted when it runs
     epochs_launches = None  # phase 19's path, counted when it runs
+    fuzz_launches = None  # phase 20's campaign, counted when it runs
     host = None
     if args.only == "batch":
         del bitmaps
@@ -6706,6 +6834,7 @@ def main():
         launches_64, index64 = phase_sixtyfour(base, card)
         mesh_launches = phase_mesh(base, index, vals, index64, card)
         del index, vals, index64
+        fuzz_launches = phase_fuzz(card, WHOLE_FUZZ_ITERATIONS)
         # each kernel's count from the path that runs it: the aggregation
         # path for the reduce kernels, the query path for the threshold
         # kernel, the columnar path for the pair kernel, the lane's path
@@ -6757,6 +6886,8 @@ def main():
                 0 if name.endswith("@1024") else tenants_launches.get(name, 0)),
             "launches_epochs": None if epochs_launches is None else (
                 0 if name.endswith("@1024") else epochs_launches.get(name, 0)),
+            "launches_fuzz": None if fuzz_launches is None else (
+                0 if name.endswith("@1024") else fuzz_launches.get(name, 0)),
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -6768,6 +6899,8 @@ def main():
     say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
     if epochs_launches is not None:
         say(json.dumps({"launches_epochs": epochs_launches}))
+    if fuzz_launches is not None:
+        say(json.dumps({"launches_fuzz": fuzz_launches}))
     if host is not None:
         say(json.dumps({"host_tier": host}))
     say(json.dumps({"kernels": kernels}))

@@ -72,7 +72,7 @@ class ResidencyModel:
             from ..parallel import store as _store
 
             view["budget_bytes"] = _store.PACK_CACHE.max_bytes
-        except Exception:  # a curves read must not fail because the cache is mid-teardown; the pricing curves above are still valid
+        except Exception:  # rb-ok: exception-hygiene -- a curves read must not fail because the cache is mid-teardown; the pricing curves above are still valid
             pass
         return view
 

@@ -34,6 +34,8 @@ and the observatory's ``serving``, ``epochs``, ``structure`` and
 """
 
 from .registry import (
+    ANALYSIS_CONTRACT_FINDINGS_TOTAL,
+    ANALYSIS_FINDINGS_TOTAL,
     BREAKER_TRANSITIONS_TOTAL,
     COMPILE_TOTAL,
     BATCH_PAIRWISE_TOTAL,
@@ -242,6 +244,8 @@ __all__ = [
     "FAULT_INJECTED_TOTAL",
     "DEADLINE_TOTAL",
     "COMPILE_TOTAL",
+    "ANALYSIS_FINDINGS_TOTAL",
+    "ANALYSIS_CONTRACT_FINDINGS_TOTAL",
     "DECISION_TOTAL",
     "DECISION_REGRET_SECONDS",
     "DECISION_ERROR_RATIO",

@@ -61,7 +61,7 @@ def _json_or_error(collect: Callable[[], object]) -> str:
     record when it failed — a broken panel must not sink the bundle."""
     try:
         return json.dumps(collect(), indent=1, sort_keys=True, default=str) + "\n"
-    except Exception as e:  # bundle sections degrade to an error record; diagnostics must never fail AT the moment of failure
+    except Exception as e:  # rb-ok: exception-hygiene -- bundle sections degrade to an error record; diagnostics must never fail AT the moment of failure
         return json.dumps(
             {"error": f"{type(e).__name__}: {e}"}, sort_keys=True
         ) + "\n"
@@ -92,7 +92,7 @@ def _collect_sections(health_dump: Optional[dict]) -> Dict[str, str]:
 
     try:
         sections["timeline.jsonl"] = _timeline_jsonl()
-    except Exception as e:  # same degrade-to-error-record contract as _json_or_error
+    except Exception as e:  # rb-ok: exception-hygiene -- same degrade-to-error-record contract as _json_or_error
         sections["timeline.jsonl"] = json.dumps(
             {"error": f"{type(e).__name__}: {e}"}
         ) + "\n"
@@ -106,7 +106,7 @@ def _collect_sections(health_dump: Optional[dict]) -> Dict[str, str]:
     )
     try:
         sections["metrics.jsonl"] = _to_jsonl()
-    except Exception as e:  # same degrade-to-error-record contract as _json_or_error
+    except Exception as e:  # rb-ok: exception-hygiene -- same degrade-to-error-record contract as _json_or_error
         sections["metrics.jsonl"] = json.dumps(
             {"error": f"{type(e).__name__}: {e}"}
         ) + "\n"

@@ -465,6 +465,25 @@ def _health_block(snap: dict) -> dict:
     }
 
 
+def _analysis_block(snap: dict) -> dict:
+    """The static-analysis sidecar block, derived PURELY from the registry
+    like every block here: per-rule finding counts from the two analyzer
+    tiers — ``rb_tpu_analysis_findings_total{rule}`` (the lexical per-file
+    rules) and ``rb_tpu_analysis_contract_findings_total{rule}`` (the
+    whole-program contract tier). The CLI (``python -m
+    roaringbitmap_tpu_torch.analysis``) materializes a zero series for
+    every rule it ran, so an empty map means "analyzer never ran in this
+    process" while an explicit ``{rule: 0}`` means "ran and found
+    nothing"."""
+    lexical = _counter_map(snap, _registry.ANALYSIS_FINDINGS_TOTAL)
+    contracts = _counter_map(snap, _registry.ANALYSIS_CONTRACT_FINDINGS_TOTAL)
+    return {
+        "lexical": lexical,
+        "contracts": contracts,
+        "total": int(sum(lexical.values()) + sum(contracts.values())),
+    }
+
+
 def sidecar_snapshot(registry: Optional[Registry] = None) -> dict:
     """The structured summary the sidecar persists: ``kernel``/``layout``/
     ``transfer_bytes``/``spans`` and the other blocks, with the full
@@ -494,6 +513,7 @@ def sidecar_snapshot(registry: Optional[Registry] = None) -> dict:
         "epochs": _epochs_block(snap, _reg(registry)),
         "structure": _structure_block(snap),
         "durable": _durable_block(snap),
+        "analysis": _analysis_block(snap),
         "registry": snap,
     }
 

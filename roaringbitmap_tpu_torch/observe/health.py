@@ -380,14 +380,14 @@ def snapshot(
             from ..parallel import store as _store
 
             _store.hbm_reconciliation()
-        except Exception:  # the supervisor keeps judging on stale gauges when a refresh fails; the stale values are still real telemetry
+        except Exception:  # rb-ok: exception-hygiene -- the supervisor keeps judging on stale gauges when a refresh fails; the stale values are still real telemetry
             pass
     ages: Dict[str, float] = {}
     try:
         from ..robust import ladder as _ladder
 
         ages = _ladder.LADDER.open_ages()
-    except Exception:  # the same stale-beats-dead contract as the refresh above
+    except Exception:  # rb-ok: exception-hygiene -- the same stale-beats-dead contract as the refresh above
         pass
     return Snapshot(
         metrics=_registry.REGISTRY.snapshot(),

@@ -161,7 +161,7 @@ class Sentinel:
             try:
                 v = rule.probe(snap)
                 values[rule.name] = float(v) if v is not None else None
-            except Exception as e:  # one broken probe must not kill the supervisor; the error is surfaced in the tick report and the rule judges no-data
+            except Exception as e:  # rb-ok: exception-hygiene -- one broken probe must not kill the supervisor; the error is surfaced in the tick report and the rule judges no-data
                 values[rule.name] = None
                 probe_errors[rule.name] = f"{type(e).__name__}: {e}"
         alerts: List[dict] = []
@@ -319,7 +319,7 @@ class Sentinel:
                 }
                 for name, rep in reports.items()
             }
-        except Exception as e:  # a failed refit leaves the calibrated coefficients in place; the failure is recorded in the actuation log and the drift rule stays firing
+        except Exception as e:  # rb-ok: exception-hygiene -- a failed refit leaves the calibrated coefficients in place; the failure is recorded in the actuation log and the drift rule stays firing
             entry["error"] = f"{type(e).__name__}: {e}"
         _timeline.instant(
             "sentinel.refit", "health", rule=rule_name,
@@ -348,7 +348,7 @@ class Sentinel:
             entry["outcome"] = record.get("outcome")
             entry["reclaimed_bytes"] = record.get("reclaimed_bytes")
             entry["rewritten_keys"] = record.get("rewritten_keys")
-        except Exception as e:  # a failed pass leaves the uncompacted epoch in place; the failure is recorded in the actuation log and the structure rules stay firing
+        except Exception as e:  # rb-ok: exception-hygiene -- a failed pass leaves the uncompacted epoch in place; the failure is recorded in the actuation log and the structure rules stay firing
             entry["error"] = f"{type(e).__name__}: {e}"
         _timeline.instant(
             "sentinel.maintain", "health", rule=rule_name,
@@ -375,7 +375,7 @@ class Sentinel:
             entry["window_from"] = record.get("window_from")
             entry["window_to"] = record.get("window_to")
             entry["budget_ms"] = record.get("budget_ms")
-        except Exception as e:  # a failed auto-tune leaves the current window bounds in place; the failure is recorded in the actuation log and the pressure rule stays firing
+        except Exception as e:  # rb-ok: exception-hygiene -- a failed auto-tune leaves the current window bounds in place; the failure is recorded in the actuation log and the pressure rule stays firing
             entry["error"] = f"{type(e).__name__}: {e}"
         _timeline.instant(
             "sentinel.autotune", "health", rule=rule_name,
@@ -413,7 +413,7 @@ class Sentinel:
                 },
                 health_dump=self.health_dump(),
             )
-        except Exception as e:  # a bundle that cannot be written (disk full at the worst moment) must not kill the supervisor; the failure is recorded in the actuation log
+        except Exception as e:  # rb-ok: exception-hygiene -- a bundle that cannot be written (disk full at the worst moment) must not kill the supervisor; the failure is recorded in the actuation log
             entry["error"] = f"{type(e).__name__}: {e}"
         _timeline.instant(
             "sentinel.bundle", "health", rules=",".join(red_rules),
@@ -538,7 +538,7 @@ def start(interval_s: Optional[float] = None) -> None:
             while not _STOP.wait(interval_s):
                 try:
                     SENTINEL.tick()
-                except Exception:  # the supervisor thread must survive any single bad tick; the next interval retries with fresh state
+                except Exception:  # rb-ok: exception-hygiene -- the supervisor thread must survive any single bad tick; the next interval retries with fresh state
                     pass
 
         _THREAD = threading.Thread(

@@ -237,7 +237,7 @@ class ShipLane:
         def _run():
             try:
                 st.future.set_result(self._stage(bitmaps, keys_filter, device, st))
-            except BaseException as e:  # parked in the future; re-raised at wait/join/drain
+            except BaseException as e:  # rb-ok: exception-hygiene -- parked in the future; re-raised at wait/join/drain
                 st.future.set_exception(e)
 
         try:
@@ -297,7 +297,7 @@ class ShipLane:
         for st in pending:
             try:
                 st.future.result()
-            except Exception as e:  # every staging is joined before the first error re-raises
+            except Exception as e:  # rb-ok: exception-hygiene -- every staging is joined before the first error re-raises
                 errors.append(e)
         if errors:
             raise errors[0]

@@ -1273,7 +1273,7 @@ class PackCache:
         # a dropped cache settles its share of the process-wide gauge
         try:
             self.close()
-        except Exception:  # interpreter teardown: the registry may be gone
+        except Exception:  # rb-ok: exception-hygiene -- interpreter teardown: the registry may be gone
             pass
 
     # -- public API --------------------------------------------------------
@@ -1674,7 +1674,7 @@ class PackCache:
             if probe is not None:
                 try:
                     mapped = bool(probe(e.kind))
-                except Exception:  # a broken probe must not turn an eviction into a failure: the entry is discarded, as in the JAX package
+                except Exception:  # rb-ok: exception-hygiene -- a broken probe must not turn an eviction into a failure: the entry is discarded, as in the JAX package
                     mapped = False
             rung = "mapped" if mapped else "discard"
             _DEMOTE_TOTAL.inc(1, (rung,))

@@ -803,7 +803,7 @@ class FusionExecutor:
                 query, self.mode
             )
             steps = max(1, len(plan.steps))
-        except Exception:  # a plan error surfaces on the window path (the future), not in the pricing probe
+        except Exception:  # rb-ok: exception-hygiene -- a plan error surfaces on the window path (the future), not in the pricing probe
             return "window", None
         with self._cond:
             depth = len(self._queue)
@@ -854,7 +854,7 @@ class FusionExecutor:
                 [("solo", lambda: self._run_solo(query)), ("window", _window_rung)],
                 outcome_seq=seq, outcome_site="fusion.hedge",
             )
-        except Exception as e:  # both rungs failed: the error belongs to this caller's future, like a drained batch's
+        except Exception as e:  # rb-ok: exception-hygiene -- both rungs failed: the error belongs to this caller's future, like a drained batch's
             fut.set_exception(e)
         else:
             fut.set_result(val)
@@ -910,7 +910,7 @@ class FusionExecutor:
                     [q for q, _f, _t, _dl, _seq in batch],
                     cache=self.cache, mode=self.mode, deadline_s=self.deadline_s,
                 )
-            except Exception as e:  # the batch's error belongs to its callers' futures; the drain thread serves the next window
+            except Exception as e:  # rb-ok: exception-hygiene -- the batch's error belongs to its callers' futures; the drain thread serves the next window
                 for _q, fut, _t, _dl, _seq in batch:
                     fut.set_exception(e)
             else:

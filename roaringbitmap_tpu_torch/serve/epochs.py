@@ -25,7 +25,12 @@ sample and a timeline span):
   ``aggregation.config.device``: a warm set whose containers mutated in
   place takes the delta route, one ``index_copy_`` of the dirty rows into
   the resident flat rows (the lineage record carries the route of every
-  refresh, read from ``PackCache.last_route``).
+  refresh, read from ``PackCache.last_route``). The stage fails closed:
+  where the JAX package degrades a device fault to a CPU tier, this
+  package raises, so a raise inside the stage puts the touched containers
+  back (from copies taken before the writer ran) and returns a retryable
+  failure's batches to the head of the log before it propagates; the
+  corpus stays the old epoch's, bit for bit.
 * ``publish`` — bump the epoch, append the lineage record (epoch id,
   parent, included batch ids, flip wall), export the epoch gauge, and
   observe every published batch's ingest->queryable lag into
@@ -69,6 +74,7 @@ import weakref
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..observe import decisions as _decisions
@@ -125,6 +131,38 @@ def current_store() -> Optional["EpochStore"]:
     """The live process EpochStore (newest constructed), or None."""
     ref = _CURRENT
     return ref() if ref is not None else None
+
+
+def _undo_log(corpus, merged) -> list:
+    """``(bitmap index, key, container clone or None)`` for every container
+    the merged values will touch: enough to put the corpus back as it was
+    before :func:`ingest.apply_merged` (values are only ever added, so the
+    touched keys are the values' high 16 bits). Indices outside the corpus
+    are skipped: ``apply_merged`` raises on them."""
+    undo = []
+    for idx, values in merged.items():
+        if not 0 <= idx < len(corpus):
+            continue
+        hlc = corpus[idx].high_low_container
+        for key in np.unique(np.asarray(values, dtype=np.int64) >> 16).tolist():
+            i = hlc.get_index(key)
+            undo.append((idx, key, hlc.containers[i].clone() if i >= 0 else None))
+    return undo
+
+
+def _undo(corpus, undo: list) -> None:
+    """Restore every container :func:`_undo_log` recorded, through the
+    container array's mutators (so the pack cache sees the keys dirty)."""
+    for idx, key, c in undo:
+        hlc = corpus[idx].high_low_container
+        i = hlc.get_index(key)
+        if c is None:
+            if i >= 0:
+                hlc.remove_at_index(i)
+        elif i >= 0:
+            hlc.set_container_at_index(i, c)
+        else:
+            hlc.insert_new_key_value_at(-i - 1, key, c)
 
 
 def _quiesce_device() -> None:
@@ -397,16 +435,31 @@ class EpochStore:
                 ):
                     merged = _ingest.merge_batches(batches)
                     touched = sorted(merged)
-                    _ingest.apply_merged(self.corpus, merged)
-                    rewrite_stats = None
-                    if rewrite is not None:
-                        # the compaction body: runs AFTER the drained
-                        # batches land so it re-selects the post-merge
-                        # containers, BEFORE the working-set refresh so
-                        # the pack cache sees the rewritten rows
-                        rewritten, rewrite_stats = rewrite(self.corpus)
-                        touched = sorted(set(touched) | set(rewritten))
-                    delta = self._repack_working_sets(touched)
+                    undo = _undo_log(self.corpus, merged)
+                    try:
+                        _ingest.apply_merged(self.corpus, merged)
+                        rewrite_stats = None
+                        if rewrite is not None:
+                            # the compaction body: runs AFTER the drained
+                            # batches land so it re-selects the post-merge
+                            # containers, BEFORE the working-set refresh
+                            # so the pack cache sees the rewritten rows
+                            rewritten, rewrite_stats = rewrite(self.corpus)
+                            touched = sorted(set(touched) | set(rewritten))
+                        delta = self._repack_working_sets(touched)
+                    except BaseException as e:
+                        # fail CLOSED to the old epoch: a raise here (a
+                        # device fault of the repack, a host-tier fault of
+                        # the writer) must not leave unpublished bits in
+                        # the corpus. Put back the touched containers (the
+                        # compaction's rewrites are bit-identical) and
+                        # return a retryable failure's batches to the log
+                        _undo(self.corpus, undo)
+                        if isinstance(e, Exception) and (
+                            _rerrors.classify(e) != _rerrors.FATAL
+                        ):
+                            self.log.requeue(batches)
+                        raise
                 # ---- publish: bump epoch, lineage, freshness ----
                 with _timeline.stage(
                     FLIP_STAGE_SECONDS, "publish", "epoch.publish",

@@ -375,7 +375,7 @@ class LoadHarness:
                     return
                 try:
                     _serve_one(*nxt)
-                except BaseException as e:  # a worker drains the schedule and the run raises the first failure after the join: swallowing one would shrink the served multiset the oracle checks
+                except BaseException as e:  # rb-ok: exception-hygiene -- a worker drains the schedule and the run raises the first failure after the join: swallowing one would shrink the served multiset the oracle checks
                     with stats_lock:
                         errors.append(e)
 
@@ -424,7 +424,7 @@ class LoadHarness:
                 "run_serial replays read-only schedules; use "
                 "run_serial_epochs for a read-write schedule"
             )
-        return [_exec.execute(r.expr, cache=None) for r in requests]
+        return [_exec.execute(r.expr, cache=None) for r in requests]  # rb-ok: epoch-pin -- serial oracle: replays a read-only schedule against a quiesced corpus with no concurrent flips, so there is no epoch to pin
 
     @staticmethod
     def run_serial_epochs(
@@ -471,7 +471,9 @@ class LoadHarness:
         ]
         for rec in lineage + [None]:  # None: the final (current) epoch
             for pos in by_epoch.get(epoch, ()):
-                results[pos] = _exec.execute(clone_requests[pos].expr, cache=None)
+                results[pos] = _exec.execute(  # rb-ok: epoch-pin -- serial oracle: single-threaded lineage replay on a clone; flips are applied between steps by this loop itself, never concurrently
+                    clone_requests[pos].expr, cache=None
+                )
             if rec is None:
                 break
             for bid in rec["batches"]:

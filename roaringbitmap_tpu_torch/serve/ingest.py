@@ -158,6 +158,14 @@ class IngestLog:
             _MUTLOG_COUNT.set(0)
         return batches
 
+    def requeue(self, batches: Sequence[MutationBatch]) -> None:
+        """Put drained batches back at the head of the log, oldest first:
+        a flip that failed closed returns what it drained. They were
+        accepted already, so ``max_batches`` does not refuse them."""
+        with self._lock:
+            self._batches.extendleft(reversed(list(batches)))
+            _MUTLOG_COUNT.set(len(self._batches))
+
     def depth(self) -> int:
         with self._lock:
             return len(self._batches)

@@ -436,6 +436,69 @@ def test_a_device_fault_at_the_drain_propagates_and_reopens_admission(monkeypatc
     assert es.flip()["outcome"] == "flipped" and es.current() == 1 and es.log.depth() == 0
 
 
+_APPLY_MERGED = tingest.apply_merged
+
+
+def _partial_apply(corpus, merged):
+    """The writer applied to the first touched bitmap, then a host-tier
+    fault (the port's ``native.entry`` raises where the JAX package falls
+    back to numpy)."""
+    first = dict(list(merged.items())[:1])
+    _APPLY_MERGED(corpus, first)
+    raise TTransient("injected fault at site 'native.entry'")
+
+
+def _repack_fault(self, touched):
+    raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+
+@pytest.mark.parametrize("where", ["writer", "repack", "fatal"])
+def test_a_flip_that_raises_in_its_repack_stage_fails_closed(where, monkeypatch):
+    """A raise inside the repack stage (a device fault of the working-set
+    refresh, a host-tier fault halfway through the writer) propagates, and
+    the corpus is the old epoch's bit for bit: the touched containers are
+    put back, a retryable failure's batches return to the log and the next
+    flip publishes them, a fatal one's are dropped. The fuzz family
+    ``compaction-vs-identity-oracle`` found the torn corpus at seeds 105,
+    109 and 127."""
+    t = _declare(PORT)
+    vals = _values(4)
+    corpus = [TRB(v) for v in vals]
+    es = tepochs.EpochStore(corpus)
+    store.packed_for(corpus, device="cpu").device_words  # resident: the refresh patches rows
+    before = [b.serialize() for b in corpus]
+    muts = {0: np.arange(10, 60_000, 7), 2: np.array([(40 << 16) + 5, 7])}
+    es.submit(t, muts)
+    with monkeypatch.context() as m:
+        if where == "writer":
+            m.setattr(tingest, "apply_merged", _partial_apply)
+            raised = TTransient
+        elif where == "repack":
+            m.setattr(tepochs.EpochStore, "_repack_working_sets", _repack_fault)
+            raised = RuntimeError
+        else:
+            m.setattr(tepochs.EpochStore, "_repack_working_sets",
+                      lambda self, touched: (_ for _ in ()).throw(ValueError("bad batch")))
+            raised = ValueError
+        with pytest.raises(raised):
+            es.flip()
+    assert [b.serialize() for b in corpus] == before
+    assert es.current() == 0 and not [r for r in es.lineage() if r["outcome"] == "flipped"]
+    with es.reader() as tk:  # admission reopened on the old epoch
+        assert tk.epoch == 0
+    # the resident pack revalidates against the restored containers
+    assert np.array_equal(store.packed_for(corpus, device="cpu").device_words,
+                          store.pack_groups(store.group_by_key(corpus), device="cpu").device_words)
+    if where == "fatal":
+        assert es.log.depth() == 0 and es.flip()["outcome"] == "noop"
+        return
+    assert es.log.depth() == 1
+    assert es.flip()["outcome"] == "flipped" and es.current() == 1
+    want = [TRB(v) for v in vals]
+    tingest.apply_merged(want, tingest.merge_batches([tingest.MutationBatch(t, muts)]))
+    assert [b.serialize() for b in corpus] == [b.serialize() for b in want]
+
+
 def test_store_guards_and_restore_match_the_jax_package():
     for s in BOTH:
         with pytest.raises(ValueError):

@@ -557,9 +557,9 @@ def test_cuda_timeline_keeps_the_bytes_and_counts_the_launches(mode, monkeypatch
 # the sidecar and insights surfaces of this slice, against the JAX package
 # ---------------------------------------------------------------------------
 
-# the sidecar block whose source, the analysis tooling, is not part of the
-# port (ROADMAP Queue A item 7)
-UNPORTED_BLOCKS = {"analysis"}
+# every sidecar block of the JAX package has its counterpart (the
+# ``analysis`` block came with the port's analyzer)
+UNPORTED_BLOCKS = set()
 
 
 def test_sidecar_blocks_are_the_jax_blocks_less_the_unported():
@@ -666,8 +666,8 @@ def test_serial_bytes_count_the_same_bytes_as_the_jax_package(seed):
 def test_registry_names_are_the_jax_names_less_the_probe_and_analysis():
     """Every canonical ``rb_tpu_*`` name of the JAX registry is in the
     port's, with the same value, except ``KERNEL_PROBE_TOTAL`` (the port
-    never probes for a lowering) and the ``ANALYSIS_*`` family (the
-    analysis tooling is not ported); the port has no name of its own."""
+    never probes for a lowering); the ``ANALYSIS_*`` names came with the
+    port's analyzer, and the port has no name of its own."""
     from roaringbitmap_tpu.observe import registry as jreg
     from roaringbitmap_tpu_torch.observe import registry as treg
 
@@ -677,7 +677,7 @@ def test_registry_names_are_the_jax_names_less_the_probe_and_analysis():
 
     t, j = names(treg), names(jreg)
     missing = set(j) - set(t)
-    assert missing == {"KERNEL_PROBE_TOTAL"} | {k for k in j if k.startswith("ANALYSIS_")}
+    assert missing == {"KERNEL_PROBE_TOTAL"}
     assert set(t) <= set(j) and all(t[k] == j[k] for k in t)
     exported = {k for k in dir(tobs) if k in t}
     assert exported == set(t)

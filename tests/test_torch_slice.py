@@ -289,6 +289,11 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "from roaringbitmap_tpu_torch.serve import harness, slo, ingest, epochs, maintain\n"
         "from roaringbitmap_tpu_torch import durable\n"
         "from roaringbitmap_tpu_torch.durable import format, recovery, store as dstore\n"
+        "from roaringbitmap_tpu_torch import fuzz, analysis\n"
+        "from roaringbitmap_tpu_torch.analysis import baseline, cfg, core, knobs, lockwitness, project\n"
+        "from roaringbitmap_tpu_torch.analysis import rules\n"
+        "from roaringbitmap_tpu_torch.analysis import __main__ as analysis_cli\n"
+        "analysis.run_contract_checks(analysis.get_project(analysis_cli.REPO_ROOT))\n"
         "insights.observatory(); bundle._collect_sections(None)\n"
         "insights.epochs(); insights.structure(); insights.durable()\n"
         "cost.calibration_state(); cost.refit_all(); insights.serving(); insights.cost_authorities()\n"
@@ -317,18 +322,20 @@ def _imported_modules(path):
 
 def test_the_port_mirrors_every_jax_module_but_the_tooling():
     """A file-by-file diff of the two trees: every module of the JAX
-    package has its counterpart in the port, except ``fuzz.py`` and
-    ``analysis/`` (ROADMAP Queue A item 7). The Pallas kernels'
+    package has its counterpart in the port, the tooling (``fuzz.py`` and
+    ``analysis/``) included, except ``ops/pallas_kernels.py`` (its
     counterparts are the CUDA sources under ``csrc/``, behind
-    ``ops/kernels.py``."""
+    ``ops/kernels.py``) and the analyzer's ``trace-safety`` and
+    ``use-after-donation`` rules (the port has no jit and donates no
+    buffer)."""
     jroot, troot = REPO / "roaringbitmap_tpu", REPO / "roaringbitmap_tpu_torch"
     jax_files = {p.relative_to(jroot) for p in jroot.rglob("*.py")}
     port_files = {p.relative_to(troot) for p in troot.rglob("*.py")}
     missing = sorted(str(p) for p in jax_files - port_files)
-    assert [m for m in missing if m not in ("fuzz.py", "ops/pallas_kernels.py")
-            and not m.startswith("analysis/")] == []
+    assert missing == ["analysis/rules/donation.py", "analysis/rules/trace_safety.py",
+                       "ops/pallas_kernels.py"]
     assert (troot / "csrc" / "reduce.cu").is_file() and (troot / "ops" / "kernels.py").is_file()
-    assert "fuzz.py" in missing
+    assert (troot / "fuzz.py").is_file() and (troot / "analysis" / "__main__.py").is_file()
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
