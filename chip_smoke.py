@@ -273,7 +273,7 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    the window; (b) the warm OR with the timeline off / on / fenced in
    turns (median of 10) and the cold OR off against on (median of 5); (c)
    a ``tracing.trace`` window over three warm ORs with the timeline on:
-   the ``trace=True`` span ``agg.device`` and an ``annotate`` range
+   the span ``agg.device`` and an ``annotate`` range
    present, ``group_reduce_kernel`` and ``popcount_rows_kernel`` with
    device time, the idle share (CUDA events around the kernel wrappers
    where the profiler shows no device time); (d) faults on the card: a
@@ -5309,7 +5309,7 @@ def phase_observe(base, bitmaps, real, card: str):
             + (f", fenced/off {meds['fenced'] / meds['off']:.4f}" if "fenced" in meds else "")
             + f"  [{card}]")
 
-    # (c) a tracing.trace window over the warm OR, timeline on (trace=True spans)
+    # (c) a tracing.trace window over the warm OR, timeline on (the port's spans)
     calls = 3
     or_()
     tl.configure(mode="on")
@@ -5326,7 +5326,7 @@ def phase_observe(base, bitmaps, real, card: str):
     tl.RECORDER.clear()
     ranges = {e.key for e in prof.key_averages()}
     if not {"agg.device", "phase16.warm_or"} <= ranges:
-        fail(f"(c) the trace=True span names are missing from the profiler window: "
+        fail(f"(c) the span names are missing from the profiler window: "
              f"{sorted(k for k in ranges if '.' in k)[:20]}")
     busy_us, kernels = _trace_busy(chrome, calls)
     kern = {name: sum(v for k, v in kernels.items() if name in k)

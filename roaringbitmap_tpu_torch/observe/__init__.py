@@ -15,8 +15,8 @@ names::
     host phases + spans  (tracing + spans)    ─┘    snapshot/reset)      metrics_sidecar(path)
 
 Metric naming convention: ``rb_tpu_<layer>_<name>`` (canonical names in
-``registry.py``). Pure stdlib apart from the ``torch.profiler`` ranges of
-``trace=True`` spans, which import torch when they open.
+``registry.py``). Pure stdlib apart from the ``torch.profiler`` range a
+span opens while a profiler records (``spans``), which imports torch then.
 
 ``health`` judges the registry with the JAX package's rule table (one
 departure: the ``hbm-accounting-drift`` rule judges the device source by

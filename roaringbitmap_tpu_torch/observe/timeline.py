@@ -12,8 +12,8 @@ chrome://tracing.
 Three recording modes, chosen by ``RB_TPU_TIMELINE`` (read once at import;
 ``configure()`` overrides at runtime):
 
-* **unset / "off"** — recording disabled. The instrumented call sites
-  reduce to one module-int comparison; no span objects, no events, no
+* **unset / "off"** — recording disabled. A ``tspan`` site reduces to
+  one module-int comparison and builds no span object; no events, no
   attrs dicts retained.
 * **"on"** — spans and instants record into the ring buffer and feed the
   ``rb_tpu_timeline_span_seconds{cat}`` latency histogram. Device work is
@@ -24,13 +24,12 @@ Three recording modes, chosen by ``RB_TPU_TIMELINE`` (read once at import;
   the device-inclusive wall time. This perturbs pipelining — it is a
   diagnosis mode, not a production default. A CPU tensor needs no fence.
 
-Spans opened with ``trace=True`` also open a
-``torch.profiler.record_function`` range, so the same region appears in a
-``torch.profiler`` trace (``tracing.trace``) beside the kernels it
-launched.
-
-``observe.spans.span`` (and therefore every ``tracing.op_timer`` block)
-mirrors into the recorder when a mode is active.
+Every span (``observe.spans.span``, and so every ``tracing.op_timer``,
+``stage`` and ``tspan`` block) records into the recorder when a mode is
+active, on the clock its span read. ``stage`` and ``op_timer`` time in
+every mode; ``tspan`` is a span only while a mode is active. A span's
+``torch.profiler`` range is the span's own business: it opens whenever a
+profiler records, whatever the mode.
 
 **Dump-on-anomaly**: when a span exceeds the configured budget
 (``RB_TPU_TIMELINE_BUDGET_MS`` / ``configure(budget_ms=...)``), the whole
@@ -56,6 +55,7 @@ from typing import Dict, Iterable, List, Optional
 
 from . import context as _context
 from . import registry as _registry
+from . import spans as _spans
 from .histogram import latency_histogram
 
 OFF, ON, FENCED = 0, 1, 2
@@ -340,17 +340,11 @@ def flow_id(*parts) -> int:
     return zlib.crc32(repr(parts).encode()) & 0x7FFFFFFF
 
 
-class _Span:
-    """A recording span (only ever constructed while a mode is active)."""
+class _Span(_spans.Span):
+    """A recording span (only ever constructed while a mode is active);
+    ``with`` yields the span itself, so a caller can ``attr()`` it."""
 
-    __slots__ = ("name", "cat", "attrs", "_trace", "_ann", "_t0")
-
-    def __init__(self, name, cat, trace, attrs):
-        self.name = name
-        self.cat = cat
-        self.attrs = attrs
-        self._trace = trace
-        self._ann = None
+    __slots__ = ()
 
     def attr(self, **kw) -> None:
         """Attach attrs discovered mid-span (e.g. the serving epoch a
@@ -363,66 +357,30 @@ class _Span:
             self.attrs = dict(kw)
 
     def __enter__(self) -> "_Span":
-        if self._trace:
-            import torch
-
-            self._ann = torch.profiler.record_function(self.name)
-            self._ann.__enter__()
-        self._t0 = time.perf_counter_ns()
+        super().__enter__()
         return self
-
-    def __exit__(self, *exc):
-        dur = time.perf_counter_ns() - self._t0
-        if self._ann is not None:
-            self._ann.__exit__(*exc)
-        _record_complete(self.name, self.cat, self._t0, dur, self.attrs or None)
-        return False
 
 
 _NULL = contextlib.nullcontext()
 
 
-def tspan(name: str, cat: str = "host", trace: bool = False, **attrs):
-    """Context manager timing the enclosed block into the flight recorder.
-    Disabled mode returns a shared null context — no span object exists.
-    ``trace=True`` additionally opens a ``torch.profiler.record_function``
-    range so the region correlates with the kernels in a profiler trace."""
+def tspan(name: str, cat: str = "host", **attrs):
+    """A span that exists only while the flight recorder records: the
+    enclosed block timed as ``observe.spans.span`` times it. Disabled mode
+    returns a shared null context — no span object exists."""
     if _MODE == OFF:
         return _NULL
-    return _Span(name, cat, trace, attrs)
+    return _Span(name, cat, None, (), attrs)
 
 
-class stage:
-    """Time one pipeline stage into BOTH a latency histogram (always — an
-    ``observe()`` is two dict ops under the registry lock, invisible next
-    to millisecond stages) and, when a mode is active, the flight
-    recorder. This is the instrumentation primitive the marshal pipeline
+def stage(hist, label, name: Optional[str] = None, cat: str = "stage", **attrs):
+    """Time one pipeline stage: a span (``observe.spans.span``, in every
+    mode) that also observes the stage's latency histogram ``hist`` under
+    ``label``. This is the instrumentation primitive the marshal pipeline
     uses: the histogram gives p50/p99 over the run, the recorder gives the
     one-run decomposition."""
-
-    __slots__ = ("_hist", "_labels", "_name", "_cat", "_attrs", "_t0")
-
-    def __init__(self, hist, label, name: Optional[str] = None,
-                 cat: str = "stage", **attrs):
-        self._hist = hist
-        self._labels = (label,) if isinstance(label, str) else tuple(label)
-        self._name = name or "/".join(self._labels)
-        self._cat = cat
-        self._attrs = attrs
-        self._t0 = 0
-
-    def __enter__(self) -> "stage":
-        self._t0 = time.perf_counter_ns()
-        return self
-
-    def __exit__(self, *exc):
-        dur = time.perf_counter_ns() - self._t0
-        self._hist.observe(dur / 1e9, self._labels)
-        if _MODE != OFF:
-            _record_complete(
-                self._name, self._cat, self._t0, dur, self._attrs or None
-            )
-        return False
+    labels = (label,) if isinstance(label, str) else tuple(label)
+    return _spans.Span(name or "/".join(labels), cat, hist, labels, attrs)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..observe import spans as _spans
 
 DEVICE_WORDS = 2048  # 32-bit words per container row
 HOST_WORDS = 1024  # uint64 words per container
@@ -59,8 +60,17 @@ def from_device_words(dev_words: torch.Tensor) -> np.ndarray:
 
 
 def to_host_u32(dev_words: torch.Tensor) -> np.ndarray:
-    """int32 tensor -> the same bits as a uint32 numpy array."""
-    return np.ascontiguousarray(dev_words.cpu().numpy()).view(np.uint32)
+    """int32 tensor -> the same bits as a uint32 numpy array. The host's
+    wait for the device and the copy back are the ``device.fetch`` span."""
+    with _spans.span("device.fetch"):
+        return np.ascontiguousarray(dev_words.cpu().numpy()).view(np.uint32)
+
+
+def to_host_i64(dev_counts: torch.Tensor) -> np.ndarray:
+    """Integer tensor (a kernel's per-row counts) -> int64 numpy array, in
+    the ``device.fetch`` span."""
+    with _spans.span("device.fetch"):
+        return dev_counts.cpu().numpy().astype(np.int64)
 
 
 def fold_rows(x: torch.Tensor, op: str) -> torch.Tensor:

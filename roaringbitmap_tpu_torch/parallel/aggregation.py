@@ -70,6 +70,7 @@ from ..models.roaring import RoaringBitmap
 from ..observe import context as _context
 from ..observe import decisions as _decisions
 from ..observe import sentinel as _sentinel
+from ..observe import spans as _spans
 from ..observe import timeline as _timeline
 from ..robust import ladder as _ladder
 from ..utils import bits
@@ -229,7 +230,7 @@ def _device_aggregate(
 ) -> RoaringBitmap:
     """Device path: the resident pack (built on a miss), reduce (on the
     mesh when ``config.mesh`` is set), unpack."""
-    with _timeline.tspan("agg.device", "agg", trace=True, op=op, n=len(bitmaps)):
+    with _spans.span("agg.device", "agg", op=op, n=len(bitmaps)):
         packed = _device_pack(bitmaps, keys_filter, device)
         if config.mesh is not None:
             words, cards = _sharded_reduce(packed, op)
@@ -263,7 +264,7 @@ def _sharded_reduce(packed: "store.PackedGroups", op: str, cards_only: bool = Fa
         return store.reduce_packed(packed, op=op)
     local = sharding.shard_rows(mesh, padded, (None, "containers", "words"))
     red, cards = sharding.distributed_grouped_reduce(mesh, op)(local)
-    cards = cards.cpu().numpy().astype(np.int64)
+    cards = dev.to_host_i64(cards)
     if cards_only:
         return None, cards
     words = sharding.gather_shards(mesh, red, (None, "words"))

@@ -1008,7 +1008,7 @@ def reduce_packed(packed: PackedGroups, op: str = "or"):
         )
     run, _ = prepare_reduce(packed, op)
     red, card = run()
-    return dev.to_host_u32(red), card.cpu().numpy().astype(np.int64)
+    return dev.to_host_u32(red), dev.to_host_i64(card)
 
 
 def reduce_packed_cardinality(packed: PackedGroups, op: str = "or") -> np.ndarray:
@@ -1018,7 +1018,7 @@ def reduce_packed_cardinality(packed: PackedGroups, op: str = "or") -> np.ndarra
         return np.empty((0,), dtype=np.int64)
     run, _ = prepare_reduce(packed, op)
     _red, card = run()
-    return card.cpu().numpy().astype(np.int64)
+    return dev.to_host_i64(card)
 
 
 def unpack_to_bitmap(

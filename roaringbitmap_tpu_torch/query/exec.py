@@ -34,14 +34,19 @@ built anew. Device steps run on ``aggregation.config.device``.
 shipping lane staging the next query's leaf packs while the current one
 runs.
 
-Instrumentation, as in the JAX package: every query runs under a trace
-scope; planning and execution time into ``rb_tpu_query_latency_seconds
-{phase}`` and the flight recorder; each step is a ``query.step`` span
-that resolves the step's ``query.plan`` decision with its wall and result
-cardinality; a device step runs through the ``query.exec`` ladder site —
-the device tier alone, with the ``query.exec`` fault point, so a device
-failure raises — and ``rb_tpu_deadline_total{site="query.exec",outcome}``
-counts the deadline outcomes.
+Instrumentation: every query runs under a trace scope and in one root
+span, ``query.request``, so no host work of a request lies outside a
+span. Below it, ``query.plan`` and ``query.execute`` are one span each
+that also times into ``rb_tpu_query_latency_seconds{phase}``; inside the
+executor each result-cache lookup is a ``query.cache.probe`` span, each
+publication a ``query.cache.publish`` span, and each computed step a
+``query.step`` span that resolves the step's ``query.plan`` decision with
+its wall and result cardinality, so ``query.execute``'s self time is the
+executor's own bookkeeping. A device step runs through the ``query.exec``
+ladder site — the device tier alone, with the ``query.exec`` fault point,
+so a device failure raises — and
+``rb_tpu_deadline_total{site="query.exec",outcome}`` counts the deadline
+outcomes.
 """
 
 from __future__ import annotations
@@ -52,10 +57,10 @@ from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Union
 
 from .. import observe as _observe
-from .. import tracing
 from ..models.roaring import RoaringBitmap
 from ..observe import context as _context
 from ..observe import outcomes as _outcomes
+from ..observe import spans as _spans
 from ..observe import timeline as _timeline
 from ..robust import faults as _faults
 from ..robust import ladder as _ladder
@@ -63,8 +68,7 @@ from . import inflight as _inflight
 from . import kernels
 from .cache import DEFAULT_CACHE, ResultCache, cache_key, leaf_fps_current
 from .expr import Expr
-from .plan import Plan, PlanStep
-from .plan import plan as build_plan
+from .plan import Plan, PlanStep, _plan
 
 # end-to-end query latency quantiles: p50/p99 per phase in every export
 _QUERY_LATENCY = _observe.latency_histogram(
@@ -96,8 +100,10 @@ def _memo_plan(expr: Expr, mode: Optional[str]) -> Plan:
         if p is not None:
             _PLAN_MEMO.move_to_end(key)
             return p
-    with _timeline.stage(_QUERY_LATENCY, "plan", "query.plan", cat="query"):
-        p = build_plan(expr, mode=mode)
+    # _plan, not plan(): plan() opens its own query.plan span, and the
+    # memo's stage histogram has to time that same region once
+    with _spans.span("query.plan", "query", _QUERY_LATENCY, ("plan",)):
+        p = _plan(expr, mode)
     with _PLAN_MEMO_LOCK:
         _PLAN_MEMO[key] = p
         while len(_PLAN_MEMO) > _PLAN_MEMO_MAX:
@@ -122,40 +128,29 @@ def execute(
     ``rb_tpu_deadline_total{site="query.exec",outcome}`` counts the
     outcomes (met | degraded)."""
     # the whole plan + execute runs under one trace id (reused when a
-    # pipelined entry point pre-assigned it)
-    with _context.trace_scope():
-        return _execute_traced(query, cache, mode, deadline_s)
+    # pipelined entry point pre-assigned it), in one root span
+    with _context.trace_scope(), _spans.span("query.request", "query"):
+        return _execute_traced(query, cache, mode, deadline_s).clone()
 
 
 def _execute_traced(query, cache, mode, deadline_s) -> RoaringBitmap:
+    """The plan's result, the cache's or ``results``' own object: the
+    caller clones it."""
     p = query if isinstance(query, Plan) else _memo_plan(query, mode)
     degraded = False
-    with tracing.op_timer("query.execute"), _timeline.stage(
-        _QUERY_LATENCY, "execute", "query.execute", cat="query", steps=len(p.steps),
+    with _spans.span(
+        "query.execute", "query", _QUERY_LATENCY, ("execute",), steps=len(p.steps),
     ), _ladder.deadline_scope(deadline_s):
         leaf_fps = {l.uid: l.fingerprint() for l in p.root.leaves}
         results: Dict[int, RoaringBitmap] = {l.uid: l.bitmap for l in p.root.leaves}
         for step in p.steps:
-            key = cache_key(step.node, leaf_fps)
             entry = None
             if cache is not None:
-                hit = cache.get(key)
-                if hit is not None:
-                    results[step.node.uid] = hit
-                    _timeline.instant("query.cache_hit", "query", op=step.node.op)
+                with _spans.span("query.cache.probe", "query"):
+                    key, found, entry = _probe(cache, step, leaf_fps)
+                if found is not None:
+                    results[step.node.uid] = found
                     continue
-                # an identical node computing in ANOTHER query right now is
-                # joined, not recomputed; a None join (stale / owner failed /
-                # timeout) falls through to computing it ourselves, unclaimed
-                owner, pending = _inflight.TABLE.begin(key)
-                if owner:
-                    entry = pending
-                else:
-                    joined = _inflight.TABLE.join(pending)
-                    if joined is not None:
-                        results[step.node.uid] = joined
-                        _timeline.instant("query.inflight_join", "query", op=step.node.op)
-                        continue
             inputs = [results[o.uid] for o in step.operands]
             force_cpu = _ladder.deadline_expired()
             if force_cpu and not degraded:
@@ -164,7 +159,7 @@ def _execute_traced(query, cache, mode, deadline_s) -> RoaringBitmap:
             seq = step.decision_seq
             t0 = time.perf_counter() if seq is not None else 0.0
             try:
-                with _timeline.tspan(
+                with _spans.span(
                     "query.step", "query", engine=step.engine, op=step.node.op,
                     decision=seq,
                 ):
@@ -182,19 +177,40 @@ def _execute_traced(query, cache, mode, deadline_s) -> RoaringBitmap:
                     engine=step.engine, actual=max(1, val.get_cardinality()),
                 )
             if cache is not None:
-                # validated publication: a leaf mutated mid-computation
-                # makes this value match neither the key's snapshot nor the
-                # new contents — joiners get None (recompute fresh) and the
-                # cache never stores it
-                valid = leaf_fps_current(step.node, leaf_fps)
-                if entry is not None:
-                    _inflight.TABLE.complete(key, entry, val, valid)
-                if valid:
-                    cache.put(key, val)
+                with _spans.span("query.cache.publish", "query"):
+                    # validated publication: a leaf mutated mid-computation
+                    # makes this value match neither the key's snapshot nor
+                    # the new contents — joiners get None (recompute fresh)
+                    # and the cache never stores it
+                    valid = leaf_fps_current(step.node, leaf_fps)
+                    if entry is not None:
+                        _inflight.TABLE.complete(key, entry, val, valid)
+                    if valid:
+                        cache.put(key, val)
             results[step.node.uid] = val
         if deadline_s is not None:
             _ladder.note_deadline("query.exec", "degraded" if degraded else "met")
-        return results[p.root.uid].clone()
+        return results[p.root.uid]
+
+
+def _probe(cache: ResultCache, step: PlanStep, leaf_fps):
+    """Look ``step`` up: ``(key, result or None, in-flight entry or None)``.
+    A hit comes from the cache, or from an identical node computing in
+    ANOTHER query right now, joined instead of recomputed; a miss claims
+    the key (the entry) unless the join came back None (stale / owner
+    failed / timeout), which computes unclaimed."""
+    key = cache_key(step.node, leaf_fps)
+    hit = cache.get(key)
+    if hit is not None:
+        _timeline.instant("query.cache_hit", "query", op=step.node.op)
+        return key, hit, None
+    owner, pending = _inflight.TABLE.begin(key)
+    if owner:
+        return key, None, pending
+    joined = _inflight.TABLE.join(pending)
+    if joined is not None:
+        _timeline.instant("query.inflight_join", "query", op=step.node.op)
+    return key, joined, None
 
 
 def execute_pipelined(

@@ -622,7 +622,7 @@ def _merged_andnot_device(ready, results) -> List[RoaringBitmap]:
         idx = torch.arange(rows_all.shape[0], dtype=torch.int32, device=rows_all.device)
         words, cards = K.pair_rows_reduce(rows_all, idx, union_all, idx, "andnot")
         words = dev.to_host_u32(words)
-        cards = cards.cpu().numpy().astype(np.int64)
+        cards = dev.to_host_i64(cards)
         off = 0
         for i, (first_rows, _union, passthrough, keys) in stages:
             g = int(first_rows.shape[0])
@@ -674,7 +674,7 @@ def _merged_threshold_device(ready, results) -> List[RoaringBitmap]:
         )
         red, cards = K.threshold_rows(words_all, k, n_slices)
         red = dev.to_host_u32(red)
-        cards = cards.cpu().numpy().astype(np.int64)
+        cards = dev.to_host_i64(cards)
         off = 0
         for i, packed, w3 in items:
             g = int(w3.shape[0])

@@ -167,7 +167,7 @@ def andnot_nway_cardinality(
         def _device_tier() -> int:
             _faults.fault_point("query.exec")
             _, cards, passthrough, _keys = _device_andnot_parts(first, rest, ckeys)
-            return int(cards.cpu().numpy().astype(np.int64).sum()) + sum(
+            return int(dev.to_host_i64(cards).sum()) + sum(
                 c.cardinality for _, c in passthrough
             )
 
@@ -232,17 +232,15 @@ def _device_andnot(first: RoaringBitmap, rest, covered_keys: set) -> RoaringBitm
     from ..parallel import store
 
     masked, cards, passthrough, keys = _device_andnot_parts(first, rest, covered_keys)
-    computed = dict(
-        store.iter_group_containers(
-            keys, dev.to_host_u32(masked), cards.cpu().numpy().astype(np.int64)
-        )
-    )
-    out = RoaringBitmap()
-    merged = {k: c.clone() for k, c in passthrough}
-    merged.update(computed)
-    for k in sorted(merged):
-        out.high_low_container.append(k, merged[k])
-    return out
+    words, cards = dev.to_host_u32(masked), dev.to_host_i64(cards)
+    with tracing.op_timer("query.andnot.assemble"):
+        computed = dict(store.iter_group_containers(keys, words, cards))
+        out = RoaringBitmap()
+        merged = {k: c.clone() for k, c in passthrough}
+        merged.update(computed)
+        for k in sorted(merged):
+            out.high_low_container.append(k, merged[k])
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -380,5 +378,5 @@ def _device_threshold(bms, k: int, keys_ok: set) -> Optional[RoaringBitmap]:
     with tracing.op_timer("query.threshold.device"):
         red, cards = kernels.threshold_rows(words3, k, n_slices)
         return store.unpack_to_bitmap(
-            packed.group_keys, dev.to_host_u32(red), cards.cpu().numpy().astype(np.int64)
+            packed.group_keys, dev.to_host_u32(red), dev.to_host_i64(cards)
         )

@@ -1,25 +1,25 @@
-"""Profiling and tracing: a ``torch.profiler`` window, named ranges and
-host-phase timers.
+"""Profiling and tracing: a ``torch.profiler`` window and host-phase
+timers.
 
-Counterpart of ``roaringbitmap_tpu/tracing.py``. Three layers:
+Counterpart of ``roaringbitmap_tpu/tracing.py``. Two layers:
 
 * ``trace(logdir)`` — a ``torch.profiler.profile`` window over the
   enclosed block. It records CPU activity and, when a card is present,
   CUDA activity (kernels, copies), and writes a Chrome trace into
   ``logdir`` when the block exits. The profile object is yielded, so the
   caller can also read ``key_averages()``.
-* ``annotate(name)`` — a ``torch.profiler.record_function`` range, so a
-  host-side phase (packing, the unpack) shows up by name between the
-  kernels of a profiler trace, plus an ``op_timer`` of the same name.
 * ``op_timer(name)`` / ``timings()`` — wall-clock accounting of
-  host-visible phases, queryable without a profile. Combined with
-  ``insights.dispatch_counters()`` (kernels, layouts, transfer bytes) this
-  answers "where did the time go, which path served it, how many bytes
-  moved".
+  host-visible phases, queryable without a profile. ``op_timer`` is an
+  ``observe.spans.span``: inside a profiler window it is also a named
+  range between the kernels it launched, on the profiler's clock.
+  ``annotate`` is its alias. Combined with ``insights.dispatch_counters()``
+  (kernels, layouts, transfer bytes) this answers "where did the time go,
+  which path served it, how many bytes moved".
 
-The recording substrate is ``observe/``: every ``op_timer`` block lands in
-the locked registry histogram ``rb_tpu_host_op_seconds`` (flat name) and,
-through ``observe.spans``, in ``rb_tpu_span_seconds`` (nested ``/``-joined
+The recording substrate is ``observe/``: every span (``op_timer``, and the
+``timeline.stage`` blocks of the pack and delta pipelines) lands in the
+locked registry histogram ``rb_tpu_host_op_seconds`` (flat name, with each
+span's self time) and in ``rb_tpu_span_seconds`` (nested ``/``-joined
 path), so the JSONL / Prometheus exporters see host phases with no extra
 wiring. ``timings()`` is a view of the registry.
 """
@@ -28,17 +28,9 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
 from typing import Dict, Iterator
 
-from . import observe as _observe
 from .observe import spans as _spans
-
-_OP_SECONDS = _observe.histogram(
-    _observe.HOST_OP_SECONDS,
-    "Wall time of named host-side phases (op_timer)",
-    ("name",),
-)
 
 TRACE_FILE = "trace.json"
 
@@ -64,42 +56,32 @@ def trace(logdir: str = "rb_tpu_trace") -> Iterator[object]:
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named range in a profiler trace (``torch.profiler.record_function``)
-    plus an ``op_timer`` of the same name."""
-    import torch
-
-    with torch.profiler.record_function(name), op_timer(name):
-        yield
+def op_timer(name: str) -> _spans.Span:
+    """Accumulate wall time for a named host-side phase: a span, so into
+    the flat ``rb_tpu_host_op_seconds`` histogram and the nested
+    ``rb_tpu_span_seconds``, and a profiler range while one records."""
+    return _spans.Span(name)
 
 
-@contextlib.contextmanager
-def op_timer(name: str) -> Iterator[None]:
-    """Accumulate wall time for a named host-side phase, into the flat
-    ``rb_tpu_host_op_seconds`` histogram and the nested
-    ``rb_tpu_span_seconds`` through the span stack."""
-    t0 = time.perf_counter()
-    try:
-        with _spans.span(name):
-            yield
-    finally:
-        _OP_SECONDS.observe(time.perf_counter() - t0, (name,))
+annotate = op_timer
 
 
 def timings() -> Dict[str, Dict[str, float]]:
-    """{name: {count, total_s, mean_ms}} for all recorded phases (a view
-    of the ``rb_tpu_host_op_seconds`` registry histogram)."""
+    """{name: {count, total_s, mean_ms, self_s}} for all recorded phases (a
+    view of the ``rb_tpu_host_op_seconds`` registry histogram). ``self_s``
+    is the phase's total less the time its child spans on the same thread
+    cover."""
     return {
         name: {
             "count": st["count"],
             "total_s": round(st["sum"], 6),
             "mean_ms": round(st["sum"] / st["count"] * 1e3, 3) if st["count"] else 0.0,
+            "self_s": round(st.get("self", 0.0), 6),
         }
-        for (name,), st in _OP_SECONDS.series().items()
+        for (name,), st in _spans.HOST_OP_SECONDS.series().items()
     }
 
 
 def reset_timings() -> None:
-    _OP_SECONDS.clear()
+    _spans.HOST_OP_SECONDS.clear()
     _spans.reset_spans()
