@@ -1734,15 +1734,17 @@ OR_SIZE = 1_635_067
 
 def _step_pack_counts(plan, touched=None):
     """(steps over leaves, steps over other steps' results) among the
-    plan's device steps, counting only steps whose subtree holds a leaf of
-    ``touched`` (a set of leaf uids) when given."""
+    plan's device steps, by the operands each step packs (an andnot packs
+    its subtrahends, never its minuend), counting only steps whose
+    subtree holds a leaf of ``touched`` (a set of leaf uids) when given."""
     over_leaves = over_results = 0
     for st in plan.steps:
         if "device" not in st.engine:
             continue
         if touched is not None and not touched & {l.uid for l in st.node.leaves}:
             continue
-        if all(o.op == "leaf" for o in st.operands):
+        packed = st.operands[1:] if st.node.op == "andnot" else st.operands
+        if all(o.op == "leaf" for o in packed):
             over_leaves += 1
         else:
             over_results += 1

@@ -1294,13 +1294,16 @@ class PackCache:
 
     def get_packed(
         self, bitmaps: Sequence[RoaringBitmap], keys_filter: Optional[set] = None,
-        device=None,
+        device=None, kind: str = "agg",
     ) -> PackedGroups:
         """The resident pack for this working set on ``device``, delta-
         refreshed or rebuilt as needed. ``keys_filter``, when given, must be
         the AND key-intersection of ``bitmaps`` (the workShyAnd pre-filter)
         — the delta validator relies on that to detect intersection
-        changes."""
+        changes. ``kind`` labels the lookup's hit or miss in the per-kind
+        counts (the n-way andnot's subtrahend lookups count as
+        ``"andnot"``); the entry itself is an aggregation entry whatever
+        the label."""
         bitmaps = list(bitmaps)
         device = resolve_device(device)
         marker = "all" if keys_filter is None else "and"
@@ -1312,7 +1315,7 @@ class PackCache:
             fps, idents = _walk_fingerprints(bitmaps)
         if self._disabled():  # always a fresh uncached pack
             with self._lock:
-                self._count("agg", False)
+                self._count(kind, False)
             self._route_tls.route = ("disabled", 0)
             return pack_groups(group_by_key(bitmaps, keys_filter=keys_filter), device)
         key = ("agg", marker, str(device), fps)
@@ -1321,7 +1324,7 @@ class PackCache:
             e = self._entries.get(key)
             if e is not None:
                 self._entries.move_to_end(key)
-                self._count("agg", True)
+                self._count(kind, True)
                 _timeline.instant("pack_cache.hit", "cache", kind="agg", bytes=e.nbytes)
                 self._route_tls.route = ("hit", 0)
                 return e.value
@@ -1335,7 +1338,7 @@ class PackCache:
                     e.fps = fps
                     self._entries[key] = e
                     self._ident[ident] = key
-                    self._count("agg", True)
+                    self._count(kind, True)
                     self.delta_rows += len(rows)
                     _timeline.instant(
                         "pack_cache.delta_hit", "cache", kind="agg", rows=len(rows)
@@ -1360,7 +1363,7 @@ class PackCache:
                 regret_s=repack_s,
             )
         with self._lock:
-            self._count("agg", False)
+            self._count(kind, False)
         entry = _PackEntry(
             key, "agg", packed, packed.words_nbytes, fps=fps, row_map=row_map,
             refs=static_fp_refs(bitmaps),

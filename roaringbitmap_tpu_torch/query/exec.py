@@ -246,9 +246,10 @@ def execute_pipelined(
 
 def _device_step_leaves(p: Plan):
     """Yield ``(leaves, op)`` for the plan's device-routed all-leaf steps —
-    device-* n-ary and/or/xor only: the andnot and threshold kernels key
-    their packs differently (kind-prefixed ``get_or_build`` keys), so
-    staging an aggregation pack for either would be waste. The
+    device-* n-ary and/or/xor only: the threshold kernel keys its packs
+    differently (kind-prefixed ``get_or_build`` keys) and the andnot
+    kernel packs its subtrahends without the minuend, so staging a pack of
+    either step's operands would be waste. The
     ``-sharded`` steps are collective calls over the mesh, which the lane
     does not stage for, as in the JAX package."""
     for step in p.steps:

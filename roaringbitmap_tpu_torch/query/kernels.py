@@ -6,11 +6,19 @@ only pairwise and "element in >= k of N" not at all. Both kernels here
 have a CPU path and a device path:
 
 * **andnot_nway(first, \\*rest)** — ``first \\ (rest_1 | ... | rest_n)``.
-  Only ``first``'s keys can survive, so the subtrahends transpose into key
-  groups *restricted to first's keys*, the union reduces per group (CPU
-  word fold, or the packed device reduction via ``store.prepare_reduce``
-  on ``rb_group_reduce``), and the subtraction is one ``first & ~union``
-  mask over the covered rows plus ``rb_popcount_rows``.
+  Only ``first``'s keys can survive. On the CPU the subtrahends transpose
+  into key groups restricted to first's keys and the union is a word fold
+  per group. On the device the union reduces on ``rb_group_reduce``
+  (``store.prepare_reduce``) over the subtrahends' resident pack, the rows
+  at first's covered keys are gathered, and the subtraction is one
+  ``first & ~union`` mask over first's covered rows (shipped on each
+  call) plus ``rb_popcount_rows``. The pack is keyed by the subtrahends
+  alone, never by the minuend: it is their aggregation entry, every row —
+  the pack ``FastAggregation.or_`` over the same operands builds and
+  reads — so a named filter's union that has run serves every later
+  andnot with any minuend, and a miss builds it once for all of them. The
+  lookup counts as kind ``"andnot"`` in the pack cache's per-kind hits and
+  misses.
 
 * **threshold(k, bitmaps)** — the bit-sliced adder: per key group, fold
   each container's words into a binary counter held as L bit-slices (XOR =
@@ -24,9 +32,9 @@ have a CPU path and a device path:
   documented routing.
 
 Both device paths keep their packs in the resident pack cache
-(``store.PACK_CACHE``) under the operands' fingerprints and the device
-(``aggregation.config.device``), so a repeated call over unchanged bitmaps
-pays no host pack. Once a query's deadline has run out
+(``store.PACK_CACHE``) under the packed operands' fingerprints and the
+device (``aggregation.config.device``), so a repeated call over unchanged
+bitmaps pays no host pack. Once a query's deadline has run out
 (``robust/ladder``), the CPU path serves. Each device path runs through
 the ``query.exec`` ladder site as its list's one tier, with the
 ``query.exec`` fault point, so a failed launch raises.
@@ -38,6 +46,7 @@ from collections import Counter
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
 from ..models.container import BitmapContainer, best_container_of_words
@@ -179,15 +188,14 @@ def andnot_nway_cardinality(
 
 
 def _device_andnot_stage(first: RoaringBitmap, rest, covered_keys: set):
-    """The device andnot's union stage: pack (resident) + per-covered-key
-    subtrahend union reduce. Returns (first's covered rows on the device
-    [G, 2048], union rows on the device [G, 2048], passthrough
-    key/container pairs, sorted covered keys int64[G]).
+    """The device andnot's union stage. Returns (first's covered rows on
+    the device [G, 2048], the subtrahends' union rows at the same keys on
+    the device [G, 2048], passthrough key/container pairs, sorted covered
+    keys int64[G]).
 
-    Both packs — the subtrahend groups AND first's covered rows — live in
-    the resident pack cache under the operand fingerprints; the group
-    transpose happens only inside the miss build, so a repeated andnot over
-    unchanged bitmaps performs zero host packs."""
+    The union reduces over the subtrahends' resident aggregation pack and
+    its rows at first's covered keys are gathered on the device; first's
+    covered rows ship on every call, outside the pack cache."""
     from ..parallel import store
 
     device = _query_device()
@@ -196,26 +204,15 @@ def _device_andnot_stage(first: RoaringBitmap, rest, covered_keys: set):
     passthrough = [
         (k, c) for k, c in zip(hlc.keys, hlc.containers) if k not in covered_keys
     ]
-    operands = (first,) + tuple(rest)
-    key = (
-        "andnot",
-        first.fingerprint(),
-        tuple(bm.fingerprint() for bm in rest),
-        str(device),
-    )
-
-    def build():
-        packed = store.pack_groups(_rest_groups(first, rest), device)
-        first_rows = store.ship_rows([c for _, c in covered], device)
-        return (packed, first_rows), packed.words_nbytes + first_rows.numel() * 4
-
+    keys = np.asarray(sorted(covered_keys), dtype=np.int64)
     with tracing.op_timer("query.andnot.device"):
-        packed, first_rows = store.PACK_CACHE.get_or_build(
-            key, build, refs=store.static_fp_refs(operands)
-        )
+        packed = store.PACK_CACHE.get_packed(rest, device=device, kind="andnot")
         run, _layout = store.prepare_reduce(packed, op="or")
         union, _ = run()
-    return first_rows, union, passthrough, np.asarray(sorted(covered_keys), dtype=np.int64)
+        at = torch.from_numpy(np.searchsorted(packed.group_keys, keys)).to(union.device)
+        union = union.index_select(0, at)
+        first_rows = store.ship_rows([c for _, c in covered], device)
+    return first_rows, union, passthrough, keys
 
 
 def _device_andnot_parts(first: RoaringBitmap, rest, covered_keys: set):

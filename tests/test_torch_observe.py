@@ -9,7 +9,8 @@ mode allocates no span; spans nest; decisions and outcomes resolve. On a
 census-shaped working set (a few hundred bitmaps of the seeded census
 stand-in) and on Q1 both packages record the same decision sites,
 choices and non-timing attributes, and the same layout and pack-cache
-deltas. The port's device path runs on CPU tensors
+deltas, but for the andnot's subtrahend pack, which the port keys without
+the minuend. The port's device path runs on CPU tensors
 (``aggregation.config.device = "cpu"``), the JAX package's on its CPU
 backend.
 """
@@ -467,7 +468,36 @@ def _cache_delta(cache, before):
     return {k: st[k] - before[k] for k in ("hits", "misses", "delta_rows")}
 
 
-def _run_both(t_fn, j_fn):
+def _as_the_port_packs_the_andnot(decisions, delta, subtrahend_rows, resident):
+    """The JAX package's records of one device andnot, as the port makes
+    them. The JAX package keys the andnot's pack by its minuend and
+    subtrahends, so a new minuend misses and admits an ``andnot`` entry
+    (first's covered rows and the subtrahends' rows on them). The port
+    keys the subtrahends alone: their aggregation entry of every
+    subtrahend row (``subtrahend_rows``), admitted once, then hit by an
+    andnot with any minuend (``resident``)."""
+    admits = [i for i, (site, _d, inputs) in enumerate(decisions)
+              if site == "pack_cache.admit" and inputs.get("kind") == "andnot"]
+    assert len(admits) == 1
+    out = list(decisions)
+    if resident:
+        del out[admits[0]]
+        delta = {**delta, "hits": delta["hits"] + 1, "misses": delta["misses"] - 1}
+    else:
+        site, decision, _inputs = out[admits[0]]
+        out[admits[0]] = (site, decision, {"kind": "agg", "bytes": subtrahend_rows * store.ROW_BYTES})
+    return out, delta
+
+
+def _jax_andnot_counts():
+    """The JAX package's (hits, misses) of kind ``andnot``."""
+    return [jstore._PACK_HITS.get(("andnot",)), jstore._PACK_MISSES.get(("andnot",))]
+
+
+def _run_both(t_fn, j_fn, andnot=None):
+    """Run both, compare their records and return the port's; ``andnot``,
+    ``(subtrahend_rows, resident)``, maps the JAX package's records of one
+    device andnot to the port's keying (``_as_the_port_packs_the_andnot``)."""
     from roaringbitmap_tpu import columnar as jcol
     from roaringbitmap_tpu_torch import columnar as tcol
 
@@ -475,13 +505,21 @@ def _run_both(t_fn, j_fn):
     jdec.LOG.clear()
     t_lay, j_lay = dict(store.LAYOUT_COUNTS), dict(jstore.LAYOUT_COUNTS)
     t_st, j_st = store.PACK_CACHE.stats(), jstore.PACK_CACHE.stats()
+    j_kind = _jax_andnot_counts()
     got, want = t_fn(), j_fn()
     assert got.serialize() == want.serialize()
-    assert _decisions_of(tdec, tout, tcol) == _decisions_of(jdec, jout, jcol)
+    j_decisions = _decisions_of(jdec, jout, jcol)
+    j_delta = _cache_delta(jstore.PACK_CACHE, j_st)
+    if andnot is not None:
+        # the JAX package's own records, before any mapping: its andnot
+        # lookup misses (a new minuend), cold or warm
+        assert [n - b for n, b in zip(_jax_andnot_counts(), j_kind)] == [0, 1]
+        j_decisions, j_delta = _as_the_port_packs_the_andnot(j_decisions, j_delta, *andnot)
+    assert _decisions_of(tdec, tout, tcol) == j_decisions
     assert {k: v - t_lay.get(k, 0) for k, v in store.LAYOUT_COUNTS.items()} == {
         k: jstore.LAYOUT_COUNTS.get(k, 0) - j_lay.get(k, 0) for k in store.LAYOUT_COUNTS
     }
-    assert _cache_delta(store.PACK_CACHE, t_st) == _cache_delta(jstore.PACK_CACHE, j_st)
+    assert _cache_delta(store.PACK_CACHE, t_st) == j_delta
     return _decisions_of(tdec, tout, tcol)
 
 
@@ -508,9 +546,11 @@ def test_q1_records_what_the_jax_package_records():
         return Q.or_(Q.andnot(Q.and_(Q.or_(*a), Q.or_(*b)), Q.or_(*c)), Q.threshold(2, *head))
 
     tx, jx = q1(tq.Q, tb), q1(jq.Q, jb)
+    c_rows = sum(b.get_container_count() for b in tb[thirds[2][0]:thirds[2][1]])
     cold = _run_both(
         lambda: tq.execute(tx, cache=None, mode="device"),
         lambda: jq.execute(jx, cache=None, mode="device"),
+        andnot=(c_rows, False),
     )
     steps = tq.exec._memo_plan(tx, "device").steps
     assert [d for s, d, _i in cold if s == "query.plan"] == [st.engine for st in steps]
@@ -518,6 +558,7 @@ def test_q1_records_what_the_jax_package_records():
     warm = _run_both(  # the plan memoized: no planner decision, packs resident
         lambda: tq.execute(tx, cache=None, mode="device"),
         lambda: jq.execute(jx, cache=None, mode="device"),
+        andnot=(c_rows, True),
     )
     assert "query.plan" not in {s for s, _d, _i in warm}
     assert {s for s, _d, _i in warm} >= {"agg.dispatch"}

@@ -374,15 +374,111 @@ def test_bsi_pack_rides_shared_cache():
     assert _kind("bsi") == (h0 + 1, m0 + 1)
 
 
+def _holds(x, fp) -> bool:
+    return x == fp or (isinstance(x, tuple) and any(_holds(y, fp) for y in x))
+
+
+def _keyed_by(bm) -> list:
+    """The resident entries whose key or packed fingerprints hold ``bm``'s
+    fingerprint."""
+    fp = bm.fingerprint()
+    return [e.key for e in store.PACK_CACHE._entries.values()
+            if _holds(e.key, fp) or _holds(e.fps or (), fp)]
+
+
+def _agg_key(bms) -> tuple:
+    return ("agg", "all", "cpu", tuple(b.fingerprint() for b in bms))
+
+
 def test_andnot_kernel_pack_reuse():
+    """The shared route: the subtrahends' own aggregation entry, built on
+    the first call and hit by every later one, counted as kind "andnot";
+    nothing is keyed by the minuend."""
     rng = np.random.default_rng(61)
     first, r1, r2 = (RoaringBitmap(_values(rng)) for _ in range(3))
     want = qk.andnot_nway(first, r1, r2, mode="cpu")
+    (ha, ma), (h0, m0) = _kind("agg"), _kind("andnot")
     assert qk.andnot_nway(first, r1, r2, mode="device") == want
-    h0, m0 = _kind("andnot")
+    assert _kind("andnot") == (h0, m0 + 1)
     assert qk.andnot_nway(first, r1, r2, mode="device") == want
     assert qk.andnot_nway_cardinality(first, r1, r2, mode="device") == want.get_cardinality()
-    assert _kind("andnot") == (h0 + 2, m0)
+    assert _kind("andnot") == (h0 + 2, m0 + 1)
+    assert list(store.PACK_CACHE._entries) == [_agg_key([r1, r2])]
+    assert _kind("agg") == (ha, ma) and not _keyed_by(first)
+
+
+def test_andnot_subtrahend_pack_built_once_across_minuends():
+    rng = np.random.default_rng(62)
+    m1, m2, r1, r2, r3 = (RoaringBitmap(_values(rng)) for _ in range(5))
+    h0, m0 = _kind("andnot")
+    for first in (m1, m2, m1):
+        assert qk.andnot_nway(first, r1, r2, r3, mode="device") == qk.andnot_nway(
+            first, r1, r2, r3, mode="cpu")
+    assert _kind("andnot") == (h0 + 2, m0 + 1)
+    assert len(store.PACK_CACHE) == 1
+    assert not _keyed_by(m1) and not _keyed_by(m2)
+
+
+def test_or_then_andnot_share_one_entry():
+    """A union of the subtrahends leaves the entry the andnot then hits:
+    one resident entry, no host pack for the andnot."""
+    rng = np.random.default_rng(63)
+    first, *rest = (RoaringBitmap(_values(rng)) for _ in range(5))
+    (ha, ma), (h0, m0) = _kind("agg"), _kind("andnot")
+    assert FA.or_(*rest, mode="device") == FA.naive_or(*rest)
+    assert _kind("agg") == (ha, ma + 1)
+    assert qk.andnot_nway(first, *rest, mode="device") == qk.andnot_nway(first, *rest, mode="cpu")
+    assert _kind("andnot") == (h0 + 1, m0) and _kind("agg") == (ha, ma + 1)
+    assert list(store.PACK_CACHE._entries) == [_agg_key(rest)]
+    assert not _keyed_by(first)
+
+
+def test_small_minuend_against_wide_cold_subtrahends_builds_their_whole_pack():
+    """A one-key minuend against cold subtrahends over 64 keys builds the
+    subtrahends' aggregation entry of every row, keyed without the
+    minuend; a second minuend and a union over the same operands hit it."""
+    rng = np.random.default_rng(64)
+    rest = [RoaringBitmap(_values(rng, n=20_000, spread=1 << 22)) for _ in range(4)]
+    key = 5
+    (ha, ma), (h0, m0) = _kind("agg"), _kind("andnot")
+    firsts = [RoaringBitmap(((key << 16) + _values(rng, n=300, spread=1 << 16)).astype(np.uint32))
+              for _ in range(2)]
+    for first in firsts:
+        assert qk.andnot_nway(first, *rest, mode="device") == qk.andnot_nway(first, *rest, mode="cpu")
+    assert list(store.PACK_CACHE._entries) == [_agg_key(rest)]
+    (entry,) = store.PACK_CACHE._entries.values()
+    assert entry.value.n_rows == sum(b.get_container_count() for b in rest) > 2 * len(rest)
+    assert _kind("andnot") == (h0 + 1, m0 + 1)
+    assert not any(_keyed_by(f) for f in firsts)
+    assert FA.or_(*rest, mode="device") == FA.naive_or(*rest)
+    assert _kind("agg") == (ha + 1, ma) and len(store.PACK_CACHE) == 1
+
+
+@pytest.mark.parametrize("edit", ["add", "remove"])
+def test_andnot_after_a_subtrahend_mutates_in_place(edit):
+    """A subtrahend mutated in place, a value added to it that the answer
+    held or one removed that it took from the answer: the subtrahends'
+    pack takes the delta route and the answer follows; never stale."""
+    rng = np.random.default_rng(65)
+    rest = [RoaringBitmap(_values(rng, n=20_000)) for _ in range(3)]
+    first = RoaringBitmap(_values(rng, n=4000))
+    want = qk.andnot_nway(first, *rest, mode="cpu")
+    assert qk.andnot_nway(first, *rest, mode="device") == want
+    assert list(store.PACK_CACHE._entries) == [_agg_key(rest)]
+    if edit == "add":  # in first, in no subtrahend, in a chunk rest[1] holds
+        v = int(next(iter(want)))
+        assert rest[1].high_low_container.get_index(v >> 16) >= 0
+        rest[1].add(v)
+    else:  # in first and in rest[1] alone, in a chunk rest[1] keeps
+        v = next(int(x) for x in rest[1]
+                 if x in first and x not in rest[0] and x not in rest[2])
+        rest[1].remove(v)
+        assert rest[1].high_low_container.get_index(v >> 16) >= 0
+    d0, (h0, m0) = store.PACK_CACHE.delta_rows, _kind("andnot")
+    got = qk.andnot_nway(first, *rest, mode="device")
+    assert (v in got) == (edit == "remove")
+    assert got == qk.andnot_nway(first, *rest, mode="cpu") != want
+    assert store.PACK_CACHE.delta_rows == d0 + 1 and _kind("andnot") == (h0 + 1, m0)
 
 
 def test_threshold_skew_fallback_leaves_no_resident_entry():

@@ -278,11 +278,17 @@ def test_result_cache_hits_and_is_invalidated_by_a_leaf_mutation():
 def test_warm_query_packs_nothing_for_steps_over_leaves():
     """With the result cache off, a repeated query's steps over leaves hit
     their resident packs; a step over other steps' results packs anew (its
-    operands are new bitmaps)."""
+    operands are new bitmaps). An andnot packs its subtrahends alone, so
+    one over leaves hits whatever its minuend."""
     tb, _ = _corpus(seed=SEED + 2, n=8)
     q = tq.Q.andnot(tq.Q.and_(tq.Q.or_(*tb[:4]), tq.Q.or_(*tb[4:])), *tb[2:6]) | tq.Q.threshold(2, *tb)
     p = tq.plan(q, mode="device")
-    over_results = sum(1 for s in p.steps if any(o.op != "leaf" for o in s.operands))
+
+    def packed(s):
+        return s.operands[1:] if s.node.op == "andnot" else s.operands
+
+    assert any(s.node.op == "andnot" and s.operands[0].op != "leaf" for s in p.steps)
+    over_results = sum(1 for s in p.steps if any(o.op != "leaf" for o in packed(s)))
     over_leaves = len(p.steps) - over_results
     tq.execute(q, cache=None, mode="device")
     before = store.PACK_CACHE.stats()
@@ -290,6 +296,86 @@ def test_warm_query_packs_nothing_for_steps_over_leaves():
     after = store.PACK_CACHE.stats()
     assert after["misses"] - before["misses"] == over_results
     assert after["hits"] - before["hits"] == over_leaves
+
+
+def _holds(x, fp) -> bool:
+    return x == fp or (isinstance(x, tuple) and any(_holds(y, fp) for y in x))
+
+
+def _andnot_kind():
+    st = store.PACK_CACHE.stats()["kinds"].get("andnot", {"hits": 0, "misses": 0})
+    return st["hits"], st["misses"]
+
+
+def test_no_resident_pack_is_keyed_by_an_andnot_minuend(monkeypatch):
+    """After the benchmark-shaped query, with and without the result
+    cache, no resident entry's key or packed fingerprints hold the
+    fingerprint of any minuend the device andnot saw; the repeats hit the
+    subtrahends' pack."""
+    minuends = []
+    real = tk._device_andnot_stage
+
+    def spy(first, rest, covered_keys):
+        minuends.append(first.fingerprint())
+        return real(first, rest, covered_keys)
+
+    monkeypatch.setattr(tk, "_device_andnot_stage", spy)
+    q = _families(tq.Q, TB)["query-benchmark-shape"]
+    h0, m0 = _andnot_kind()
+    for cache in (None, None, tq.ResultCache()):
+        assert tq.execute(q, cache=cache, mode="device") == tq.evaluate_naive(q)
+    assert len(minuends) == 3 and _andnot_kind() == (h0 + 2, m0 + 1)
+    for e in store.PACK_CACHE._entries.values():
+        assert not any(_holds(e.key, fp) or _holds(e.fps or (), fp) for fp in minuends)
+
+
+def test_a_planned_union_and_the_folded_andnot_share_the_subtrahend_pack():
+    """The planner orders C's leaves alike in the union step ``or(C)`` of
+    one query and in the andnot that folds ``x \\ or(C)`` into them in
+    another, so both key one pack: the andnot's lookup hits what the
+    union left resident, and no andnot entry is added."""
+    L = [tq.Q.leaf(b) for b in TB]
+    union = tq.Q.or_(*L[10:])
+    assert tq.execute(union, cache=None, mode="device") == tq.evaluate_naive(union)
+    entries, (h0, m0) = list(store.PACK_CACHE._entries), _andnot_kind()
+    q = tq.Q.andnot(tq.Q.and_(tq.Q.or_(*L[:5]), tq.Q.or_(*L[5:10])), union)
+    assert tq.execute(q, cache=None, mode="device") == tq.evaluate_naive(q)
+    assert _andnot_kind() == (h0 + 1, m0)
+    assert set(entries) <= set(store.PACK_CACHE._entries)
+    assert not [k for k in store.PACK_CACHE._entries if k[0] == "andnot"]
+
+
+def test_fused_andnots_over_shared_subtrahends_match_and_share_one_pack(monkeypatch):
+    """The fusion window's merged andnot calls the same union stage: two
+    andnots with different minuends over the same subtrahends are one
+    ``pair_rows_reduce`` launch, the JAX package's bytes and the CPU
+    path's values, over one subtrahend pack built once."""
+    firsts, rest = (0, 13), list(range(5, 9))
+    tl, jl = [tq.Q.leaf(b) for b in TB], [jq.Q.leaf(b) for b in JB]
+    qs = [tq.Q.andnot(tl[i], *[tl[r] for r in rest]) for i in firsts]
+    jqs = [jq.Q.andnot(jl[i], *[jl[r] for r in rest]) for i in firsts]
+    n_rows = sum(TB[r].get_container_count() for r in rest)
+    for i in firsts:  # both take the shared route
+        assert 2 * tk._covered(TB[i], [TB[r] for r in rest])[1] >= n_rows
+    calls = []
+    real = K.pair_rows_reduce
+
+    def counted(*args):
+        calls.append(args[4])
+        return real(*args)
+
+    monkeypatch.setattr(K, "pair_rows_reduce", counted)
+    h0, m0 = _andnot_kind()
+    got = tq.execute_fused(qs, cache=None, mode="device")
+    assert calls == ["andnot"] and _andnot_kind() == (h0 + 1, m0 + 1)
+    want = jq.execute_fused(jqs, cache=None, mode="device")
+    for g, w, q in zip(got, want, qs):
+        assert g.serialize() == w.serialize()
+        assert g == tq.execute(q, cache=None, mode="cpu")
+    for i in firsts:
+        fp = TB[i].fingerprint()
+        assert not any(_holds(e.key, fp) or _holds(e.fps or (), fp)
+                       for e in store.PACK_CACHE._entries.values())
 
 
 def test_mutated_leaf_takes_the_delta_route():
