@@ -90,8 +90,7 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
 
-def test_benchmark_json_keeps_to_the_contract():
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+def _keeps_to_the_contract(bench: dict) -> None:
     assert set(bench) == {"command", "paths", "run_seconds", "configs", "workloads",
                           "end_to_end", "per_layer"}
     assert bench["paths"] == ["portbench"] and 1 <= bench["run_seconds"] <= 51
@@ -104,7 +103,7 @@ def test_benchmark_json_keeps_to_the_contract():
     cells = [w["name"] for w in bench["workloads"]]
     assert 1 <= len(cells) == len(set(cells))
     for w in bench["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] == 1
+        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
         assert w["config"] in names and len(w["why"]) <= 200
         mix = json.loads((ROOT / "portbench" / "traffic" / f"{w['traffic']}.json").read_text())
         importlib.import_module(f"portbench.kinds.{mix['kind']}")
@@ -122,3 +121,31 @@ def test_benchmark_json_keeps_to_the_contract():
         assert {m["name"] for m in run.reported(bench, cell, False)} >= {"setup_s", "qps"}
     for n in names + cells:
         assert NAME.match(n)
+    # a quarter of the cells, rounded down, may take four chips; one always may
+    assert sum(w["chips"] == 4 for w in bench["workloads"]) <= max(1, len(cells) // 4)
+
+
+def test_benchmark_json_keeps_to_the_contract():
+    _keeps_to_the_contract(json.loads((ROOT / "BENCHMARK.json").read_text()))
+
+
+@pytest.mark.parametrize("cells, four, admitted",
+                         [(1, 1, True), (4, 1, True), (4, 2, False), (8, 2, True), (8, 3, False)])
+def test_the_contract_admits_four_chips_in_a_quarter_of_the_cells(cells, four, admitted):
+    """BENCHMARK.json's first cell in place of its cells, copied under new
+    names, the first ``four`` of them on four chips; the metrics are the
+    first cell's, each listing every copy."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    first = bench["workloads"][0]
+    bench["workloads"] = [{**first, "name": f"{first['name']}-{i}", "chips": 4 if i < four else 1}
+                          for i in range(cells)]
+    for key in ("end_to_end", "per_layer"):
+        bench[key] = [m for m in bench[key] if first["name"] in m.get("workloads", [first["name"]])]
+        for m in bench[key]:
+            if "workloads" in m:
+                m["workloads"] = [w["name"] for w in bench["workloads"]]
+    if admitted:
+        _keeps_to_the_contract(bench)
+    else:
+        with pytest.raises(AssertionError):
+            _keeps_to_the_contract(bench)

@@ -43,17 +43,11 @@ def test_a_tiny_run_is_correct(cell):
     assert res["checks"]["compared_answers"]["value"] >= 1
 
 
-# the filter's control rounds values through float32: at 300,000 rows few
-# values lie within an ulp of a range's ends, so its test holds 4M rows
-CONTROL_CONFIG = {"bsi100m-filter": {"rows": 4_000_000}}
-# on the card the port takes its device path for an index of 32 slices from
-# 128 chunks on (bsi.config.min_device_cells), as shipped
-CARD_CONFIG = {"bsi100m-histogram": {"rows": 8_400_000}, "bsi100m-filter": {"rows": 8_400_000}}
-
-
+# a control run and a run on the card take the sizes that the cell's maker
+# and kind give for them in their tiny files (helpers.py)
 @pytest.mark.parametrize("cell", CELLS)
 def test_the_control_comes_out_not_correct(cell):
-    res, lines = tiny_run(cell, seconds=1.0, control=True, config=CONTROL_CONFIG.get(cell))
+    res, lines = tiny_run(cell, seconds=1.0, control=True)
     assert not res["correct"], lines
     assert res["checks"]["wrong_answers"]["value"] > 0
 
@@ -61,11 +55,10 @@ def test_the_control_comes_out_not_correct(cell):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_small_run_on_the_card_is_correct_and_its_control_is_not(card, cell):
-    res, lines = tiny_run(cell, seconds=2.0, device="cuda", config=CARD_CONFIG.get(cell))
+    res, lines = tiny_run(cell, seconds=2.0, device="cuda")
     assert res["correct"], lines
     assert res["device"]["platform"] == "gpu" and res["device"]["memory_peak_bytes"] > 0
-    bad, _ = tiny_run(cell, seconds=1.0, device="cuda", control=True,
-                      config=CARD_CONFIG.get(cell))
+    bad, _ = tiny_run(cell, seconds=1.0, device="cuda", control=True)
     assert not bad["correct"]
 
 
