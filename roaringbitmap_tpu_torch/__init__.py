@@ -35,7 +35,7 @@ passes ``device="cpu"``; a missing card raises instead of falling back.
 
 from .models.art import Art
 from .models.bitset import RoaringBitSet
-from .models.bsi import Operation, RoaringBitmapSliceIndex
+from .models.bsi import Operation, ResidentSet, RoaringBitmapSliceIndex
 from .models.bsi64 import Roaring64BitmapSliceIndex
 from .models.bsi_buffer import ImmutableBitSliceIndex, MutableBitSliceIndex
 from .models.buffer import BufferFastAggregation, BufferParallelAggregation, MutableRoaringBitmap
@@ -102,6 +102,7 @@ __all__ = [
     "BufferFastAggregation",
     "BufferParallelAggregation",
     "RoaringBitmapSliceIndex",
+    "ResidentSet",
     "Roaring64BitmapSliceIndex",
     "MutableBitSliceIndex",
     "ImmutableBitSliceIndex",

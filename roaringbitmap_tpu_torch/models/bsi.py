@@ -19,6 +19,20 @@ epilogue and per-chunk popcount; RANGE runs both walks in the same launch —
 and ``compare_cardinality_many`` answers a whole batch of thresholds in one
 count-only launch. ``sum`` is one masked ``rb_popcount_rows`` launch.
 
+Resident found sets: ``compare_resident`` runs the same verdicts and the
+same launch as ``compare`` and returns a :class:`ResidentSet`, the result's
+words and per-chunk counts left on the device. ``compare``,
+``compare_resident``, ``compare_cardinality`` and ``sum`` take one as their
+``found_set``: on the same chunk-key layout its words are the kernel's
+``fixed`` or mask operand as they lie, on another they are remapped by key
+on the device. A chain of predicates ending in ``sum`` so brings nothing to
+the host but the sum's counts. Spans: ``bsi.compare`` (``compare`` and
+``compare_resident``), ``bsi.compare_cardinality``, ``bsi.sum``, and below
+them ``bsi.found.marshal`` (a bitmap found set put on the pack's layout on
+the host) and ``bsi.found.resident`` (a resident one taken up); the counter
+``rb_tpu_bsi_found_total{form}`` counts the found sets the four entry
+points were given, by form (``none``, ``bitmap``, ``resident``).
+
 ``mode="auto"`` picks the device path by index size only
 (``bit_count() * container count >= config.min_device_cells``), never by
 probing for a card; it runs on ``config.device`` (default ``"cuda"``), and
@@ -49,17 +63,27 @@ from __future__ import annotations
 
 import enum
 import struct
-from typing import List, Optional, Tuple
+import threading
+from collections import OrderedDict
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from .. import observe as _observe
 from ..device import resolve_device
+from ..observe import spans as _spans
 from ..ops import device as dev
 from ..ops import kernels
 from ..parallel import store
 from ..serialization import InvalidRoaringFormat, read_into
 from .roaring import RoaringBitmap
+
+_FOUND_TOTAL = _observe.counter(
+    _observe.BSI_FOUND_TOTAL,
+    "Found sets given to the BSI entry points, by form (none | bitmap | resident)",
+    ("form",),
+)
 
 
 class Operation(enum.Enum):
@@ -228,6 +252,94 @@ def _items(bm: RoaringBitmap):
 def _bits_high_first(value: int, s_count: int) -> List[int]:
     """The predicate's bits for the slice walk, highest slice first."""
     return [(value >> i) & 1 for i in range(s_count - 1, -1, -1)]
+
+
+# One tuple object for each chunk-key layout packed lately: the columns of
+# one table share their ebm's keys, so a resident found set meets the next
+# column's pack on the very same object and its layout check is an identity
+# test, not a walk over thousands of keys.
+_LAYOUTS: "OrderedDict[tuple, tuple]" = OrderedDict()
+_LAYOUTS_LOCK = threading.Lock()
+_MAX_LAYOUTS = 64
+
+
+def _shared_layout(keys) -> tuple:
+    t = tuple(keys)
+    with _LAYOUTS_LOCK:
+        t = _LAYOUTS.setdefault(t, t)
+        _LAYOUTS.move_to_end(t)
+        while len(_LAYOUTS) > _MAX_LAYOUTS:
+            _LAYOUTS.popitem(last=False)
+    return t
+
+
+class ResidentSet:
+    """A found set kept on the device: what
+    :meth:`RoaringBitmapSliceIndex.compare_resident` returns, and a
+    ``found_set`` that ``compare``, ``compare_resident``,
+    ``compare_cardinality`` and ``sum`` take as it lies.
+
+    ``keys`` is the ascending tuple of chunk keys the set lives on (the
+    layout of the pack that made it, with the chunks outside the ebm that
+    a NEQ keeps of its found set, as Java does); ``words`` the int32
+    ``[K, 2048]`` words of those chunks and ``cards`` their int32 ``[K]``
+    popcounts, on the device. Immutable: nothing writes into its tensors,
+    so a set may share the pack's ebm words."""
+
+    __slots__ = ("keys", "words", "cards")
+
+    def __init__(self, keys, words: torch.Tensor, cards: torch.Tensor):
+        self.keys = tuple(keys)
+        self.words = words
+        self.cards = cards
+
+    @classmethod
+    def empty(cls, device) -> "ResidentSet":
+        return cls((), torch.zeros((0, dev.DEVICE_WORDS), dtype=torch.int32, device=device),
+                   torch.zeros(0, dtype=torch.int32, device=device))
+
+    def get_cardinality(self) -> int:
+        """The per-chunk counts summed on the device and fetched."""
+        return int(dev.to_host_i64(self.cards.sum(dtype=torch.int64).view(1))[0])
+
+    def to_bitmap(self) -> RoaringBitmap:
+        """The set as a ``RoaringBitmap``: its words fetched once and
+        re-compressed (``store.unpack_to_bitmap``)."""
+        return store.unpack_to_bitmap(
+            np.asarray(self.keys, dtype=np.int64),
+            dev.to_host_u32(self.words),
+            dev.to_host_i64(self.cards),
+        )
+
+    def __repr__(self):
+        return f"ResidentSet(chunks={len(self.keys)}, device={self.words.device})"
+
+
+FoundSet = Union[None, RoaringBitmap, ResidentSet]
+
+
+def _count_found(found_set: FoundSet) -> None:
+    form = ("none" if found_set is None
+            else "resident" if isinstance(found_set, ResidentSet) else "bitmap")
+    _FOUND_TOTAL.inc(1, (form,))
+
+
+def _joined(keys, words, cards, lacking: Optional[ResidentSet]) -> ResidentSet:
+    """The set of ``words`` on ``keys``, with a found set's part outside
+    them (``lacking``, which NEQ and the fixed verdict keep) merged in on
+    the device, into one ascending layout."""
+    if lacking is None:
+        return ResidentSet(keys, words, cards)
+    own = np.asarray(keys, dtype=np.int64)
+    extra = np.asarray(lacking.keys, dtype=np.int64)
+    merged = np.union1d(own, extra)
+    at = torch.from_numpy(np.searchsorted(merged, own)).to(words.device)
+    at_extra = torch.from_numpy(np.searchsorted(merged, extra)).to(words.device)
+    w = words.new_zeros((merged.size, words.shape[1]))
+    w.index_copy_(0, at, words).index_copy_(0, at_extra, lacking.words)
+    c = cards.new_zeros(merged.size)
+    c.index_copy_(0, at, cards).index_copy_(0, at_extra, lacking.cards)
+    return ResidentSet(merged.tolist(), w, c)
 
 
 class RoaringBitmapSliceIndex:
@@ -432,11 +544,39 @@ class RoaringBitmapSliceIndex:
         operation: Operation,
         start_or_value: int,
         end: int = 0,
-        found_set: Optional[RoaringBitmap] = None,
+        found_set: FoundSet = None,
         mode: Optional[str] = None,
     ) -> RoaringBitmap:
         """compare (RoaringBitmapSliceIndex.java:482-513): min/max
-        short-circuit then O'Neil."""
+        short-circuit then O'Neil. A :class:`ResidentSet` found set keeps
+        the walk on the device (unless ``mode`` is ``"cpu"``); the result
+        comes back as a bitmap either way."""
+        with _spans.span("bsi.compare"):
+            _count_found(found_set)
+            if isinstance(found_set, ResidentSet):
+                if self._use_device(mode, found_set):
+                    return self._compare_resident(operation, start_or_value, end, found_set).to_bitmap()
+                found_set = found_set.to_bitmap()
+            return self._compare(operation, start_or_value, end, found_set, mode)
+
+    def compare_resident(
+        self,
+        operation: Operation,
+        start_or_value: int,
+        end: int = 0,
+        found_set: FoundSet = None,
+    ) -> ResidentSet:
+        """compare whose result stays on the device: the same min/max
+        verdicts and the same ``rb_oneil_compare`` launch as
+        :meth:`compare`, the result's words and per-chunk counts returned
+        unfetched on ``config.device``. ``found_set`` is None, a bitmap or
+        a :class:`ResidentSet`; the result equals ``compare``'s with the
+        same found set, a NEQ's found columns outside the ebm included."""
+        with _spans.span("bsi.compare"):
+            _count_found(found_set)
+            return self._compare_resident(operation, start_or_value, end, found_set)
+
+    def _compare(self, operation, start_or_value, end, found_set, mode) -> RoaringBitmap:
         res = self._compare_using_min_max(operation, start_or_value, end, found_set)
         if res is not None:
             return res
@@ -471,8 +611,9 @@ class RoaringBitmapSliceIndex:
             else RoaringBitmap.and_(self.ebm, found_set)
         )
 
-    def _use_device(self, mode: Optional[str]) -> bool:
-        """The device path or the CPU walk, by index size only."""
+    def _use_device(self, mode: Optional[str], found_set: FoundSet = None) -> bool:
+        """The device path or the CPU walk, by index size only; in auto
+        mode a resident found set keeps to the device it lies on."""
         mode = mode or config.mode
         if mode == "cpu":
             return False
@@ -480,6 +621,8 @@ class RoaringBitmapSliceIndex:
             return True
         if mode != "auto":
             raise ValueError(f"mode must be 'auto', 'cpu' or 'device', got {mode!r}")
+        if isinstance(found_set, ResidentSet):
+            return True
         cells = self.bit_count() * self.ebm.get_container_count()
         return cells >= config.min_device_cells
 
@@ -542,9 +685,10 @@ class RoaringBitmapSliceIndex:
         device = resolve_device(config.device)
 
         def build():
-            return pack_slices(
+            (keys, ebm_w, slices_w), nbytes = pack_slices(
                 _items(self.ebm), [_items(s) for s in self.slices], device
             )
+            return (_shared_layout(keys), ebm_w, slices_w), nbytes
 
         return store.PACK_CACHE.get_or_build(
             self._pack_key(), build,
@@ -553,28 +697,45 @@ class RoaringBitmapSliceIndex:
 
     @staticmethod
     def _found_words(keys, like: torch.Tensor, found_set: RoaringBitmap) -> torch.Tensor:
-        """found_set marshalled onto the packed key layout: int32
-        ``[K, 2048]`` on ``like``'s device."""
-        return found_words(keys, like, _items(found_set))
+        """found_set marshalled onto the packed key layout on the host:
+        int32 ``[K, 2048]`` on ``like``'s device."""
+        with _spans.span("bsi.found.marshal"):
+            return found_words(keys, like, _items(found_set))
 
-    def _pack_with_fixed(self, found_set: Optional[RoaringBitmap]):
+    def _found_on(self, found_set: FoundSet, keys, ebm_w: torch.Tensor, lacking: bool = False):
+        """``(fixed_w, rest)``: the found set's words on the pack's layout
+        (the ebm's when None) and, with ``lacking``, its part outside the
+        layout as a :class:`ResidentSet` (None when it has none). A bitmap
+        is marshalled on the host; a resident set is taken as it lies on
+        the same layout, else remapped by key on the device."""
+        if found_set is None:
+            return ebm_w, None
+        if isinstance(found_set, ResidentSet):
+            return _resident_on(found_set, keys, ebm_w, lacking)
+        fixed_w = self._found_words(keys, ebm_w, found_set)
+        if not lacking:
+            return fixed_w, None
+        rest = RoaringBitmap.andnot(found_set, _keys_subset(found_set, set(keys)))
+        if rest.is_empty():
+            return fixed_w, None
+        rest_keys = rest.high_low_container.keys
+        rest_w = self._found_words(rest_keys, ebm_w.new_empty((len(rest_keys), ebm_w.shape[1])), rest)
+        return fixed_w, ResidentSet(rest_keys, rest_w, kernels.popcount_rows(rest_w))
+
+    def _pack_with_fixed(self, found_set: FoundSet):
         """(keys, ebm_w, slices_w, fixed_w) — the pack plus the found-set
         words on its key layout (fixed = ebm when no found set)."""
         keys, ebm_w, slices_w = self._pack_dense()
-        fixed_w = (
-            ebm_w if found_set is None else self._found_words(keys, ebm_w, found_set)
-        )
-        return keys, ebm_w, slices_w, fixed_w
+        return keys, ebm_w, slices_w, self._found_on(found_set, keys, ebm_w)[0]
 
-    def _sum_device(self, found_set: RoaringBitmap) -> int:
-        """Σ 2^i · |slice_i ∩ found| from one masked popcount launch over
-        the pack (``[S, K]`` counts); the 2^i weighting runs on the host in
-        exact Python ints (S can exceed 62 bits)."""
-        keys, ebm_w, slices_w = self._pack_dense()
+    @staticmethod
+    def _slice_counts(slices_w: torch.Tensor, found_w: torch.Tensor) -> torch.Tensor:
+        """int64 ``[S]`` on the device: |slice_i ∩ found| from one masked
+        popcount launch over the pack (on each rank of ``config.mesh`` when
+        set), the per-chunk counts reduced on the device."""
         s_count, k = slices_w.shape[0], slices_w.shape[1]
         if s_count == 0 or k == 0:
-            return 0
-        found_w = self._found_words(keys, ebm_w, found_set)
+            return torch.zeros(s_count, dtype=torch.int64, device=slices_w.device)
         if config.mesh is not None:
             from ..parallel import sharding
 
@@ -583,21 +744,52 @@ class RoaringBitmapSliceIndex:
             per_chunk = sharding.gather_shards(mesh, counts, (None, "containers"))
         else:
             per_chunk = kernels.popcount_rows(slices_w, mask=found_w).view(s_count, k)
-        per_slice = per_chunk.cpu().numpy().astype(np.int64).sum(axis=1)
+        return per_chunk.sum(dim=1, dtype=torch.int64)
+
+    def _sum_device(self, found_set: RoaringBitmap) -> int:
+        """Σ 2^i · |slice_i ∩ found| (:meth:`_slice_counts`); the 2^i
+        weighting runs on the host in exact Python ints (S can exceed 62
+        bits)."""
+        keys, ebm_w, slices_w = self._pack_dense()
+        per_slice = dev.to_host_i64(self._slice_counts(slices_w, self._found_on(found_set, keys, ebm_w)[0]))
         return sum(int(c) << i for i, c in enumerate(per_slice.tolist()))
+
+    def _sum_resident(self, found_set: ResidentSet) -> Tuple[int, int]:
+        """(sum, count) over a resident found set: the per-slice counts and
+        the set's own count reduced on the device and fetched in one copy."""
+        keys, ebm_w, slices_w = self._pack_dense()
+        found_w, _ = self._found_on(found_set, keys, ebm_w)
+        count = found_set.cards.sum(dtype=torch.int64).view(1)
+        got = dev.to_host_i64(torch.cat([self._slice_counts(slices_w, found_w), count])).tolist()
+        count = got.pop()
+        if count == 0:
+            return 0, 0
+        return sum(int(c) << i for i, c in enumerate(got)), count
 
     def compare_cardinality(
         self,
         operation: Operation,
         start_or_value: int,
         end: int = 0,
-        found_set: Optional[RoaringBitmap] = None,
+        found_set: FoundSet = None,
         mode: Optional[str] = None,
     ) -> int:
         """Count-only compare: the device path fetches only the per-chunk
         popcounts — no result words, no container rebuild (the reference's
         RangeBitmap *Cardinality family, RangeBitmap.java:111-414,
-        generalized to the BSI)."""
+        generalized to the BSI). A :class:`ResidentSet` found set is the
+        count of :meth:`compare_resident`'s set, fetched as one number."""
+        with _spans.span("bsi.compare_cardinality"):
+            _count_found(found_set)
+            if isinstance(found_set, ResidentSet):
+                if self._use_device(mode, found_set):
+                    return self._compare_resident(
+                        operation, start_or_value, end, found_set
+                    ).get_cardinality()
+                found_set = found_set.to_bitmap()
+            return self._compare_cardinality(operation, start_or_value, end, found_set, mode)
+
+    def _compare_cardinality(self, operation, start_or_value, end, found_set, mode) -> int:
         verdict = self._min_max_verdict(operation, start_or_value, end)
         if verdict == "empty":
             return 0
@@ -617,9 +809,7 @@ class RoaringBitmapSliceIndex:
             if operation == Operation.NEQ and found_set is not None:
                 total += self._neq_outside_ebm(fixed_bm, keys)
             return total
-        return self.compare(
-            operation, start_or_value, end, found_set, mode="cpu"
-        ).get_cardinality()
+        return self._compare(operation, start_or_value, end, found_set, "cpu").get_cardinality()
 
     def compare_cardinality_many(
         self,
@@ -655,20 +845,46 @@ class RoaringBitmapSliceIndex:
         ``count_only``) and ``[K]`` popcounts."""
         keys, ebm_w, slices_w, fixed_w = self._pack_with_fixed(found_set)
         fixed_bm = self.ebm if found_set is None else found_set
+        out, cards = self._walk(op, predicate, end, ebm_w, slices_w, fixed_w, count_only)
+        return keys, out, cards, fixed_bm
+
+    def _walk(self, op, predicate, end, ebm_w, slices_w, fixed_w, count_only: bool = False):
+        """(out, cards) of one ``rb_oneil_compare`` launch over the pack
+        against ``fixed_w`` (on each rank of ``config.mesh`` when set)."""
         s_count = self.bit_count()
         walks = [_bits_high_first(predicate, s_count)]
         if op == Operation.RANGE:
             walks.append(_bits_high_first(end, s_count))
         if config.mesh is not None:
-            out, cards = _mesh_compare(
+            return _mesh_compare(
                 config.mesh, slices_w, walks, ebm_w, fixed_w, op.value, count_only
             )
-            return keys, out, cards, fixed_bm
         bits = torch.tensor([walks], dtype=torch.int32).to(slices_w.device)
         out, cards = kernels.oneil_compare(
             slices_w, bits, ebm_w, fixed_w, op.value, count_only=count_only
         )
-        return keys, out, cards[0], fixed_bm
+        return out, cards[0]
+
+    def _compare_resident(self, op, start_or_value, end, found_set: FoundSet) -> ResidentSet:
+        """:meth:`compare` with its result left on the device: the verdict's
+        set or the walk's words and counts, a found set's columns outside
+        the layout carried along where NEQ keeps them."""
+        verdict = self._min_max_verdict(op, start_or_value, end)
+        if verdict == "empty":
+            return ResidentSet.empty(resolve_device(config.device))
+        if verdict == "fixed" and isinstance(found_set, ResidentSet):
+            return found_set
+        keys, ebm_w, slices_w = self._pack_dense()
+        keep = verdict == "fixed" or (verdict is None and op == Operation.NEQ)
+        fixed_w, lacking = self._found_on(found_set, keys, ebm_w, lacking=keep)
+        if verdict is None:
+            if op == Operation.RANGE:
+                end = min(int(end), (1 << self.bit_count()) - 1)
+            out, cards = self._walk(op, start_or_value, end, ebm_w, slices_w, fixed_w)
+        else:
+            out = fixed_w if verdict == "fixed" or found_set is None else ebm_w & fixed_w
+            cards = kernels.popcount_rows(out)
+        return _joined(keys, out, cards, lacking)
 
     def _o_neil_device(self, op, predicate, found_set, end: int = 0) -> RoaringBitmap:
         """The whole O'Neil chain — walk, op epilogue and popcount — as one
@@ -691,20 +907,26 @@ class RoaringBitmapSliceIndex:
             result = RoaringBitmap.or_(result, missing)
         return result
 
-    def sum(
-        self, found_set: Optional[RoaringBitmap] = None, mode: Optional[str] = None
-    ) -> Tuple[int, int]:
-        """(sum, count) over found columns (RoaringBitmapSliceIndex.java:581-592)."""
-        if found_set is None or found_set.is_empty():
-            return 0, 0
-        count = found_set.get_cardinality()
-        if self._use_device(mode):
-            return self._sum_device(found_set), count
-        total = sum(
-            (1 << i) * RoaringBitmap.and_cardinality(s, found_set)
-            for i, s in enumerate(self.slices)
-        )
-        return total, count
+    def sum(self, found_set: FoundSet = None, mode: Optional[str] = None) -> Tuple[int, int]:
+        """(sum, count) over found columns (RoaringBitmapSliceIndex.java:581-592).
+        A :class:`ResidentSet` found set is the popcount mask as it lies;
+        only the per-slice counts and the count come to the host."""
+        with _spans.span("bsi.sum"):
+            _count_found(found_set)
+            if isinstance(found_set, ResidentSet):
+                if self._use_device(mode, found_set):
+                    return self._sum_resident(found_set)
+                found_set = found_set.to_bitmap()
+            if found_set is None or found_set.is_empty():
+                return 0, 0
+            count = found_set.get_cardinality()
+            if self._use_device(mode):
+                return self._sum_device(found_set), count
+            total = sum(
+                (1 << i) * RoaringBitmap.and_cardinality(s, found_set)
+                for i, s in enumerate(self.slices)
+            )
+            return total, count
 
     def transpose(self, found_set: Optional[RoaringBitmap] = None) -> RoaringBitmap:
         """Bitmap of distinct values over the found columns."""
@@ -846,6 +1068,34 @@ class RoaringBitmapSliceIndex:
             f"RoaringBitmapSliceIndex(cols={self.get_cardinality()}, "
             f"slices={self.bit_count()}, min={self.min_value}, max={self.max_value})"
         )
+
+
+def _resident_on(found: ResidentSet, keys: tuple, like: torch.Tensor, lacking: bool = False):
+    """``(fixed_w, rest)`` of a resident found set on the layout ``keys``
+    (``like``: the pack's ebm words): its words as they lie when the
+    layouts are one, else gathered by key on the device with zeros where
+    it has no row; with ``lacking``, its rows outside ``keys`` as a
+    :class:`ResidentSet` (None when there are none)."""
+    with _spans.span("bsi.found.resident"):
+        if found.keys is keys or found.keys == keys:
+            return found.words, None
+        have = np.asarray(found.keys, dtype=np.int64)
+        want = np.asarray(keys, dtype=np.int64)
+        at = np.minimum(np.searchsorted(have, want), max(have.size - 1, 0))
+        hit = np.flatnonzero(have[at] == want) if have.size else np.zeros(0, dtype=np.int64)
+        fixed_w = like.new_zeros(like.shape)
+        if hit.size:
+            src = torch.from_numpy(at[hit]).to(like.device)
+            fixed_w.index_copy_(0, torch.from_numpy(hit).to(like.device), found.words.index_select(0, src))
+        if not lacking:
+            return fixed_w, None
+        out_rows = np.flatnonzero(~np.isin(have, want, assume_unique=True))
+        if out_rows.size == 0:
+            return fixed_w, None
+        idx = torch.from_numpy(out_rows).to(like.device)
+        rest = ResidentSet(have[out_rows].tolist(), found.words.index_select(0, idx),
+                           found.cards.index_select(0, idx))
+        return fixed_w, rest
 
 
 def _keys_subset(bm: RoaringBitmap, keys: set) -> RoaringBitmap:

@@ -37,6 +37,7 @@ from .registry import (
     ANALYSIS_CONTRACT_FINDINGS_TOTAL,
     ANALYSIS_FINDINGS_TOTAL,
     BREAKER_TRANSITIONS_TOTAL,
+    BSI_FOUND_TOTAL,
     COMPILE_TOTAL,
     BATCH_PAIRWISE_TOTAL,
     COLUMNAR_BATCH_TOTAL,
@@ -231,6 +232,7 @@ __all__ = [
     "QUERY_LATENCY_SECONDS",
     "DEGRADE_TOTAL",
     "BREAKER_TRANSITIONS_TOTAL",
+    "BSI_FOUND_TOTAL",
     "RETRY_TOTAL",
     "SERVE_ADMIT_TOTAL",
     "SERVE_INFLIGHT_COUNT",

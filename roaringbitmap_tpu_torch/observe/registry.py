@@ -53,6 +53,9 @@ HOST_OP_SECONDS = "rb_tpu_host_op_seconds"
 SPAN_SECONDS = "rb_tpu_span_seconds"
 QUERY_CACHE_TOTAL = "rb_tpu_query_cache_total"
 QUERY_PLAN_TOTAL = "rb_tpu_query_plan_total"
+# found sets given to the BSI entry points (models/bsi.py), by form:
+# none | bitmap | resident (a set kept on the device between predicates)
+BSI_FOUND_TOTAL = "rb_tpu_bsi_found_total"
 # the static analyzer's per-rule finding counts (analysis/__main__.py)
 ANALYSIS_FINDINGS_TOTAL = "rb_tpu_analysis_findings_total"
 ANALYSIS_CONTRACT_FINDINGS_TOTAL = "rb_tpu_analysis_contract_findings_total"

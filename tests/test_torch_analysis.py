@@ -420,8 +420,10 @@ def test_registries_are_the_jax_registries_less_the_departures():
     assert {d.site for d in t.decision_sites} == {d.site for d in j.decision_sites}
     assert set(t.sentinel_rules) == set(j.sentinel_rules) and len(t.sentinel_rules) == 16
     assert set(t.knobs) == set(j.knobs) - {"RB_TPU_EXPAND"} and len(t.knobs) == 29
-    assert set(t.metric_constants) == set(j.metric_constants) - {"KERNEL_PROBE_TOTAL"}
-    assert all(t.metric_constants[k][0] == j.metric_constants[k][0] for k in t.metric_constants)
+    # the port's one metric of its own: resident BSI found sets
+    assert set(t.metric_constants) == set(j.metric_constants) - {"KERNEL_PROBE_TOTAL"} | {"BSI_FOUND_TOTAL"}
+    assert all(t.metric_constants[k][0] == j.metric_constants[k][0]
+               for k in set(t.metric_constants) & set(j.metric_constants))
 
 
 def test_knob_table_is_the_package_table():

@@ -667,12 +667,16 @@ def test_serving_block_on_a_private_registry_is_the_jax_block(seed):
 
 
 def test_new_metric_names_are_the_jax_names():
+    """Every ``rb_tpu_*`` name of the port's registry is the JAX package's,
+    but ``BSI_FOUND_TOTAL``: resident found sets are the port's alone."""
     from roaringbitmap_tpu.observe import registry as jreg
     from roaringbitmap_tpu_torch.observe import registry as treg
 
     names = {k: v for k, v in vars(treg).items() if k.isupper() and isinstance(v, str)
              and v.startswith("rb_tpu_")}
-    assert names and all(getattr(jreg, k) == v for k, v in names.items())
+    own = {"BSI_FOUND_TOTAL"}
+    assert names and all(getattr(jreg, k) == v for k, v in names.items() if k not in own)
+    assert not any(hasattr(jreg, k) for k in own) and own <= set(names)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -708,7 +712,8 @@ def test_registry_names_are_the_jax_names_less_the_probe_and_analysis():
     """Every canonical ``rb_tpu_*`` name of the JAX registry is in the
     port's, with the same value, except ``KERNEL_PROBE_TOTAL`` (the port
     never probes for a lowering); the ``ANALYSIS_*`` names came with the
-    port's analyzer, and the port has no name of its own."""
+    port's analyzer, and the port's one name of its own is
+    ``BSI_FOUND_TOTAL`` (resident found sets, which the JAX package lacks)."""
     from roaringbitmap_tpu.observe import registry as jreg
     from roaringbitmap_tpu_torch.observe import registry as treg
 
@@ -719,6 +724,7 @@ def test_registry_names_are_the_jax_names_less_the_probe_and_analysis():
     t, j = names(treg), names(jreg)
     missing = set(j) - set(t)
     assert missing == {"KERNEL_PROBE_TOTAL"}
-    assert set(t) <= set(j) and all(t[k] == j[k] for k in t)
+    assert set(t) - set(j) == {"BSI_FOUND_TOTAL"}
+    assert all(t[k] == j[k] for k in set(t) & set(j))
     exported = {k for k in dir(tobs) if k in t}
     assert exported == set(t)
