@@ -46,7 +46,9 @@ Phases, each printed as it runs; any failure exits non-zero with no result:
    64 and 256 beside its byte and operation bounds, the walk's own
    instruction floor and the SM clock; 405-slice batches, which must run
    on the per-query kernel, checked and timed at Q = 64; the
-   masked popcount at ``[32, 1526, 2048]``; the one-segment wide reduce at
+   masked popcount at ``[32, 1526, 2048]`` and at TPC-H Q6's price sum,
+   ``[24, 9156, 2048]``, where it must read each mask row once; the
+   one-segment wide reduce at
    ``[131072, 2048]`` for or, and and xor; ``rb_threshold`` on the
    zero-padded ``[31, 10000, 2048]`` block of the census working set's
    real rows at k = 64 and 200, and at an odd shape (G = 1, M = 997, k past
@@ -454,6 +456,7 @@ ROW_BYTES = 2048 * 4
 G_MAIN, M_MAIN, ROWS_MAIN = 31, 10_000, 308_100  # the main path's shapes
 BSI_ROWS = 100_000_000  # BASELINE.md config 4, benchmarks/bsi.py:100-197
 S_BSI, K_BSI = 32, (BSI_ROWS + 65535) // 65536  # [32, 1526, 2048] slices
+Q6_SLICES, Q6_CHUNKS = 24, 9156  # TPC-H SF 100 lineitem's price column: [24, 9156, 2048]
 RANGE_ROWS = 10_000_000
 WIDE_ROWS = 131_072  # 1 GiB: the size the TPU sweep judged the wide kernel at
 BATCH_Q = 64
@@ -1142,6 +1145,29 @@ def phase_bsi_kernels(card: str):
         plain_ms=plain, bound_ms=b,
     )
     del slices, found, ebm
+    torch.cuda.empty_cache()
+    # TPC-H Q6's price sum at SF 100: 24 slices against a 75 MB found set,
+    # past the card's 50 MB L2, so every mask row is read once (G = S)
+    q6_s, q6_k = Q6_SLICES, Q6_CHUNKS
+    slices = _rand_dense(gen, (q6_s, q6_k, W))
+    found = _rand_dense(gen, (q6_k, W)) & _rand_dense(gen, (q6_k, W))
+    before = K.LAUNCHES["rb_popcount_rows[mask-once]"]
+    got = K.popcount_rows(slices, mask=found)
+    if K.LAUNCHES["rb_popcount_rows[mask-once]"] != before + 1:
+        fail(f"rb_popcount_rows[masked] at [{q6_s}, {q6_k}, 2048] did not read each mask row once")
+    err = max(err, _compare("rb_popcount_rows[masked] Q6", got, K.popcount_rows_plain(slices, mask=found)))
+    ms = cuda_ms(lambda: K.popcount_rows(slices, mask=found))
+    plain = cuda_ms(lambda: K.popcount_rows_plain(slices, mask=found), reps=3, warmup=1)
+    kw = q6_k * ROW_BYTES
+    b = bound_ms((q6_s + 1) * kw + q6_s * q6_k * 4)
+    say(
+        f"[kernel] rb_popcount_rows[masked] [{q6_s}, {q6_k}, 2048] & [{q6_k}, 2048] (TPC-H Q6, SF 100): "
+        f"equal; {ms:.4f} ms, bound {b:.4f} ms ({b / ms:.1%} of bound), plain {plain:.3f} ms; "
+        f"library call: none  [{card}]"
+    )
+    results["rb_popcount_rows[masked]"].update(
+        max_abs_err=err, q6=dict(shape=[q6_s, q6_k, W], ms=ms, plain_ms=plain, bound_ms=b))
+    del slices, found
     torch.cuda.empty_cache()
 
     n_words = WIDE_ROWS * W
@@ -6897,6 +6923,7 @@ def main():
             "bound_by": t.get("bound_by", "bytes"),
             "library_ms": t.get("library_ms"),
             **({"shape": t["shape"]} if "shape" in t else {}),
+            **({"q6": t["q6"]} if "q6" in t else {}),
         })
     say(f"[done] {time.perf_counter() - t_start:.1f} s  [{card}]")
     if epochs_launches is not None:

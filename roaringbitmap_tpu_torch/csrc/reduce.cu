@@ -11,17 +11,17 @@
 //     is a segmented reduce over group offsets that writes [G, 2048])
 // rb_popcount_rows replaces the XLA popcount epilogue
 //   roaringbitmap_tpu/ops/device.py:popcount_rows
-// and, with a mask (row r counted as words[r] & mask[r % mask_rows]), the
-// BSI sum's masked popcount
+// and, with a mask (the rows an [S, K] block, row s*K + k counted as
+// words[s*K + k] & mask[k]), the BSI sum's masked popcount
 //   roaringbitmap_tpu/models/bsi.py:_slice_masked_popcounts
 //     ([S, K, 2048] & [K, 2048] -> [S, K], without the [S, K, 2048]
-//     temporary the XLA version builds; the mask rows are re-read S times
-//     but stay in L2)
+//     temporary the XLA version builds)
 //
 // What bounds them: both stream every input row from device memory once and
 // do one bitwise op (or one popcount) per 4-byte word, far below the card's
 // integer rate, so device-memory bandwidth is the bound: live rows * 8192 B
-// over 3.35 TB/s.
+// over 3.35 TB/s. For the masked popcount that is (S + 1) * K rows: the
+// slices once and the mask once.
 //
 // What the design does about it. The Pallas kernels carry an accumulator in
 // VMEM across a sequential grid; Hopper's grid is parallel and unordered, so
@@ -54,8 +54,31 @@
 // padded [G, M, 2048] block is never built.
 //
 // The popcount runs one 256-thread block per row (of any of the widths):
-// __popc per word (of the word and its mask word when masked), a warp
-// shuffle reduction, then a reduction over the 8 warps in shared memory.
+// __popc per word, a warp shuffle reduction, then a reduction over the 8
+// warps in shared memory.
+//
+// The masked popcount is chunk-major. It replaces a kernel that ran one
+// block per row and read mask row k once for each of the S slices. That
+// held the mask in L2 only while K * 8 KiB stayed well under the card's
+// 50 MB: a TPC-H SF-100 column's found set is 9,156 chunks, 75 MB, and
+// between two reads of a mask row the grid streamed ~150 MB, so each sum
+// read the mask S times from device memory, half of its traffic. Here a
+// 256-thread CTA owns one chunk k and a group of G consecutive slices:
+// it loads mask row k into registers once (two uint4 a thread at 2048
+// words), then streams the slice rows s*K + k of its group, four steps of
+// loads in flight a thread, ANDs, popcounts and reduces each over its
+// warp. The slice rows are read once, so they are loaded evict-first
+// (__ldcs) and leave L2 to the mask rows. The warps' counts go to shared
+// memory, one slot a (step, warp), and one __syncthreads later the CTA
+// writes out[s*K + k] for its G slices, each word once. Rows narrower
+// than the CTA (512 and 256 words) are read 2 or 4 side by side, as the
+// reduce does. G comes from the host (ops/kernels.py
+// masked_popcount_group, a function of S, K and the row width): G = S
+// where K CTAs alone give every SM four, so the launch reads (S + 1) * K
+// rows; a smaller K gets S / G slice groups a chunk, which read the mask
+// S / G - 1 times more, from L2, since the groups of one chunk are
+// neighbouring CTAs that run together. Longer CTAs win wherever the card
+// is full: each pays its mask load, reduction and barrier once.
 //
 // The interface is plain C for ctypes: pointers and the stream arrive as
 // void*, every entry point sets the device, launches on the caller's stream
@@ -71,6 +94,9 @@ constexpr int kWords = 2048;           // 32-bit words per container row
 constexpr int kVecs = kWords / 4;      // uint4 columns of a full row
 constexpr int kReduceThreads = kVecs;  // a CTA covers 2048 words of rows
 constexpr int kPopThreads = 256;
+constexpr int kPopWarps = kPopThreads / 32;
+constexpr int kMaxGroup = 256;         // slices a masked CTA walks (ops/kernels.py MAX_GROUP)
+constexpr int kStepsInFlight = 4;      // the masked walk's steps loaded before counting
 constexpr int kInFlight = 4;           // rows loaded before folding
 
 enum Op { kOr = 0, kAnd = 1, kXor = 2 };
@@ -192,6 +218,62 @@ popcount_rows_kernel(const uint4* __restrict__ words, int vecs, const uint4* __r
   }
 }
 
+// One CTA a (chunk, slice group): blockIdx.x = k * n_groups + group index,
+// so the groups of one chunk run side by side and share its mask row in L2.
+// NC: the uint4 columns a thread owns of one row (2 at 2048 words, else 1).
+// part: [steps][kPopWarps], a warp's count of one slice row; the warps over
+// slice j of the group hold part[j * wps + q], q < wps.
+template <int NC>
+__global__ void __launch_bounds__(kPopThreads)
+masked_popcount_kernel(const uint4* __restrict__ words, int vecs, long long n_chunks, int n_slices,
+                       int group, const uint4* __restrict__ mask, int* __restrict__ out) {
+  extern __shared__ int part[];
+  const int n_groups = (n_slices + group - 1) / group;
+  const long long k = blockIdx.x / n_groups;
+  const int s0 = static_cast<int>(blockIdx.x % n_groups) * group;
+  const int s_end = min(n_slices, s0 + group);
+  const int span = min(vecs, kPopThreads);  // threads over one row
+  const int side = kPopThreads / span;      // rows read side by side
+  const int col = threadIdx.x % span;
+  const int sub = threadIdx.x / span;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  uint4 m[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) m[j] = mask[k * vecs + col + j * kPopThreads];
+  const int steps = (s_end - s0 + side - 1) / side;
+  for (int i0 = 0; i0 < steps; i0 += kStepsInFlight) {
+    uint4 v[kStepsInFlight][NC];
+#pragma unroll
+    for (int u = 0; u < kStepsInFlight; ++u) {
+      const int s = s0 + (i0 + u) * side + sub;
+      const uint4* p = words + (s * n_chunks + k) * vecs + col;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) v[u][j] = s < s_end ? __ldcs(p + j * kPopThreads) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kStepsInFlight; ++u) {
+      if (i0 + u >= steps) break;  // the same for every thread of the CTA
+      int c = 0;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        c += __popc(v[u][j].x & m[j].x) + __popc(v[u][j].y & m[j].y) +
+             __popc(v[u][j].z & m[j].z) + __popc(v[u][j].w & m[j].w);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xFFFFFFFFu, c, off);
+      if (lane == 0) part[(i0 + u) * kPopWarps + warp] = c;
+    }
+  }
+  __syncthreads();
+  const int wps = span / 32;  // warps over one row
+  for (int j = threadIdx.x; j < s_end - s0; j += kPopThreads) {
+    int c = 0;
+    for (int q = 0; q < wps; ++q) c += part[j * wps + q];
+    out[(s0 + j) * n_chunks + k] = c;
+  }
+}
+
 template <int OP, bool ROW_MAP>
 void launch_group_reduce(const void* words, long long n_rows, int vecs, const void* chunks,
                          long long n_chunks, const void* row_map, void* out,
@@ -240,26 +322,42 @@ int rb_group_reduce(int device, int op, const void* words, long long n_rows, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// words: n_rows x row_words words (row_words 2048, 1024, 512 or 256); mask:
-// mask_rows x row_words words or null (row r is counted as words[r] &
-// mask[r % mask_rows]); out: n_rows int32 popcounts.
+// words: n_rows x row_words words (row_words 2048, 1024, 512 or 256); out:
+// n_rows int32 popcounts. mask: null, or mask_rows (K) x row_words words
+// with K dividing n_rows, the rows then an [S, K] block and row s*K + k
+// counted as words[s*K + k] & mask[k]; group: the slices one CTA walks under
+// one mask row, 1 to min(S, 256) (ignored without a mask).
 int rb_popcount_rows(int device, const void* words, long long n_rows, int row_words,
-                     const void* mask, long long mask_rows, void* out, void* stream) {
+                     const void* mask, long long mask_rows, int group, void* out, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!row_width_ok(row_words)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0) return 0;
   if (n_rows > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  if (mask != nullptr && mask_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned grid = static_cast<unsigned>(n_rows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mask != nullptr) {
-    popcount_rows_kernel<true><<<grid, kPopThreads, 0, s>>>(
-        static_cast<const uint4*>(words), row_words / 4, static_cast<const uint4*>(mask), mask_rows,
-        static_cast<int*>(out));
+  const int vecs = row_words / 4;
+  if (mask == nullptr) {
+    popcount_rows_kernel<false><<<static_cast<unsigned>(n_rows), kPopThreads, 0, s>>>(
+        static_cast<const uint4*>(words), vecs, nullptr, 1, static_cast<int*>(out));
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (mask_rows <= 0 || n_rows % mask_rows) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_slices = n_rows / mask_rows;
+  if (group < 1 || group > kMaxGroup || group > n_slices) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n_groups = (n_slices + group - 1) / group;
+  const int side = kPopThreads / (vecs < kPopThreads ? vecs : kPopThreads);
+  const size_t smem = static_cast<size_t>((group + side - 1) / side) * kPopWarps * sizeof(int);
+  const unsigned grid = static_cast<unsigned>(mask_rows * n_groups);
+  if (vecs > kPopThreads) {
+    masked_popcount_kernel<2><<<grid, kPopThreads, smem, s>>>(
+        static_cast<const uint4*>(words), vecs, mask_rows, static_cast<int>(n_slices), group,
+        static_cast<const uint4*>(mask), static_cast<int*>(out));
   } else {
-    popcount_rows_kernel<false><<<grid, kPopThreads, 0, s>>>(
-        static_cast<const uint4*>(words), row_words / 4, nullptr, 1, static_cast<int*>(out));
+    masked_popcount_kernel<1><<<grid, kPopThreads, smem, s>>>(
+        static_cast<const uint4*>(words), vecs, mask_rows, static_cast<int>(n_slices), group,
+        static_cast<const uint4*>(mask), static_cast<int*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -164,7 +164,7 @@ def load() -> ctypes.CDLL:
             vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.rb_group_reduce.argtypes = [i, i, vp, ll, i, vp, ll, vp, vp, vp]
             lib.rb_group_reduce.restype = i
-            lib.rb_popcount_rows.argtypes = [i, vp, ll, i, vp, ll, vp, vp]
+            lib.rb_popcount_rows.argtypes = [i, vp, ll, i, vp, ll, i, vp, vp]
             lib.rb_popcount_rows.restype = i
             lib.rb_oneil_compare.argtypes = [i, i, vp, i, ll, i, vp, i, vp, vp, vp, vp, vp]
             lib.rb_oneil_compare.restype = i

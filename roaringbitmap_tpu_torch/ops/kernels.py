@@ -17,7 +17,8 @@ CUDA kernels (``csrc/reduce.cu``, ``csrc/oneil.cu``, ``csrc/query.cu``,
   epilogue ``roaringbitmap_tpu/ops/device.py:popcount_rows`` (torch has no
   popcount) and, with ``mask=``, the BSI sum's
   ``models/bsi.py:_slice_masked_popcounts``. Bound: the same bandwidth,
-  rows * 8192 B (plus the mask rows once).
+  rows * 8192 B (plus the mask rows once, which the chunk-major masked
+  walk reads once a chunk where :func:`masked_popcount_group` gives G = S).
 * ``rb_oneil_compare`` and ``rb_oneil_counts`` — :func:`oneil_compare`.
   Replace ``pallas_kernels.py:oneil_compare_pallas`` (one query, on
   ``rb_oneil_compare``; bound: device-memory bandwidth, one pass over the
@@ -89,7 +90,8 @@ from ..robust import faults as _faults
 from . import device as dev
 
 # launch counts by kernel (and the reduce's three modes, the masked
-# popcount, the tiled batched O'Neil walk and the per-query kernel running a
+# popcount and, of those, the ones that read each mask row once (G = S),
+# the tiled batched O'Neil walk and the per-query kernel running a
 # batch too deep for it); "wide_reduce_cardinality" counts
 # calls of that composite on the card, whose reduce and popcount launches
 # also count under their own keys
@@ -99,6 +101,7 @@ KERNELS = (
     "rb_group_reduce[rowmap]",
     "rb_popcount_rows",
     "rb_popcount_rows[masked]",
+    "rb_popcount_rows[mask-once]",
     "rb_oneil_compare",
     "rb_oneil_compare[batched]",
     "rb_oneil_compare[batched-deep]",
@@ -126,6 +129,20 @@ LAUNCHES = _observe.CounterMap(_DISPATCH_TOTAL, scalar=True, fixed={"engine": "c
 CHUNK_ROWS = 128
 
 _OP_CODE = {"or": 0, "and": 1, "xor": 2}
+
+# the masked popcount's CTA: 256 threads over one chunk's mask row, held in
+# registers while the CTA walks a group of that chunk's slice rows
+POP_THREADS = 256
+# CTAs past which a masked launch walks every slice under one mask row:
+# four on each of an H100's 132 SMs, 1,024 threads whose loads in flight
+# (64-128 B a thread) cover an SM's share of device-memory bandwidth. Past
+# it the longest CTAs are as fast as any (G = S within 2% of the best G on
+# an H100 at K = 763 to 9,156 and every row width), since each CTA pays
+# its mask load, reduction and barrier once
+FILL_CTAS = 132 * 4
+# the most slices one CTA walks: its warps' counts, 8 ints a slice, stay in
+# 8 KiB of shared memory (csrc/reduce.cu kMaxGroup)
+MAX_GROUP = 256
 
 
 def reset_launches() -> None:
@@ -314,6 +331,21 @@ def _check_mask(flat: torch.Tensor, mask: Optional[torch.Tensor]) -> Optional[to
     return m
 
 
+def masked_popcount_group(n_slices: int, n_chunks: int, row_words: int) -> int:
+    """G, the slice rows one CTA of the masked popcount counts under one
+    mask row, for an ``[S, K, row_words]`` block against a ``[K, row_words]``
+    mask. G = S (each mask row read once) where K CTAs alone fill the card
+    (``FILL_CTAS``); a smaller K splits a chunk's slices into as many groups
+    as filling it takes, each a multiple of the rows a CTA reads side by
+    side at this width, at most S and ``MAX_GROUP``."""
+    if n_slices < 1 or n_chunks < 1 or row_words not in ROW_WIDTHS:
+        raise ValueError(f"no masked popcount over [{n_slices}, {n_chunks}, {row_words}]")
+    side = max(1, POP_THREADS * 4 // row_words)
+    groups = -(-FILL_CTAS // n_chunks)
+    g = -(-n_slices // groups)
+    return min(-(-g // side) * side, n_slices, MAX_GROUP)
+
+
 def popcount_rows_plain(words: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of :func:`popcount_rows`."""
     flat = _check_words(words, ROW_WIDTHS)
@@ -328,7 +360,9 @@ def popcount_rows(words: torch.Tensor, mask: Optional[torch.Tensor] = None) -> t
     """Per-row cardinality ``[R, W] -> int32 [R]``, W 2048 or a width in
     ``ROW_WIDTHS``. With ``mask`` (int32 ``[K, W]``, K dividing R) row r is
     counted as ``words[r] & mask[r % K]``: an ``[S, K, W]`` block against
-    one ``[K, W]`` mask gives the ``[S, K]`` masked popcounts flat."""
+    one ``[K, W]`` mask gives the ``[S, K]`` masked popcounts flat, from one
+    chunk-major launch whose CTAs walk G slices (:func:`masked_popcount_group`)
+    under one mask row."""
     flat = _check_words(words, ROW_WIDTHS)
     m = _check_mask(flat, mask)
     _faults.fault_point("ops.dispatch")
@@ -344,13 +378,20 @@ def popcount_rows(words: torch.Tensor, mask: Optional[torch.Tensor] = None) -> t
     from . import _build
 
     lib = _build.load()
+    k = 0 if m is None else m.shape[0]
+    group = 0 if m is None else masked_popcount_group(r // k, k, flat.shape[1])
     rc = lib.rb_popcount_rows(
         flat.device.index or 0, flat.data_ptr(), r, flat.shape[1],
-        None if m is None else m.data_ptr(), 0 if m is None else m.shape[0],
+        None if m is None else m.data_ptr(), k, group,
         out.data_ptr(), torch.cuda.current_stream(flat.device).cuda_stream,
     )
     _build.check(lib, rc, "rb_popcount_rows")
-    _launched("rb_popcount_rows" if m is None else "rb_popcount_rows[masked]")
+    if m is None:
+        _launched("rb_popcount_rows")
+    else:
+        _launched("rb_popcount_rows[masked]")
+        if group == r // k:
+            _launched("rb_popcount_rows[mask-once]")
     return out
 
 

@@ -319,6 +319,75 @@ def test_oneil_per_query_launcher_on_cpu_is_the_plain_version():
     assert K.LAUNCHES == before
 
 
+# (S, K, W) masked popcounts: Q6's price sums, the BSI north star and its
+# mesh ranks' rows, a slice count past MAX_GROUP, and the tests' few chunks
+GROUP_SHAPES = [
+    (24, 9156, 2048), (32, 1526, 2048), (32, 763, 1024), (32, 763, 512), (32, 763, 256),
+    (47, K.FILL_CTAS, 512), (47, K.FILL_CTAS - 1, 1024), (300, 9156, 2048), (6, 11, 2048),
+    (47, 3, 512), (3, 5, 256), (1, 1, 2048), (2, 1, 256),
+]
+
+
+@pytest.mark.parametrize("s,k,w", GROUP_SHAPES, ids=lambda v: str(v))
+def test_masked_popcount_grid_counts_every_slice_row_once(s, k, w):
+    """The launch that ``masked_popcount_group`` implies, walked with the
+    kernel's index arithmetic (``csrc/reduce.cu`` masked_popcount_kernel):
+    every (slice, chunk) row is counted by exactly one (CTA, step, row side
+    by side), ragged last groups and steps included, and every slice's
+    warps write shared-memory slots that the final reduce reads as its own."""
+    g = K.masked_popcount_group(s, k, w)
+    assert 1 <= g <= min(s, K.MAX_GROUP)
+    vecs = w // 4
+    span = min(vecs, K.POP_THREADS)  # threads over one row, each owning vecs / span columns
+    side, wps, warps = K.POP_THREADS // span, span // 32, K.POP_THREADS // 32
+    assert span * (2 if vecs > K.POP_THREADS else 1) == vecs
+    assert ((g + side - 1) // side) * warps * 4 <= 8192  # the launch's shared memory
+    n_groups = -(-s // g)
+    b = np.arange(k * n_groups)
+    chunk, first = b // n_groups, (b % n_groups) * g
+    assert np.array_equal(np.bincount(chunk, minlength=k), np.full(k, n_groups))
+    counted = np.zeros(s, dtype=np.int64)  # the same walk for every chunk
+    for s0 in first[:n_groups]:
+        s_end = min(s, s0 + g)
+        steps = -(-(s_end - s0) // side)
+        slots = {}
+        for i in range(steps):
+            for warp in range(warps):
+                sub = warp // wps  # the side-by-side row this warp's threads read
+                if s0 + i * side + sub < s_end:
+                    counted[s0 + i * side + sub] += 1
+                slots[i * warps + warp] = (i * side + sub, warp % wps)
+        for j in range(s_end - s0):  # the final reduce: slice j reads part[j * wps + q]
+            assert [slots[j * wps + q] for q in range(wps)] == [(j, q) for q in range(wps)]
+    assert np.array_equal(counted, np.full(s, wps))
+
+
+def test_masked_popcount_group_follows_the_shape():
+    # Q6's price column (24 slices, 9,156 chunks): every mask row read once
+    assert K.masked_popcount_group(24, 9156, 2048) == 24
+    assert K.masked_popcount_group(47, K.FILL_CTAS, 2048) == 47
+    # the BSI north star and its mesh ranks' rows fill the card too
+    assert K.masked_popcount_group(32, 1526, 2048) == 32
+    assert K.masked_popcount_group(32, 763, 256) == 32
+    # a few chunks: the slices spread over CTAs, the mask read from L2
+    assert K.masked_popcount_group(24, 4, 2048) == 1
+    assert K.masked_popcount_group(47, K.FILL_CTAS - 1, 2048) == 24
+    # narrow rows: a CTA reads 2 or 4 rows side by side, so G rounds up to them
+    assert K.masked_popcount_group(24, 4, 512) == 2
+    assert K.masked_popcount_group(24, 4, 256) == 4
+    assert K.masked_popcount_group(3, 4, 256) == 3
+    # past MAX_GROUP the slices split however many chunks there are
+    assert K.masked_popcount_group(300, 9156, 2048) == K.MAX_GROUP
+    for bad in ((0, 5, 2048), (3, 0, 2048), (3, 5, 100)):
+        with pytest.raises(ValueError):
+            K.masked_popcount_group(*bad)
+
+
+def test_masked_popcount_launch_keys():
+    assert {"rb_popcount_rows", "rb_popcount_rows[masked]", "rb_popcount_rows[mask-once]"} <= set(K.KERNELS)
+    assert {"rb_popcount_rows[masked]", "rb_popcount_rows[mask-once]"} <= set(K.LAUNCHES)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels on the card, against their plain versions
 # ---------------------------------------------------------------------------
@@ -512,6 +581,47 @@ def test_cuda_masked_popcount_and_wide_reduce_match_plain_versions():
         assert torch.equal(red, want_red) and int(card) == int(want_card), op
         assert K.LAUNCHES["wide_reduce_cardinality"] == before + 1
 
+
+
+def _sparse_mask(gen, k, w, per_chunk=400):
+    """int32 ``[k, w]`` with about ``per_chunk`` bits set a 2048-word chunk
+    (fewer at narrower rows), as Q6's discount EQ sets hold."""
+    n_bits = k * w * 32
+    pos = torch.unique(torch.randint(0, n_bits, (max(1, per_chunk * n_bits // 65536),),
+                                     device="cuda", generator=gen))
+    words = torch.zeros(k * w, dtype=torch.int64, device="cuda")
+    words.scatter_add_(0, pos >> 5, torch.ones_like(pos) << (pos & 31))  # distinct bits: + is |
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32).view(k, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", K.ROW_WIDTHS)
+@pytest.mark.parametrize("s", [1, 3, 24, 47])
+@pytest.mark.parametrize("k", [5, K.FILL_CTAS])
+def test_cuda_chunk_major_masked_popcount_matches_plain_version(k, s, w):
+    """The chunk-major masked popcount bit for bit against its plain version,
+    below the card's fill (G < S where S passes the rows a CTA reads side by
+    side) and at it (G = S), at every row width, against masks all clear, all
+    set and sparse; one ``[masked]`` launch a call, ``[mask-once]`` when G = S."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1000 * s + w + k)
+    g = K.masked_popcount_group(s, k, w)
+    assert g == s if k == K.FILL_CTAS else (g < s or s <= 4)
+    slices = torch.randint(-(1 << 31), 1 << 31, (s, k, w), dtype=torch.int32, device="cuda",
+                           generator=gen)
+    masks = {
+        "clear": torch.zeros((k, w), dtype=torch.int32, device="cuda"),
+        "set": torch.full((k, w), -1, dtype=torch.int32, device="cuda"),
+        "sparse": _sparse_mask(gen, k, w),
+    }
+    for name, mask in masks.items():
+        before = dict(K.LAUNCHES)
+        got = K.popcount_rows(slices, mask=mask)
+        assert torch.equal(got, K.popcount_rows_plain(slices, mask=mask)), name
+        assert K.LAUNCHES["rb_popcount_rows[masked]"] == before["rb_popcount_rows[masked]"] + 1
+        assert (K.LAUNCHES["rb_popcount_rows[mask-once]"]
+                == before["rb_popcount_rows[mask-once]"] + (g == s))
+    assert int(got.sum()) > 0
 
 
 @pytest.mark.cuda
